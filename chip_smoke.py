@@ -9,20 +9,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (nvidia-smi); exits non-zero when torch sees no CUDA card;
 2. build — compiles every kernel source of the port with nvcc, one
    process per source, all started together;
-3. kernels — each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge shapes, and timed with CUDA
-   events beside its plain version, one PyTorch library call computing
-   the same function (timed only; the port never calls it) and the bound
-   of the card (bytes or operations over the H100's peak rates);
-4. parity — the slice on the card against the slice on the CPU from one
-   initial model (HFL, AFL, CFL x loop, vectorized; 4 clients, 2
-   rounds), round models compared after every event, and a second card
-   run of the same seed required to be bitwise equal to the first;
-5. study — the main path: `paper_study.run_study("quick")` on the card
-   under the vectorized engine, then its mnist-like half under the loop
-   engine, with every kernel's launch count set to 0 just before and read
-   just after. Fails on a non-finite metric, an accuracy floor missed, or
-   a path kernel launched no time.
+3. kernels — each kernel (`fedavg_agg`, `trimmed_mean_agg`) against its
+   plain PyTorch version on the card, at the main paths' shapes and at
+   edge shapes, and timed with CUDA events beside its plain version, one
+   PyTorch library call computing the same function where there is one
+   (timed only; the port never calls it) and the bound of the card
+   (bytes or operations over the H100's peak rates);
+4. parity — the port on the card against the port on the CPU from one
+   initial model (HFL, AFL, CFL x loop, vectorized; then five attack /
+   defense configurations x loop, vectorized; 4 clients, 2 rounds),
+   round models compared after every event, and a second card run of the
+   same seed required to be bitwise equal to the first;
+5. study — slice 1's main path: `paper_study.run_study("quick")` on the
+   card under the vectorized engine, then its mnist-like half under the
+   loop engine. Fails on a non-finite metric, an accuracy floor missed,
+   or a path kernel launched no time;
+6. adversarial study — slice 2's main path: the 32-client sign-flip
+   acceptance family and the coverage scenarios through the scenario
+   runner (`repro_torch.core.scenarios.run`) on the card. Fails on a
+   non-finite metric, `trimmed_mean_agg` launched no time in a median or
+   trimmed-mean aggregation run, median or trimmed mean recovering less
+   than 0.90 of the no-attack macro-F1, or plain FedAvg under attack
+   keeping more than half of it.
+
+Phases 5 and 6 set every kernel's launch count to 0 just before they
+start and read the counts just after.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -118,6 +129,11 @@ EDGE_SHAPES = [(1, 1), (3, 37), (5, 4097), (16, 1 << 20)]
 
 
 def kernel_phase():
+    return {"fedavg_agg": _fedavg_rows(),
+            "trimmed_mean_agg": _trimmed_rows()}
+
+
+def _fedavg_rows():
     import torch
     from repro_torch.kernels import fedavg_agg as fa
 
@@ -153,7 +169,110 @@ def kernel_phase():
                 C, N, x.element_size())
         print("  fedavg_agg", json.dumps(row), flush=True)
         rows.append(row)
-    return {"fedavg_agg": rows}
+    return rows
+
+
+def _cx_count(C):
+    """Compare-exchanges of the bitonic network on Cp = next pow2 >= C
+    rows: Cp/2 per stage, log2(Cp)(log2(Cp)+1)/2 stages."""
+    lg = max(0, (C - 1).bit_length())
+    return (1 << lg) // 2 * lg * (lg + 1) // 2
+
+
+def _trimmed_bound(C, N, trim, itemsize):
+    """Least time for the work: x read once, the output written once;
+    per column 2 operations per compare-exchange (min and max) plus the
+    C - 2*trim adds and one divide, in float32."""
+    t_bytes = (C * N * itemsize + N * itemsize) / H100_BYTES_PER_S
+    t_ops = (2 * _cx_count(C) + (C - 2 * trim) + 1) * N / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# (C, N, trim): trimmed mean at f = ceil(0.25 C) and median at 32 clients
+# (the acceptance family), at 8 (median 3, f = 2) and 4 clients (f = 1)
+TRIM_MAIN = [(32, 7900, 8), (32, 7900, 15), (8, 7900, 2), (8, 7900, 3),
+             (4, 7900, 1)]
+TRIM_EDGE = [(1, 37, 0), (2, 37, 0), (5, 4097, 2), (33, 4097, 8),
+             (256, 7900, 64), (600, 300, 100), (16, 1 << 20, 4)]
+
+
+def _same_values(out, exp):
+    """(equal NaN/inf pattern, max |out - exp| over finite entries)."""
+    import torch
+    out, exp = out.float(), exp.float()
+    fin = torch.isfinite(exp)
+    pattern = bool(torch.equal(torch.isnan(out), torch.isnan(exp))
+                   and torch.equal(out[torch.isinf(exp)],
+                                   exp[torch.isinf(exp)])
+                   and torch.isfinite(out[fin]).all())
+    err = float((out[fin] - exp[fin]).abs().max()) if fin.any() else 0.0
+    return pattern, err
+
+
+def _trimmed_rows():
+    import torch
+    from repro_torch.kernels import robust_agg as ra
+
+    gen = torch.Generator().manual_seed(1)
+    ties = torch.randint(0, 3, (9, 300), generator=gen).float()
+    infs = torch.randn((7, 300), generator=gen)
+    infs[0, :50], infs[3, 25:75], infs[6, 280:] = (float("inf"),
+                                                   -float("inf"),
+                                                   float("inf"))
+    nans = torch.randn((6, 300), generator=gen)
+    nans[2, 5], nans[0, 17:19] = float("nan"), float("nan")
+    cases = ([(torch.randn((C, N), generator=gen), t, True, "")
+              for C, N, t in TRIM_MAIN]
+             + [(torch.randn((C, N), generator=gen), t, False, "")
+                for C, N, t in TRIM_EDGE]
+             + [(ties, 2, False, "ties"), (infs, 2, False, "inf"),
+                (nans, 1, False, "nan"),
+                (torch.randn((4, 5000), generator=gen).bfloat16(), 1,
+                 False, "")])
+    rows = []
+    for x, trim, main, kind in cases:
+        x = x.cuda()
+        C, N = x.shape
+        before = ra.launches
+        out = ra.trimmed_mean_agg(x, trim)
+        torch.cuda.synchronize()
+        if ra.launches != before + 1:
+            raise SystemExit("trimmed_mean_agg: the wrapper did not launch")
+        exp = ra.trimmed_mean_torch(x, trim)
+        pattern, err = _same_values(out, exp)
+        tol = 1e-6 if x.dtype == torch.float32 else 2e-2
+        row = {"C": C, "N": N, "trim": trim, "kind": kind,
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "max_abs_err": err, "tol": tol}
+        if kind == "nan":
+            pattern = pattern and bool(torch.isnan(out[[5, 17, 18]]).all())
+        if not (out.dtype == x.dtype and out.shape == (N,) and pattern
+                and err <= tol):
+            raise SystemExit(f"trimmed_mean_agg disagrees with its plain "
+                             f"version: {row}")
+        if main:
+            fns = {"": lambda: ra.trimmed_mean_agg(x, trim),
+                   "plain_": lambda: ra.trimmed_mean_torch(x, trim),
+                   # a step of the plain version, not a yardstick: no
+                   # single PyTorch call computes a trimmed mean
+                   "sort_": lambda: torch.sort(x, dim=0)}
+            for key, fn in fns.items():
+                row[f"{key}ms"] = _time_ms(fn)
+                row[f"{key}graph_ms"] = _graph_ms(fn)
+            row["bound_ms"], row["bound_by"] = _trimmed_bound(
+                C, N, trim, x.element_size())
+        print("  trimmed_mean_agg", json.dumps(row), flush=True)
+        rows.append(row)
+    too_many = torch.zeros((ra.MAX_CLIENTS + 1, 8), device="cuda")
+    try:
+        ra.trimmed_mean_agg(too_many, 1)
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"trimmed_mean_agg took C = {ra.MAX_CLIENTS + 1}, "
+                         f"above its stated maximum")
+    return rows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -162,8 +281,46 @@ PARITY_CFG = dict(num_clients=4, num_groups=2, rounds=2, local_batch_size=32,
                   lr=0.03, momentum=0.9, seed=0)
 
 
+# slice 2: attack x defense on each aggregation event (4 clients, all
+# participating; 1 attacker at the default fraction 0.25). HFL runs 8
+# clients so that each group of 4 trims f = 1: with groups of 2 the
+# breakdown point clamps f to 0, the Gaussian upload passes into the
+# model untrimmed, and training from it amplifies float reassociation
+# past the tolerance (loop against vectorized on the CPU: 2.5e-3)
+ADV_PARITY = {
+    "afl-signflip-median": dict(strategy="afl", attack="sign_flip",
+                                attack_scale=2.0, defense="median"),
+    "hfl-gauss-trimmed": dict(strategy="hfl", num_clients=8, attack="gauss",
+                              attack_scale=0.5, defense="trimmed_mean"),
+    "cfl-replace-clip": dict(strategy="cfl", attack="model_replace",
+                             attack_scale=5.0, defense="norm_clip",
+                             clip_tau=2.0),
+    "afl-labelflip-trimmed": dict(strategy="afl", attack="label_flip",
+                                  defense="trimmed_mean"),
+    "afl-ring-signflip-median": dict(strategy="afl", afl_mode="gossip",
+                                     attack="sign_flip", attack_scale=2.0,
+                                     defense="median"),
+}
+
+
+def parity_cases():
+    """(label, FLConfig kwargs) of every parity run: slice 1's strategies
+    and slice 2's attack/defense configurations, under both engines."""
+    cases = []
+    for engine in ("loop", "vectorized"):
+        for strategy in ("hfl", "afl", "cfl"):
+            cases.append((f"{strategy}/{engine}",
+                          dict(PARITY_CFG, strategy=strategy,
+                               engine=engine)))
+        for name, kw in ADV_PARITY.items():
+            cases.append((f"{name}/{engine}",
+                          dict(PARITY_CFG, participation=1.0,
+                               engine=engine, **kw)))
+    return cases
+
+
 def parity_phase(device="cuda", reference="cpu"):
-    """The slice on `device` against the slice on `reference`, event by
+    """The port on `device` against the port on `reference`, event by
     event. Tolerance 1e-4 (abs and rel); HFL 1e-3, because its two-tier
     schedule amplifies float reassociation in near-tied max-pool windows
     to ~3e-4 after 2 rounds (the reference's own two engines differ by as
@@ -176,38 +333,34 @@ def parity_phase(device="cuda", reference="cpu"):
 
     ds = mnist_like(seed=0, n_train=512, n_test=128)
     report = {}
-    for strategy in ("hfl", "afl", "cfl"):
-        tol = 1e-3 if strategy == "hfl" else 1e-4
-        for engine in ("loop", "vectorized"):
-            fl = FLConfig(strategy=strategy, engine=engine, **PARITY_CFG)
-            # the third run repeats the first: one seed, bitwise one result
-            sims = [FederatedSimulation(fl, ds, device=d)
-                    for d in (device, reference, device)]
-            states = [s.strategy.init_state(s) for s in sims]
-            diffs = []
-            for ev in range(fl.rounds):
-                for i, s in enumerate(sims):
-                    states[i], _, _ = s.strategy.run_event(s, states[i], ev)
-                a, b, again = (tree_leaves(s.strategy.round_model(st))
-                               for s, st in zip(sims, states))
-                if not all(x.equal(y) for x, y in zip(a, again)):
-                    raise SystemExit(
-                        f"parity {strategy}/{engine} event {ev}: two runs "
-                        f"of one seed on {device} differ")
-                diff = 0.0
-                for x, y in zip(a, b):
-                    x = x.cpu().double().numpy()
-                    y = y.cpu().double().numpy()
-                    if not np.allclose(x, y, atol=tol, rtol=tol):
-                        raise SystemExit(
-                            f"parity {strategy}/{engine} event {ev}: "
-                            f"{device} vs {reference} beyond {tol}")
-                    diff = max(diff, float(np.abs(x - y).max()))
-                diffs.append(diff)
-            report[f"{strategy}/{engine}"] = {"max_abs_diff_per_event": diffs,
-                                              "tol": tol}
-            print(f"  {strategy}/{engine}: max |{device} - {reference}| per "
-                  f"event {diffs} (tol {tol})", flush=True)
+    for label, kw in parity_cases():
+        fl = FLConfig(**kw)
+        tol = 1e-3 if fl.strategy == "hfl" else 1e-4
+        # the third run repeats the first: one seed, bitwise one result
+        sims = [FederatedSimulation(fl, ds, device=d)
+                for d in (device, reference, device)]
+        states = [s.strategy.init_state(s) for s in sims]
+        diffs = []
+        for ev in range(fl.rounds):
+            for i, s in enumerate(sims):
+                states[i], _, _ = s.strategy.run_event(s, states[i], ev)
+            a, b, again = (tree_leaves(s.strategy.round_model(st))
+                           for s, st in zip(sims, states))
+            if not all(x.equal(y) for x, y in zip(a, again)):
+                raise SystemExit(f"parity {label} event {ev}: two runs of "
+                                 f"one seed on {device} differ")
+            diff = 0.0
+            for x, y in zip(a, b):
+                x = x.cpu().double().numpy()
+                y = y.cpu().double().numpy()
+                if not np.allclose(x, y, atol=tol, rtol=tol):
+                    raise SystemExit(f"parity {label} event {ev}: {device} "
+                                     f"vs {reference} beyond {tol}")
+                diff = max(diff, float(np.abs(x - y).max()))
+            diffs.append(diff)
+        report[label] = {"max_abs_diff_per_event": diffs, "tol": tol}
+        print(f"  {label}: max |{device} - {reference}| per event {diffs} "
+              f"(tol {tol})", flush=True)
     return report
 
 
@@ -235,11 +388,17 @@ def _check_run(r, engine):
                          f"never launched")
 
 
+def _reset_launches():
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import robust_agg as ra
+    fa.launches = ra.launches = 0
+
+
 def study_phase(device="cuda", scale="quick"):
     from repro_torch import paper_study
     from repro_torch.kernels import fedavg_agg as fa
 
-    fa.launches = 0                      # the main path's count starts here
+    _reset_launches()                    # the main path's count starts here
     t0 = time.perf_counter()
     runs = {"vectorized": paper_study.run_study(
                 scale, device=device, engine="vectorized"),
@@ -274,6 +433,81 @@ def study_phase(device="cuda", scale="quick"):
     return out
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+ADV_COVERAGE = ("attack-gauss-hfl-krum-vec", "attack-replace-cfl-clip-vec",
+                "attack-labelflip-afl-trimmed-loop",
+                "attack-signflip-gossip-median-vec", "fedprox-dirichlet-vec",
+                "fedprox-iid-loop", "fedavgm-iid-vec", "fedadam-iid-vec",
+                "fedadam-signflip-median-vec")
+RECOVERY_FLOOR = 0.90       # the reference's acceptance threshold
+ATTACK_BITES = 0.5          # undefended FedAvg must fall below this share
+
+
+def _uses_trimmed_kernel(spec):
+    """Median / trimmed-mean aggregation events run `trimmed_mean_agg`;
+    defended ring gossip sorts its neighborhoods with `torch.sort`
+    instead, as the reference sorts them with `jnp.sort`."""
+    return (spec.defense in ("median", "trimmed_mean")
+            and spec.topology != "ring")
+
+
+def adversarial_phase(device="cuda"):
+    from repro_torch.core import scenarios
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import robust_agg as ra
+
+    names = scenarios.ACCEPTANCE_FAMILY + ADV_COVERAGE
+    _reset_launches()                    # the main path's count starts here
+    t0 = time.perf_counter()
+    results = {}
+    for name in names:
+        t1 = time.perf_counter()
+        results[name] = r = scenarios.run(name, device=device)
+        print(f"  {name}: test_acc={r.test_accuracy:.4f} f1={r.f1:.4f} "
+              f"build={r.build_time_s:.3f}s "
+              f"launches={r.extra['kernel_launches']} "
+              f"({time.perf_counter() - t1:.1f}s)", flush=True)
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    launches = {"fedavg_agg": fa.launches, "trimmed_mean_agg": ra.launches}
+    seconds = time.perf_counter() - t0
+    out = {"seconds": seconds, "launches": launches, "runs": []}
+    for name, r in results.items():
+        spec = scenarios.get(name)
+        values = ([getattr(r, k) for k in _METRICS] + list(r.round_train_acc)
+                  + list(r.round_train_loss) + list(r.round_test_acc))
+        if not all(math.isfinite(v) for v in values):
+            raise SystemExit(f"{name}: non-finite metric")
+        n_b2 = r.extra["kernel_launches"]["trimmed_mean_agg"]
+        if device == "cuda" and _uses_trimmed_kernel(spec) and n_b2 == 0:
+            raise SystemExit(f"{name}: trimmed_mean_agg never launched")
+        out["runs"].append(dict(r.row(), scenario=name,
+                                kernel_launches=r.extra["kernel_launches"],
+                                warmup_time_s=r.warmup_time_s,
+                                round_test_acc=r.round_test_acc))
+    base = results["attack-none-32c-vec"].f1
+    ratios = {n: results[n].f1 / base for n in scenarios.ACCEPTANCE_FAMILY}
+    out["f1_over_no_attack"] = ratios
+    print(f"  macro-F1 over the no-attack run ({base:.4f}): "
+          + ", ".join(f"{n}={v:.3f}" for n, v in ratios.items()))
+    for n in ("attack-signflip-median-32c-vec",
+              "attack-signflip-trimmed-32c-vec"):
+        if ratios[n] < RECOVERY_FLOOR:
+            raise SystemExit(f"{n} recovers {ratios[n]:.3f} of the "
+                             f"no-attack macro-F1, below {RECOVERY_FLOOR}")
+    if ratios["attack-signflip-fedavg-32c-vec"] > ATTACK_BITES:
+        raise SystemExit("plain FedAvg under sign-flip kept more than half "
+                         "the no-attack macro-F1: the attack did not bite")
+    if device == "cuda" and launches["trimmed_mean_agg"] == 0:
+        raise SystemExit("adversarial path: trimmed_mean_agg was launched "
+                         "no time")
+    print(f"  adversarial path: launches {launches} in {seconds:.1f}s",
+          flush=True)
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -305,8 +539,10 @@ def main():
     kernels = kernel_phase()
     _phase("parity: card against CPU")
     parity = parity_phase("cuda", "cpu")
-    _phase("study (main path)")
+    _phase("study (slice 1 main path)")
     study = study_phase("cuda", "quick")
+    _phase("adversarial study (slice 2 main path)")
+    adversarial = adversarial_phase("cuda")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -320,9 +556,24 @@ def main():
         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
         "library_ms": rep["library_ms"], "shape": [4, 7900],
         "shapes": [r for r in rows if "ms" in r]}
+    trows = kernels["trimmed_mean_agg"]
+    trep = next(r for r in trows
+                if (r["C"], r["N"], r["trim"]) == (32, 7900, 8))
+    tentry = {
+        "name": "trimmed_mean_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/trimmed_mean_agg.cu",
+        "replaces": "src/repro/kernels/robust_agg.py:190",
+        "launches": adversarial["launches"]["trimmed_mean_agg"],
+        "max_abs_err": max(r["max_abs_err"] for r in trows),
+        "ms": trep["ms"], "plain_ms": trep["plain_ms"],
+        "bound_ms": trep["bound_ms"], "bound_by": trep["bound_by"],
+        "library_ms": None, "sort_ms": trep["sort_ms"],
+        "shape": [32, 7900], "trim": 8,
+        "shapes": [r for r in trows if "ms" in r]}
     doc = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
-           "kernels": kernels, "parity": parity, "study": study}
+           "kernels": kernels, "parity": parity, "study": study,
+           "adversarial": adversarial}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(doc, indent=1))
@@ -335,9 +586,18 @@ def main():
         "kernel_graph_us": r["graph_ms"] * 1e3,
         "plain_graph_us": r["plain_graph_ms"] * 1e3,
         "library_graph_us": r["library_graph_ms"] * 1e3,
-        "launches": entry["launches"]} for r in entry["shapes"]]))
+        "launches": entry["launches"]} for r in entry["shapes"]]
+        + [{"name": "trimmed_mean_agg", "replaces": tentry["replaces"],
+            "C": r["C"], "N": r["N"], "trim": r["trim"],
+            "max_err": r["max_abs_err"], "kernel_us": r["ms"] * 1e3,
+            "plain_us": r["plain_ms"] * 1e3, "sort_us": r["sort_ms"] * 1e3,
+            "bound_us": r["bound_ms"] * 1e3,
+            "kernel_graph_us": r["graph_ms"] * 1e3,
+            "plain_graph_us": r["plain_graph_ms"] * 1e3,
+            "sort_graph_us": r["sort_graph_ms"] * 1e3,
+            "launches": tentry["launches"]} for r in tentry["shapes"]]))
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, tentry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

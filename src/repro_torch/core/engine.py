@@ -12,7 +12,8 @@ Pieces:
 * `train_clients` — local SGD for every participant at once.
 * `predict_clients` — post-training local-shard evaluation.
 * `cfl_round_scan` — the continual (sequential) strategy as a loop over
-  the visit order, each merge on the `fedavg_agg` kernel.
+  the visit order, with per-visit corruption and norm clipping, each
+  merge on the `fedavg_agg` kernel.
 * `VectorizedClientEngine` — host-side driver state: per-client shards,
   stacked eval sets, and the rng-consumption protocol shared with the
   loop engine so both engines see identical batch orders (DESIGN.md §4).
@@ -28,7 +29,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, attacks
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import telemetry
 from repro_torch.optim import optimizers
@@ -146,18 +147,30 @@ def predict_clients(stacked_params, images, *, stacked_apply_fn):
 
 
 def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
-                   loss_fn, apply_fn, lr, momentum):
+                   loss_fn, apply_fn, lr, momentum, attack="none",
+                   attack_scale=1.0, attack_flags=None, attack_keys=None,
+                   defense="none", clip_tau=10.0):
     """One CFL round — the sequential client-to-client continual pass —
     as a loop over clients in visit order.
 
     data leaves: (C, T, B, ...) already permuted into visit order;
     eval_images/labels: (C, n, ...) in the same order. Each visit trains
-    from the carried model, scores its local model on its own shard, and
-    merges through the kernel-backed `cfl_merge_stacked` (C=2 weighted
-    reduction). Returns (final model, losses (C, T), post-train local
-    accs (C,))."""
+    from the carried model and scores its (honest) local model on its own
+    shard. Adversarial axis (DESIGN.md §8): the visit's base is the
+    carried model, so an attacker (`attack_flags[i]`, visit order)
+    corrupts its upload against it, with noise keyed by `attack_keys[i]`;
+    `defense="norm_clip"` clips the (possibly corrupted) delta before the
+    merge (`defended_cfl_merge`). Every merge is the kernel-backed
+    `cfl_merge_stacked` (C=2 weighted reduction). Returns (final model,
+    losses (C, T), post-train local accs (C,))."""
     opt = optimizers.sgd(lr, momentum=momentum)
     C = data["label"].shape[0]
+    attacking = attack not in ("none", "label_flip")
+    if attacking and attack_keys is None:
+        raise ValueError(
+            f"cfl_round_scan: attack={attack!r} corrupts uploads per visit "
+            f"and needs per-visit attack_keys (derive them from the run "
+            f"seed via attacks.client_keys)")
     losses, accs = [], []
     for i in range(C):
         local, loss_t, _ = _local_sgd_scan(
@@ -165,7 +178,15 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
         with torch.no_grad():
             preds = apply_fn(local, eval_images[i]).argmax(-1)
             accs.append((preds == eval_labels[i]).float().mean())
-        model = aggregation.cfl_merge_stacked(model, local, alpha)
+        if attacking:
+            local = attacks.corrupt_tree(local, model, bool(attack_flags[i]),
+                                         attack_keys[i], kind=attack,
+                                         scale=attack_scale)
+        if defense == "norm_clip":
+            model = aggregation.defended_cfl_merge(model, local, alpha,
+                                                   clip_tau)
+        else:
+            model = aggregation.cfl_merge_stacked(model, local, alpha)
         losses.append(loss_t)
     return model, torch.stack(losses), torch.stack(accs)
 
@@ -287,10 +308,16 @@ class VectorizedClientEngine:
         return ((preds == self.eval_y[idx]).float().mean(dim=1)
                 .cpu().numpy())
 
-    def cfl_round(self, model, order, data, alpha):
+    def cfl_round(self, model, order, data, alpha, *, attack="none",
+                  attack_scale=1.0, attack_flags=None, attack_keys=None,
+                  defense="none", clip_tau=10.0):
         telemetry.count("engine.cfl_round_dispatch")
         idx = torch.as_tensor(np.asarray(order), device=self.device)
         return cfl_round_scan(model, data, self.eval_x[idx],
                               self.eval_y[idx], alpha, loss_fn=self.loss_fn,
                               apply_fn=self.apply_fn, lr=self.fl.lr,
-                              momentum=self.fl.momentum)
+                              momentum=self.fl.momentum, attack=attack,
+                              attack_scale=attack_scale,
+                              attack_flags=attack_flags,
+                              attack_keys=attack_keys, defense=defense,
+                              clip_tau=clip_tau)

@@ -1,0 +1,332 @@
+"""Declarative scenario registry (a partial port of
+`repro.core.scenarios`): `ScenarioSpec` with the reference's fields and
+defaults, its `to_fl_config`, and the registrations of the adversarial
+axis and the strategy plugins.
+
+A spec names one point of the evaluation space:
+
+    strategy x partition (iid / Dirichlet-alpha) x topology
+             x adversary (attack type/fraction -> defense; DESIGN.md §8)
+             x engine (loop / vectorized)
+
+`run(name)` builds the dataset and partition, runs the simulation and
+returns its `FLResult`; it runs on the card unless `device="cpu"` is
+passed. The reference's result document (schema v2.5) and its other
+registrations (async, fused, codecs, faults, serving) wait for ROADMAP
+§A.10 and the slices that port those axes; validation covers only what
+the port runs.
+
+    PYTHONPATH=src python -m repro_torch.core.scenarios --list
+    PYTHONPATH=src python -m repro_torch.core.scenarios \\
+        --run attack-signflip-median-32c-vec [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+from repro_torch.core.fl_types import ATTACKS, FLConfig
+from repro_torch.core.simulation import FederatedSimulation
+from repro_torch.core.strategies import get_strategy
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import DATASETS
+
+PARTITIONS = ("iid", "dirichlet")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioSpec:
+    """One named, fully specified federated run (the reference's fields
+    and defaults; those of axes the port does not run yet must keep
+    their defaults)."""
+    name: str
+    description: str
+    strategy: str = "afl"            # any registered Strategy plugin
+    topology: str = "star"           # see Strategy.topologies
+    engine: str = "vectorized"       # loop | vectorized
+    # data
+    dataset: str = "mnist"           # mnist | fashion
+    partition: str = "iid"           # iid | dirichlet
+    dirichlet_alpha: float = 0.5
+    n_train: int = 512
+    n_test: int = 256
+    # federation shape / schedule
+    num_clients: int = 8
+    num_groups: int = 2
+    rounds: int = 2
+    local_epochs: int = 1
+    local_batch_size: int = 32
+    lr: float = 0.05
+    momentum: float = 0.9
+    participation: float = 1.0
+    gossip_neighbors: int = 2
+    merge_alpha: float = 0.5
+    # heterogeneity (async strategy only)
+    speed_model: str = "uniform"
+    dropout: float = 0.0
+    staleness_alpha: float = 0.6
+    staleness_decay: float = 0.5
+    updates_per_client: int = 2
+    tick: float = 1.0
+    # strategy-plugin knobs (fedprox / server-optimizer family)
+    prox_mu: float = 0.01
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    # adversarial clients + robust aggregation (DESIGN.md §8)
+    attack: str = "none"             # core/attacks.py
+    attack_fraction: float = 0.25
+    attack_scale: float = 1.0
+    attack_placement: str = "random"  # random | colluding
+    defense: str = "none"            # core/robust.py
+    defense_f: int = 0               # 0 = derive from attack_fraction
+    clip_tau: float = 10.0
+    # fault injection (ROADMAP §A.12)
+    fault_profile: str = "none"
+    churn_rate: float = 0.3
+    quorum_frac: float = 0.5
+    heartbeat_timeout: int = 1
+    fault_mtd: bool = False
+    # upload codec (ROADMAP §A.11)
+    codec: str = "none"
+    topk_frac: float = 0.1
+    quant_bits: int = 8
+    # observability
+    telemetry: bool = True
+    # federation-in-the-loop serving (ROADMAP §A.14)
+    serve: bool = False
+    serve_qps: float = 64.0
+    serve_arrival: str = "poisson"
+    serve_batch: int = 8
+    serve_max_wait: float = 0.05
+    serve_queue: int = 64
+    serve_round_duration: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        try:
+            cls = get_strategy(self.strategy)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
+        if self.topology not in cls.topologies:
+            raise ValueError(
+                f"{self.name}: topology {self.topology!r} is invalid for "
+                f"strategy {self.strategy!r} (expected one of "
+                f"{cls.topologies})")
+        if self.partition not in PARTITIONS:
+            raise ValueError(f"unknown partition {self.partition!r}")
+        if self.dataset not in DATASETS:
+            raise ValueError(f"unknown dataset {self.dataset!r}")
+        if self.engine not in ("loop", "vectorized"):
+            raise ValueError(
+                f"{self.name}: engine {self.engine!r} is not ported "
+                f"(loop | vectorized)")
+        if self.attack not in ATTACKS:
+            raise ValueError(f"unknown attack {self.attack!r} "
+                             f"(expected one of {ATTACKS})")
+        allowed = cls.defenses.get(self.topology, ("none",))
+        if self.defense not in allowed:
+            raise ValueError(
+                f"{self.name}: defense {self.defense!r} does not apply to "
+                f"the {self.strategy}/{self.topology} aggregation event "
+                f"(expected one of {allowed}; DESIGN.md §8)")
+
+    def to_fl_config(self) -> FLConfig:
+        """The underlying FLConfig: an AFL ring topology selects gossip
+        mode."""
+        return FLConfig(
+            strategy=self.strategy,
+            num_clients=self.num_clients, num_groups=self.num_groups,
+            rounds=self.rounds, local_epochs=self.local_epochs,
+            local_batch_size=self.local_batch_size, lr=self.lr,
+            momentum=self.momentum, participation=self.participation,
+            afl_mode="gossip" if self.topology == "ring" else "fedavg",
+            gossip_neighbors=self.gossip_neighbors,
+            merge_alpha=self.merge_alpha, seed=self.seed,
+            staleness_alpha=self.staleness_alpha,
+            staleness_decay=self.staleness_decay,
+            updates_per_client=self.updates_per_client,
+            speed_model=self.speed_model, dropout=self.dropout,
+            tick=self.tick, prox_mu=self.prox_mu,
+            server_lr=self.server_lr,
+            server_momentum=self.server_momentum,
+            attack=self.attack, attack_fraction=self.attack_fraction,
+            attack_scale=self.attack_scale,
+            attack_placement=self.attack_placement,
+            defense=self.defense,
+            defense_f=self.defense_f, clip_tau=self.clip_tau,
+            fault_profile=self.fault_profile,
+            churn_rate=self.churn_rate, quorum_frac=self.quorum_frac,
+            heartbeat_timeout=self.heartbeat_timeout,
+            fault_mtd=self.fault_mtd,
+            codec=self.codec, topk_frac=self.topk_frac,
+            quant_bits=self.quant_bits, telemetry=self.telemetry,
+            serve=self.serve, serve_qps=self.serve_qps,
+            serve_arrival=self.serve_arrival,
+            serve_batch=self.serve_batch,
+            serve_max_wait=self.serve_max_wait,
+            serve_queue=self.serve_queue,
+            serve_round_duration=self.serve_round_duration,
+            engine=self.engine)
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+REGISTRY: Dict[str, ScenarioSpec] = {}
+
+
+def register(spec: ScenarioSpec) -> ScenarioSpec:
+    if spec.name in REGISTRY:
+        raise ValueError(f"duplicate scenario name {spec.name!r}")
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> ScenarioSpec:
+    if name not in REGISTRY:
+        known = ", ".join(sorted(REGISTRY))
+        raise KeyError(f"unknown scenario {name!r} (known: {known})")
+    return REGISTRY[name]
+
+
+def names() -> List[str]:
+    return sorted(REGISTRY)
+
+
+# strategy plugins: FedProx (proximal local objective under label skew)
+# and the server-optimizer family over the kernel-backed aggregate
+register(ScenarioSpec(
+    "fedprox-dirichlet-vec", "FedProx (mu=0.1) under Dirichlet(0.5) "
+    "label skew: the proximal pull bounds client drift",
+    strategy="fedprox", topology="star", partition="dirichlet",
+    dirichlet_alpha=0.5, n_train=768, prox_mu=0.1, local_epochs=2))
+register(ScenarioSpec(
+    "fedprox-iid-loop", "FedProx on IID shards under the loop engine "
+    "(mu=0.01 barely perturbs FedAvg — the sanity point)",
+    strategy="fedprox", topology="star", engine="loop", prox_mu=0.01))
+register(ScenarioSpec(
+    "fedavgm-iid-vec", "FedAvgM: server momentum (0.9) over the round "
+    "pseudo-gradient, kernel-backed aggregate",
+    strategy="fedavgm", topology="star", local_epochs=2,
+    server_lr=0.7, server_momentum=0.9))
+register(ScenarioSpec(
+    "fedadam-iid-vec", "FedAdam: server Adam over the round "
+    "pseudo-gradient",
+    strategy="fedadam", topology="star", local_epochs=2, server_lr=0.1))
+register(ScenarioSpec(
+    "fedadam-signflip-median-vec", "FedAdam composed with the "
+    "adversarial axis: sign-flip attackers, median aggregate feeding "
+    "the server optimizer",
+    strategy="fedadam", topology="star", local_epochs=2, server_lr=0.1,
+    attack="sign_flip", attack_scale=4.0, defense="median"))
+
+# adversarial axis — attack x defense x architecture (DESIGN.md §8). The
+# 32-client sign-flip family is the acceptance measurement: same data,
+# schedule and seed, only the attack/defense toggles differ, so the
+# macro-F1 deltas isolate the aggregation rule. Plain SGD at a larger
+# step, as calibrated in the reference.
+_ACC32 = dict(strategy="afl", topology="star", participation=1.0,
+              num_clients=32, n_train=3072, n_test=512, rounds=10,
+              local_epochs=2, lr=0.08, momentum=0.0)
+register(ScenarioSpec(
+    "attack-none-32c-vec", "32-client no-attack baseline of the "
+    "acceptance family (recovery reference)", **_ACC32))
+register(ScenarioSpec(
+    "attack-signflip-fedavg-32c-vec", "25% sign-flip attackers vs PLAIN "
+    "FedAvg — demonstrates the degradation robust aggregation prevents",
+    attack="sign_flip", attack_scale=4.0, **_ACC32))
+register(ScenarioSpec(
+    "attack-signflip-median-32c-vec", "25% sign-flip attackers vs "
+    "coordinate-wise median (robust_agg kernel)",
+    attack="sign_flip", attack_scale=4.0, defense="median", **_ACC32))
+register(ScenarioSpec(
+    "attack-signflip-trimmed-32c-vec", "25% sign-flip attackers vs "
+    "trimmed mean (robust_agg kernel, f from attack fraction)",
+    attack="sign_flip", attack_scale=4.0, defense="trimmed_mean",
+    **_ACC32))
+# defense coverage across the other architectures / aggregation events
+register(ScenarioSpec(
+    "attack-gauss-hfl-krum-vec", "centralized HFL with Gaussian-noise "
+    "attackers; Krum selection at each group server (tier 1)",
+    strategy="hfl", topology="hierarchical", num_clients=16, n_train=1024,
+    local_epochs=2, attack="gauss", attack_scale=3.0, defense="krum"))
+register(ScenarioSpec(
+    "attack-replace-cfl-clip-vec", "sequential CFL with a boosted "
+    "model-replacement attacker; norm-clipped continual merges",
+    strategy="cfl", topology="sequential", attack="model_replace",
+    attack_fraction=0.15, attack_scale=10.0, defense="norm_clip",
+    clip_tau=3.0))
+register(ScenarioSpec(
+    "attack-labelflip-afl-trimmed-loop", "data-layer label-flip "
+    "poisoning under the loop engine; trimmed-mean aggregation",
+    strategy="afl", topology="star", engine="loop", participation=1.0,
+    attack="label_flip", defense="trimmed_mean"))
+register(ScenarioSpec(
+    "attack-signflip-gossip-median-vec", "decentralized ring gossip "
+    "where each node median-mixes its neighborhood (Byzantine neighbors "
+    "bounded without any server)",
+    strategy="afl", topology="ring", participation=1.0,
+    attack="sign_flip", attack_scale=4.0, defense="median"))
+
+ACCEPTANCE_FAMILY = ("attack-none-32c-vec", "attack-signflip-fedavg-32c-vec",
+                     "attack-signflip-median-32c-vec",
+                     "attack-signflip-trimmed-32c-vec")
+
+
+# ---------------------------------------------------------------------------
+# resolution + execution
+# ---------------------------------------------------------------------------
+
+def resolve(spec: ScenarioSpec, device="cuda") -> FederatedSimulation:
+    """Spec -> FederatedSimulation on `device`, with the dataset built and
+    the partition applied."""
+    ds = DATASETS[spec.dataset](seed=spec.seed, n_train=spec.n_train,
+                                n_test=spec.n_test)
+    sim = FederatedSimulation(spec.to_fl_config(), ds, device=device)
+    if spec.partition == "dirichlet":
+        # every client must fill at least one local batch
+        sim.set_partition(dirichlet_partition(
+            ds["train"][1], spec.num_clients, alpha=spec.dirichlet_alpha,
+            seed=spec.seed, min_per_client=spec.local_batch_size))
+    return sim
+
+
+def run(name, device="cuda"):
+    """Run one scenario (a registered name or a ScenarioSpec) on `device`
+    and return its FLResult."""
+    spec = get(name) if isinstance(name, str) else name
+    return resolve(spec, device).run()
+
+
+def main(argv: Optional[List[str]] = None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--list", action="store_true",
+                    help="print the registry and exit")
+    ap.add_argument("--run", nargs="+", metavar="NAME",
+                    help="run the named scenario(s)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.list or not args.run:
+        for n in names():
+            s = REGISTRY[n]
+            adv = ("clean" if s.attack == "none" and s.defense == "none"
+                   else f"{s.attack}->{s.defense}")
+            print(f"{n:34s} {s.strategy}/{s.topology}/{s.engine:10s} "
+                  f"clients={s.num_clients:<3d} {adv:24s} {s.description}")
+        return
+    for name in args.run:
+        t0 = time.perf_counter()
+        r = run(name, device=args.device)
+        print(f"{name}: test_acc={r.test_accuracy:.3f} f1={r.f1:.3f} "
+              f"build={r.build_time_s:.2f}s "
+              f"launches={r.extra['kernel_launches']} "
+              f"({time.perf_counter() - t0:.1f}s on {r.extra['device']})",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,11 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
 * rng-parity bookkeeping — batch construction consumes the run rng in
   one canonical order (client-major, epoch-minor) under both engines
   (DESIGN.md §4).
+* adversarial axis (DESIGN.md §8) — a seed-drawn Byzantine subset
+  (`attack_mask`) poisons its shard (label_flip) or corrupts its upload
+  between local training and aggregation (`corrupt`, and per visit in
+  `sequential_round`); strategies aggregate through the defended
+  operators with `defense_kwargs`.
 * metric tracking + the paper's timing protocol (DESIGN.md §3): build
   time excludes the warmup, classification time is min-of-3 on the
   served model, and every timer synchronizes the card on entry and exit.
@@ -27,8 +32,8 @@ the tests pass "cpu"). Float32 convolutions and matmuls run in full f32
 on the card with deterministic cuDNN algorithms: the constructor turns
 TF32 off and determinism on (`device.deterministic_f32`).
 
-Configs outside this slice raise NotImplementedError naming the ROADMAP
-item that brings them.
+Configs the port does not run yet raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -39,13 +44,14 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, attacks, robust
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import strategies as strat_mod
 from repro_torch.core.fl_types import FLConfig
 from repro_torch.core.metrics import Timer, classification_metrics
 from repro_torch.data.partition import iid_partition
 from repro_torch.kernels import fedavg_agg as fedavg_kernel
+from repro_torch.kernels import robust_agg as robust_kernel
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import export as obs_export
 from repro_torch.obs.telemetry import Telemetry
@@ -84,22 +90,20 @@ class FLResult:
                  "recall", "f1", "balanced_accuracy")}
 
 
-# Config values outside slice 1, each with the ROADMAP item that ports it.
+# Config values the port does not run yet, each with the ROADMAP item
+# that ports it.
 _LATER_SLICES = (
     ("engine", lambda v: v == "fused", "§A.13 (fused executor)"),
     ("mesh_devices", lambda v: v > 1, "§A.16 (mesh)"),
     ("codec", lambda v: v != "none", "§A.11 (codecs, kernel B4)"),
     ("fault_profile", lambda v: v != "none", "§A.12 (churn, kernel B3)"),
-    ("attack", lambda v: v != "none", "§A.9 (adversarial axis, kernel B2)"),
-    ("defense", lambda v: v != "none", "§A.9 (adversarial axis, kernel B2)"),
     ("serve", lambda v: bool(v), "§A.14 (obs/ and serve/)"),
-    ("strategy", lambda v: v not in ("hfl", "afl", "cfl"),
-     "§A.8 (strategy plugins and async)"),
+    ("strategy", lambda v: v == "async", "§A.8 (the async runtime)"),
 )
 
 
 def check_slice(fl: FLConfig) -> None:
-    """Raise NotImplementedError for any config this slice cannot run."""
+    """Raise NotImplementedError for any config the port cannot run."""
     for field, outside, item in _LATER_SLICES:
         value = getattr(fl, field)
         if outside(value):
@@ -162,13 +166,20 @@ class FederatedSimulation:
         # per-run tracer (DESIGN.md §13); dispatch counters and kernel
         # launches are snapshotted here so the run's delta is its own
         self.telemetry = Telemetry(enabled=fl.telemetry)
-        self._launches0 = fedavg_kernel.launches
+        self._launches0 = self._kernel_launches()
         params = (model_init or cnn_mod.init_cnn)(
             device_mod.generator(fl.seed))
         self.init_params = tree_map(
             lambda t: torch.as_tensor(t).to(self.device), params)
         self.strategy = strat_mod.get_strategy(fl.strategy)(fl)
         self.strategy.validate()
+        # Byzantine subset: drawn from a dedicated generator (never the
+        # schedule rng), so the attack axis leaves the §4 parity intact
+        self.attack_mask = (
+            attacks.attacker_mask(fl.num_clients, fl.attack_fraction,
+                                  fl.seed, placement=fl.attack_placement)
+            if fl.attack != "none" else np.zeros(fl.num_clients, bool))
+        self.attackers = np.flatnonzero(self.attack_mask)
         self.opt = optimizers.sgd(fl.lr, momentum=fl.momentum)
         xtr, ytr = dataset["train"]
         self._install_clients(iid_partition(ytr, fl.num_clients,
@@ -222,10 +233,29 @@ class FederatedSimulation:
             [_predict(params, xb).cpu().numpy()
              for xb in self._split_dev(split, batch)])
 
+    @staticmethod
+    def _kernel_launches():
+        return {"fedavg_agg": fedavg_kernel.launches,
+                "trimmed_mean_agg": robust_kernel.launches}
+
+    def set_partition(self, parts):
+        """Re-partition the train split (e.g. Dirichlet non-IID) after
+        construction; rebuilds the vectorized engine state if active."""
+        self._install_clients(parts)
+
     def _install_clients(self, parts):
+        """Per-client shards from a partition: label_flip poisons the
+        attackers' shards here (the poisoned shard is what both engines
+        batch from), and the vectorized engine state is (re)built on the
+        final data."""
         xtr, ytr = self.dataset["train"]
         self.parts = parts
-        self.client_data = [(xtr[p], ytr[p]) for p in parts]
+        self.client_data = []
+        for c, p in enumerate(parts):
+            y = ytr[p]
+            if self.fl.attack == "label_flip" and self.attack_mask[c]:
+                y = attacks.flip_labels(y)
+            self.client_data.append((xtr[p], y))
         self.weights = [len(p) for p in parts]
         self._eval_dev = {}              # per-client device eval shards
         self._split_cache = {}           # device test/train eval chunks
@@ -235,12 +265,27 @@ class FederatedSimulation:
                     if self.fl.engine == "vectorized" else None)
 
     # -- driver primitives (the plugin-facing surface) ----------------------
-    def _build_bases_stacked(self, plan):
-        """One FRESH stacked round-start-bases tree: from the strategy's
-        lazy `bases_stacked_fn` if declared, else by stacking the list."""
-        fn = plan.meta.get("bases_stacked_fn")
-        return (fn() if fn is not None
+    def defense_kwargs(self, event_size=None) -> Dict[str, Any]:
+        """kwargs for the defended aggregation operators, with the
+        Byzantine allowance resolved for this event's client count."""
+        fl = self.fl
+        return {"defense": fl.defense,
+                "f": fl.resolved_defense_f(event_size),
+                "tau": fl.clip_tau}
+
+    def _bases_stacked(self, plan):
+        """The plan's round-start bases as ONE stacked tree, built at most
+        once per plan (from the strategy's lazy `bases_stacked_fn` if
+        declared, else by stacking the list) and shared by the stacked
+        training input, the FedProx proximal reference and corruption.
+        Training builds new tensors and never writes to its input."""
+        bases = plan.meta.get("bases_stacked")
+        if bases is None:
+            fn = plan.meta.get("bases_stacked_fn")
+            bases = plan.meta["bases_stacked"] = (
+                fn() if fn is not None
                 else engine_mod.stack_forest(plan.bases))
+        return bases
 
     def local_train(self, plan, spec, rng):
         """One event's local training under the active engine. Consumes
@@ -254,7 +299,7 @@ class FederatedSimulation:
                 eng = self.vec
                 data = eng.batched_clients(rng, plan.participants,
                                            fl.local_epochs)
-                bases = self._build_bases_stacked(plan)
+                bases = self._bases_stacked(plan)
                 extra = bases if spec.extra == "bases" else None
                 params, losses, _ = eng.train(
                     bases, data, stacked_loss_fn=spec.stacked_loss_fn,
@@ -270,23 +315,53 @@ class FederatedSimulation:
                 accs.append(acc)
             return engine_mod.stack_forest(locals_), losses, accs
 
-    def sequential_round(self, model, order, alpha, spec, rng):
+    def corrupt(self, uploads, plan):
+        """Corrupt the attacker rows of the trained upload stack against
+        the plan's round-start bases; noise keys derive from (seed, event,
+        absolute client id), so both engines corrupt alike."""
+        fl = self.fl
+        flags = self.attack_mask[np.asarray(plan.participants, int)]
+        if fl.attack in ("none", "label_flip") or not flags.any():
+            return uploads
+        with self.telemetry.span("corrupt", attackers=int(flags.sum())):
+            keys = attacks.client_keys(
+                attacks.event_key(fl.seed, plan.event), plan.participants)
+            return attacks.corrupt_stacked(
+                uploads, self._bases_stacked(plan), flags, keys,
+                kind=fl.attack, scale=fl.attack_scale)
+
+    def sequential_round(self, model, order, event, alpha, spec, rng):
         """One continual (CFL-style) pass: clients train in visit order,
-        each update merging into the carried model. Loop engine: per-visit
-        training + host merges; vectorized: one pass over the visits with
-        the kernel-backed merge. Returns (model, losses, accs)."""
+        each (possibly corrupted, possibly norm-clipped) update merging
+        into the carried model; the visit's corruption base is the model
+        it pulled. Loop engine: per-visit training + host merges;
+        vectorized: one pass over the visits with the kernel-backed merge.
+        Returns (model, losses, accs)."""
+        fl = self.fl
+        attacking = fl.attack not in ("none", "label_flip")
+        keys = attacks.client_keys(attacks.event_key(fl.seed, event), order)
         with self.telemetry.span("sequential_round", k=len(order)):
             if self.vec is not None:
                 eng = self.vec
-                data = eng.batched_clients(rng, order, self.fl.local_epochs)
-                model, losses, accs = eng.cfl_round(model, order, data,
-                                                    alpha)
+                data = eng.batched_clients(rng, order, fl.local_epochs)
+                model, losses, accs = eng.cfl_round(
+                    model, order, data, alpha, attack=fl.attack,
+                    attack_scale=fl.attack_scale,
+                    attack_flags=self.attack_mask[np.asarray(order, int)],
+                    attack_keys=keys, defense=fl.defense,
+                    clip_tau=fl.clip_tau)
                 return (model,
                         losses[:, -eng.nb:].mean(dim=1).cpu().numpy(),
                         accs.cpu().numpy())
             losses, accs = [], []
-            for c in order:
+            for c, key in zip(order, keys):
                 local, loss, acc = self._local_train(model, c, spec=spec)
+                if attacking and self.attack_mask[c]:
+                    local = attacks.corrupt_tree(local, model, True, key,
+                                                 kind=fl.attack,
+                                                 scale=fl.attack_scale)
+                if fl.defense == "norm_clip":
+                    local = robust.clip_update(model, local, fl.clip_tau)
                 model = aggregation.cfl_merge(model, local, alpha)
                 losses.append(loss)
                 accs.append(acc)
@@ -324,9 +399,22 @@ class FederatedSimulation:
                    (self.fl.lr, self.fl.momentum), loss_fn=spec.loss_fn,
                    extra=extra)
         self._warmup_predicts()
+        self._warmup_attack()
         n_eval = min(len(x), 512)
         _predict(self.init_params,
                  torch.as_tensor(x[:n_eval], device=self.device))
+
+    def _warmup_attack(self):
+        """Run the loop engine's per-client corruption and clip once
+        outside the build window (first-use allocations)."""
+        fl = self.fl
+        if fl.attack not in ("none", "label_flip") and len(self.attackers):
+            attacks.corrupt_tree(self.init_params, self.init_params, True,
+                                 (fl.seed, 0, 0), kind=fl.attack,
+                                 scale=fl.attack_scale)
+        if fl.defense == "norm_clip":
+            robust.clip_update(self.init_params, self.init_params,
+                               fl.clip_tau)
 
     def _warmup_predicts(self):
         """Run the classification/eval `_predict` shapes once (shared by
@@ -406,10 +494,11 @@ class FederatedSimulation:
             extra["truncated_samples_per_epoch"] = dict(
                 self.vec.dropped_samples)
         extra["telemetry"] = obs_export.result_block(self.telemetry)
-        # launches of the hand-written kernel since construction (0 on
-        # the CPU, where the wrapper takes its plain version)
+        # launches of the hand-written kernels since construction (0 on
+        # the CPU, where the wrappers take their plain versions)
         extra["kernel_launches"] = {
-            "fedavg_agg": fedavg_kernel.launches - self._launches0}
+            k: v - self._launches0[k]
+            for k, v in self._kernel_launches().items()}
         extra["device"] = str(self.device)
 
         return FLResult(

@@ -11,10 +11,13 @@ generic round driver in `core/simulation.py`.
                             (`core/aggregation.py`)
     round_model / served_fn / extra_result -> metric + serving surface
 
-The built-ins are the paper's three architectures: HFL, AFL and CFL.
-The fused executor's `scan_*` hooks, fault-injection holds, attacks and
-defenses, and the other registered strategies of the reference belong to
-later slices of the port (ROADMAP §A.8, §A.9, §A.12, §A.13).
+The built-ins are the paper's three architectures (HFL, AFL, CFL) and
+the plugins FedProx, FedAvgM and FedAdam. Every round runs the
+adversarial seam of DESIGN.md §8: uploads are corrupted
+(`sim.corrupt`) between local training and the defended aggregation
+event. The fused executor's `scan_*` hooks, fault-injection holds, codec
+transport and the async runtime belong to later slices of the port
+(ROADMAP §A.8, §A.11, §A.12, §A.13).
 """
 from __future__ import annotations
 
@@ -22,12 +25,15 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 import numpy as np
+import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import topology
 from repro_torch.core.fl_types import DEFENSES
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.optim import optimizers
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
 
@@ -108,6 +114,11 @@ class Strategy:
                 f"{self.name}/{topo} aggregation event "
                 f"(valid: {allowed}; DESIGN.md §8)")
 
+    def event_size(self) -> int:
+        """Client count of one aggregation event — the basis for the
+        Byzantine allowance `FLConfig.resolved_defense_f`."""
+        return self.fl.num_clients
+
     # -- lifecycle (override these) -----------------------------------------
     def init_state(self, sim) -> Any:
         raise NotImplementedError
@@ -138,8 +149,9 @@ class Strategy:
     # -- default event driver (one generic synchronous round) ---------------
     def run_event(self, sim, state, event: int, rng=None):
         """plan -> local training (engine dispatch in the driver) ->
-        aggregation. Returns (state, per-client accs, per-client losses).
-        Every lifecycle phase is wrapped in a telemetry span."""
+        attack corruption -> defended aggregation. Returns (state,
+        per-client accs, per-client losses). Every lifecycle phase is
+        wrapped in a telemetry span."""
         rng = sim.rng if rng is None else rng
         tel = sim.telemetry
         with tel.span("round", cat="run", event=event):
@@ -148,6 +160,7 @@ class Strategy:
                 spec = self.local_spec(sim, state, plan)
             tel.append_series("participants", len(plan.participants))
             uploads, losses, accs = sim.local_train(plan, spec, rng)
+            uploads = sim.corrupt(uploads, plan)
             with tel.span("aggregate", event=event):
                 state = self.aggregate_event(sim, state, plan, uploads)
         return state, accs, losses
@@ -160,7 +173,7 @@ class Strategy:
 
     def warmup_aggregate(self, sim):
         """Loop-engine half of the warmup: dry-run one aggregation event
-        on dummy uploads, then the served model."""
+        on dummy (corrupted) uploads, then the served model."""
         rng = np.random.default_rng(self.fl.seed)
         state = self.init_state(sim)
         plan = self.select_participants(sim, state,
@@ -168,7 +181,8 @@ class Strategy:
         uploads = engine_mod.stack_forest(engine_mod.unstack_forest(
             engine_mod.replicate_tree(sim.init_params,
                                       len(plan.participants))))
-        state = self.aggregate_event(sim, state, plan, uploads)
+        state = self.aggregate_event(sim, state, plan,
+                                     sim.corrupt(uploads, plan))
         self.served_fn(sim, state)()
 
 
@@ -213,6 +227,9 @@ class HFLStrategy(Strategy):
     defenses = {"hierarchical": DEFENSES}
     centralized = True
 
+    def event_size(self) -> int:
+        return self.fl.clients_per_group
+
     def init_state(self, sim):
         return {"groups": engine_mod.replicate_tree(sim.init_params,
                                                     self.fl.num_groups),
@@ -225,8 +242,9 @@ class HFLStrategy(Strategy):
         plan = RoundPlan(list(range(fl.num_clients)),
                          [group_models[c // per]
                           for c in range(fl.num_clients)], event)
-        # stacked bases (vectorized engine) without a per-client stack:
-        # one repeat per leaf, built lazily
+        plan.meta["start_groups"] = state["groups"]   # (G, ...) centers
+        # stacked bases (vectorized engine, corruption) without a
+        # per-client stack: one repeat per leaf, built lazily
         groups = state["groups"]
         plan.meta["bases_stacked_fn"] = (
             lambda: engine_mod.repeat_groups(groups, per))
@@ -235,23 +253,30 @@ class HFLStrategy(Strategy):
     def aggregate_event(self, sim, state, plan, uploads):
         fl = self.fl
         w = np.asarray(sim.weights, np.float32)
-        groups, gw = agg.hfl_tier1_stacked(uploads, fl.num_groups, w)
+        starts = plan.meta["start_groups"]
+        groups, gw = agg.hfl_tier1_stacked(
+            uploads, fl.num_groups, w, centers=starts,
+            **sim.defense_kwargs(self.event_size()))
         global_model = state["global"]
         if ((plan.event + 1) % fl.hfl_global_every == 0
                 or plan.event == fl.rounds - 1):
             global_model = agg.fedavg_stacked(groups, gw)
             groups = engine_mod.replicate_tree(global_model, fl.num_groups)
-        return {"groups": groups, "global": global_model, "last": uploads}
+        return {"groups": groups, "global": global_model,
+                "last": (uploads, starts)}
 
     def round_model(self, state):
         return state["global"]
 
     def served_fn(self, sim, state):
-        # the global server re-aggregates at classification time
+        # the global server re-aggregates at classification time, with
+        # the round's defense and centers
         fl = self.fl
         w = np.asarray(sim.weights, np.float32)
-        uploads = state["last"]
-        return lambda: agg.hfl_aggregate_stacked(uploads, fl.num_groups, w)
+        defkw = sim.defense_kwargs(self.event_size())
+        uploads, starts = state["last"]
+        return lambda: agg.hfl_aggregate_stacked(
+            uploads, fl.num_groups, w, centers=starts, **defkw)
 
 
 @register_strategy
@@ -267,6 +292,10 @@ class AFLStrategy(Strategy):
 
     def active_topology(self) -> str:
         return "ring" if self.fl.afl_mode == "gossip" else "star"
+
+    def event_size(self) -> int:
+        fl = self.fl
+        return max(1, int(round(fl.participation * fl.num_clients)))
 
     def init_state(self, sim):
         return {"global": sim.init_params, "last": None}
@@ -285,26 +314,32 @@ class AFLStrategy(Strategy):
     def aggregate_event(self, sim, state, plan, uploads):
         fl = self.fl
         k = len(plan.participants)
+        defkw = sim.defense_kwargs(k)
         pw = np.asarray(sim.weights, np.float64)[plan.participants]
+        start = plan.bases[0]
         if fl.afl_mode == "gossip":
+            # defended mixing bounds Byzantine neighbors; the final
+            # consensus average over the mixed models stays plain
             nbrs = topology.ring_neighbors(k, fl.gossip_neighbors)
-            uploads = agg.gossip_stacked(uploads, nbrs, defense=fl.defense)
+            uploads = agg.gossip_stacked(uploads, nbrs, defense=fl.defense,
+                                         f=defkw["f"])
             global_model = agg.afl_aggregate_stacked(uploads, pw)
         else:
             global_model = agg.defended_aggregate_stacked(
-                uploads, pw, defense=fl.defense, center=plan.bases[0])
-        return {"global": global_model, "last": (uploads, pw)}
+                uploads, pw, center=start, **defkw)
+        return {"global": global_model, "last": (uploads, pw, start, k)}
 
     def round_model(self, state):
         return state["global"]
 
     def served_fn(self, sim, state):
         fl = self.fl
-        uploads, pw = state["last"]
+        uploads, pw, start, k = state["last"]
+        defkw = sim.defense_kwargs(k)
         if fl.afl_mode == "gossip":
             return lambda: agg.afl_aggregate_stacked(uploads, pw)
-        return lambda: agg.defended_aggregate_stacked(uploads, pw,
-                                                      defense=fl.defense)
+        return lambda: agg.defended_aggregate_stacked(
+            uploads, pw, center=start, **defkw)
 
 
 @register_strategy
@@ -337,8 +372,8 @@ class CFLStrategy(Strategy):
             # training + merge fuse in sequential_round, which records
             # its own phase span
             model, losses, accs = sim.sequential_round(
-                state["model"], plan.participants, self.fl.merge_alpha,
-                self.local_spec(sim, state, plan), rng)
+                state["model"], plan.participants, plan.event,
+                self.fl.merge_alpha, self.local_spec(sim, state, plan), rng)
         return {"model": model}, accs, losses
 
     def aggregate_event(self, sim, state, plan, uploads):
@@ -351,3 +386,108 @@ class CFLStrategy(Strategy):
 
     def round_model(self, state):
         return state["model"]
+
+
+# ---------------------------------------------------------------------------
+# plugins shipped through the Strategy API alone
+# ---------------------------------------------------------------------------
+
+def _sq_dist(params, ref, stacked: bool):
+    """sum ||p - r||^2 over the leaves, per client when `stacked`."""
+    total = 0
+    for p, r in zip(tree_leaves(params), tree_leaves(ref)):
+        d = torch.square(p.float() - r.float())
+        total = total + (d.reshape(p.shape[0], -1).sum(dim=1) if stacked
+                         else d.sum())
+    return total
+
+
+@register_strategy
+class FedProxStrategy(AFLStrategy):
+    """FedProx (Li et al. 2020): AFL's schedule and aggregation with a
+    proximal local objective — each client minimizes
+
+        F_c(w) + (mu/2) ||w - w_base||^2
+
+    where w_base is the model it pulled at round start. `local_spec`
+    returns the prox-augmented loss with `extra="bases"`; schedule,
+    engines, attacks and defenses are inherited."""
+
+    name = "fedprox"
+    topologies = ("star",)
+    defenses = {"star": DEFENSES}
+
+    def __init__(self, fl):
+        super().__init__(fl)
+        mu = float(fl.prox_mu)
+
+        def prox_loss(params, batch, ref):
+            loss, acc = cnn_mod.cnn_loss(params, batch)
+            return loss + 0.5 * mu * _sq_dist(params, ref, False), acc
+
+        def prox_loss_stacked(params, batch, ref):
+            loss_c, acc_c = cnn_mod.cnn_loss_stacked(params, batch)
+            return loss_c + 0.5 * mu * _sq_dist(params, ref, True), acc_c
+
+        self._spec = LocalSpec(prox_loss, prox_loss_stacked, extra="bases")
+
+    def local_spec(self, sim, state, plan):
+        return self._spec
+
+
+class ServerOptStrategy(AFLStrategy):
+    """Server-optimizer family (Reddi et al. 2021): the round's defended,
+    kernel-backed aggregate is a pseudo-gradient step
+
+        g_t = w_t - aggregate_t
+
+    that a SERVER optimizer applies: FedAvgM (momentum SGD) or FedAdam
+    (Adam). With server_lr=1 and no momentum this is plain FedAvg."""
+
+    topologies = ("star",)
+    defenses = {"star": DEFENSES}
+    centralized = True
+
+    def make_opt(self):
+        raise NotImplementedError
+
+    def init_state(self, sim):
+        opt = self.make_opt()
+        return {"global": sim.init_params, "opt": opt,
+                "opt_state": opt.init(sim.init_params)}
+
+    def aggregate_event(self, sim, state, plan, uploads):
+        k = len(plan.participants)
+        pw = np.asarray(sim.weights, np.float64)[plan.participants]
+        g = state["global"]
+        aggregate = agg.defended_aggregate_stacked(
+            uploads, pw, center=g, **sim.defense_kwargs(k))
+        pseudo_grad = tree_map(lambda a, b: (a - b).float(), g, aggregate)
+        updates, opt_state = state["opt"].update(pseudo_grad,
+                                                 state["opt_state"], g)
+        return {"global": optimizers.apply_updates(g, updates),
+                "opt": state["opt"], "opt_state": opt_state}
+
+    def served_fn(self, sim, state):
+        # the server optimizer's state lives server-side: serve its model
+        model = state["global"]
+        return lambda: model
+
+
+@register_strategy
+class FedAvgMStrategy(ServerOptStrategy):
+    """FedAvgM: server momentum-SGD over the round pseudo-gradient."""
+    name = "fedavgm"
+
+    def make_opt(self):
+        return optimizers.sgd(self.fl.server_lr,
+                              momentum=self.fl.server_momentum)
+
+
+@register_strategy
+class FedAdamStrategy(ServerOptStrategy):
+    """FedAdam: server Adam over the round pseudo-gradient."""
+    name = "fedadam"
+
+    def make_opt(self):
+        return optimizers.adam(self.fl.server_lr)

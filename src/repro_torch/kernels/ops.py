@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.kernels import fedavg_agg as _fa
+from repro_torch.kernels import robust_agg as _ra
 from repro_torch.obs import telemetry
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -23,6 +24,19 @@ def fedavg_aggregate(stacked, weights):
     the hand-written kernel, CPU tensors its plain version."""
     telemetry.count("kernel.fedavg_agg")
     return _fa.fedavg_agg(stacked, weights)
+
+
+def trimmed_mean_aggregate(stacked, trim):
+    """(C, N) matrix -> (N,) mean of the per-column order statistics of
+    rank trim..C-trim-1 (the robust selection kernel on CUDA tensors, its
+    plain version on CPU tensors)."""
+    telemetry.count("kernel.trimmed_mean")
+    return _ra.trimmed_mean_agg(stacked, trim)
+
+
+def median_aggregate(stacked):
+    """Coordinate-wise median: `trimmed_mean_aggregate` at maximal trim."""
+    return trimmed_mean_aggregate(stacked, (stacked.shape[0] - 1) // 2)
 
 
 def stacked_ravel(stacked_tree) -> torch.Tensor:

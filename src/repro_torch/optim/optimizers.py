@@ -1,5 +1,5 @@
 """Functional optimizers on nested dicts of tensors (port of
-`repro.optim.optimizers.sgd` and `apply_updates`).
+`repro.optim.optimizers`: `sgd`, `adamw`, `adam`, `apply_updates`).
 
 The optax-style convention of the reference:
     opt = sgd(lr, momentum)
@@ -9,13 +9,15 @@ The optax-style convention of the reference:
 
 Momentum is `mu = momentum * mu + g`, the update `-lr * mu`. State is
 created fresh for every local-training event, as in the reference; there
-is no persistent `torch.optim` object. (The reference's Nesterov variant,
-learning-rate schedules and step count serve no caller of this slice.)
+is no persistent `torch.optim` object. Adam (the FedAdam server
+optimizer) keeps its step count in its state. (The reference's Nesterov
+variant and learning-rate schedules serve no caller of the port.)
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
@@ -43,3 +45,40 @@ def sgd(lr: float, momentum: float = 0.0):
         return tree_map(lambda g: -lr * g, grads), state
 
     return Optimizer(init, update)
+
+
+def _zeros_f32(p):
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0):
+    """Adam with decoupled weight decay; moments in float32, the bias
+    corrections 1 - b**t computed in float32 as the reference does."""
+    def init(params):
+        return {"m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params), "count": 0}
+
+    def update(grads, state, params):
+        c = state["count"] + 1
+        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+                     state["v"], grads)
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(c))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(c))
+
+        def upd(m, v, p):
+            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                step = step + weight_decay * p.float()
+            return (-lr * step).to(p.dtype)
+
+        return (tree_map(upd, m, v, params),
+                {"m": m, "v": v, "count": c})
+
+    return Optimizer(init, update)
+
+
+def adam(lr: float, **kw):
+    return adamw(lr, weight_decay=0.0, **kw)

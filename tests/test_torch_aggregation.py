@@ -15,6 +15,7 @@ from repro.core import topology  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.core import aggregation as port_agg  # noqa: E402
 from repro_torch.core import engine as port_engine  # noqa: E402
+from repro_torch.core import robust as port_robust  # noqa: E402
 from repro_torch.kernels import ops as port_ops  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -103,7 +104,7 @@ def test_gossip_stacked_undefended(degree):
 def test_all_zero_weights_degrade_to_uniform():
     ref, port = _stack(4, 7)
     zero = np.zeros(4, np.float32)
-    w = port_agg._safe_normalize(torch.as_tensor(zero), 4)
+    w = port_robust.normalized_weights(4, torch.as_tensor(zero), "cpu")
     np.testing.assert_array_equal(w.numpy(), np.full(4, 0.25, np.float32))
     np.testing.assert_array_equal(
         w.numpy(), np.asarray(ref_agg._safe_normalize(jnp.asarray(zero), 4)))
@@ -127,12 +128,19 @@ def test_host_operators_match_reference():
 
 
 def test_outside_slice_raises():
+    """The fault-injection `alive` mask waits for its slice (ROADMAP
+    §A.12): the operators do not take it, so passing it raises instead
+    of being ignored. Defended gossip takes order statistics only."""
     _, port = _stack(4, 9)
-    with pytest.raises(NotImplementedError):
-        port_agg.defended_aggregate_stacked(port, defense="median")
-    with pytest.raises(NotImplementedError):
+    alive = np.ones(4, np.float32)
+    with pytest.raises(TypeError):
+        port_agg.defended_aggregate_stacked(port, defense="median",
+                                            alive=alive)
+    with pytest.raises(TypeError):
+        port_agg.hfl_tier1_stacked(port, 2, alive=alive)
+    with pytest.raises(ValueError):
         port_agg.gossip_stacked(port, topology.ring_neighbors(4),
-                                defense="median")
+                                defense="norm_clip")
 
 
 def test_tree_where():
