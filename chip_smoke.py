@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    initial model (HFL, AFL, CFL x loop, vectorized; then five attack /
    defense configurations x loop, vectorized; 4 clients, 2 rounds),
    round models compared after every event, and a second card run of the
-   same seed required to be bitwise equal to the first;
+   same seed required to be bitwise equal to the first; then HFL with a
+   Gaussian attacker at 4 clients, whose readings are printed beside the
+   CPU engines' own gap (see `hfl4_phase`);
 5. study — slice 1's main path: `paper_study.run_study("quick")` on the
    card under the vectorized engine, then its mnist-like half under the
    loop engine. Fails on a non-finite metric, an accuracy floor missed,
@@ -124,7 +126,8 @@ def _fedavg_bound(C, N, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-MAIN_SHAPES = [(2, 7900), (4, 7900), (8, 7900)]      # CFL merge, HFL/AFL
+# CFL merge, HFL/AFL at 4 and 8 clients, the 32-client adversarial family
+MAIN_SHAPES = [(2, 7900), (4, 7900), (8, 7900), (32, 7900)]
 EDGE_SHAPES = [(1, 1), (3, 37), (5, 4097), (16, 1 << 20)]
 
 
@@ -283,10 +286,8 @@ PARITY_CFG = dict(num_clients=4, num_groups=2, rounds=2, local_batch_size=32,
 
 # slice 2: attack x defense on each aggregation event (4 clients, all
 # participating; 1 attacker at the default fraction 0.25). HFL runs 8
-# clients so that each group of 4 trims f = 1: with groups of 2 the
-# breakdown point clamps f to 0, the Gaussian upload passes into the
-# model untrimmed, and training from it amplifies float reassociation
-# past the tolerance (loop against vectorized on the CPU: 2.5e-3)
+# clients so that each group of 4 trims f = 1; the 4-client HFL case,
+# where f clamps to 0, is `hfl4_phase` below
 ADV_PARITY = {
     "afl-signflip-median": dict(strategy="afl", attack="sign_flip",
                                 attack_scale=2.0, defense="median"),
@@ -361,6 +362,71 @@ def parity_phase(device="cuda", reference="cpu"):
         report[label] = {"max_abs_diff_per_event": diffs, "tol": tol}
         print(f"  {label}: max |{device} - {reference}| per event {diffs} "
               f"(tol {tol})", flush=True)
+    return report
+
+
+# HFL with a Gaussian attacker against the trimmed mean at 4 clients in 2
+# groups: each group's f clamps to 0, so the noisy upload (scale 0.5)
+# enters the group model and round 2 trains from it. From there a float
+# rounding can tip round 2 into one of two outcomes 3e-4 to 3e-3 apart:
+# on the CPU the port's two engines differ by 2.5e-3 after 2 rounds, and
+# one ulp on one initial weight moves the reference's own vectorized run
+# by 8.9e-4 (tests/torch_reference_probe.py hfl4). The readings are
+# printed; the gates are the bitwise repeat and the group models after
+# event 0 (the defended tier-1 aggregate, before any training from noisy
+# weights) at 1e-4.
+HFL4 = dict(PARITY_CFG, participation=1.0, strategy="hfl", attack="gauss",
+            attack_scale=0.5, defense="trimmed_mean")
+
+
+def hfl4_phase(device="cuda", reference="cpu"):
+    import numpy as np
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.tree import tree_leaves
+
+    ds = mnist_like(seed=0, n_train=512, n_test=128)
+    runs = [(d, e) for d in (device, reference)
+            for e in ("loop", "vectorized")]
+    models = {}
+    for d, engine in runs + [(device, "loop"), (device, "vectorized")]:
+        sim = FederatedSimulation(FLConfig(**HFL4, engine=engine), ds,
+                                  device=d)
+        st = sim.strategy.init_state(sim)
+        for ev in range(HFL4["rounds"]):
+            st, _, _ = sim.strategy.run_event(sim, st, ev)
+            leaves = {"round": [x.cpu().double().numpy() for x in
+                                tree_leaves(sim.strategy.round_model(st))],
+                      "groups": [x.cpu().double().numpy() for x in
+                                 tree_leaves(st["groups"])]}
+            if (d, engine, ev) in models:         # the repeat on `device`
+                if not all(np.array_equal(x, y) for k in leaves for x, y in
+                           zip(leaves[k], models[(d, engine, ev)][k])):
+                    raise SystemExit(f"hfl4 {engine} event {ev}: two runs "
+                                     f"of one seed on {device} differ")
+            else:
+                models[(d, engine, ev)] = leaves
+
+    def dist(a, b, ev, key):
+        return max(float(np.abs(x - y).max()) for x, y in
+                   zip(models[a + (ev,)][key], models[b + (ev,)][key]))
+
+    report = {}
+    for i, a in enumerate(runs):
+        for b in runs[i + 1:]:
+            label = f"{' '.join(a)} vs {' '.join(b)}"
+            report[label] = {k: [dist(a, b, ev, k)
+                                 for ev in range(HFL4["rounds"])]
+                             for k in ("round", "groups")}
+            print(f"  {label}: max |a - b| per event, round model "
+                  f"{report[label]['round']}, group models "
+                  f"{report[label]['groups']}", flush=True)
+    for engine in ("loop", "vectorized"):
+        d0 = dist((device, engine), (reference, engine), 0, "groups")
+        if d0 > 1e-4:
+            raise SystemExit(f"hfl4 {engine}: group models after event 0, "
+                             f"{device} vs {reference}, differ by {d0}")
     return report
 
 
@@ -539,6 +605,7 @@ def main():
     kernels = kernel_phase()
     _phase("parity: card against CPU")
     parity = parity_phase("cuda", "cpu")
+    parity["hfl-gauss-trimmed-4c"] = hfl4_phase("cuda", "cpu")
     _phase("study (slice 1 main path)")
     study = study_phase("cuda", "quick")
     _phase("adversarial study (slice 2 main path)")

@@ -31,8 +31,12 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 CFG = dict(num_clients=4, num_groups=2, rounds=2, local_batch_size=32,
            lr=0.03, momentum=0.9, seed=0, participation=1.0)
 # the five attack/defense configurations chip_smoke.py also runs on the
-# card (ADV_PARITY there; HFL at 8 clients so each group of 4 trims f = 1)
+# card (ADV_PARITY there; HFL at 8 clients so each group of 4 trims f = 1),
+# and HFL at 4 clients, where each group of 2 trims f = 0 and the Gaussian
+# upload enters the group model (chip_smoke.py's hfl4_phase)
 ADV = {
+    "hfl-gauss-trimmed-4c": dict(strategy="hfl", attack="gauss",
+                                 attack_scale=0.5, defense="trimmed_mean"),
     "afl-signflip-median": dict(strategy="afl", attack="sign_flip",
                                 attack_scale=2.0, defense="median"),
     "hfl-gauss-trimmed": dict(strategy="hfl", num_clients=8, attack="gauss",

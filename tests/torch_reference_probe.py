@@ -1,0 +1,236 @@
+"""Readings of the port against the JAX reference on the CPU, beyond what
+the tests assert: distances per event and whole learning curves, printed
+and written as JSON. Not collected by pytest (no `test_` prefix).
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
+        hfl4 [--out FILE]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
+        acc32 [--out FILE]
+
+hfl4  — HFL, 4 clients in 2 groups, Gaussian attack (scale 0.5) against
+        the trimmed mean, 2 rounds, chip_smoke.py's data (the configuration
+        whose card-vs-CPU parity broke 1e-3 under the vectorized engine).
+        Per event, the max |a - b| over the round model's leaves between
+        every two of {reference, port} x {loop, vectorized}, both packages
+        starting from the reference's initial model and then from the
+        port's, with the reference's Gaussian noise (as in the tests); and
+        the port's two engines with its own noise (as on the card). Then
+        the reference's own sensitivity: its round model after a one-ulp
+        change of one initial weight.
+acc32 — the 32-client sign-flip acceptance family
+        (`attack-{none,signflip-fedavg,signflip-median,signflip-trimmed}-32c-vec`)
+        through both packages from the reference's initial parameters:
+        per-round test accuracy and the final macro-F1 of each.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import attacks as ref_attacks  # noqa: E402
+from repro.core import fl_types as ref_types  # noqa: E402
+from repro.core import scenarios as ref_scenarios  # noqa: E402
+from repro.core import simulation as ref_sim_mod  # noqa: E402
+from repro.data.synthetic import mnist_like  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import attacks as port_attacks  # noqa: E402
+from repro_torch.core import fl_types as port_types  # noqa: E402
+from repro_torch.core import scenarios as port_scenarios  # noqa: E402
+from repro_torch.core import simulation as port_sim_mod  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+
+def ref_gauss_noise(seed, event, client_id, leaf_index, shape, device):
+    key = jax.random.fold_in(jax.random.fold_in(
+        ref_attacks.event_key(seed, event), client_id), leaf_index)
+    return torch.as_tensor(np.array(jax.random.normal(
+        key, tuple(shape), jnp.float32))).to(device)
+
+
+def _ref_leaves(model):
+    return [np.asarray(x, np.float64) for x in jax.tree.leaves(model)]
+
+
+def _port_leaves(model):
+    return [x.double().numpy() for x in tree_leaves(model)]
+
+
+def _dist(a, b):
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def _pair(ds, fl_kw, init="reference"):
+    """(reference sim, port sim) from one config and one initial model:
+    the reference's draw, or with `init="port"` the port's."""
+    if init == "port":
+        port = port_sim_mod.FederatedSimulation(
+            port_types.FLConfig(**fl_kw), ds, device="cpu")
+        start = convert.params_to_numpy(port.init_params)
+        ref = ref_sim_mod.FederatedSimulation(
+            ref_types.FLConfig(**fl_kw), ds,
+            model_init=lambda key: jax.tree.map(jnp.asarray, start))
+        return ref, port
+    ref = ref_sim_mod.FederatedSimulation(ref_types.FLConfig(**fl_kw), ds)
+    start = jax.tree.map(np.asarray, ref.init_params)
+    port = port_sim_mod.FederatedSimulation(
+        port_types.FLConfig(**fl_kw), ds,
+        model_init=lambda g: convert.params_from_jax(start), device="cpu")
+    return ref, port
+
+
+HFL4 = dict(num_clients=4, num_groups=2, rounds=2, local_batch_size=32,
+            lr=0.03, momentum=0.9, seed=0, participation=1.0,
+            strategy="hfl", attack="gauss", attack_scale=0.5,
+            defense="trimmed_mean")
+
+
+def _hfl4_models(ds, ref_noise, init):
+    """Round-model leaves after each event, keyed (package, engine, event),
+    both packages from the initial model `init` draws; with `ref_noise`
+    the port draws the reference's Gaussian noise, else its own
+    (`attacks.gauss_noise`, as on the card)."""
+    seam = port_attacks.gauss_noise
+    if ref_noise:
+        port_attacks.gauss_noise = ref_gauss_noise
+    try:
+        models = {}
+        for engine in ("loop", "vectorized"):
+            ref, port = _pair(ds, dict(HFL4, engine=engine), init)
+            rs = ref.strategy.init_state(ref)
+            ps = port.strategy.init_state(port)
+            for ev in range(HFL4["rounds"]):
+                rs, _, _ = ref.strategy.run_event(ref, rs, ev)
+                ps, _, _ = port.strategy.run_event(port, ps, ev)
+                models[("ref", engine, ev)] = _ref_leaves(
+                    ref.strategy.round_model(rs))
+                models[("port", engine, ev)] = _port_leaves(
+                    port.strategy.round_model(ps))
+        return models
+    finally:
+        port_attacks.gauss_noise = seam
+
+
+def probe_hfl4():
+    ds = mnist_like(seed=0, n_train=512, n_test=128)   # chip_smoke.py's
+    runs = [(p, e) for p in ("ref", "port") for e in ("loop", "vectorized")]
+    out = {}
+    for init, noise in (("reference", "reference"), ("port", "reference"),
+                        ("port", "port")):
+        models = _hfl4_models(ds, noise == "reference", init)
+        pairs = ([(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+                 if noise == "reference" else [(runs[2], runs[3])])
+        for a, b in pairs:
+            label = (f"{' '.join(a)} vs {' '.join(b)}, {init}'s init, "
+                     f"{noise}'s noise")
+            out[label] = [_dist(models[a + (ev,)], models[b + (ev,)])
+                          for ev in range(HFL4["rounds"])]
+            print(f"{label}: max |a - b| per event {out[label]}",
+                  flush=True)
+    nudged = _hfl4_nudges(ds)
+    return {"config": HFL4, "max_abs_diff_per_event": out,
+            "reference_nudged_init": nudged}
+
+
+def _hfl4_nudges(ds, per_leaf=3):
+    """The reference's own sensitivity: from the port's initial model with
+    one weight moved by one ulp (`per_leaf` seeded picks per leaf), each
+    engine's round model after the last event against the un-nudged
+    reference loop run."""
+    port = port_sim_mod.FederatedSimulation(
+        port_types.FLConfig(**dict(HFL4, engine="loop")), ds, device="cpu")
+    start = convert.params_to_numpy(port.init_params)
+
+    def run(engine, nudge=None):
+        params = jax.tree.map(np.array, start)
+        if nudge is not None:
+            (layer, leaf), i = nudge
+            flat = params[layer][leaf].reshape(-1)
+            flat[i] = np.nextafter(flat[i], np.float32(np.inf))
+        ref = ref_sim_mod.FederatedSimulation(
+            ref_types.FLConfig(**dict(HFL4, engine=engine)), ds,
+            model_init=lambda key: jax.tree.map(jnp.asarray, params))
+        rs = ref.strategy.init_state(ref)
+        for ev in range(HFL4["rounds"]):
+            rs, _, _ = ref.strategy.run_event(ref, rs, ev)
+        return _ref_leaves(ref.strategy.round_model(rs))
+
+    rng = np.random.default_rng(0)
+    base = run("loop")
+    out = []
+    for layer in start:
+        for leaf in start[layer]:
+            for _ in range(per_leaf):
+                i = int(rng.integers(start[layer][leaf].size))
+                for engine in ("loop", "vectorized"):
+                    d = _dist(base, run(engine, ((layer, leaf), i)))
+                    out.append({"leaf": f"{layer}.{leaf}", "index": i,
+                                "engine": engine, "max_abs_diff": d})
+    far = [r for r in out if r["max_abs_diff"] > 1e-4]
+    print(f"reference from the port's init, one weight nudged by one ulp: "
+          f"{len(far)} of {len(out)} runs land > 1e-4 from the un-nudged "
+          f"loop run ({sorted({r['max_abs_diff'] for r in far})}); the "
+          f"rest within {max(r['max_abs_diff'] for r in out if r not in far)}",
+          flush=True)
+    return out
+
+
+def probe_acc32():
+    out = {}
+    for name in port_scenarios.ACCEPTANCE_FAMILY:
+        spec = port_scenarios.get(name)
+        ref_spec = ref_scenarios.get(name)
+        ds = port_scenarios.DATASETS[spec.dataset](
+            seed=spec.seed, n_train=spec.n_train, n_test=spec.n_test)
+        t0 = time.perf_counter()
+        ref = ref_sim_mod.FederatedSimulation(ref_spec.to_fl_config(), ds)
+        start = jax.tree.map(np.asarray, ref.init_params)
+        port = port_sim_mod.FederatedSimulation(
+            spec.to_fl_config(), ds,
+            model_init=lambda g: convert.params_from_jax(start),
+            device="cpu")
+        rr, pr = ref.run(), port.run()
+        out[name] = {
+            "ref_round_test_acc": [float(v) for v in rr.round_test_acc],
+            "port_round_test_acc": [float(v) for v in pr.round_test_acc],
+            "ref_f1": float(rr.f1), "port_f1": float(pr.f1),
+            "ref_test_accuracy": float(rr.test_accuracy),
+            "port_test_accuracy": float(pr.test_accuracy)}
+        print(f"{name} ({time.perf_counter() - t0:.0f}s)\n"
+              f"  ref  f1={rr.f1:.4f} test acc per round "
+              f"{np.round(rr.round_test_acc, 4).tolist()}\n"
+              f"  port f1={pr.f1:.4f} test acc per round "
+              f"{np.round(pr.round_test_acc, 4).tolist()}", flush=True)
+    for who in ("ref", "port"):
+        base = out["attack-none-32c-vec"][f"{who}_f1"]
+        ratios = {n: out[n][f"{who}_f1"] / base
+                  for n in port_scenarios.ACCEPTANCE_FAMILY}
+        out[f"{who}_f1_over_no_attack"] = ratios
+        print(f"{who} macro-F1 over no attack: "
+              + ", ".join(f"{n}={v:.3f}" for n, v in ratios.items()))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("probe", choices=("hfl4", "acc32"))
+    ap.add_argument("--out", help="write the readings here as JSON")
+    args = ap.parse_args()
+    torch.set_num_threads(2)
+    doc = {"hfl4": probe_hfl4, "acc32": probe_acc32}[args.probe]()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
