@@ -32,15 +32,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    non-finite metric, `trimmed_mean_agg` launched no time in a median or
    trimmed-mean aggregation run, median or trimmed mean recovering less
    than 0.90 of the no-attack macro-F1, or plain FedAvg under attack
-   keeping more than half of it.
+   keeping more than half of it;
+7. churn (slice 3 main path) — (a) `gossip_mix_agg` against its plain
+   version on the card, with mixing matrices from real fault schedules
+   (dead clients' identity rows must come back bit for bit), timed as
+   the other kernels; (b) the port on the card against the port on the
+   CPU under fault profiles (masked gossip with MTD, HFL quorum holds,
+   AFL star with median, CFL under `mid`, FedAvgM with quorum holds,
+   FedProx, FedAdam; both engines), event by event, with a bitwise repeat
+   on the card; (c) the
+   32-client churn study through the scenario runner: the colluding
+   sign-flip pair with and without the moving-target ring, and a clean
+   twin that mixes through `gossip_mix_agg` every round. Fails on a
+   non-finite metric, a `faults` block that differs from the reference's
+   recorded one (experiments/churn/churn_mtd_32c.json), or
+   `gossip_mix_agg` launched no time in the clean twin or any time in a
+   defended run.
 
-Phases 5 and 6 set every kernel's launch count to 0 just before they
-start and read the counts just after.
+Phases 5, 6 and 7(c) set every kernel's launch count to 0 just before
+they start and read the counts just after.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
 results also go to chiprun_out/chip_smoke.json.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -320,48 +336,71 @@ def parity_cases():
     return cases
 
 
+def _parity(label, make_sim, device, reference, gated=True):
+    """Three runs of one config — on `device`, on `reference`, and on
+    `device` again — driven event by event. After every event the round
+    model (and HFL's group models) of the first must equal the third bit
+    for bit and agree with the second within 1e-4 abs and rel; HFL 1e-3,
+    because its two-tier schedule amplifies float reassociation in
+    near-tied max-pool windows to ~3e-4 after 2 rounds (the reference's
+    own two engines differ by as much; tests/test_torch_simulation.py).
+    With `gated=False` the distance is printed, not held to the
+    tolerance, and the round models must be finite.
+    Returns (max |device - reference| per event, tol, the sims)."""
+    import numpy as np
+    from repro_torch.tree import tree_leaves
+
+    sims = [make_sim(d) for d in (device, reference, device)]
+    fl = sims[0].fl
+    tol = 1e-3 if fl.strategy == "hfl" else 1e-4
+    states = [s.strategy.init_state(s) for s in sims]
+
+    def leaves(s, st):
+        out = tree_leaves(s.strategy.round_model(st))
+        return out + (tree_leaves(st["groups"]) if "groups" in st else [])
+
+    diffs = []
+    for ev in range(fl.rounds):
+        for i, s in enumerate(sims):
+            states[i], _, _ = s.strategy.run_event(s, states[i], ev)
+        a, b, again = (leaves(s, st) for s, st in zip(sims, states))
+        if not all(x.equal(y) for x, y in zip(a, again)):
+            raise SystemExit(f"parity {label} event {ev}: two runs of "
+                             f"one seed on {device} differ")
+        diff = 0.0
+        for x, y in zip(a, b):
+            x = x.cpu().double().numpy()
+            y = y.cpu().double().numpy()
+            if not (np.isfinite(x).all() and np.isfinite(y).all()):
+                raise SystemExit(f"parity {label} event {ev}: non-finite "
+                                 f"round model")
+            if gated and not np.allclose(x, y, atol=tol, rtol=tol):
+                raise SystemExit(f"parity {label} event {ev}: {device} "
+                                 f"vs {reference} beyond {tol}")
+            diff = max(diff, float(np.abs(x - y).max()))
+        diffs.append(diff)
+    print(f"  {label}: max |{device} - {reference}| per event {diffs} "
+          f"({f'tol {tol}' if gated else 'printed, not gated'})",
+          flush=True)
+    return diffs, tol, sims
+
+
 def parity_phase(device="cuda", reference="cpu"):
     """The port on `device` against the port on `reference`, event by
-    event. Tolerance 1e-4 (abs and rel); HFL 1e-3, because its two-tier
-    schedule amplifies float reassociation in near-tied max-pool windows
-    to ~3e-4 after 2 rounds (the reference's own two engines differ by as
-    much; tests/test_torch_simulation.py)."""
-    import numpy as np
+    event (`_parity`), for slice 1's strategies and slice 2's attack /
+    defense configurations."""
     from repro_torch.core.fl_types import FLConfig
     from repro_torch.core.simulation import FederatedSimulation
     from repro_torch.data.synthetic import mnist_like
-    from repro_torch.tree import tree_leaves
 
     ds = mnist_like(seed=0, n_train=512, n_test=128)
     report = {}
     for label, kw in parity_cases():
         fl = FLConfig(**kw)
-        tol = 1e-3 if fl.strategy == "hfl" else 1e-4
-        # the third run repeats the first: one seed, bitwise one result
-        sims = [FederatedSimulation(fl, ds, device=d)
-                for d in (device, reference, device)]
-        states = [s.strategy.init_state(s) for s in sims]
-        diffs = []
-        for ev in range(fl.rounds):
-            for i, s in enumerate(sims):
-                states[i], _, _ = s.strategy.run_event(s, states[i], ev)
-            a, b, again = (tree_leaves(s.strategy.round_model(st))
-                           for s, st in zip(sims, states))
-            if not all(x.equal(y) for x, y in zip(a, again)):
-                raise SystemExit(f"parity {label} event {ev}: two runs of "
-                                 f"one seed on {device} differ")
-            diff = 0.0
-            for x, y in zip(a, b):
-                x = x.cpu().double().numpy()
-                y = y.cpu().double().numpy()
-                if not np.allclose(x, y, atol=tol, rtol=tol):
-                    raise SystemExit(f"parity {label} event {ev}: {device} "
-                                     f"vs {reference} beyond {tol}")
-                diff = max(diff, float(np.abs(x - y).max()))
-            diffs.append(diff)
+        diffs, tol, _ = _parity(
+            label, lambda d: FederatedSimulation(fl, ds, device=d),
+            device, reference)
         report[label] = {"max_abs_diff_per_event": diffs, "tol": tol}
-        print(f"  {label}: max |{device} - {reference}| per event {diffs} "
-              f"(tol {tol})", flush=True)
     return report
 
 
@@ -456,8 +495,9 @@ def _check_run(r, engine):
 
 def _reset_launches():
     from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import robust_agg as ra
-    fa.launches = ra.launches = 0
+    fa.launches = ra.launches = gm.launches = 0
 
 
 def study_phase(device="cuda", scale="quick"):
@@ -574,6 +614,242 @@ def adversarial_phase(device="cuda"):
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def _gossip_bound(C, N, itemsize):
+    """Least time for the work: x read once, mix read once, the (C, N)
+    output written once; 2*C*C*N float32 operations."""
+    t_bytes = (2 * C * N * itemsize + C * C * 4) / H100_BYTES_PER_S
+    t_ops = 2 * C * C * N / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _schedule_mix(C, mtd, degree, rounds, event, seed=0):
+    """(mix, alive) of one event of a real 30%-churn fault schedule over C
+    clients (dead rows are identity rows)."""
+    from repro_torch.core import faults
+    sched = faults.FaultSchedule(
+        profile="churn", seed=seed, num_clients=C, n_events=rounds,
+        churn_rate=0.3, quorum_frac=0.5, heartbeat_timeout=1, mtd=mtd,
+        event_size=C, gossip_degree=degree)
+    return sched.gossip_mix(event, range(C)), sched.alive[event]
+
+
+# (C, N, label, schedule): `churn-afl-gossip-mtd`'s event 1 (8 clients,
+# degree 2, 2 of them dead) and event 0 of the 32-client churn study's
+# schedule (degree 4, 9 dead), with and without the moving-target ring
+GOSSIP_MAIN = [(8, 7900, "afl-gossip-mtd", (True, 2, 2, 1)),
+               (32, 7900, "churn32-mtd", (True, 4, 10, 0)),
+               (32, 7900, "churn32-static", (False, 4, 10, 0))]
+GOSSIP_EDGE = [(1, 7900), (2, 37), (5, 4097), (33, 4097), (256, 7900),
+               (1024, 300), (16, 1 << 20)]
+
+
+def _gossip_rows():
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gossip_mix as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    gen = torch.Generator().manual_seed(2)
+    cases = []
+    for C, N, label, (mtd, degree, rounds, ev) in GOSSIP_MAIN:
+        mix, alive = _schedule_mix(C, mtd, degree, rounds, ev)
+        cases.append((C, N, torch.float32, mix, alive, label, True))
+    for C, N in GOSSIP_EDGE:
+        degree = 4 if C > 4 else 2
+        mix, alive = _schedule_mix(C, False, degree, 3, 1, seed=C)
+        cases.append((C, N, torch.float32, mix, alive, "", False))
+    mix, alive = _schedule_mix(32, True, 4, 10, 0)
+    cases.append((32, 7900, torch.bfloat16, mix, alive, "churn32-mtd", False))
+    rows = []
+    for C, N, dtype, mix_np, alive, label, main in cases:
+        x = torch.randn((C, N), generator=gen).to("cuda", dtype)
+        mix = torch.as_tensor(mix_np, device="cuda")
+        before = gm.launches
+        out = gm.gossip_mix_agg(x, mix)
+        torch.cuda.synchronize()
+        if gm.launches != before + 1:
+            raise SystemExit("gossip_mix_agg: the wrapper did not launch")
+        exp = gm.gossip_mix_torch(x, mix)
+        err = float((out.float() - exp.float()).abs().max())
+        tol = 1e-6 if dtype == torch.float32 else 2e-2
+        within = bool(((out.float() - exp.float()).abs()
+                       <= tol + tol * exp.float().abs()).all())
+        dead = torch.as_tensor(np.flatnonzero(~alive), device="cuda")
+        identity = bool(torch.equal(out[dead], x[dead]))
+        row = {"C": C, "N": N, "schedule": label,
+               "dtype": str(dtype).replace("torch.", ""),
+               "dead_rows": int(dead.numel()), "max_abs_err": err,
+               "tol": tol, "identity_rows_bitwise": identity}
+        if not (out.dtype == dtype and out.shape == (C, N) and within
+                and identity):
+            raise SystemExit(f"gossip_mix_agg disagrees with its plain "
+                             f"version: {row}")
+        if main:
+            fns = {"": lambda: gm.gossip_mix_agg(x, mix),
+                   "plain_": lambda: gm.gossip_mix_torch(x, mix),
+                   "library_": lambda: mix @ x}           # yardstick only
+            for key, fn in fns.items():
+                row[f"{key}ms"] = _time_ms(fn)
+                row[f"{key}graph_ms"] = _graph_ms(fn)
+            row["bound_ms"], row["bound_by"] = _gossip_bound(
+                C, N, x.element_size())
+        print("  gossip_mix_agg", json.dumps(row), flush=True)
+        rows.append(row)
+    n = gm.MAX_CLIENTS + 1
+    try:
+        gm.gossip_mix_agg(torch.zeros((n, 8), device="cuda"),
+                          torch.eye(n, device="cuda"))
+    except ValueError:
+        pass
+    else:
+        raise SystemExit(f"gossip_mix_agg took C = {n}, above its stated "
+                         f"maximum")
+    return rows
+
+
+def churn_parity_specs():
+    """(label, ScenarioSpec) of every card-vs-CPU run under faults, each
+    under both engines: the registered `churn-afl-gossip-mtd` (masked mix
+    with the moving-target ring; the fused engine it names stands for
+    loop == vectorized, bitwise in the reference) and `churn-hfl-quorum`
+    (group and round quorum holds), AFL star with median under churn
+    (`trimmed_mean_agg` on masked rows), CFL under `mid` (dead visitors'
+    merges discarded), FedAvgM under `mid` at quorum 0.6 over 6 rounds
+    (events 4 and 5 hold the server optimizer), and FedProx and FedAdam
+    under `mid`. FedAdam's distance is printed, not gated: Adam divides
+    by sqrt(v) + eps, so a pseudo-gradient component of one ulp of a
+    weight (~1e-8, the size of eps) moves its step by a sizable share of
+    lr, and card and CPU differ by such ulps. Its bitwise repeat on the
+    card is gated."""
+    from repro_torch.core import scenarios as sc
+    base = {
+        "churn-afl-gossip-mtd": sc.get("churn-afl-gossip-mtd"),
+        "churn-hfl-quorum": sc.get("churn-hfl-quorum"),
+        "afl-star-churn-median": sc.ScenarioSpec(
+            "afl-star-churn-median", "AFL star, sign-flip against the "
+            "median under 30% churn", strategy="afl", topology="star",
+            participation=1.0, attack="sign_flip", attack_scale=2.0,
+            defense="median", fault_profile="churn", churn_rate=0.3),
+        "cfl-mid": sc.ScenarioSpec(
+            "cfl-mid", "sequential CFL under mid-severity faults",
+            strategy="cfl", topology="sequential", fault_profile="mid"),
+        "fedavgm-mid-quorum": dataclasses.replace(
+            sc.get("fedavgm-iid-vec"), fault_profile="mid",
+            quorum_frac=0.6, rounds=6),
+        "fedprox-mid": dataclasses.replace(
+            sc.get("fedprox-iid-loop"), fault_profile="mid"),
+        "fedadam-median-mid": dataclasses.replace(
+            sc.get("fedadam-signflip-median-vec"), fault_profile="mid"),
+    }
+    return [(f"{name}/{engine}", dataclasses.replace(spec, engine=engine))
+            for name, spec in base.items()
+            for engine in ("loop", "vectorized")]
+
+
+def churn_parity_phase(device="cuda", reference="cpu"):
+    from repro_torch.core import scenarios
+
+    report = {}
+    for label, spec in churn_parity_specs():
+        diffs, tol, sims = _parity(
+            label, lambda d: scenarios.resolve(spec, d), device, reference,
+            gated=spec.strategy != "fedadam")
+        holds = sorted(ev for ev, fe in sims[0]._fault_log.items()
+                       if not fe.qok)
+        if label.startswith("fedavgm") and not holds:
+            raise SystemExit(f"parity {label}: no quorum hold happened")
+        report[label] = {"max_abs_diff_per_event": diffs, "tol": tol,
+                         "gated": spec.strategy != "fedadam",
+                         "quorum_held_events": holds}
+        print(f"    quorum holds at events {holds}", flush=True)
+    return report
+
+
+CHURN_ARMS = ("churn-signflip-median-mtd", "churn-signflip-median-static")
+CLEAN_TWIN = "churn-clean-mtd"
+# The MTD margin (mtd macro-F1 - static macro-F1) is printed, not gated:
+# see PERF.md section 7 for the CPU rehearsals behind that choice.
+CHURN_MARGIN_GATED = False
+
+
+def churn_phase(device="cuda"):
+    import torch
+    from repro_torch.core import scenarios
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import robust_agg as ra
+
+    recorded = {d["scenario"]: d["faults"] for d in json.loads(
+        (ROOT / "experiments" / "churn" / "churn_mtd_32c.json").read_text())}
+    specs = {n: scenarios.get(n) for n in CHURN_ARMS}
+    specs[CLEAN_TWIN] = dataclasses.replace(
+        specs[CHURN_ARMS[0]], name=CLEAN_TWIN, attack="none",
+        defense="none")
+    expected = {CHURN_ARMS[0]: recorded[CHURN_ARMS[0]],
+                CHURN_ARMS[1]: recorded[CHURN_ARMS[1]],
+                CLEAN_TWIN: recorded[CHURN_ARMS[0]]}  # the same schedule
+
+    _reset_launches()                    # the main path's count starts here
+    t0 = time.perf_counter()
+    results = {}
+    for name, spec in specs.items():
+        t1 = time.perf_counter()
+        results[name] = r = scenarios.run(spec, device=device)
+        print(f"  {name}: test_acc={r.test_accuracy:.4f} f1={r.f1:.4f} "
+              f"build={r.build_time_s:.3f}s "
+              f"launches={r.extra['kernel_launches']} "
+              f"({time.perf_counter() - t1:.1f}s)", flush=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {"fedavg_agg": fa.launches, "trimmed_mean_agg": ra.launches,
+                "gossip_mix_agg": gm.launches}
+    seconds = time.perf_counter() - t0
+    out = {"seconds": seconds, "launches": launches, "runs": []}
+    for name, r in results.items():
+        spec = specs[name]
+        values = ([getattr(r, k) for k in _METRICS] + list(r.round_train_acc)
+                  + list(r.round_train_loss) + list(r.round_test_acc))
+        if not all(math.isfinite(v) for v in values):
+            raise SystemExit(f"{name}: non-finite metric")
+        if r.extra["faults"] != expected[name]:
+            raise SystemExit(f"{name}: faults block {r.extra['faults']} "
+                             f"differs from the reference's recorded "
+                             f"{expected[name]}")
+        n_b3 = r.extra["kernel_launches"]["gossip_mix_agg"]
+        dispatched = r.extra["telemetry"]["dispatch"].get(
+            "kernel.gossip_mix", 0)
+        if spec.defense == "none" and dispatched == 0:
+            raise SystemExit(f"{name}: no masked-mix event")
+        if device == "cuda" and n_b3 != dispatched:
+            raise SystemExit(f"{name}: gossip_mix_agg launched {n_b3} times "
+                             f"for {dispatched} masked-mix events")
+        if spec.defense != "none" and n_b3:
+            raise SystemExit(f"{name}: a defended ring launched "
+                             f"gossip_mix_agg")
+        out["runs"].append(dict(r.row(), scenario=name,
+                                kernel_launches=r.extra["kernel_launches"],
+                                faults=r.extra["faults"],
+                                warmup_time_s=r.warmup_time_s,
+                                round_test_acc=r.round_test_acc,
+                                round_train_loss=r.round_train_loss))
+    f1 = {n: results[n].f1 for n in CHURN_ARMS}
+    margin = f1[CHURN_ARMS[0]] - f1[CHURN_ARMS[1]]
+    out["mtd_margin"] = margin
+    print(f"  macro-F1: MTD {f1[CHURN_ARMS[0]]:.4f}, static "
+          f"{f1[CHURN_ARMS[1]]:.4f}, margin {margin:+.4f} (reference "
+          f"recorded +0.21; the reference's CI floor on the MTD arm 0.2)",
+          flush=True)
+    if CHURN_MARGIN_GATED and margin <= 0:
+        raise SystemExit(f"MTD margin {margin} is not positive")
+    if device == "cuda" and launches["gossip_mix_agg"] == 0:
+        raise SystemExit("churn path: gossip_mix_agg was launched no time")
+    print(f"  churn path: launches {launches} in {seconds:.1f}s", flush=True)
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -610,6 +886,13 @@ def main():
     study = study_phase("cuda", "quick")
     _phase("adversarial study (slice 2 main path)")
     adversarial = adversarial_phase("cuda")
+    _phase("churn (slice 3 main path)")
+    print("  -- (a) gossip_mix_agg against its plain version", flush=True)
+    kernels["gossip_mix_agg"] = _gossip_rows()
+    print("  -- (b) card against CPU under faults", flush=True)
+    parity["churn"] = churn_parity_phase("cuda", "cpu")
+    print("  -- (c) the churn study", flush=True)
+    churn = churn_phase("cuda")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -637,10 +920,25 @@ def main():
         "library_ms": None, "sort_ms": trep["sort_ms"],
         "shape": [32, 7900], "trim": 8,
         "shapes": [r for r in trows if "ms" in r]}
+    grows = kernels["gossip_mix_agg"]
+    grep = next(r for r in grows if r["schedule"] == "churn32-mtd"
+                and "ms" in r)
+    gentry = {
+        "name": "gossip_mix_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
+        "replaces": "src/repro/kernels/gossip_mix.py:59",
+        "launches": churn["launches"]["gossip_mix_agg"],
+        "max_abs_err": max(r["max_abs_err"] for r in grows),
+        "ms": grep["ms"], "plain_ms": grep["plain_ms"],
+        "bound_ms": grep["bound_ms"], "bound_by": grep["bound_by"],
+        "library_ms": grep["library_ms"], "shape": [32, 7900],
+        "shapes": [r for r in grows if "ms" in r]}
+    for e in (entry, tentry):
+        e["launches_churn"] = churn["launches"][e["name"]]
     doc = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
            "kernels": kernels, "parity": parity, "study": study,
-           "adversarial": adversarial}
+           "adversarial": adversarial, "churn": churn}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(doc, indent=1))
@@ -662,9 +960,19 @@ def main():
             "kernel_graph_us": r["graph_ms"] * 1e3,
             "plain_graph_us": r["plain_graph_ms"] * 1e3,
             "sort_graph_us": r["sort_graph_ms"] * 1e3,
-            "launches": tentry["launches"]} for r in tentry["shapes"]]))
+            "launches": tentry["launches"]} for r in tentry["shapes"]]
+        + [{"name": "gossip_mix_agg", "replaces": gentry["replaces"],
+            "C": r["C"], "N": r["N"], "schedule": r["schedule"],
+            "max_err": r["max_abs_err"], "kernel_us": r["ms"] * 1e3,
+            "plain_us": r["plain_ms"] * 1e3,
+            "library_us": r["library_ms"] * 1e3,
+            "bound_us": r["bound_ms"] * 1e3,
+            "kernel_graph_us": r["graph_ms"] * 1e3,
+            "plain_graph_us": r["plain_graph_ms"] * 1e3,
+            "library_graph_us": r["library_graph_ms"] * 1e3,
+            "launches": gentry["launches"]} for r in gentry["shapes"]]))
     print(card)
-    print(json.dumps({"kernels": [entry, tentry]}))
+    print(json.dumps({"kernels": [entry, tentry, gentry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,14 +11,17 @@ defense (DESIGN.md §8) — with the robust operators of `core/robust.py`.
   event). Every weighted reduction lowers onto the `fedavg_agg` kernel
   and every median / trimmed mean onto the `trimmed_mean_agg` kernel
   through the ravel path in `kernels/ops.py`; gossip is a dense mixing
-  matmul (each output row mixes several inputs), left to `torch.matmul`
-  as the reference leaves it to XLA, and defended gossip one batched
-  `torch.sort` over the gathered neighborhoods, as the reference uses
-  `jnp.sort` there.
+  matmul (each output row mixes several inputs): on the static ring it
+  is left to `torch.matmul`, as the reference leaves it to XLA, and
+  under dynamic membership (`masked_gossip_stacked`, a fresh matrix every
+  round) it runs on the `gossip_mix_agg` kernel. Defended gossip is one
+  batched `torch.sort` over the gathered neighborhoods, as the reference
+  uses `jnp.sort` there.
 
-The fault-injection `alive` masks, masked gossip and the mesh operators
-belong to later slices of the port (ROADMAP §A.12, §A.16): the operators
-here take no `alive` argument.
+Fault injection (DESIGN.md §15): `alive=` on the stacked operators is a
+(C,) 0/1 mask of the event's surviving uploads; `alive=None` is the exact
+fault-free path. The mesh operators belong to a later slice (ROADMAP
+§A.16).
 """
 from __future__ import annotations
 
@@ -144,6 +147,36 @@ def tree_where(flag, on_true: Params, on_false: Params) -> Params:
         on_true, on_false)
 
 
+def _row_mask(alive, leaf) -> torch.Tensor:
+    """(C,) alive mask broadcast as a boolean against a (C, ...) leaf."""
+    m = _as_f32(alive, leaf.device) > 0
+    return m.reshape(tuple(m.shape) + (1,) * (leaf.dim() - 1))
+
+
+def mask_rows(stacked: Params, alive, fallback: Params) -> Params:
+    """Rows of the stacked tree where `alive` is 0 are replaced by the
+    broadcast `fallback` tree (no leading client axis) — the upload-loss
+    seam: a dead participant's slot carries "no update" (the event's
+    center model) into order-statistic defenses (DESIGN.md §15)."""
+    return tree_map(
+        lambda p, f: torch.where(_row_mask(alive, p), p, f[None].to(p.dtype)),
+        stacked, fallback)
+
+
+def tree_where_rows(mask, on_true: Params, on_false: Params) -> Params:
+    """Per-row `torch.where` between two identically-stacked trees with a
+    (C,) boolean row mask (per-group quorum holds in HFL tier 1)."""
+    return tree_map(lambda a, b: torch.where(_row_mask(mask, a), a, b),
+                    on_true, on_false)
+
+
+def _alive_weights(n: int, weights, alive, device) -> torch.Tensor:
+    """(n,) float32 weights (ones when None) times the 0/1 `alive` mask."""
+    w = (torch.ones((n,), dtype=torch.float32, device=device)
+         if weights is None else _as_f32(weights, device))
+    return w * _as_f32(alive, device)
+
+
 def fedavg_stacked(stacked: Params, weights=None) -> Params:
     """Kernel-backed Eq. (5) over a stacked federation -> single tree."""
     n = tree_leaves(stacked)[0].shape[0]
@@ -153,11 +186,23 @@ def fedavg_stacked(stacked: Params, weights=None) -> Params:
 
 def defended_aggregate_stacked(stacked: Params, weights=None, *,
                                defense: str = "none", f: int = 1,
-                               tau: float = 10.0, center=None) -> Params:
+                               tau: float = 10.0, center=None,
+                               alive=None) -> Params:
     """One defended aggregation event on the stack: plain kernel FedAvg
     when `defense` is "none", else the `core.robust` operator family
     (median / trimmed mean on the selection kernel, norm_clip against
-    `center`, Krum)."""
+    `center`, Krum).
+
+    `alive` (fault injection) zeroes dead participants' weights (the
+    survivors renormalize through the guarded normalizer; an all-dead
+    event degrades to the uniform average) and, when a `center` is given,
+    substitutes their rows by it, so order-statistic defenses see "no
+    update" rather than a lost upload's parameters."""
+    if alive is not None:
+        weights = _alive_weights(tree_leaves(stacked)[0].shape[0], weights,
+                                 alive, _device(stacked))
+        if center is not None:
+            stacked = mask_rows(stacked, alive, center)
     if defense in ("none", None):
         return fedavg_stacked(stacked, weights)
     return robust.robust_aggregate_stacked(
@@ -166,7 +211,7 @@ def defended_aggregate_stacked(stacked: Params, weights=None, *,
 
 def hfl_tier1_stacked(stacked: Params, num_groups: int, weights=None, *,
                       defense: str = "none", f: int = 1, tau: float = 10.0,
-                      centers: Params = None):
+                      centers: Params = None, alive=None):
     """Group-server aggregation over the contiguous equal-size groups of
     `topology.hierarchical_groups`: (C, ...) -> ((G, ...) group models,
     (G,) group sample-weight totals) — one kernel call per group.
@@ -174,7 +219,15 @@ def hfl_tier1_stacked(stacked: Params, num_groups: int, weights=None, *,
     A defense applies here, at the first aggregation boundary Byzantine
     clients reach: each group server robust-aggregates its own slice.
     `centers` is the (G, ...) stacked round-start group models
-    (norm_clip's reference); `f` is the per-group Byzantine allowance."""
+    (norm_clip's reference); `f` is the per-group Byzantine allowance.
+
+    `alive` (fault injection) masks dead clients out of their group's
+    weights (guarded renormalize; a fully dead group degrades to the
+    uniform average of its rows) and, when `centers` are given, replaces
+    their raveled rows by the group's center for every defense, so
+    order-statistic defenses see "no update". Group TOTALS stay the full
+    sample weights: a degraded group server still reports a model at tier
+    2 with its full population weight."""
     mat = kops.stacked_ravel(stacked)
     C = mat.shape[0]
     if C % num_groups:
@@ -182,20 +235,26 @@ def hfl_tier1_stacked(stacked: Params, num_groups: int, weights=None, *,
     per = C // num_groups
     w = (torch.ones((C,), dtype=torch.float32, device=mat.device)
          if weights is None else _as_f32(weights, mat.device))
-    # only norm_clip reads the centers: undefended events skip the ravel
-    center_rows = (kops.stacked_ravel(centers)
-                   if centers is not None and defense == "norm_clip"
+    center_rows = (kops.stacked_ravel(centers) if centers is not None
                    else None)
+    alive_f = None if alive is None else _as_f32(alive, mat.device)
     rows, totals = [], []
     for g in range(num_groups):
         wg = w[g * per:(g + 1) * per]
         gmat = mat[g * per:(g + 1) * per]
+        wg_eff = wg
+        if alive_f is not None:
+            alive_g = alive_f[g * per:(g + 1) * per]
+            wg_eff = wg * alive_g
+            if center_rows is not None:
+                gmat = torch.where(alive_g[:, None] > 0, gmat,
+                                   center_rows[g][None])
         if defense in ("none", None):
             rows.append(kops.fedavg_aggregate(
-                gmat, robust.normalized_weights(per, wg, mat.device)))
+                gmat, robust.normalized_weights(per, wg_eff, mat.device)))
         else:
             rows.append(robust.robust_aggregate(
-                gmat, defense, weights=wg, f=f, tau=tau,
+                gmat, defense, weights=wg_eff, f=f, tau=tau,
                 center=None if center_rows is None else center_rows[g]))
         totals.append(wg.sum())
     return (kops.stacked_unravel(stacked, torch.stack(rows)),
@@ -216,16 +275,20 @@ def hfl_aggregate_stacked(stacked: Params, num_groups: int, weights=None, *,
 
 
 def afl_aggregate_stacked(stacked: Params, weights=None,
-                          participate=None) -> Params:
+                          participate=None, *, alive=None) -> Params:
     """Masked FedAvg over sampled participants: `participate` is a (C,)
     0/1 mask folded into the kernel weights (non-participants contribute
-    zero; at least one participant required)."""
+    zero; at least one participant required). `alive` (fault injection)
+    folds in the same way: a dead participant's upload is lost on the
+    wire and carries zero weight."""
     n = tree_leaves(stacked)[0].shape[0]
     dev = _device(stacked)
     w = (torch.ones((n,), dtype=torch.float32, device=dev)
          if weights is None else _as_f32(weights, dev))
     if participate is not None:
         w = w * _as_f32(participate, dev)
+    if alive is not None:
+        w = w * _as_f32(alive, dev)
     return fedavg_stacked(stacked, w)
 
 
@@ -258,17 +321,45 @@ def gossip_stacked(stacked: Params, neighbors: List[List[int]], *,
     if defense not in ("median", "trimmed_mean"):
         raise ValueError(f"gossip mixing supports median/trimmed_mean "
                          f"defenses, not {defense!r} (DESIGN.md §8)")
-    sizes = {len(n) for n in neighbors}
-    if len(sizes) != 1:
+    if len({len(n) for n in neighbors}) != 1:
         raise ValueError("defended gossip needs equal-size neighborhoods "
                          "(ring topology)")
-    K = sizes.pop() + 1
     idx = torch.as_tensor(np.stack([np.asarray([c] + list(nbrs))
                                     for c, nbrs in enumerate(neighbors)]),
                           device=mat.device)                    # (C, K)
+    return kops.stacked_unravel(stacked, _defended_mix(mat, idx, defense, f))
+
+
+def _defended_mix(mat: torch.Tensor, idx: torch.Tensor, defense: str,
+                  f: int) -> torch.Tensor:
+    """Trimmed mean of each gathered neighborhood: (C, N) stack, (C, K)
+    gather indices -> (C, N), one batched `torch.sort` over (C, K, N)."""
+    if defense not in ("median", "trimmed_mean"):
+        raise ValueError(f"gossip mixing supports median/trimmed_mean "
+                         f"defenses, not {defense!r} (DESIGN.md §8)")
+    K = idx.shape[1]
     gathered = torch.sort(mat[idx], dim=1).values               # (C, K, N)
     t = (K - 1) // 2 if defense == "median" else min(f, (K - 1) // 2)
-    return kops.stacked_unravel(stacked, gathered[:, t:K - t].mean(dim=1))
+    return gathered[:, t:K - t].mean(dim=1)
+
+
+def masked_gossip_stacked(stacked: Params, *, mix=None, gather_idx=None,
+                          defense: str = "none", f: int = 1) -> Params:
+    """Gossip under dynamic membership (fault injection, DESIGN.md §15):
+    the per-round twin of `gossip_stacked` whose graph is an array the
+    fault schedule precomputes each round — the masked row-stochastic
+    mixing matrix `mix` (undefended: dead rows identity, heartbeat-
+    decayed supports, optionally the moving-target ring), applied by the
+    `gossip_mix_agg` kernel, or the (C, K) `gather_idx` neighborhoods
+    (defended: dead or detected neighbors replaced by self, so the sorted
+    neighborhood keeps its static K)."""
+    mat = kops.stacked_ravel(stacked)
+    if defense in ("none", None):
+        return kops.stacked_unravel(stacked, kops.masked_gossip_aggregate(
+            mat, _as_f32(mix, mat.device).contiguous()))
+    idx = torch.as_tensor(np.asarray(gather_idx, np.int64),
+                          device=mat.device)
+    return kops.stacked_unravel(stacked, _defended_mix(mat, idx, defense, f))
 
 
 def cfl_merge_stacked(global_params: Params, client_params: Params,

@@ -149,7 +149,8 @@ def predict_clients(stacked_params, images, *, stacked_apply_fn):
 def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
                    loss_fn, apply_fn, lr, momentum, attack="none",
                    attack_scale=1.0, attack_flags=None, attack_keys=None,
-                   defense="none", clip_tau=10.0):
+                   defense="none", clip_tau=10.0, fault_alive=None,
+                   fault_qok=None):
     """One CFL round — the sequential client-to-client continual pass —
     as a loop over clients in visit order.
 
@@ -161,8 +162,15 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
     corrupts its upload against it, with noise keyed by `attack_keys[i]`;
     `defense="norm_clip"` clips the (possibly corrupted) delta before the
     merge (`defended_cfl_merge`). Every merge is the kernel-backed
-    `cfl_merge_stacked` (C=2 weighted reduction). Returns (final model,
-    losses (C, T), post-train local accs (C,))."""
+    `cfl_merge_stacked` (C=2 weighted reduction).
+
+    Fault injection (DESIGN.md §15): `fault_alive` is a per-visit (C,)
+    0/1 mask — a dead visitor trains (rng parity) but its merge is
+    discarded and the carried model passes through unchanged, as the
+    loop engine skips its host merge; `fault_qok` False holds the whole
+    round at its start model. Both None is the fault-free pass.
+
+    Returns (final model, losses (C, T), post-train local accs (C,))."""
     opt = optimizers.sgd(lr, momentum=momentum)
     C = data["label"].shape[0]
     attacking = attack not in ("none", "label_flip")
@@ -172,12 +180,16 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
             f"and needs per-visit attack_keys (derive them from the run "
             f"seed via attacks.client_keys)")
     losses, accs = [], []
+    model0 = model
     for i in range(C):
         local, loss_t, _ = _local_sgd_scan(
             model, {k: v[i] for k, v in data.items()}, opt, loss_fn)
         with torch.no_grad():
             preds = apply_fn(local, eval_images[i]).argmax(-1)
             accs.append((preds == eval_labels[i]).float().mean())
+        losses.append(loss_t)
+        if fault_alive is not None and not fault_alive[i] > 0:
+            continue                 # upload lost: the merge is discarded
         if attacking:
             local = attacks.corrupt_tree(local, model, bool(attack_flags[i]),
                                          attack_keys[i], kind=attack,
@@ -187,7 +199,8 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
                                                    clip_tau)
         else:
             model = aggregation.cfl_merge_stacked(model, local, alpha)
-        losses.append(loss_t)
+    if fault_qok is not None and not fault_qok:
+        model = model0               # below quorum: the round holds
     return model, torch.stack(losses), torch.stack(accs)
 
 
@@ -310,7 +323,8 @@ class VectorizedClientEngine:
 
     def cfl_round(self, model, order, data, alpha, *, attack="none",
                   attack_scale=1.0, attack_flags=None, attack_keys=None,
-                  defense="none", clip_tau=10.0):
+                  defense="none", clip_tau=10.0, fault_alive=None,
+                  fault_qok=None):
         telemetry.count("engine.cfl_round_dispatch")
         idx = torch.as_tensor(np.asarray(order), device=self.device)
         return cfl_round_scan(model, data, self.eval_x[idx],
@@ -320,4 +334,5 @@ class VectorizedClientEngine:
                               attack_scale=attack_scale,
                               attack_flags=attack_flags,
                               attack_keys=attack_keys, defense=defense,
-                              clip_tau=clip_tau)
+                              clip_tau=clip_tau, fault_alive=fault_alive,
+                              fault_qok=fault_qok)

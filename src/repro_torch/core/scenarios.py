@@ -1,24 +1,28 @@
 """Declarative scenario registry (a partial port of
 `repro.core.scenarios`): `ScenarioSpec` with the reference's fields and
 defaults, its `to_fl_config`, and the registrations of the adversarial
-axis and the strategy plugins.
+axis, the strategy plugins and the churn-tolerant runtime.
 
 A spec names one point of the evaluation space:
 
     strategy x partition (iid / Dirichlet-alpha) x topology
              x adversary (attack type/fraction -> defense; DESIGN.md §8)
-             x engine (loop / vectorized)
+             x faults (profile, churn rate, quorum, MTD; DESIGN.md §15)
+             x engine (loop / vectorized / fused)
 
 `run(name)` builds the dataset and partition, runs the simulation and
 returns its `FLResult`; it runs on the card unless `device="cpu"` is
-passed. The reference's result document (schema v2.5) and its other
-registrations (async, fused, codecs, faults, serving) wait for ROADMAP
-§A.10 and the slices that port those axes; validation covers only what
-the port runs.
+passed. A spec accepts every engine the reference accepts, so the
+reference's registrations are kept word for word; running
+`engine="fused"` raises NotImplementedError naming ROADMAP §A.13. The
+reference's result document (schema v2.5) and its other registrations
+(async, codecs, serving) wait for ROADMAP §A.10 and the slices that port
+those axes.
 
     PYTHONPATH=src python -m repro_torch.core.scenarios --list
     PYTHONPATH=src python -m repro_torch.core.scenarios \\
-        --run attack-signflip-median-32c-vec [--device cpu]
+        --run churn-signflip-median-mtd [--device cpu] \\
+        [--fault-profile mid] [--churn-rate 0.3] [--quorum-frac 0.6]
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import dataclasses
 import time
 from typing import Dict, List, Optional
 
+from repro_torch.core.faults import FAULT_PROFILES
 from repro_torch.core.fl_types import ATTACKS, FLConfig
 from repro_torch.core.simulation import FederatedSimulation
 from repro_torch.core.strategies import get_strategy
@@ -34,6 +39,7 @@ from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import DATASETS
 
 PARTITIONS = ("iid", "dirichlet")
+ENGINES = ("loop", "vectorized", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +51,7 @@ class ScenarioSpec:
     description: str
     strategy: str = "afl"            # any registered Strategy plugin
     topology: str = "star"           # see Strategy.topologies
-    engine: str = "vectorized"       # loop | vectorized
+    engine: str = "vectorized"       # loop | vectorized | fused
     # data
     dataset: str = "mnist"           # mnist | fashion
     partition: str = "iid"           # iid | dirichlet
@@ -82,8 +88,8 @@ class ScenarioSpec:
     defense: str = "none"            # core/robust.py
     defense_f: int = 0               # 0 = derive from attack_fraction
     clip_tau: float = 10.0
-    # fault injection (ROADMAP §A.12)
-    fault_profile: str = "none"
+    # fault injection / dynamic membership (DESIGN.md §15)
+    fault_profile: str = "none"      # core/faults.py FAULT_PROFILES
     churn_rate: float = 0.3
     quorum_frac: float = 0.5
     heartbeat_timeout: int = 1
@@ -118,10 +124,9 @@ class ScenarioSpec:
             raise ValueError(f"unknown partition {self.partition!r}")
         if self.dataset not in DATASETS:
             raise ValueError(f"unknown dataset {self.dataset!r}")
-        if self.engine not in ("loop", "vectorized"):
-            raise ValueError(
-                f"{self.name}: engine {self.engine!r} is not ported "
-                f"(loop | vectorized)")
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine {self.engine!r} "
+                             f"(expected one of {ENGINES})")
         if self.attack not in ATTACKS:
             raise ValueError(f"unknown attack {self.attack!r} "
                              f"(expected one of {ATTACKS})")
@@ -131,6 +136,19 @@ class ScenarioSpec:
                 f"{self.name}: defense {self.defense!r} does not apply to "
                 f"the {self.strategy}/{self.topology} aggregation event "
                 f"(expected one of {allowed}; DESIGN.md §8)")
+        if self.fault_profile not in FAULT_PROFILES:
+            raise ValueError(
+                f"{self.name}: unknown fault profile "
+                f"{self.fault_profile!r} (expected one of "
+                f"{FAULT_PROFILES})")
+        if self.fault_mtd and self.topology != "ring":
+            raise ValueError(
+                f"{self.name}: fault_mtd re-randomizes the GOSSIP ring "
+                f"per round — it needs topology='ring' (DESIGN.md §15)")
+        if self.attack_placement not in ("random", "colluding"):
+            raise ValueError(
+                f"{self.name}: unknown attack placement "
+                f"{self.attack_placement!r} (expected random|colluding)")
 
     def to_fl_config(self) -> FLConfig:
         """The underlying FLConfig: an AFL ring topology selects gossip
@@ -271,6 +289,44 @@ register(ScenarioSpec(
     strategy="afl", topology="ring", participation=1.0,
     attack="sign_flip", attack_scale=4.0, defense="median"))
 
+# churn-tolerant runtime (DESIGN.md §15): the reference's dynamic-
+# membership registrations, word for word. The acceptance PAIR is
+# `churn-signflip-median-mtd` against its `-static` twin: same data,
+# schedule, seed and churn; only the per-round moving-target ring
+# re-randomization toggles, against colluding sign-flip neighborhoods
+# (attackers at even ids sandwich every other ring position; on the
+# static degree-4 ring each attacker's gather window holds 3 corrupt
+# values of 5, saturating the median).
+register(ScenarioSpec(
+    "churn-afl-gossip-mtd", "clean gossip ring under 30% crash/rejoin "
+    "churn with per-round moving-target re-randomization, fused "
+    "executor (fault schedule as precomputed scan inputs)",
+    strategy="afl", topology="ring", engine="fused", participation=1.0,
+    fault_profile="churn", churn_rate=0.3, fault_mtd=True))
+register(ScenarioSpec(
+    "churn-hfl-quorum", "centralized HFL under mid-severity faults with "
+    "a strict quorum: below-quorum groups hold their round-start model, "
+    "below-quorum rounds hold the hierarchy",
+    strategy="hfl", topology="hierarchical", local_epochs=2,
+    fault_profile="mid", quorum_frac=0.6))
+_CHURN32 = dict(_ACC32, topology="ring", attack="sign_flip",
+                attack_scale=1.5, attack_placement="colluding",
+                defense="median", gossip_neighbors=4,
+                fault_profile="churn", churn_rate=0.3)
+register(ScenarioSpec(
+    "churn-signflip-median-mtd", "32-client acceptance run: colluding "
+    "sign-flip neighborhoods on the gossip ring under 30% churn, median "
+    "defense, WITH per-round moving-target re-randomization",
+    fault_mtd=True, **_CHURN32))
+register(ScenarioSpec(
+    "churn-signflip-median-static", "static-ring twin of "
+    "churn-signflip-median-mtd (the colluding sandwich persists every "
+    "round — the baseline MTD is measured against)",
+    fault_mtd=False, **_CHURN32))
+CHURN_SCENARIOS = ("churn-afl-gossip-mtd", "churn-hfl-quorum",
+                   "churn-signflip-median-mtd",
+                   "churn-signflip-median-static")
+
 ACCEPTANCE_FAMILY = ("attack-none-32c-vec", "attack-signflip-fedavg-32c-vec",
                      "attack-signflip-median-32c-vec",
                      "attack-signflip-trimmed-32c-vec")
@@ -309,7 +365,20 @@ def main(argv: Optional[List[str]] = None):
                     help="run the named scenario(s)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--fault-profile", choices=FAULT_PROFILES,
+                    help="override every selected scenario's fault "
+                         "profile (DESIGN.md §15)")
+    ap.add_argument("--churn-rate", type=float,
+                    help="override the fault schedule's churn/severity "
+                         "rate (fraction in [0,1])")
+    ap.add_argument("--quorum-frac", type=float,
+                    help="override the quorum threshold fraction an "
+                         "aggregation event needs to proceed")
     args = ap.parse_args(argv)
+    overrides = {k: v for k, v in (("fault_profile", args.fault_profile),
+                                   ("churn_rate", args.churn_rate),
+                                   ("quorum_frac", args.quorum_frac))
+                 if v is not None}
     if args.list or not args.run:
         for n in names():
             s = REGISTRY[n]
@@ -319,11 +388,20 @@ def main(argv: Optional[List[str]] = None):
                   f"clients={s.num_clients:<3d} {adv:24s} {s.description}")
         return
     for name in args.run:
+        spec = get(name)
+        if overrides:
+            # dataclasses.replace re-runs __post_init__, so an invalid
+            # override combination fails before any training
+            spec = dataclasses.replace(spec, **overrides)
         t0 = time.perf_counter()
-        r = run(name, device=args.device)
+        r = run(spec, device=args.device)
+        faults = r.extra.get("faults")
+        tail = ("" if faults is None else
+                f" quorum_failures={faults['quorum_failures']} "
+                f"mean_alive_frac={faults['mean_alive_frac']:.3f}")
         print(f"{name}: test_acc={r.test_accuracy:.3f} f1={r.f1:.3f} "
               f"build={r.build_time_s:.2f}s "
-              f"launches={r.extra['kernel_launches']} "
+              f"launches={r.extra['kernel_launches']}{tail} "
               f"({time.perf_counter() - t0:.1f}s on {r.extra['device']})",
               flush=True)
 

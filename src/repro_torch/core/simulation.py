@@ -23,6 +23,12 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
   between local training and aggregation (`corrupt`, and per visit in
   `sequential_round`); strategies aggregate through the defended
   operators with `defense_kwargs`.
+* fault injection (DESIGN.md §15) — a named `fault_profile` compiles
+  into a precomputed numpy schedule (`core/faults.py`) from its own
+  salted generator; strategies read each event's view through
+  `fault_view`, the sequential pass masks dead visitors' merges, and the
+  result carries the schema-v2.5 `faults` block. `fault_profile="none"`
+  builds no schedule and every fault seam is a host-level `if`.
 * metric tracking + the paper's timing protocol (DESIGN.md §3): build
   time excludes the warmup, classification time is min-of-3 on the
   served model, and every timer synchronizes the card on entry and exit.
@@ -45,12 +51,14 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import aggregation, attacks, robust
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import strategies as strat_mod
 from repro_torch.core.fl_types import FLConfig
 from repro_torch.core.metrics import Timer, classification_metrics
 from repro_torch.data.partition import iid_partition
 from repro_torch.kernels import fedavg_agg as fedavg_kernel
+from repro_torch.kernels import gossip_mix as gossip_kernel
 from repro_torch.kernels import robust_agg as robust_kernel
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import export as obs_export
@@ -96,7 +104,6 @@ _LATER_SLICES = (
     ("engine", lambda v: v == "fused", "§A.13 (fused executor)"),
     ("mesh_devices", lambda v: v > 1, "§A.16 (mesh)"),
     ("codec", lambda v: v != "none", "§A.11 (codecs, kernel B4)"),
-    ("fault_profile", lambda v: v != "none", "§A.12 (churn, kernel B3)"),
     ("serve", lambda v: bool(v), "§A.14 (obs/ and serve/)"),
     ("strategy", lambda v: v == "async", "§A.8 (the async runtime)"),
 )
@@ -173,6 +180,12 @@ class FederatedSimulation:
             lambda t: torch.as_tensor(t).to(self.device), params)
         self.strategy = strat_mod.get_strategy(fl.strategy)(fl)
         self.strategy.validate()
+        # fault-injection schedule (DESIGN.md §15), from its own salted
+        # generator so the run rng never shifts; None for "none"
+        self.faults = faults_mod.compile_schedule(
+            fl, n_events=self.strategy.num_events(self),
+            event_size=self.strategy.event_size())
+        self._fault_log: Dict[int, Any] = {}
         # Byzantine subset: drawn from a dedicated generator (never the
         # schedule rng), so the attack axis leaves the §4 parity intact
         self.attack_mask = (
@@ -236,7 +249,8 @@ class FederatedSimulation:
     @staticmethod
     def _kernel_launches():
         return {"fedavg_agg": fedavg_kernel.launches,
-                "trimmed_mean_agg": robust_kernel.launches}
+                "trimmed_mean_agg": robust_kernel.launches,
+                "gossip_mix_agg": gossip_kernel.launches}
 
     def set_partition(self, parts):
         """Re-partition the train split (e.g. Dirichlet non-IID) after
@@ -330,16 +344,33 @@ class FederatedSimulation:
                 uploads, self._bases_stacked(plan), flags, keys,
                 kind=fl.attack, scale=fl.attack_scale)
 
+    def fault_view(self, plan):
+        """The plan's event-level fault view (DESIGN.md §15), or None when
+        fault injection is off. Precomputed numpy indexing, so strategies
+        may call it from aggregation events and warmup dry-runs alike;
+        every call logs the view into `_fault_log` (idempotently: the
+        schedule is immutable), which feeds the result's `faults` block."""
+        if self.faults is None:
+            return None
+        fe = self.faults.event_view(plan.event, plan.participants)
+        self._fault_log[plan.event] = fe
+        return fe
+
     def sequential_round(self, model, order, event, alpha, spec, rng):
         """One continual (CFL-style) pass: clients train in visit order,
         each (possibly corrupted, possibly norm-clipped) update merging
         into the carried model; the visit's corruption base is the model
         it pulled. Loop engine: per-visit training + host merges;
         vectorized: one pass over the visits with the kernel-backed merge.
-        Returns (model, losses, accs)."""
+        Under faults a dead visitor still trains (rng parity) but its
+        merge is discarded, and a below-quorum round reverts to its start
+        model. Returns (model, losses, accs)."""
         fl = self.fl
         attacking = fl.attack not in ("none", "label_flip")
         keys = attacks.client_keys(attacks.event_key(fl.seed, event), order)
+        # the strategy's run_event has logged this event's view
+        fe = (self.faults.event_view(event, order)
+              if self.faults is not None else None)
         with self.telemetry.span("sequential_round", k=len(order)):
             if self.vec is not None:
                 eng = self.vec
@@ -349,13 +380,20 @@ class FederatedSimulation:
                     attack_scale=fl.attack_scale,
                     attack_flags=self.attack_mask[np.asarray(order, int)],
                     attack_keys=keys, defense=fl.defense,
-                    clip_tau=fl.clip_tau)
+                    clip_tau=fl.clip_tau,
+                    fault_alive=None if fe is None else fe.alive,
+                    fault_qok=None if fe is None else fe.qok)
                 return (model,
                         losses[:, -eng.nb:].mean(dim=1).cpu().numpy(),
                         accs.cpu().numpy())
             losses, accs = [], []
-            for c, key in zip(order, keys):
+            model0 = model
+            for i, (c, key) in enumerate(zip(order, keys)):
                 local, loss, acc = self._local_train(model, c, spec=spec)
+                losses.append(loss)
+                accs.append(acc)
+                if fe is not None and not fe.alive_b[i]:
+                    continue         # upload lost: the merge is discarded
                 if attacking and self.attack_mask[c]:
                     local = attacks.corrupt_tree(local, model, True, key,
                                                  kind=fl.attack,
@@ -363,8 +401,8 @@ class FederatedSimulation:
                 if fl.defense == "norm_clip":
                     local = robust.clip_update(model, local, fl.clip_tau)
                 model = aggregation.cfl_merge(model, local, alpha)
-                losses.append(loss)
-                accs.append(acc)
+            if fe is not None and not fe.qok:
+                model = model0       # below quorum: the round holds
             return model, losses, accs
 
     # -- warmup (DESIGN.md §3: one-time costs stay out of the timers) -------
@@ -488,6 +526,9 @@ class FederatedSimulation:
             m = classification_metrics(y_true, y_pred, 10)
 
         extra = dict(strat.extra_result(self, state))
+        if self.faults is not None:
+            # schema-v2.5 faults block, absent when fault_profile="none"
+            extra["faults"] = self._faults_block()
         if self.vec is not None and self.vec.dropped_samples:
             # the stacked engine trains every client for the federation-
             # minimum batch count (engine.ShardTruncationWarning)
@@ -516,6 +557,25 @@ class FederatedSimulation:
             steady_time_s=build_timer.elapsed,
             extra=extra,
         )
+
+    def _faults_block(self) -> Dict[str, Any]:
+        """The schema-v2.5 `faults` result block (DESIGN.md §15): the
+        schedule's statistics (deterministic in (seed, profile)) plus the
+        run's observed event log — quorum failures, degraded rounds and
+        the mean alive fraction over the events driven."""
+        block = self.faults.schedule_stats()
+        log = self._fault_log
+        fails = sorted(ev for ev, fe in log.items() if not fe.qok)
+        degraded = sorted(ev for ev, fe in log.items()
+                          if fe.n_alive < len(fe.alive))
+        block["events_logged"] = len(log)
+        block["quorum_failures"] = len(fails)
+        block["quorum_failed_events"] = fails
+        block["degraded_rounds"] = len(degraded)
+        block["mean_event_alive_frac"] = (
+            float(np.mean([fe.n_alive / max(1, len(fe.alive))
+                           for fe in log.values()])) if log else 1.0)
+        return block
 
     def _track(self, curves, accs, losses, model_for_eval):
         curves["train_acc"].append(float(np.mean(np.asarray(accs))))

@@ -15,9 +15,14 @@ The built-ins are the paper's three architectures (HFL, AFL, CFL) and
 the plugins FedProx, FedAvgM and FedAdam. Every round runs the
 adversarial seam of DESIGN.md §8: uploads are corrupted
 (`sim.corrupt`) between local training and the defended aggregation
-event. The fused executor's `scan_*` hooks, fault-injection holds, codec
-transport and the async runtime belong to later slices of the port
-(ROADMAP §A.8, §A.11, §A.12, §A.13).
+event. Under fault injection (DESIGN.md §15) every event reads its
+fault view from the round driver: dead participants' uploads carry zero
+weight, a below-quorum event holds its round-start state, HFL holds
+below-quorum groups, and AFL gossip mixes through the schedule's
+per-round masked matrix (the `gossip_mix_agg` kernel) or, defended, its
+gathered neighborhoods. The fused executor's `scan_*` hooks, codec transport and
+the async runtime belong to later slices of the port (ROADMAP §A.8,
+§A.11, §A.13).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import engine as engine_mod
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import topology
 from repro_torch.core.fl_types import DEFENSES
 from repro_torch.models import cnn as cnn_mod
@@ -159,11 +165,31 @@ class Strategy:
                 plan = self.select_participants(sim, state, event, rng)
                 spec = self.local_spec(sim, state, plan)
             tel.append_series("participants", len(plan.participants))
+            fargs = self._fault_telemetry(sim, plan)
             uploads, losses, accs = sim.local_train(plan, spec, rng)
             uploads = sim.corrupt(uploads, plan)
-            with tel.span("aggregate", event=event):
+            with tel.span("aggregate", event=event, **fargs):
                 state = self.aggregate_event(sim, state, plan, uploads)
         return state, accs, losses
+
+    def _fault_telemetry(self, sim, plan) -> Dict[str, Any]:
+        """Record the event's fault view in telemetry (DESIGN.md §15):
+        the `alive_clients` series and the churn / quorum counters, plus
+        the annotations returned for the aggregate span. {} when fault
+        injection is off."""
+        fe = sim.fault_view(plan)
+        if fe is None:
+            return {}
+        tel = sim.telemetry
+        tel.append_series("alive_clients", fe.n_alive)
+        dead = len(plan.participants) - fe.n_alive
+        if dead:
+            tel.counter("faults.lost_uploads", dead)
+        if fe.rejoined:
+            tel.counter("faults.rejoins", fe.rejoined)
+        if not fe.qok:
+            tel.counter("faults.quorum_failures", 1)
+        return {"alive": fe.n_alive, "qok": fe.qok}
 
     def warmup(self, sim):
         """Run every program the timed driver loop will run once, outside
@@ -252,18 +278,43 @@ class HFLStrategy(Strategy):
 
     def aggregate_event(self, sim, state, plan, uploads):
         fl = self.fl
+        fe = sim.fault_view(plan)
+        if fe is not None and not fe.qok:
+            # below-quorum round (DESIGN.md §15): the hierarchy — groups,
+            # global and the serving tuple — holds its round-start values
+            return {"groups": state["groups"], "global": state["global"],
+                    "last": self._held_last(sim, state)}
         w = np.asarray(sim.weights, np.float32)
         starts = plan.meta["start_groups"]
+        alive = None if fe is None else fe.alive
         groups, gw = agg.hfl_tier1_stacked(
-            uploads, fl.num_groups, w, centers=starts,
+            uploads, fl.num_groups, w, centers=starts, alive=alive,
             **sim.defense_kwargs(self.event_size()))
+        if fe is not None:
+            # per-group quorum: a below-quorum group server holds its
+            # round-start model (and still enters tier 2 at full weight)
+            gqok = sim.faults.group_qok(plan.event, plan.participants,
+                                        fl.num_groups)
+            groups = agg.tree_where_rows(gqok, groups, starts)
         global_model = state["global"]
         if ((plan.event + 1) % fl.hfl_global_every == 0
                 or plan.event == fl.rounds - 1):
             global_model = agg.fedavg_stacked(groups, gw)
             groups = engine_mod.replicate_tree(global_model, fl.num_groups)
-        return {"groups": groups, "global": global_model,
-                "last": (uploads, starts)}
+        last = ((uploads, starts) if fe is None
+                else (uploads, starts, fe.alive))
+        return {"groups": groups, "global": global_model, "last": last}
+
+    def _held_last(self, sim, state):
+        """The serving tuple a quorum-failed round holds: the previous
+        event's or, when round 0 fails quorum, the init model's (uniform
+        init uploads re-aggregate to the init model)."""
+        if state["last"] is not None:
+            return state["last"]
+        fl = self.fl
+        return (engine_mod.replicate_tree(sim.init_params, fl.num_clients),
+                engine_mod.replicate_tree(sim.init_params, fl.num_groups),
+                np.ones((fl.num_clients,), np.float32))
 
     def round_model(self, state):
         return state["global"]
@@ -274,9 +325,26 @@ class HFLStrategy(Strategy):
         fl = self.fl
         w = np.asarray(sim.weights, np.float32)
         defkw = sim.defense_kwargs(self.event_size())
-        uploads, starts = state["last"]
-        return lambda: agg.hfl_aggregate_stacked(
-            uploads, fl.num_groups, w, centers=starts, **defkw)
+        last = state["last"]
+        if len(last) == 2:
+            uploads, starts = last
+            return lambda: agg.hfl_aggregate_stacked(
+                uploads, fl.num_groups, w, centers=starts, **defkw)
+        # under faults: replay the degraded tiers as the round ran them —
+        # alive-masked tier 1, per-group quorum holds, full-weight tier 2
+        uploads, starts, alive = last
+        per = fl.num_clients // fl.num_groups
+        thr = faults_mod.quorum_threshold(per, fl.quorum_frac)
+        gqok = (np.asarray(alive, np.float32).reshape(fl.num_groups, per)
+                .sum(axis=1) >= thr)
+
+        def serve():
+            groups, gw = agg.hfl_tier1_stacked(
+                uploads, fl.num_groups, w, centers=starts, alive=alive,
+                **defkw)
+            groups = agg.tree_where_rows(gqok, groups, starts)
+            return agg.fedavg_stacked(groups, gw)
+        return serve
 
 
 @register_strategy
@@ -314,32 +382,68 @@ class AFLStrategy(Strategy):
     def aggregate_event(self, sim, state, plan, uploads):
         fl = self.fl
         k = len(plan.participants)
+        fe = sim.fault_view(plan)
+        if fe is not None and not fe.qok:
+            # below-quorum round: hold the global model and the serving
+            # tuple (DESIGN.md §15)
+            return {"global": state["global"],
+                    "last": self._held_last(sim, state)}
         defkw = sim.defense_kwargs(k)
         pw = np.asarray(sim.weights, np.float64)[plan.participants]
         start = plan.bases[0]
+        alive = None if fe is None else fe.alive
         if fl.afl_mode == "gossip":
             # defended mixing bounds Byzantine neighbors; the final
             # consensus average over the mixed models stays plain
-            nbrs = topology.ring_neighbors(k, fl.gossip_neighbors)
-            uploads = agg.gossip_stacked(uploads, nbrs, defense=fl.defense,
-                                         f=defkw["f"])
-            global_model = agg.afl_aggregate_stacked(uploads, pw)
+            if fe is None:
+                nbrs = topology.ring_neighbors(k, fl.gossip_neighbors)
+                uploads = agg.gossip_stacked(uploads, nbrs,
+                                             defense=fl.defense,
+                                             f=defkw["f"])
+            elif fl.defense == "none":
+                # dynamic membership: the schedule's per-round masked
+                # (under MTD re-randomized) mixing matrix
+                uploads = agg.masked_gossip_stacked(
+                    uploads, mix=sim.faults.gossip_mix(
+                        plan.event, plan.participants))
+            else:
+                uploads = agg.masked_gossip_stacked(
+                    uploads, gather_idx=sim.faults.gossip_gather(
+                        plan.event, plan.participants,
+                        fl.gossip_neighbors + 1),
+                    defense=fl.defense, f=defkw["f"])
+            global_model = agg.afl_aggregate_stacked(uploads, pw,
+                                                     alive=alive)
         else:
             global_model = agg.defended_aggregate_stacked(
-                uploads, pw, center=start, **defkw)
-        return {"global": global_model, "last": (uploads, pw, start, k)}
+                uploads, pw, center=start, alive=alive, **defkw)
+        last = ((uploads, pw, start, k) if fe is None
+                else (uploads, pw, start, k, fe.alive))
+        return {"global": global_model, "last": last}
+
+    def _held_last(self, sim, state):
+        """The serving tuple a quorum-failed round holds (a round-0
+        failure holds the init model's)."""
+        if state["last"] is not None:
+            return state["last"]
+        k = self.event_size()
+        return (engine_mod.replicate_tree(sim.init_params, k),
+                np.ones((k,), np.float32), sim.init_params, k,
+                np.ones((k,), np.float32))
 
     def round_model(self, state):
         return state["global"]
 
     def served_fn(self, sim, state):
         fl = self.fl
-        uploads, pw, start, k = state["last"]
+        uploads, pw, start, k, *rest = state["last"]
+        alive = rest[0] if rest else None
         defkw = sim.defense_kwargs(k)
         if fl.afl_mode == "gossip":
-            return lambda: agg.afl_aggregate_stacked(uploads, pw)
+            return lambda: agg.afl_aggregate_stacked(uploads, pw,
+                                                     alive=alive)
         return lambda: agg.defended_aggregate_stacked(
-            uploads, pw, center=start, **defkw)
+            uploads, pw, center=start, alive=alive, **defkw)
 
 
 @register_strategy
@@ -369,6 +473,9 @@ class CFLStrategy(Strategy):
             with tel.span("select", event=event):
                 plan = self.select_participants(sim, state, event, rng)
             tel.append_series("participants", len(plan.participants))
+            # logs this event's fault view; sequential_round re-derives
+            # the same view for the per-visit merge masking
+            self._fault_telemetry(sim, plan)
             # training + merge fuse in sequential_round, which records
             # its own phase span
             model, losses, accs = sim.sequential_round(
@@ -454,19 +561,29 @@ class ServerOptStrategy(AFLStrategy):
     def init_state(self, sim):
         opt = self.make_opt()
         return {"global": sim.init_params, "opt": opt,
-                "opt_state": opt.init(sim.init_params)}
+                "opt_state": opt.init(sim.init_params), "last": None}
 
     def aggregate_event(self, sim, state, plan, uploads):
         k = len(plan.participants)
+        fe = sim.fault_view(plan)
+        if fe is not None and not fe.qok:
+            # below-quorum round: no pseudo-gradient step — the server
+            # optimizer's state holds along with the model (DESIGN.md §15)
+            return {"global": state["global"], "opt": state["opt"],
+                    "opt_state": state["opt_state"],
+                    "last": self._held_last(sim, state)}
         pw = np.asarray(sim.weights, np.float64)[plan.participants]
         g = state["global"]
+        alive = None if fe is None else fe.alive
         aggregate = agg.defended_aggregate_stacked(
-            uploads, pw, center=g, **sim.defense_kwargs(k))
+            uploads, pw, center=g, alive=alive, **sim.defense_kwargs(k))
         pseudo_grad = tree_map(lambda a, b: (a - b).float(), g, aggregate)
         updates, opt_state = state["opt"].update(pseudo_grad,
                                                  state["opt_state"], g)
+        last = ((uploads, pw, g, k) if fe is None
+                else (uploads, pw, g, k, fe.alive))
         return {"global": optimizers.apply_updates(g, updates),
-                "opt": state["opt"], "opt_state": opt_state}
+                "opt": state["opt"], "opt_state": opt_state, "last": last}
 
     def served_fn(self, sim, state):
         # the server optimizer's state lives server-side: serve its model

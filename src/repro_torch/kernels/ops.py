@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.kernels import fedavg_agg as _fa
+from repro_torch.kernels import gossip_mix as _gm
 from repro_torch.kernels import robust_agg as _ra
 from repro_torch.obs import telemetry
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -37,6 +38,14 @@ def trimmed_mean_aggregate(stacked, trim):
 def median_aggregate(stacked):
     """Coordinate-wise median: `trimmed_mean_aggregate` at maximal trim."""
     return trimmed_mean_aggregate(stacked, (stacked.shape[0] - 1) // 2)
+
+
+def masked_gossip_aggregate(stacked, mix):
+    """(C, N) matrix, (C, C) row-stochastic mixing matrix -> (C, N) mixed
+    stack: one gossip exchange under dynamic membership (the masked-mix
+    kernel on CUDA tensors, its plain version on CPU tensors)."""
+    telemetry.count("kernel.gossip_mix")
+    return _gm.gossip_mix_agg(stacked, mix)
 
 
 def stacked_ravel(stacked_tree) -> torch.Tensor:

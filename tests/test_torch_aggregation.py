@@ -128,19 +128,26 @@ def test_host_operators_match_reference():
 
 
 def test_outside_slice_raises():
-    """The fault-injection `alive` mask waits for its slice (ROADMAP
-    §A.12): the operators do not take it, so passing it raises instead
-    of being ignored. Defended gossip takes order statistics only."""
+    """Defended gossip takes order statistics only: another defense
+    raises, on the static ring and under dynamic membership. The
+    fault-injection `alive` mask is ported since slice 3 (ROADMAP §A.12):
+    an all-alive mask gives the fault-free result bit for bit."""
     _, port = _stack(4, 9)
     alive = np.ones(4, np.float32)
-    with pytest.raises(TypeError):
-        port_agg.defended_aggregate_stacked(port, defense="median",
-                                            alive=alive)
-    with pytest.raises(TypeError):
-        port_agg.hfl_tier1_stacked(port, 2, alive=alive)
+    pairs = [(port_agg.defended_aggregate_stacked(port, defense="median",
+                                                  alive=alive),
+              port_agg.defended_aggregate_stacked(port, defense="median")),
+             (port_agg.hfl_tier1_stacked(port, 2, alive=alive)[0],
+              port_agg.hfl_tier1_stacked(port, 2)[0])]
+    for masked, plain in pairs:
+        for a, b in zip(tree_leaves(masked), tree_leaves(plain)):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError):
         port_agg.gossip_stacked(port, topology.ring_neighbors(4),
                                 defense="norm_clip")
+    with pytest.raises(ValueError):
+        port_agg.masked_gossip_stacked(
+            port, gather_idx=np.zeros((4, 3), np.int64), defense="norm_clip")
 
 
 def test_tree_where():

@@ -129,7 +129,8 @@ def test_scenario_runner_tiny_run():
     assert all(np.isfinite([r.test_accuracy, r.f1, r.precision, r.recall]))
     # the CPU takes the kernels' plain versions: nothing is launched
     assert r.extra["kernel_launches"] == {"fedavg_agg": 0,
-                                          "trimmed_mean_agg": 0}
+                                          "trimmed_mean_agg": 0,
+                                          "gossip_mix_agg": 0}
     assert r.extra["telemetry"]["dispatch"]["kernel.trimmed_mean"] > 0
     dirichlet = dataclasses.replace(port_scenarios.get("fedprox-dirichlet-vec"),
                                     rounds=1, n_train=512)
@@ -142,9 +143,11 @@ def test_scenario_runner_tiny_run():
     (dict(strategy="cfl", topology="sequential", defense="median"),
      "does not apply"),
     (dict(topology="ring", strategy="fedprox"), "invalid"),
-    (dict(engine="fused"), "not ported"),
+    (dict(engine="turbo"), "unknown engine"),
     (dict(partition="shards"), "partition"),
     (dict(strategy="nope"), "unknown strategy"),
+    (dict(fault_profile="quake"), "unknown fault profile"),
+    (dict(fault_profile="churn", fault_mtd=True), "needs topology='ring'"),
 ])
 def test_scenario_spec_validation(kw, match):
     with pytest.raises(ValueError, match=match):

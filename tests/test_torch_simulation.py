@@ -118,9 +118,10 @@ def test_default_device_needs_a_card(ds):
 
 
 # configs the port admits since slice 2 (the adversarial axis and the
-# strategy plugins) keep their cases here and must now construct
+# strategy plugins) and slice 3 (fault injection) keep their cases here
+# and must now construct
 _ADMITTED = {("attack", "sign_flip"), ("defense", "median"),
-             ("strategy", "fedprox")}
+             ("strategy", "fedprox"), ("fault_profile", "churn")}
 
 
 @pytest.mark.parametrize("field,value", [

@@ -21,6 +21,20 @@ acc32 — the 32-client sign-flip acceptance family
         (`attack-{none,signflip-fedavg,signflip-median,signflip-trimmed}-32c-vec`)
         through both packages from the reference's initial parameters:
         per-round test accuracy and the final macro-F1 of each.
+churn32 — the 32-client churn acceptance pair
+        (`churn-signflip-median-{mtd,static}`) through both packages from
+        the reference's initial parameters, and through the port from its
+        own: per-round test accuracy, macro-F1, the `faults` block and
+        the MTD margin (mtd F1 - static F1) of each.
+twin32 — the clean twin of `churn-signflip-median-mtd` (attack and
+        defense off; chip_smoke.py's `churn-clean-mtd`, the run that mixes
+        through `gossip_mix_agg`) through the port on the CPU from its own
+        init, under the vectorized and the loop engine: per-round test
+        accuracy and training loss.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
+        churn32 [--out FILE]
+    PYTHONPATH=src python tests/torch_reference_probe.py twin32 [--out FILE]
 """
 import argparse
 import json
@@ -220,13 +234,70 @@ def probe_acc32():
     return out
 
 
+CHURN_PAIR = ("churn-signflip-median-mtd", "churn-signflip-median-static")
+
+
+def probe_churn32():
+    out = {}
+    for name in CHURN_PAIR:
+        spec = port_scenarios.get(name)
+        ds = port_scenarios.DATASETS[spec.dataset](
+            seed=spec.seed, n_train=spec.n_train, n_test=spec.n_test)
+        t0 = time.perf_counter()
+        ref = ref_sim_mod.FederatedSimulation(
+            ref_scenarios.get(name).to_fl_config(), ds)
+        start = jax.tree.map(np.asarray, ref.init_params)
+        runs = {"ref": ref, "port": port_sim_mod.FederatedSimulation(
+                    spec.to_fl_config(), ds,
+                    model_init=lambda g: convert.params_from_jax(start),
+                    device="cpu"),
+                "port_own_init": port_sim_mod.FederatedSimulation(
+                    spec.to_fl_config(), ds, device="cpu")}
+        out[name] = {}
+        for who, sim in runs.items():
+            r = sim.run()
+            out[name][who] = {
+                "round_test_acc": [float(v) for v in r.round_test_acc],
+                "f1": float(r.f1), "test_accuracy": float(r.test_accuracy),
+                "faults": r.extra["faults"]}
+            print(f"{name} {who}: f1={r.f1:.4f} test acc per round "
+                  f"{np.round(r.round_test_acc, 4).tolist()}", flush=True)
+        print(f"  ({time.perf_counter() - t0:.0f}s)", flush=True)
+    for who in ("ref", "port", "port_own_init"):
+        margin = (out[CHURN_PAIR[0]][who]["f1"]
+                  - out[CHURN_PAIR[1]][who]["f1"])
+        out[f"{who}_mtd_margin"] = margin
+        print(f"{who}: MTD margin (mtd F1 - static F1) {margin:+.4f}")
+    return out
+
+
+def probe_twin32():
+    import dataclasses
+    spec = dataclasses.replace(port_scenarios.get(CHURN_PAIR[0]),
+                               name="churn-clean-mtd", attack="none",
+                               defense="none")
+    out = {}
+    for engine in ("vectorized", "loop"):
+        r = port_scenarios.run(dataclasses.replace(spec, engine=engine),
+                               device="cpu")
+        out[engine] = {"round_test_acc": [float(v) for v in r.round_test_acc],
+                       "round_train_loss": [float(v) for v in
+                                            r.round_train_loss],
+                       "f1": float(r.f1)}
+        print(f"{engine}: f1={r.f1:.4f}\n  test acc per round "
+              f"{np.round(r.round_test_acc, 4).tolist()}\n  train loss per "
+              f"round {np.round(r.round_train_loss, 3).tolist()}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("hfl4", "acc32"))
+    ap.add_argument("probe", choices=("hfl4", "acc32", "churn32", "twin32"))
     ap.add_argument("--out", help="write the readings here as JSON")
     args = ap.parse_args()
     torch.set_num_threads(2)
-    doc = {"hfl4": probe_hfl4, "acc32": probe_acc32}[args.probe]()
+    doc = {"hfl4": probe_hfl4, "acc32": probe_acc32,
+           "churn32": probe_churn32, "twin32": probe_twin32}[args.probe]()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=1)
