@@ -20,8 +20,10 @@ defense (DESIGN.md §8) — with the robust operators of `core/robust.py`.
 
 Fault injection (DESIGN.md §15): `alive=` on the stacked operators is a
 (C,) 0/1 mask of the event's surviving uploads; `alive=None` is the exact
-fault-free path. The mesh operators belong to a later slice (ROADMAP
-§A.16).
+fault-free path. The async runtime's batched staleness merge
+(`async_batch_merge`) is one weighted reduction on `fedavg_agg` over the
+server model and the batch's arrivals. The mesh operators belong to a
+later slice (ROADMAP §A.16).
 """
 from __future__ import annotations
 
@@ -384,3 +386,35 @@ def defended_cfl_merge(global_params: Params, client_params: Params,
         global_params, tree_map(lambda leaf: leaf[None], client_params), tau)
     return cfl_merge_stacked(global_params,
                              tree_map(lambda leaf: leaf[0], clipped), alpha)
+
+
+def staleness_batch_weights(alphas) -> torch.Tensor:
+    """Weights that make ONE weighted reduction equal k SEQUENTIAL
+    continual merges with rates alphas[0..k-1] (in that order):
+
+        theta <- (1-a_i) theta + a_i theta_i   for i = 0..k-1
+
+    composes to  theta * prod_j (1-a_j)
+                 + sum_i theta_i * a_i * prod_{j>i} (1-a_j),
+
+    so the (k+1,) float32 vector is [prod(1-a), a_0*suffix_0, ...,
+    a_{k-1}*1] with suffix_i = prod_{j>i}(1-a_j). The entries telescope
+    to sum exactly 1 (DESIGN.md §5)."""
+    a = _as_f32(alphas, "cpu")
+    keep = torch.flip(torch.cumprod(torch.flip(1.0 - a, (0,)), 0), (0,))
+    suffix = torch.cat([keep[1:], torch.ones((1,), dtype=torch.float32)])
+    return torch.cat([keep[:1], a * suffix])
+
+
+def async_batch_merge(global_params: Params, stacked_updates: Params,
+                      alphas) -> Params:
+    """Batched staleness-aware merge: fold k same-tick arrivals (leading
+    axis k, per-arrival rates `alphas`) into the server model in one
+    `fedavg_agg` pass over the (k+1, N) matrix, equal to k sequential
+    `cfl_merge` calls. k = 0 (a tick whose every arrival dropped) returns
+    the server model unchanged."""
+    k = alphas.shape[0] if hasattr(alphas, "shape") else len(alphas)
+    if k == 0:
+        return global_params
+    w = staleness_batch_weights(alphas).to(_device(stacked_updates))
+    return kops.merge_aggregate_stacked(global_params, stacked_updates, w)

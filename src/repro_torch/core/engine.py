@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, attacks
+from repro_torch.core import aggregation, attacks, codecs
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import telemetry
 from repro_torch.optim import optimizers
@@ -149,8 +149,8 @@ def predict_clients(stacked_params, images, *, stacked_apply_fn):
 def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
                    loss_fn, apply_fn, lr, momentum, attack="none",
                    attack_scale=1.0, attack_flags=None, attack_keys=None,
-                   defense="none", clip_tau=10.0, fault_alive=None,
-                   fault_qok=None):
+                   defense="none", clip_tau=10.0, codec=None,
+                   codec_keys=None, fault_alive=None, fault_qok=None):
     """One CFL round — the sequential client-to-client continual pass —
     as a loop over clients in visit order.
 
@@ -163,6 +163,12 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
     `defense="norm_clip"` clips the (possibly corrupted) delta before the
     merge (`defended_cfl_merge`). Every merge is the kernel-backed
     `cfl_merge_stacked` (C=2 weighted reduction).
+
+    Upload codecs (DESIGN.md §12): the per-visit wire seam sits between
+    corruption and the merge; the merged update is the decoded encoding
+    of the (corrupted) local model, each visit keyed by `codec_keys[i]`
+    (from (seed, event, absolute client id), codec salt). Only stateless
+    codecs reach here (the driver validates).
 
     Fault injection (DESIGN.md §15): `fault_alive` is a per-visit (C,)
     0/1 mask — a dead visitor trains (rng parity) but its merge is
@@ -179,6 +185,10 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
             f"cfl_round_scan: attack={attack!r} corrupts uploads per visit "
             f"and needs per-visit attack_keys (derive them from the run "
             f"seed via attacks.client_keys)")
+    if codec is not None and codec_keys is None:
+        raise ValueError(
+            f"cfl_round_scan: codec={codec.name!r} needs per-visit "
+            f"codec_keys (derive them via codecs.upload_keys)")
     losses, accs = [], []
     model0 = model
     for i in range(C):
@@ -194,6 +204,9 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
             local = attacks.corrupt_tree(local, model, bool(attack_flags[i]),
                                          attack_keys[i], kind=attack,
                                          scale=attack_scale)
+        if codec is not None:
+            local = codecs.roundtrip_tree(codec, local, [codec_keys[i]],
+                                          base_tree=model)
         if defense == "norm_clip":
             model = aggregation.defended_cfl_merge(model, local, alpha,
                                                    clip_tau)
@@ -323,8 +336,8 @@ class VectorizedClientEngine:
 
     def cfl_round(self, model, order, data, alpha, *, attack="none",
                   attack_scale=1.0, attack_flags=None, attack_keys=None,
-                  defense="none", clip_tau=10.0, fault_alive=None,
-                  fault_qok=None):
+                  defense="none", clip_tau=10.0, codec=None,
+                  codec_keys=None, fault_alive=None, fault_qok=None):
         telemetry.count("engine.cfl_round_dispatch")
         idx = torch.as_tensor(np.asarray(order), device=self.device)
         return cfl_round_scan(model, data, self.eval_x[idx],
@@ -334,5 +347,6 @@ class VectorizedClientEngine:
                               attack_scale=attack_scale,
                               attack_flags=attack_flags,
                               attack_keys=attack_keys, defense=defense,
-                              clip_tau=clip_tau, fault_alive=fault_alive,
+                              clip_tau=clip_tau, codec=codec,
+                              codec_keys=codec_keys, fault_alive=fault_alive,
                               fault_qok=fault_qok)

@@ -1,12 +1,15 @@
 """Declarative scenario registry (a partial port of
 `repro.core.scenarios`): `ScenarioSpec` with the reference's fields and
 defaults, its `to_fl_config`, and the registrations of the adversarial
-axis, the strategy plugins and the churn-tolerant runtime.
+axis, the strategy plugins, the async runtime, the upload codecs and the
+churn-tolerant runtime.
 
 A spec names one point of the evaluation space:
 
     strategy x partition (iid / Dirichlet-alpha) x topology
+             x heterogeneity (speed model, dropout, staleness decay)
              x adversary (attack type/fraction -> defense; DESIGN.md §8)
+             x upload codec (topk / qsgd; DESIGN.md §12)
              x faults (profile, churn rate, quorum, MTD; DESIGN.md §15)
              x engine (loop / vectorized / fused)
 
@@ -14,10 +17,11 @@ A spec names one point of the evaluation space:
 returns its `FLResult`; it runs on the card unless `device="cpu"` is
 passed. A spec accepts every engine the reference accepts, so the
 reference's registrations are kept word for word; running
-`engine="fused"` raises NotImplementedError naming ROADMAP §A.13. The
-reference's result document (schema v2.5) and its other registrations
-(async, codecs, serving) wait for ROADMAP §A.10 and the slices that port
-those axes.
+`engine="fused"` raises NotImplementedError naming ROADMAP §A.13, and
+`serve=True` naming §A.14. `communication_block(result)` is the
+reference's `communication` block of the result document, with the codec
+registry version; the rest of the reference's result document (schema
+v2.5) waits for ROADMAP §A.10.
 
     PYTHONPATH=src python -m repro_torch.core.scenarios --list
     PYTHONPATH=src python -m repro_torch.core.scenarios \\
@@ -31,6 +35,8 @@ import dataclasses
 import time
 from typing import Dict, List, Optional
 
+from repro_torch.core.codecs import (CODEC_REGISTRY_VERSION, codec_names,
+                                     get_codec)
 from repro_torch.core.faults import FAULT_PROFILES
 from repro_torch.core.fl_types import ATTACKS, FLConfig
 from repro_torch.core.simulation import FederatedSimulation
@@ -94,7 +100,7 @@ class ScenarioSpec:
     quorum_frac: float = 0.5
     heartbeat_timeout: int = 1
     fault_mtd: bool = False
-    # upload codec (ROADMAP §A.11)
+    # upload codec (DESIGN.md §12)
     codec: str = "none"
     topk_frac: float = 0.1
     quant_bits: int = 8
@@ -136,6 +142,22 @@ class ScenarioSpec:
                 f"{self.name}: defense {self.defense!r} does not apply to "
                 f"the {self.strategy}/{self.topology} aggregation event "
                 f"(expected one of {allowed}; DESIGN.md §8)")
+        if self.codec not in codec_names():
+            raise ValueError(
+                f"{self.name}: unknown codec {self.codec!r} "
+                f"(registered: {codec_names()})")
+        if self.codec != "none":
+            codec_cls = get_codec(self.codec)
+            if self.defense not in codec_cls.defenses:
+                raise ValueError(
+                    f"{self.name}: codec {self.codec!r} does not support "
+                    f"defense {self.defense!r} (declared: "
+                    f"{codec_cls.defenses}; DESIGN.md §12)")
+            if codec_cls.stateful and cls.codec_seam != "driver":
+                raise ValueError(
+                    f"{self.name}: stateful codec {self.codec!r} needs the "
+                    f"stacked driver upload seam, which strategy "
+                    f"{self.strategy!r} does not use (DESIGN.md §12)")
         if self.fault_profile not in FAULT_PROFILES:
             raise ValueError(
                 f"{self.name}: unknown fault profile "
@@ -214,6 +236,26 @@ def names() -> List[str]:
     return sorted(REGISTRY)
 
 
+# heterogeneous async runtime (DESIGN.md §5), word for word
+register(ScenarioSpec(
+    "async-uniform-vec", "async staleness-aware merge, homogeneous "
+    "clients (full-federation tick batches)",
+    strategy="async", topology="event", speed_model="uniform"))
+register(ScenarioSpec(
+    "async-straggler-vec", "async with one 4x straggler: fast clients "
+    "keep merging while the straggler's updates arrive stale",
+    strategy="async", topology="event", speed_model="straggler"))
+register(ScenarioSpec(
+    "async-dropout-vec", "async where half the participants fail "
+    "mid-run; the survivors' merges carry the model",
+    strategy="async", topology="event", speed_model="uniform", dropout=0.5,
+    updates_per_client=3))
+register(ScenarioSpec(
+    "async-lognormal-loop", "async under continuous LogNormal speeds "
+    "(singleton batches — the loop engine's regime)",
+    strategy="async", topology="event", engine="loop",
+    speed_model="lognormal", tick=0.0))
+
 # strategy plugins: FedProx (proximal local objective under label skew)
 # and the server-optimizer family over the kernel-backed aggregate
 register(ScenarioSpec(
@@ -288,6 +330,63 @@ register(ScenarioSpec(
     "bounded without any server)",
     strategy="afl", topology="ring", participation=1.0,
     attack="sign_flip", attack_scale=4.0, defense="median"))
+register(ScenarioSpec(
+    "attack-gauss-async-clip-vec", "async staleness merges under "
+    "Gaussian attackers; every arriving delta norm-clipped",
+    strategy="async", topology="event", speed_model="uniform",
+    attack="gauss", attack_scale=3.0, defense="norm_clip", clip_tau=3.0))
+
+# communication axis — upload codecs on the wire (DESIGN.md §12), word
+# for word. The acceptance pair is `comm-qsgd-accept-32c-vec` against its
+# dense twin (same data, schedule and seed; only the codec toggles): the
+# reference's bar is >= 3.5x uplink compression with macro-F1 within
+# 0.02 of the dense run. The pair runs the 32-client basis for 12 rounds.
+register(ScenarioSpec(
+    "comm-topk-afl-vec", "top-k sparsification (10% of coordinates) with "
+    "error-feedback residuals on the AFL star",
+    strategy="afl", topology="star", participation=1.0, local_epochs=2,
+    codec="topk", topk_frac=0.1))
+register(ScenarioSpec(
+    "comm-qsgd-hfl-fused", "int8 stochastic quantization under the fused "
+    "executor: dequantize-and-aggregate inside the round scan",
+    strategy="hfl", topology="hierarchical", engine="fused",
+    local_epochs=2, codec="qsgd"))
+register(ScenarioSpec(
+    "comm-qsgd-signflip-median-vec", "the codec x adversary crossing: "
+    "sign-flip attackers quantized on the wire, median aggregation over "
+    "the dequantized coordinates",
+    strategy="afl", topology="star", participation=1.0, codec="qsgd",
+    attack="sign_flip", attack_scale=4.0, defense="median"))
+register(ScenarioSpec(
+    "comm-topk-async-loop", "top-k + error feedback riding the async "
+    "merge batches under the loop engine",
+    strategy="async", topology="event", engine="loop",
+    speed_model="uniform", codec="topk", topk_frac=0.25))
+_COMM32 = dict(_ACC32, rounds=12)
+register(ScenarioSpec(
+    "comm-dense-accept-32c-vec", "32-client dense reference of the "
+    "codec acceptance pair (the macro-F1 baseline qsgd is held to)",
+    **_COMM32))
+register(ScenarioSpec(
+    "comm-qsgd-accept-32c-vec", "32-client qsgd acceptance run: the "
+    "dense twin with int8 uploads (~4x uplink compression at matched "
+    "macro-F1)",
+    codec="qsgd", **_COMM32))
+register(ScenarioSpec(
+    "serve-qsgd-signflip-median", "the full-stack crossing: sign-flip "
+    "attackers quantized on the wire, median-defended aggregation, and "
+    "the surviving global model served under diurnal traffic",
+    strategy="afl", topology="star", participation=1.0, codec="qsgd",
+    attack="sign_flip", attack_scale=4.0, defense="median", serve=True,
+    serve_arrival="diurnal"))
+ASYNC_SCENARIOS = ("async-uniform-vec", "async-straggler-vec",
+                   "async-dropout-vec", "async-lognormal-loop",
+                   "attack-gauss-async-clip-vec")
+CODEC_SCENARIOS = ("comm-topk-afl-vec", "comm-qsgd-signflip-median-vec",
+                   "comm-topk-async-loop", "comm-dense-accept-32c-vec",
+                   "comm-qsgd-accept-32c-vec")
+COMM_ACCEPTANCE_PAIR = ("comm-qsgd-accept-32c-vec",
+                        "comm-dense-accept-32c-vec")
 
 # churn-tolerant runtime (DESIGN.md §15): the reference's dynamic-
 # membership registrations, word for word. The acceptance PAIR is
@@ -357,6 +456,16 @@ def run(name, device="cuda"):
     return resolve(spec, device).run()
 
 
+def communication_block(result) -> Optional[Dict]:
+    """The result document's `communication` block of a run (None for a
+    dense run): the run's byte-count cost model with the codec registry
+    version."""
+    comm = result.extra.get("communication")
+    if comm is None:
+        return None
+    return {**comm, "registry_version": CODEC_REGISTRY_VERSION}
+
+
 def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--list", action="store_true",
@@ -396,9 +505,13 @@ def main(argv: Optional[List[str]] = None):
         t0 = time.perf_counter()
         r = run(spec, device=args.device)
         faults = r.extra.get("faults")
+        comm = communication_block(r)
         tail = ("" if faults is None else
                 f" quorum_failures={faults['quorum_failures']} "
                 f"mean_alive_frac={faults['mean_alive_frac']:.3f}")
+        if comm is not None:
+            tail += (f" uplink_bytes={comm['uplink_bytes']} "
+                     f"compression={comm['compression_ratio']:.4f}")
         print(f"{name}: test_acc={r.test_accuracy:.3f} f1={r.f1:.3f} "
               f"build={r.build_time_s:.2f}s "
               f"launches={r.extra['kernel_launches']}{tail} "

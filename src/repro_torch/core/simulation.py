@@ -23,6 +23,13 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
   between local training and aggregation (`corrupt`, and per visit in
   `sequential_round`); strategies aggregate through the defended
   operators with `defense_kwargs`.
+* upload codecs (DESIGN.md §12) — `FLConfig.codec` resolves through the
+  codec registry (`core/codecs.py`); `transport` encodes and decodes each
+  event's upload stack between corruption and aggregation (per visit in
+  `sequential_round`), with error-feedback rows gathered from and
+  scattered into the per-client codec state, and logs the event's
+  analytic wire bytes into the `communication` result block.
+  `codec="none"` leaves `self.codec` None and every seam an identity.
 * fault injection (DESIGN.md §15) — a named `fault_profile` compiles
   into a precomputed numpy schedule (`core/faults.py`) from its own
   salted generator; strategies read each event's view through
@@ -51,20 +58,23 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import aggregation, attacks, robust
+from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import strategies as strat_mod
 from repro_torch.core.fl_types import FLConfig
 from repro_torch.core.metrics import Timer, classification_metrics
 from repro_torch.data.partition import iid_partition
+from repro_torch.kernels import comm_agg as comm_kernel
 from repro_torch.kernels import fedavg_agg as fedavg_kernel
 from repro_torch.kernels import gossip_mix as gossip_kernel
+from repro_torch.kernels import ops
 from repro_torch.kernels import robust_agg as robust_kernel
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.obs import export as obs_export
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.optim import optimizers
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -103,9 +113,7 @@ class FLResult:
 _LATER_SLICES = (
     ("engine", lambda v: v == "fused", "§A.13 (fused executor)"),
     ("mesh_devices", lambda v: v > 1, "§A.16 (mesh)"),
-    ("codec", lambda v: v != "none", "§A.11 (codecs, kernel B4)"),
     ("serve", lambda v: bool(v), "§A.14 (obs/ and serve/)"),
-    ("strategy", lambda v: v == "async", "§A.8 (the async runtime)"),
 )
 
 
@@ -180,6 +188,26 @@ class FederatedSimulation:
             lambda t: torch.as_tensor(t).to(self.device), params)
         self.strategy = strat_mod.get_strategy(fl.strategy)(fl)
         self.strategy.validate()
+        # the upload codec (DESIGN.md §12); codec="none" leaves it None
+        # and every transport seam returns early
+        self.model_dim = sum(leaf.numel()
+                             for leaf in tree_leaves(self.init_params))
+        self.codec = None
+        self.codec_state = {}
+        self._comm_log: List[int] = []   # participants per logged event
+        if fl.codec != "none":
+            self.codec = codecs_mod.get_codec(fl.codec)(fl)
+            self.codec.validate(fl)
+            if (self.codec.stateful
+                    and self.strategy.codec_seam != "driver"):
+                raise ValueError(
+                    f"codec {fl.codec!r} carries per-client state "
+                    f"(error feedback), which needs the stacked driver "
+                    f"upload seam; strategy {self.strategy.name!r} "
+                    f"aggregates sequentially "
+                    f"(codec_seam={self.strategy.codec_seam!r}) — use a "
+                    f"stateless codec or a stacked strategy")
+            self.codec_state = self._codec_init_state()
         # fault-injection schedule (DESIGN.md §15), from its own salted
         # generator so the run rng never shifts; None for "none"
         self.faults = faults_mod.compile_schedule(
@@ -250,7 +278,8 @@ class FederatedSimulation:
     def _kernel_launches():
         return {"fedavg_agg": fedavg_kernel.launches,
                 "trimmed_mean_agg": robust_kernel.launches,
-                "gossip_mix_agg": gossip_kernel.launches}
+                "gossip_mix_agg": gossip_kernel.launches,
+                "dequant_agg": comm_kernel.launches}
 
     def set_partition(self, parts):
         """Re-partition the train split (e.g. Dirichlet non-IID) after
@@ -344,6 +373,55 @@ class FederatedSimulation:
                 uploads, self._bases_stacked(plan), flags, keys,
                 kind=fl.attack, scale=fl.attack_scale)
 
+    def transport(self, uploads, plan):
+        """Ship one event's upload stack through the active codec:
+        encode -> decode on the raveled (k, N) matrix, error-feedback rows
+        gathered from and scattered into the per-client codec state, and
+        the event's analytic wire bytes logged (DESIGN.md §12). Identity
+        when codec="none". Runs after `corrupt` (the wire carries the
+        corrupted encoded update) and before aggregation (defenses see
+        dequantized coordinates)."""
+        codec = self.codec
+        if codec is None:
+            return uploads
+        fl = self.fl
+        with self.telemetry.span("encode_decode", codec=codec.name):
+            mat = ops.stacked_ravel(uploads)
+            keys = codecs_mod.upload_keys(fl.seed, plan.event,
+                                          plan.participants)
+            base = (ops.stacked_ravel(self._bases_stacked(plan))
+                    if codec.needs_bases else None)
+            if codec.stateful:
+                pids = torch.as_tensor(np.asarray(plan.participants,
+                                                  np.int64),
+                                       device=mat.device)
+                rows = {k: a[pids] for k, a in self.codec_state.items()}
+                dec, new_rows = codec.scan_encode_decode(
+                    mat, keys, base=base, rows=rows)
+                self.codec_state = {
+                    k: a.index_copy(0, pids, new_rows[k])
+                    for k, a in self.codec_state.items()}
+            else:
+                dec, _ = codec.scan_encode_decode(mat, keys, base=base,
+                                                  rows=None)
+            self._comm_log.append(len(plan.participants))
+            self.telemetry.counter(
+                "codec.uplink_bytes",
+                len(plan.participants) * codec.bytes_on_wire(self.model_dim))
+            return ops.stacked_unravel(uploads, dec)
+
+    def _codec_init_state(self):
+        return self.codec.init_state(self.fl.num_clients, self.model_dim,
+                                     device=self.device)
+
+    def _reset_codec(self):
+        """Re-zero the codec state and the wire log (warmups dry-run the
+        transport, which must not leak residuals or bytes into the
+        measured run)."""
+        if self.codec is not None:
+            self.codec_state = self._codec_init_state()
+            self._comm_log = []
+
     def fault_view(self, plan):
         """The plan's event-level fault view (DESIGN.md §15), or None when
         fault injection is off. Precomputed numpy indexing, so strategies
@@ -366,12 +444,22 @@ class FederatedSimulation:
         merge is discarded, and a below-quorum round reverts to its start
         model. Returns (model, losses, accs)."""
         fl = self.fl
+        codec = self.codec
         attacking = fl.attack not in ("none", "label_flip")
         keys = attacks.client_keys(attacks.event_key(fl.seed, event), order)
         # the strategy's run_event has logged this event's view
         fe = (self.faults.event_view(event, order)
               if self.faults is not None else None)
+        # per-visit wire seam (stateless codecs only): every visit ships,
+        # keyed by (seed, event, absolute client id)
+        ckeys = (codecs_mod.upload_keys(fl.seed, event, order)
+                 if codec is not None else None)
         with self.telemetry.span("sequential_round", k=len(order)):
+            if codec is not None:
+                self._comm_log.append(len(order))
+                self.telemetry.counter(
+                    "codec.uplink_bytes",
+                    len(order) * codec.bytes_on_wire(self.model_dim))
             if self.vec is not None:
                 eng = self.vec
                 data = eng.batched_clients(rng, order, fl.local_epochs)
@@ -380,7 +468,7 @@ class FederatedSimulation:
                     attack_scale=fl.attack_scale,
                     attack_flags=self.attack_mask[np.asarray(order, int)],
                     attack_keys=keys, defense=fl.defense,
-                    clip_tau=fl.clip_tau,
+                    clip_tau=fl.clip_tau, codec=codec, codec_keys=ckeys,
                     fault_alive=None if fe is None else fe.alive,
                     fault_qok=None if fe is None else fe.qok)
                 return (model,
@@ -398,6 +486,11 @@ class FederatedSimulation:
                     local = attacks.corrupt_tree(local, model, True, key,
                                                  kind=fl.attack,
                                                  scale=fl.attack_scale)
+                if codec is not None:
+                    # the merged update is the decoded encoding of the
+                    # (corrupted) local model
+                    local = codecs_mod.roundtrip_tree(
+                        codec, local, [ckeys[i]], base_tree=model)
                 if fl.defense == "norm_clip":
                     local = robust.clip_update(model, local, fl.clip_tau)
                 model = aggregation.cfl_merge(model, local, alpha)
@@ -474,7 +567,9 @@ class FederatedSimulation:
         warmup_timer = Timer(device=self.device)
         with tel.span("warmup", cat="run"), warmup_timer, tel.suppress():
             strat.warmup(self)
+        self._reset_codec()
         n_events = strat.num_events(self)
+        all_accs: List[float] = []
         train_acc = 0.0
         build_timer = Timer(device=self.device)
 
@@ -482,7 +577,12 @@ class FederatedSimulation:
             for ev in range(n_events):
                 state, accs, losses = strat.run_event(self, state, ev)
                 train_acc = float(np.mean(np.asarray(accs)))
-                self._track(curves, accs, losses, strat.round_model(state))
+                all_accs.extend(float(a) for a in np.ravel(accs))
+                if strat.track_curves:
+                    self._track(curves, accs, losses,
+                                strat.round_model(state))
+        if strat.mean_train_acc_over_events:
+            train_acc = float(np.mean(all_accs)) if all_accs else 0.0
         return self._classify_and_result(state, curves, train_acc,
                                          build_timer,
                                          warmup_timer=warmup_timer)
@@ -526,6 +626,8 @@ class FederatedSimulation:
             m = classification_metrics(y_true, y_pred, 10)
 
         extra = dict(strat.extra_result(self, state))
+        if self.codec is not None:
+            extra["communication"] = self._communication_block()
         if self.faults is not None:
             # schema-v2.5 faults block, absent when fault_profile="none"
             extra["faults"] = self._faults_block()
@@ -576,6 +678,27 @@ class FederatedSimulation:
             float(np.mean([fe.n_alive / max(1, len(fe.alive))
                            for fe in log.values()])) if log else 1.0)
         return block
+
+    def _communication_block(self) -> Dict[str, Any]:
+        """The byte-count cost model (DESIGN.md §12), from the per-event
+        participant log. Analytic: bytes follow from the wire format and
+        the participant count, never from device buffers, so they are the
+        same under every engine and device. Uplink is what participants
+        ship through the codec; downlink the dense model each pulled; the
+        compression ratio is dense f32 uplink over codec uplink."""
+        codec, dim = self.codec, self.model_dim
+        per_up = [k * codec.bytes_on_wire(dim) for k in self._comm_log]
+        per_down = [k * 4 * dim for k in self._comm_log]
+        up, dense = sum(per_up), sum(per_down)
+        return {
+            "codec": codec.name,
+            "uplink_bytes_per_round": per_up,
+            "downlink_bytes_per_round": per_down,
+            "uplink_bytes": int(up),
+            "downlink_bytes": int(sum(per_down)),
+            "dense_uplink_bytes": int(dense),
+            "compression_ratio": (dense / up) if up else 1.0,
+        }
 
     def _track(self, curves, accs, losses, model_for_eval):
         curves["train_acc"].append(float(np.mean(np.asarray(accs))))

@@ -11,23 +11,27 @@ generic round driver in `core/simulation.py`.
                             (`core/aggregation.py`)
     round_model / served_fn / extra_result -> metric + serving surface
 
-The built-ins are the paper's three architectures (HFL, AFL, CFL) and
-the plugins FedProx, FedAvgM and FedAdam. Every round runs the
-adversarial seam of DESIGN.md §8: uploads are corrupted
-(`sim.corrupt`) between local training and the defended aggregation
-event. Under fault injection (DESIGN.md §15) every event reads its
-fault view from the round driver: dead participants' uploads carry zero
-weight, a below-quorum event holds its round-start state, HFL holds
-below-quorum groups, and AFL gossip mixes through the schedule's
-per-round masked matrix (the `gossip_mix_agg` kernel) or, defended, its
-gathered neighborhoods. The fused executor's `scan_*` hooks, codec transport and
-the async runtime belong to later slices of the port (ROADMAP §A.8,
-§A.11, §A.13).
+The built-ins are the paper's three architectures (HFL, AFL, CFL), the
+plugins FedProx, FedAvgM and FedAdam, and the async runtime
+(`core/async_agg.py`, loaded on first lookup). Every round runs the
+adversarial seam of DESIGN.md §8 and the upload seam of §12: uploads are
+corrupted (`sim.corrupt`), then shipped through the active codec
+(`sim.transport`), between local training and the defended aggregation
+event; CFL ships per visit inside `sim.sequential_round`. Under fault
+injection (DESIGN.md §15) every event reads its fault view from the
+round driver: dead participants' uploads carry zero weight, a
+below-quorum event holds its round-start state, HFL holds below-quorum
+groups, and AFL gossip mixes through the schedule's per-round masked
+matrix (the `gossip_mix_agg` kernel) or, defended, its gathered
+neighborhoods. The fused executor's `scan_*` hooks belong to a
+later slice of the port (ROADMAP §A.13).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+import importlib
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Type)
 
 import numpy as np
 import torch
@@ -56,11 +60,13 @@ class RoundPlan:
         rng-parity contract consumes batch permutations in).
     bases        — one round-start model per participant.
     event        — the aggregation-event index.
+    alphas       — per-participant merge rates (async staleness).
     meta         — strategy-private scratch carried to aggregate_event.
     """
     participants: List[int]
     bases: List[Params]
     event: int
+    alphas: Optional[Sequence[float]] = None
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -90,12 +96,27 @@ class Strategy:
       centralized — True: the served model lives at a central server and
                     classification scores the full test set (paper
                     §1.2.7); False: on-device 1/N-shard classification.
+      track_curves — False disables per-event curve tracking (async:
+                    per-batch test-set evals would distort the makespan).
+      mean_train_acc_over_events — True reports the mean local accuracy
+                    over all events (async); False the last event's.
+      timeline_result — True declares that `extra_result` carries the
+                    timeline block (merges / batches / mean_staleness /
+                    makespan / dropped_clients / participants).
+      codec_seam  — where upload codecs attach (DESIGN.md §12): "driver"
+                    is the corrupt -> transport -> aggregate seam over the
+                    stacked upload matrix; "sequential" is per-visit
+                    merging (CFL), where only stateless codecs apply.
     """
 
     name: str = ""
     topologies: Tuple[str, ...] = ("star",)
     defenses: Dict[str, Tuple[str, ...]] = {"star": DEFENSES}
     centralized = False
+    track_curves = True
+    mean_train_acc_over_events = False
+    timeline_result = False
+    codec_seam = "driver"
 
     def __init__(self, fl):
         self.fl = fl
@@ -155,12 +176,14 @@ class Strategy:
     # -- default event driver (one generic synchronous round) ---------------
     def run_event(self, sim, state, event: int, rng=None):
         """plan -> local training (engine dispatch in the driver) ->
-        attack corruption -> defended aggregation. Returns (state,
-        per-client accs, per-client losses). Every lifecycle phase is
-        wrapped in a telemetry span."""
+        attack corruption -> codec transport -> defended aggregation.
+        Returns (state, per-client accs, per-client losses). Every
+        lifecycle phase is wrapped in a telemetry span; strategies with a
+        timeline chain their rounds into one trace flow."""
         rng = sim.rng if rng is None else rng
         tel = sim.telemetry
-        with tel.span("round", cat="run", event=event):
+        flow = {"flow": "rounds"} if self.timeline_result else {}
+        with tel.span("round", cat="run", event=event, **flow):
             with tel.span("select", event=event):
                 plan = self.select_participants(sim, state, event, rng)
                 spec = self.local_spec(sim, state, plan)
@@ -168,6 +191,7 @@ class Strategy:
             fargs = self._fault_telemetry(sim, plan)
             uploads, losses, accs = sim.local_train(plan, spec, rng)
             uploads = sim.corrupt(uploads, plan)
+            uploads = sim.transport(uploads, plan)
             with tel.span("aggregate", event=event, **fargs):
                 state = self.aggregate_event(sim, state, plan, uploads)
         return state, accs, losses
@@ -199,7 +223,8 @@ class Strategy:
 
     def warmup_aggregate(self, sim):
         """Loop-engine half of the warmup: dry-run one aggregation event
-        on dummy (corrupted) uploads, then the served model."""
+        on dummy (corrupted, transported) uploads, then the served model
+        (the driver resets the codec state and wire log afterwards)."""
         rng = np.random.default_rng(self.fl.seed)
         state = self.init_state(sim)
         plan = self.select_participants(sim, state,
@@ -207,8 +232,9 @@ class Strategy:
         uploads = engine_mod.stack_forest(engine_mod.unstack_forest(
             engine_mod.replicate_tree(sim.init_params,
                                       len(plan.participants))))
-        state = self.aggregate_event(sim, state, plan,
-                                     sim.corrupt(uploads, plan))
+        state = self.aggregate_event(
+            sim, state, plan,
+            sim.transport(sim.corrupt(uploads, plan), plan))
         self.served_fn(sim, state)()
 
 
@@ -217,6 +243,11 @@ class Strategy:
 # ---------------------------------------------------------------------------
 
 STRATEGY_REGISTRY: Dict[str, Type[Strategy]] = {}
+
+# built-in strategies living in other modules, loaded on first lookup
+# (async_agg imports this module, so it cannot be imported at top level)
+_BUILTIN_MODULES = ("repro_torch.core.async_agg",)
+_builtins_loaded = False
 
 
 def register_strategy(cls: Type[Strategy]) -> Type[Strategy]:
@@ -229,12 +260,25 @@ def register_strategy(cls: Type[Strategy]) -> Type[Strategy]:
     return cls
 
 
+def _load_builtins():
+    global _builtins_loaded
+    if not _builtins_loaded:
+        for mod in _BUILTIN_MODULES:
+            importlib.import_module(mod)
+        _builtins_loaded = True
+
+
 def get_strategy(name: str) -> Type[Strategy]:
+    _load_builtins()
     if name not in STRATEGY_REGISTRY:
         known = ", ".join(sorted(STRATEGY_REGISTRY))
         raise KeyError(f"unknown strategy {name!r} (known: {known})")
     return STRATEGY_REGISTRY[name]
 
+
+def strategy_names() -> List[str]:
+    _load_builtins()
+    return sorted(STRATEGY_REGISTRY)
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +502,7 @@ class CFLStrategy(Strategy):
     name = "cfl"
     topologies = ("sequential",)
     defenses = {"sequential": ("none", "norm_clip")}
+    codec_seam = "sequential"   # per-visit wire: stateless codecs only
 
     def init_state(self, sim):
         return {"model": sim.init_params}

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import comm_agg as _ca
 from repro_torch.kernels import fedavg_agg as _fa
 from repro_torch.kernels import gossip_mix as _gm
 from repro_torch.kernels import robust_agg as _ra
@@ -25,6 +26,16 @@ def fedavg_aggregate(stacked, weights):
     the hand-written kernel, CPU tensors its plain version."""
     telemetry.count("kernel.fedavg_agg")
     return _fa.fedavg_agg(stacked, weights)
+
+
+def dequant_aggregate(values, scales, weights):
+    """(C, N) int8 uploads, (C,) float32 scales and normalized weights ->
+    (N,) float32 aggregate of the dequantized uploads (the fused kernel on
+    CUDA tensors, its plain version on CPU tensors). Off the round path,
+    as in the reference: codec runs decode, then aggregate through
+    `fedavg_aggregate`."""
+    telemetry.count("kernel.dequant_agg")
+    return _ca.dequant_agg(values, scales, weights)
 
 
 def trimmed_mean_aggregate(stacked, trim):

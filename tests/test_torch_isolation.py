@@ -1,7 +1,9 @@
 """repro_torch stands alone: it imports neither jax nor the reference
 package `repro`, so it runs where jax is absent. A subprocess with both
 blocked in `sys.modules` imports every module of the port and runs a
-1-round CPU simulation; a source scan covers chip_smoke.py too."""
+1-round CPU simulation, then slice 4's codec and async runs, secure
+aggregation and the dequantize-aggregate path; a source scan covers
+chip_smoke.py too."""
 import os
 import re
 import subprocess
@@ -38,6 +40,23 @@ fl = FLConfig(strategy="hfl", engine="vectorized", num_clients=4,
               num_groups=2, rounds=1, local_batch_size=16)
 r = FederatedSimulation(fl, ds, device="cpu").run()
 assert 0.0 <= r.test_accuracy <= 1.0
+# slice 4: a codec on the wire, the async runtime, secure aggregation and
+# the fused dequantize-aggregate kernel's plain path
+for kw in (dict(strategy="afl", codec="qsgd"),
+           dict(strategy="async", codec="topk", speed_model="uniform",
+                updates_per_client=1, tick=1.0)):
+    r = FederatedSimulation(FLConfig(**dict(fl.__dict__, **kw)), ds,
+                            device="cpu").run()
+    assert r.extra["communication"]["compression_ratio"] > 1.0
+from repro_torch.core import secure_agg
+from repro_torch.kernels import ops
+p = {"w": torch.ones(3)}
+assert torch.allclose(secure_agg.secure_fedavg([p, p])["w"], p["w"],
+                      atol=1e-4)
+assert ops.dequant_aggregate(torch.ones((2, 3), dtype=torch.int8),
+                             torch.ones(2), torch.full((2,), 0.5)).sum() == 3
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k, v in sys.modules.items() if v is not None)
 print("ok", len(names))
 """
 

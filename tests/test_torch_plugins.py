@@ -130,7 +130,8 @@ def test_scenario_runner_tiny_run():
     # the CPU takes the kernels' plain versions: nothing is launched
     assert r.extra["kernel_launches"] == {"fedavg_agg": 0,
                                           "trimmed_mean_agg": 0,
-                                          "gossip_mix_agg": 0}
+                                          "gossip_mix_agg": 0,
+                                          "dequant_agg": 0}
     assert r.extra["telemetry"]["dispatch"]["kernel.trimmed_mean"] > 0
     dirichlet = dataclasses.replace(port_scenarios.get("fedprox-dirichlet-vec"),
                                     rounds=1, n_train=512)
@@ -162,6 +163,12 @@ def test_scenarios_cli_lists_the_registry(capsys):
 
 
 def test_async_still_waits_for_its_slice(ds):
+    """Async's slice (ROADMAP §A.8) has come: the strategy constructs on
+    the per-round drivers, and only its fused form still waits (§A.13)."""
     fl = port_types.FLConfig(**dict(CFG, strategy="async"))
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        port_sim_mod.FederatedSimulation(fl, ds, device="cpu")
+    sim = port_sim_mod.FederatedSimulation(fl, ds, device="cpu")
+    assert sim.strategy.name == "async"
+    fused = port_types.FLConfig(**dict(CFG, strategy="async",
+                                       engine="fused"))
+    with pytest.raises(NotImplementedError, match="§A.13"):
+        port_sim_mod.FederatedSimulation(fused, ds, device="cpu")

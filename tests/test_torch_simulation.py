@@ -118,10 +118,11 @@ def test_default_device_needs_a_card(ds):
 
 
 # configs the port admits since slice 2 (the adversarial axis and the
-# strategy plugins) and slice 3 (fault injection) keep their cases here
-# and must now construct
+# strategy plugins), slice 3 (fault injection) and slice 4 (upload codecs
+# and the async runtime) keep their cases here and must now construct
 _ADMITTED = {("attack", "sign_flip"), ("defense", "median"),
-             ("strategy", "fedprox"), ("fault_profile", "churn")}
+             ("strategy", "fedprox"), ("fault_profile", "churn"),
+             ("codec", "topk"), ("strategy", "async")}
 
 
 @pytest.mark.parametrize("field,value", [

@@ -200,7 +200,8 @@ def test_engine_parity_under_attack(strategy, kw):
     for r in res.values():
         assert r.extra["kernel_launches"] == {"fedavg_agg": 0,
                                               "trimmed_mean_agg": 0,
-                                              "gossip_mix_agg": 0}
+                                              "gossip_mix_agg": 0,
+                                              "dequant_agg": 0}
 
 
 def test_invalid_defense_for_the_event_raises(ds):

@@ -150,7 +150,8 @@ def test_run_faults_block_and_dispatch_match_reference(ds, name):
         assert pr.extra["telemetry"]["counters"].get(key) == \
             rr.extra["telemetry"]["counters"].get(key), key
     assert pr.extra["kernel_launches"] == {               # CPU run
-        "fedavg_agg": 0, "trimmed_mean_agg": 0, "gossip_mix_agg": 0}
+        "fedavg_agg": 0, "trimmed_mean_agg": 0, "gossip_mix_agg": 0,
+        "dequant_agg": 0}
     np.testing.assert_allclose(pr.round_test_acc, rr.round_test_acc,
                                atol=0.02)
 

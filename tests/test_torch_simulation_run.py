@@ -78,7 +78,8 @@ def test_run_end_to_end_parity(ds, port_runs, strategy, engine):
     assert p.extra["telemetry"].keys() == r.extra["telemetry"].keys()
     assert p.extra["kernel_launches"] == {"fedavg_agg": 0,    # CPU run
                                           "trimmed_mean_agg": 0,
-                                          "gossip_mix_agg": 0}
+                                          "gossip_mix_agg": 0,
+                                          "dequant_agg": 0}
     got = p.extra["telemetry"]["dispatch"].get("kernel.fedavg_agg", 0)
     want = r.extra["telemetry"]["dispatch"].get("kernel.fedavg_agg", 0)
     if strategy == "cfl" and engine == "vectorized":

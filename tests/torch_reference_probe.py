@@ -26,6 +26,18 @@ churn32 — the 32-client churn acceptance pair
         the reference's initial parameters, and through the port from its
         own: per-round test accuracy, macro-F1, the `faults` block and
         the MTD margin (mtd F1 - static F1) of each.
+comm32 — the codec acceptance pair (`comm-qsgd-accept-32c-vec` against
+        its dense twin `comm-dense-accept-32c-vec`): the reference from its
+        own init; the port from the reference's init (with its own rounding
+        uniforms, as on the card, and with the reference's); the port from
+        its own init. Per run the per-round test accuracy and macro-F1; per
+        pair |dF1| (qsgd - dense); per port run the largest per-round
+        test-accuracy gap to the reference's run from the same init.
+async — the async family (`async-{uniform,straggler,dropout}-vec`,
+        `async-lognormal-loop`, `attack-gauss-async-clip-vec`) and
+        `comm-topk-async-loop` through both packages from the reference's
+        initial parameters (the reference's Gaussian noise): test accuracy,
+        macro-F1 and the timeline block of each.
 twin32 — the clean twin of `churn-signflip-median-mtd` (attack and
         defense off; chip_smoke.py's `churn-clean-mtd`, the run that mixes
         through `gossip_mix_agg`) through the port on the CPU from its own
@@ -35,8 +47,13 @@ twin32 — the clean twin of `churn-signflip-median-mtd` (attack and
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
         churn32 [--out FILE]
     PYTHONPATH=src python tests/torch_reference_probe.py twin32 [--out FILE]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
+        comm32 [--out FILE]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
+        async [--out FILE]
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -52,12 +69,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro.core import attacks as ref_attacks  # noqa: E402
+from repro.core import codecs as ref_codecs  # noqa: E402
 from repro.core import fl_types as ref_types  # noqa: E402
 from repro.core import scenarios as ref_scenarios  # noqa: E402
 from repro.core import simulation as ref_sim_mod  # noqa: E402
 from repro.data.synthetic import mnist_like  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import attacks as port_attacks  # noqa: E402
+from repro_torch.core import codecs as port_codecs  # noqa: E402
 from repro_torch.core import fl_types as port_types  # noqa: E402
 from repro_torch.core import scenarios as port_scenarios  # noqa: E402
 from repro_torch.core import simulation as port_sim_mod  # noqa: E402
@@ -272,7 +291,6 @@ def probe_churn32():
 
 
 def probe_twin32():
-    import dataclasses
     spec = dataclasses.replace(port_scenarios.get(CHURN_PAIR[0]),
                                name="churn-clean-mtd", attack="none",
                                defense="none")
@@ -290,14 +308,99 @@ def probe_twin32():
     return out
 
 
+COMM_PAIR = port_scenarios.COMM_ACCEPTANCE_PAIR
+
+
+def ref_uniforms(seed, event, client_id, n, device):
+    key = ref_codecs.upload_keys(seed, event, jnp.asarray([client_id]))[0]
+    return torch.as_tensor(np.array(jax.random.uniform(key, (n,)))).to(
+        device)
+
+
+def probe_comm32():
+    spec = port_scenarios.get(COMM_PAIR[0])
+    ds = port_scenarios.DATASETS[spec.dataset](
+        seed=spec.seed, n_train=spec.n_train, n_test=spec.n_test)
+    own_uniforms = port_codecs.rounding_uniforms
+    out = {}
+    for name in COMM_PAIR:
+        fl_kw = dataclasses.asdict(port_scenarios.get(name).to_fl_config())
+        t0 = time.perf_counter()
+        ref, port = _pair(ds, fl_kw)
+        _, port_ref_draws = _pair(ds, fl_kw)
+        _, port_own = _pair(ds, fl_kw, init="port")
+        runs = {"ref": ref, "port": port,
+                "port_ref_uniforms": port_ref_draws,
+                "port_own_init": port_own}
+        if name == COMM_PAIR[1]:        # dense: no uniforms to swap
+            del runs["port_ref_uniforms"]
+        out[name] = {}
+        for who, sim in runs.items():
+            port_codecs.rounding_uniforms = (
+                ref_uniforms if who == "port_ref_uniforms" else own_uniforms)
+            r = sim.run()
+            port_codecs.rounding_uniforms = own_uniforms
+            out[name][who] = {
+                "round_test_acc": [float(v) for v in r.round_test_acc],
+                "f1": float(r.f1), "test_accuracy": float(r.test_accuracy),
+                "communication": r.extra.get("communication")}
+            print(f"{name} {who}: f1={r.f1:.4f} test acc per round "
+                  f"{np.round(r.round_test_acc, 4).tolist()}", flush=True)
+        print(f"  ({time.perf_counter() - t0:.0f}s)", flush=True)
+    for who in ("ref", "port", "port_own_init"):
+        delta = (out[COMM_PAIR[0]][who]["f1"]
+                 - out[COMM_PAIR[1]][who]["f1"])
+        out[f"{who}_delta_f1"] = delta
+        print(f"{who}: |dF1| (qsgd - dense) {abs(delta):.4f} "
+              f"({delta:+.4f})")
+    for name in COMM_PAIR:
+        ref_acc = np.asarray(out[name]["ref"]["round_test_acc"])
+        for who in ("port", "port_ref_uniforms"):
+            if who in out[name]:
+                gap = np.abs(np.asarray(out[name][who]["round_test_acc"])
+                             - ref_acc)
+                out[name][f"{who}_max_round_gap"] = float(gap.max())
+                print(f"{name} {who} vs ref: per-round test-accuracy gap "
+                      f"{np.round(gap, 4).tolist()}")
+    return out
+
+
+ASYNC_FAMILY = port_scenarios.ASYNC_SCENARIOS + ("comm-topk-async-loop",)
+
+
+def probe_async():
+    port_attacks.gauss_noise = ref_gauss_noise
+    out = {}
+    for name in ASYNC_FAMILY:
+        spec = port_scenarios.get(name)
+        ds = port_scenarios.DATASETS[spec.dataset](
+            seed=spec.seed, n_train=spec.n_train, n_test=spec.n_test)
+        ref, port = _pair(ds, dataclasses.asdict(spec.to_fl_config()))
+        rr, pr = ref.run(), port.run()
+        keys = ("merges", "batches", "mean_staleness", "makespan",
+                "dropped_clients", "participants")
+        out[name] = {
+            who: {"f1": float(r.f1), "test_accuracy": float(r.test_accuracy),
+                  "train_accuracy": float(r.train_accuracy),
+                  **{k: r.extra[k] for k in keys}}
+            for who, r in (("ref", rr), ("port", pr))}
+        same = all(rr.extra[k] == pr.extra[k] for k in keys)
+        print(f"{name}: ref f1={rr.f1:.4f} acc={rr.test_accuracy:.4f}; "
+              f"port f1={pr.f1:.4f} acc={pr.test_accuracy:.4f}; "
+              f"timeline block equal: {same}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("hfl4", "acc32", "churn32", "twin32"))
+    ap.add_argument("probe", choices=("hfl4", "acc32", "churn32", "twin32",
+                                      "comm32", "async"))
     ap.add_argument("--out", help="write the readings here as JSON")
     args = ap.parse_args()
     torch.set_num_threads(2)
     doc = {"hfl4": probe_hfl4, "acc32": probe_acc32,
-           "churn32": probe_churn32, "twin32": probe_twin32}[args.probe]()
+           "churn32": probe_churn32, "twin32": probe_twin32,
+           "comm32": probe_comm32, "async": probe_async}[args.probe]()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=1)
