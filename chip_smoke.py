@@ -68,8 +68,29 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    `dequant_agg` launched in any codec run (the round path decodes, then
    aggregates through `fedavg_agg`, as in the reference).
 
-Phases 5, 6, 7(c), 8(a) and 8(c) set every kernel's launch count to 0
-just before they start and read the counts just after.
+9. model zoo serving (slice 5 main path) — (a) `flash_attention` and
+   `ssm_scan` against their plain versions on the card at the main
+   path's shapes (zamba2-1.2b's shared block and Mamba2 scan at B = 2,
+   S = 4096; yi-9b's grouped heads at S = 2048) in bfloat16 and float32,
+   and at edge shapes (a window, no mask, T != S, S = 128, d = 256, one
+   chunk, S below the chunk), timed beside the plain version and, for
+   `flash_attention`, `scaled_dot_product_attention` (timed only), with
+   the occupancy of each; (b) zamba2 reduced to 4 layers on the card
+   against the CPU (the flash prefill, the kernel prefill, 8 decode
+   steps; 1e-4) with a bitwise repeat; (c) zamba2-1.2b at full width and
+   depth, random weights from a seed: the plain, flash and kernel
+   prefills (`make_prefill_step`; every mamba layer through
+   `mamba2_forward(use_kernel=True)`) in float32 (gated) and bfloat16
+   (printed), 64 teacher-forced decode steps against the prefill (5e-2),
+   `make_decode_dispatch` on 4 requests and a greedy generation repeated
+   bitwise, with prefill and decode times and the peak memory; (d) yi-9b
+   at full width, 4 of its 48 layers, the flash prefill against einsum.
+   Fails on a kernel disagreeing with its plain version, a prefill off
+   the plain one, or a launch count other than 6 flash / 38 scan per
+   zamba2 prefill and 4 flash in the yi-9b prefill.
+
+Phases 5, 6, 7(c), 8(a), 8(c), 9(c) and 9(d) set every kernel's launch
+count to 0 just before they start and read the counts just after.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -538,9 +559,12 @@ def _check_run(r, engine):
 def _reset_launches():
     from repro_torch.kernels import comm_agg as ca
     from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import ssm_scan as ss
     fa.launches = ra.launches = gm.launches = ca.launches = 0
+    fl.launches = ss.launches = 0
 
 
 def study_phase(device="cuda", scale="quick"):
@@ -1305,6 +1329,613 @@ def transport_phase(device="cuda"):
     return out
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+H100_BF16_FLOPS = 989e12         # dense bf16 tensor cores, H100 SXM data sheet
+ZAMBA, YI = "zamba2-1.2b", "yi-9b"
+
+
+def _bound(nbytes, flops, dtype):
+    """Least time for the work: the bytes over the memory rate, the
+    operations over the peak rate of their type (bf16 tensor cores for
+    bfloat16 inputs, float32 outside the tensor cores for float32)."""
+    import torch
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attn_pairs(S, T, causal, window):
+    """(query, key) pairs the masks keep: the work this call's data
+    needs (the kernel skips whole masked tiles; the rest is masked)."""
+    total = 0
+    for s in range(S):
+        hi = min(s, T - 1) if causal else T - 1
+        lo = max(0, s - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+BF16_ULP = 2.0 ** -7         # a bfloat16 ulp, relative to the value
+
+
+def _flash_bound(B, S, T, H, Hk, d, causal, window, dtype):
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * d + 2 * B * T * Hk * d) * item
+    flops = 4 * B * H * d * _attn_pairs(S, T, causal, window)
+    return _bound(nbytes, flops, dtype)
+
+
+def _ssm_bound(B, S, H, dh, N, Q, dtype):
+    """x read and y written, Bm and Cm read once (not per head), a and dt
+    in float32; 2 operations per product. Per chunk, the lower triangle
+    of C B^T once (Bm and Cm are shared by the heads); per chunk and head
+    the lower triangle of W x, C state^T and the state update."""
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * dh + 2 * B * S * N) * item + 2 * B * S * H * 4
+    nc = S // Q
+    flops = (B * nc * Q * (Q + 1) * N
+             + B * H * nc * (Q * (Q + 1) * dh + 4 * Q * dh * N))
+    return _bound(nbytes, flops, dtype)
+
+
+def _big_ms(fn):
+    """Per call and in a CUDA graph, with few samples: the zoo's calls
+    take milliseconds."""
+    return _time_ms(fn, samples=5, inner=3), _graph_ms(fn, inner=3,
+                                                       samples=3)
+
+
+def _rel_err(out, want):
+    """(max |out - want|, max |want|)."""
+    out, want = out.float(), want.float()
+    return (float((out - want).abs().max()), float(want.abs().max()))
+
+
+# (label, B, S, T, H, Hk, d, causal, window): zamba2-1.2b's shared block
+# at its prefill (B = 2, S = 4096, 32 heads of 64) and yi-9b's layers at
+# S = 2048 (32 query heads on 4 key/value heads of 128) are the main
+# path's shapes; then a window, no mask, T != S, the shortest tiling and
+# the widest head
+FLASH_MAIN = [("zamba2-1.2b", 2, 4096, 4096, 32, 32, 64, True, 0),
+              ("yi-9b", 1, 2048, 2048, 32, 4, 128, True, 0)]
+FLASH_EDGE = [("window-256", 1, 2048, 2048, 8, 8, 64, True, 256),
+              ("non-causal", 1, 1024, 1024, 8, 8, 64, False, 0),
+              ("T!=S", 1, 1024, 2048, 8, 2, 128, True, 0),
+              ("S=128", 2, 128, 128, 4, 4, 64, True, 0),
+              ("d=256", 1, 512, 512, 4, 2, 256, True, 0)]
+
+
+def _flash_rows():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+
+    gen = torch.Generator().manual_seed(9)
+    cases = ([(c, dt, True) for c in FLASH_MAIN
+              for dt in (torch.bfloat16, torch.float32)]
+             + [(c, torch.float32, False) for c in FLASH_EDGE]
+             + [(FLASH_EDGE[0], torch.bfloat16, False)])
+    rows = []
+    for (label, B, S, T, H, Hk, d, causal, window), dtype, main in cases:
+        q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
+        k = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
+        v = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
+        before = fl.launches
+        out = fl.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if fl.launches != before + 1:
+            raise SystemExit("flash_attention: the wrapper did not launch")
+        want = fl.flash_attention_torch(q, k, v, causal=causal,
+                                        window=window)
+        err, _ = _rel_err(out, want)
+        # float32: the same sums in another order, within 1e-5; bfloat16:
+        # both round float32 results that agree that closely, so each
+        # element is at most one bfloat16 ulp (2^-7 of |want|) apart
+        tol = 1e-5 if dtype == torch.float32 else "2^-7 |want| + 1e-5"
+        ok = err <= 1e-5 if dtype == torch.float32 else bool(
+            ((out.float() - want.float()).abs()
+             <= BF16_ULP * want.float().abs() + 1e-5).all())
+        row = {"case": label, "B": B, "S": S, "T": T, "H": H, "Hk": Hk,
+               "d": d, "causal": causal, "window": window,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "tol": tol}
+        if not (out.dtype == dtype and out.shape == q.shape and ok):
+            raise SystemExit(f"flash_attention disagrees with its plain "
+                             f"version: {row}")
+        if main:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            fns = {"": lambda: fl.flash_attention(q, k, v, causal=causal),
+                   "plain_": lambda: fl.flash_attention_torch(
+                       q, k, v, causal=causal),
+                   # the yardstick, timed only: the port never calls it
+                   "library_": lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal, enable_gqa=H != Hk)}
+            for key, fn in fns.items():
+                row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
+            row["bound_ms"], row["bound_by"] = _flash_bound(
+                B, S, T, H, Hk, d, causal, window, dtype)
+        print("  flash_attention", json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (label, B, S, H, dh, N): zamba2-1.2b's prefill (64 heads of 64, state
+# 64), then one chunk, a sequence shorter than the chunk (N = 16,
+# dh = 32, the reduced model's widths), and a mid size
+SSM_MAIN = [("zamba2-1.2b", 2, 4096, 64, 64, 64)]
+SSM_EDGE = [("one chunk", 1, 128, 4, 32, 16), ("S<chunk", 1, 64, 4, 32, 16),
+            ("mid", 2, 1024, 8, 64, 64)]
+
+
+def _ssm_inputs(B, S, H, dh, N, gen, dtype):
+    """Inputs shaped as mamba2_forward makes them: dt = softplus(.) near
+    zamba2's dt_bias range, a = A dt with A = -(1..16), x, B, C after a
+    SiLU."""
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((B, S, H), generator=gen) - 4.0)
+    a = -torch.linspace(1.0, 16.0, H) * dt
+    xh = F.silu(torch.randn((B, S, H, dh), generator=gen))
+    Bm = F.silu(torch.randn((B, S, N), generator=gen))
+    Cm = F.silu(torch.randn((B, S, N), generator=gen))
+    return (xh.to("cuda", dtype), a.cuda(), dt.cuda(), Bm.to("cuda", dtype),
+            Cm.to("cuda", dtype))
+
+
+def _ssm_rows():
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+
+    gen = torch.Generator().manual_seed(10)
+    cases = ([(c, dt, True) for c in SSM_MAIN
+              for dt in (torch.bfloat16, torch.float32)]
+             + [(c, dt, False) for c in SSM_EDGE
+                for dt in (torch.float32, torch.bfloat16)])
+    rows = []
+    for (label, B, S, H, dh, N), dtype, main in cases:
+        xh, a, dt, Bm, Cm = _ssm_inputs(B, S, H, dh, N, gen, dtype)
+        before = ss.launches
+        y = ss.ssm_scan(xh, a, dt, Bm, Cm)
+        torch.cuda.synchronize()
+        if ss.launches != before + 1:
+            raise SystemExit("ssm_scan: the wrapper did not launch")
+        want = ss.ssm_scan_torch(xh, a, dt, Bm, Cm)
+        err, scale = _rel_err(y, want)
+        # relative to max |y|: products of the size of y summed in another
+        # order and exp of a cumsum taken in another order (float32);
+        # bfloat16 rounds the output
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+        row = {"case": label, "B": B, "S": S, "H": H, "dh": dh, "N": N,
+               "chunk": min(128, S), "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "max_abs_y": scale, "tol": tol}
+        if not (y.dtype == dtype and y.shape == xh.shape and err <= tol
+                and bool(torch.isfinite(y).all())):
+            raise SystemExit(f"ssm_scan disagrees with its plain version: "
+                             f"{row}")
+        if main:
+            fns = {"": lambda: ss.ssm_scan(xh, a, dt, Bm, Cm),
+                   "plain_": lambda: ss.ssm_scan_torch(xh, a, dt, Bm, Cm)}
+            for key, fn in fns.items():
+                row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
+            row["bound_ms"], row["bound_by"] = _ssm_bound(
+                B, S, H, dh, N, min(128, S), dtype)
+        print("  ssm_scan", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def _occupancy():
+    """Resident blocks per SM and shared memory per block at the main
+    path's shapes, from the CUDA occupancy API."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    out = {}
+    for name, fn, args in (
+            ("flash_attention d=64", "flash_attention_occupancy", (64, 1)),
+            ("flash_attention d=128", "flash_attention_occupancy", (128, 1)),
+            ("ssm_scan dh=64 N=64", "ssm_scan_occupancy", (64, 64, 128))):
+        query = getattr(build.load(name.split()[0]), fn)
+        query.argtypes = [ctypes.c_int] * len(args) + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        query.restype = ctypes.c_int
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = query(*args, ctypes.byref(blocks), ctypes.byref(smem))
+        if err != 0:
+            raise SystemExit(f"{fn}{args}: cudaError {err}")
+        out[name] = {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
+    print("  occupancy " + json.dumps(out), flush=True)
+    return out
+
+
+def zoo_kernel_phase():
+    """9(a): B5 and B6 against their plain versions at the main path's
+    shapes and at edge shapes, timed beside the plain version and, for
+    B5, scaled_dot_product_attention."""
+    import torch
+    from repro_torch.device import deterministic_f32
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ssm_scan as ss
+
+    deterministic_f32()
+    out = {"flash_attention": _flash_rows(), "ssm_scan": _ssm_rows(),
+           "occupancy": _occupancy()}
+    xh = torch.zeros((1, 200, 2, 64), device="cuda")
+    for bad in (lambda: fl.flash_attention(xh[:, :96].contiguous(),
+                                           xh[:, :96].contiguous(),
+                                           xh[:, :96].contiguous()),
+                lambda: ss.ssm_scan(xh, xh[..., 0], xh[..., 0],
+                                    xh[:, :, 0, :16].contiguous(),
+                                    xh[:, :, 0, :16].contiguous())):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise SystemExit("a zoo kernel took a shape it does not tile")
+    return out
+
+
+def kernel_prefill(model, params, tokens):
+    """The served prefill (`make_prefill_step`) with every mamba layer
+    through `ssm.mamba2_forward(..., use_kernel=True)`, the reference's
+    kernel path. `transformer.forward` looks the function up through the
+    module, so it is rebound for this call and restored after."""
+    import functools
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import ssm
+    orig = ssm.mamba2_forward
+    ssm.mamba2_forward = functools.partial(orig, use_kernel=True)
+    try:
+        return make_prefill_step(model)(params, {"tokens": tokens})
+    finally:
+        ssm.mamba2_forward = orig
+
+
+def _counts():
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ssm_scan as ss
+    return {"flash_attention": fl.launches, "ssm_scan": ss.launches}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _expect(label, delta, want):
+    if delta != want:
+        raise SystemExit(f"{label}: kernel launches {delta}, expected "
+                         f"{want}")
+
+
+def _decode(model, params, tokens, n, device):
+    """Teacher-forced decode_step over tokens[:, :n] -> (B, n, V)."""
+    import torch
+    state = model.init_decode_state(tokens.shape[0], n, device=device)
+    out = []
+    for t in range(n):
+        lg, state = model.decode_step(params, state, tokens[:, t:t + 1])
+        out.append(lg)
+    return torch.cat(out, dim=1)
+
+
+def zoo_parity_phase(device="cuda", reference="cpu"):
+    """9(b): zamba2 reduced to 4 layers (the shared block runs before
+    layer 2) in float32 at S = 256, on the card against the CPU: the flash
+    prefill, the kernel prefill and 8 decode steps, each within 1e-4, and
+    a second card run bitwise equal to the first."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.model import build_model, synthetic_train_batch
+    from repro_torch.tree import tree_map
+
+    deterministic_f32()
+    cfg = get_config(ZAMBA).reduced(dtype="float32", num_layers=4,
+                                    block_pattern=("mamba",) * 4,
+                                    attn_impl="flash")
+    model = build_model(cfg)
+    ref_params = model.init(generator(0), device=reference)
+    params = tree_map(lambda a: a.to(device), ref_params)
+    tokens = synthetic_train_batch(generator(1), cfg, 2, 256,
+                                   device=reference)["tokens"]
+
+    def run(dev, p):
+        toks = tokens.to(dev)
+        before = _counts()
+        out = {"flash_prefill": make_prefill_step(model)(p, {"tokens": toks}),
+               "kernel_prefill": kernel_prefill(model, p, toks),
+               "decode": _decode(model, p, toks, 8, dev)}
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return out, _delta(before)
+
+    ref, ref_delta = run(reference, ref_params)
+    first, delta = run(device, params)
+    second, _ = run(device, params)
+    if device == "cuda":
+        # the shared block runs before layer 2 in both prefills
+        _expect("9(b) card run", delta, {"flash_attention": 2,
+                                         "ssm_scan": 4})
+    _expect("9(b) CPU run", ref_delta, {"flash_attention": 0, "ssm_scan": 0})
+    out = {}
+    for key in ref:
+        err = float((first[key].cpu() - ref[key]).abs().max())
+        bitwise = bool(torch.equal(first[key], second[key]))
+        out[key] = {"max_abs_err": err, "bitwise_repeat": bitwise}
+        print(f"  {key}: card vs CPU {err:.3e}, repeat bitwise {bitwise}",
+              flush=True)
+        if not (err <= 1e-4 and bitwise):
+            raise SystemExit(f"9(b) {key}: card vs CPU {err} > 1e-4 or the "
+                             f"repeat differs")
+    return out
+
+
+def _timed(fn):
+    """(fn(), host milliseconds around it, synchronized on the card)."""
+    import torch
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _profile(fn, top=8):
+    """Device time by kernel over one call of fn, from torch.profiler:
+    {"wall_ms", "device_busy_ms", "idle_share", "kernels": [[name, ms,
+    launches], ...]}, or None when the profiler records no device time.
+    The profiler's own host cost lengthens the wall time, so the idle
+    share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append([e.key[:80], us / 1e3, e.count])
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall), "kernels": rows[:top]}
+
+
+F32_PREFILL_TOL = 1e-3    # relative to max |logits|: float32 sums in another
+                          # order through 38 layers (the reading is printed)
+
+
+def zamba2_phase(device="cuda", seed=0, B=2, S=4096):
+    """9(c): zamba2-1.2b at full width and depth, random weights from a
+    seed; the one change from the published config is dtype="float32"
+    for the gates (bfloat16 readings printed)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import (make_decode_dispatch,
+                                          make_prefill_step)
+    from repro_torch.models import decode
+    from repro_torch.models.model import build_model, synthetic_train_batch
+
+    deterministic_f32()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ZAMBA).with_updates(dtype="float32", attn_impl="flash")
+    plain = cfg.with_updates(attn_impl="einsum")
+    model = build_model(cfg)
+    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    n_params = model.param_count(params)
+    tokens = synthetic_train_batch(generator(seed + 1), cfg, B, S,
+                                   device=device)["tokens"]
+    batch = {"tokens": tokens}
+    out = {"config": "zamba2-1.2b, dtype float32 (gates) and bfloat16 "
+                     "(published), attn_impl flash, nothing cut",
+           "params": n_params, "init_ms": init_ms, "B": B, "S": S}
+    print(f"  {n_params} parameters, init {init_ms:.0f} ms", flush=True)
+
+    cfg16 = cfg.with_updates(dtype="bfloat16")
+    prefills = {          # name -> (the call, its launches: flash, scan)
+        "plain_prefill": (lambda: make_prefill_step(build_model(plain))(
+            params, batch), (0, 0)),
+        "flash_prefill": (lambda: make_prefill_step(model)(params, batch),
+                          (6, 0)),
+        "kernel_prefill": (lambda: kernel_prefill(model, params, tokens),
+                           (6, 38)),
+        "plain_prefill_bf16": (lambda: make_prefill_step(build_model(
+            cfg16.with_updates(attn_impl="einsum")))(params, batch), (0, 0)),
+        "flash_prefill_bf16": (lambda: make_prefill_step(build_model(cfg16))(
+            params, batch), (6, 0)),
+        "kernel_prefill_bf16": (lambda: kernel_prefill(build_model(cfg16),
+                                                       params, tokens),
+                                (6, 38))}
+
+    def prefill(name):
+        fn, (n_flash, n_scan) = prefills[name]
+        before = _counts()
+        logits, ms = _timed(fn)
+        _expect(name, _delta(before), {"flash_attention": n_flash,
+                                       "ssm_scan": n_scan})
+        if not (bool(torch.isfinite(logits).all())
+                and logits.shape == (B, S, cfg.vocab_size)):
+            raise SystemExit(f"9(c) {name}: non-finite or misshapen logits")
+        out[f"{name}_first_ms"] = ms
+        return logits
+
+    def compare(label, got, ref):
+        err, scale = _rel_err(got, ref)
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        out[label] = {"max_abs_err": err, "max_abs": scale,
+                      "argmax_agree": agree}
+        print(f"  {label}: max|d| {err:.3e} of max|logits| {scale:.3f}, "
+              f"argmax agree {agree:.6f}", flush=True)
+        return err, scale
+
+    _reset_launches()                    # the main path's count starts here
+    want = prefill("plain_prefill")
+    for key in ("flash", "kernel"):
+        err, scale = compare(f"f32 {key} prefill vs plain",
+                             prefill(f"{key}_prefill"), want)
+        if not err <= F32_PREFILL_TOL * scale:
+            raise SystemExit(f"9(c) f32 {key} prefill: {err} > "
+                             f"{F32_PREFILL_TOL} x {scale}")
+    head = want[:, :64].clone()
+    want16 = prefill("plain_prefill_bf16")   # the published dtype: printed
+    for key in ("flash", "kernel"):
+        got = prefill(f"{key}_prefill_bf16")
+        compare(f"bf16 {key} prefill vs plain bf16", got, want16)
+        compare(f"bf16 {key} prefill vs plain f32", got, want)
+        del got
+    del want, want16
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # serving, in float32
+    dec, ms = _timed(lambda: _decode(model, params, tokens, 64, device))
+    out["decode_first_ms_per_step"] = ms / 64
+    err = float((dec - head).abs().max())
+    out["decode_vs_prefill_max_abs_err"] = err
+    print(f"  teacher-forced decode_step x 64 vs the prefill: {err:.3e} "
+          f"(bar 5e-2), {ms / 64:.2f} ms/step at B = {B}", flush=True)
+    if not err <= 5e-2:
+        raise SystemExit(f"9(c) decode vs prefill {err} > 5e-2")
+    gen = generator(seed + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)
+    ref_logits = make_prefill_step(build_model(plain))(
+        params, {"tokens": prompts.to(device)})[:, -1]
+    top2 = ref_logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu()
+    nxt = ref_logits.argmax(-1).cpu().numpy()
+    dispatch = make_decode_dispatch(cfg, prompts.numpy(), nxt)
+    correct, ms = _timed(lambda: dispatch(params, [0, 1, 2, 3]))
+    out["dispatch"] = {"correct": correct.tolist(), "ms": ms,
+                       "top2_margin": margin.tolist()}
+    print(f"  make_decode_dispatch, 4 requests of 32 tokens: correct "
+          f"{correct.tolist()} (top-2 margins {margin.tolist()}), "
+          f"{ms:.0f} ms", flush=True)
+    if not all(c or m < 5e-2 for c, m in zip(correct, margin.tolist())):
+        raise SystemExit("9(c) dispatch missed a prediction the prefill "
+                         "makes by a margin above 5e-2")
+    prompt = prompts[:2].to(device)
+    gen1, ms = _timed(lambda: decode.greedy_generate(params, cfg, prompt, 16))
+    gen2 = decode.greedy_generate(params, cfg, prompt, 16)
+    out["greedy"] = {"tokens": gen1[:, 32:].tolist(), "ms": ms,
+                     "bitwise_repeat": bool(torch.equal(gen1, gen2))}
+    print(f"  greedy_generate 16 tokens after 32: {ms:.0f} ms, repeat "
+          f"bitwise {out['greedy']['bitwise_repeat']}", flush=True)
+    if not out["greedy"]["bitwise_repeat"]:
+        raise SystemExit("9(c) greedy generation differs on a repeat")
+    out["launches"] = _counts()          # the main path's count ends here
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated() if on_card
+                                else None)
+    print(f"  peak memory {(out['peak_memory_bytes'] or 0) / 2**30:.2f} "
+          f"GiB; launches {out['launches']}", flush=True)
+    # steady times: three more runs of each prefill, host clock around the
+    # synchronized call; the median is reported
+    for name, (fn, _) in prefills.items():
+        runs = [_timed(fn)[1] for _ in range(3)]
+        out[f"{name}_ms_runs"] = runs
+        out[f"{name}_ms"] = statistics.median(runs)
+        out[f"{name}_tokens_per_s"] = B * S / (out[f"{name}_ms"] / 1e3)
+        print(f"  {name}: {out[f'{name}_ms']:.1f} ms (runs "
+              f"{', '.join(f'{r:.1f}' for r in runs)}; first "
+              f"{out[f'{name}_first_ms']:.1f}), "
+              f"{out[f'{name}_tokens_per_s']:.0f} tokens/s", flush=True)
+    if on_card:                          # where the time goes
+        for name, fn in (("kernel_prefill_bf16",
+                          prefills["kernel_prefill_bf16"][0]),
+                         ("flash_prefill", prefills["flash_prefill"][0]),
+                         ("decode x16", lambda: _decode(model, params,
+                                                        tokens, 16, device))):
+            prof = _profile(fn)
+            out[f"profile {name}"] = prof
+            if prof is None:
+                print(f"  profile {name}: no device time recorded (not "
+                      f"measured)", flush=True)
+                continue
+            print(f"  profile {name}: wall {prof['wall_ms']:.1f} ms, device "
+                  f"busy {prof['device_busy_ms']:.1f} ms, idle share <= "
+                  f"{prof['idle_share']:.3f}", flush=True)
+            for kname, ms, n in prof["kernels"]:
+                print(f"    {ms:9.2f} ms {n:6d}x  {kname}", flush=True)
+    steps = [_timed(lambda: _decode(model, params, tokens, 16, device))[1]
+             / 16 for _ in range(3)]
+    out["decode_ms_per_step_runs"] = steps
+    out["decode_ms_per_step"] = statistics.median(steps)
+    print(f"  decode_step at B = {B}: {out['decode_ms_per_step']:.2f} "
+          f"ms/step (3 runs of 16 steps: "
+          f"{', '.join(f'{r:.2f}' for r in steps)})", flush=True)
+    if on_card:
+        out["card"] = _card_line()
+        print(f"  on {out['card']}", flush=True)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def yi_phase(device="cuda", seed=0, B=1, S=2048, layers=4):
+    """9(d): yi-9b at full width, 4 of its 48 layers (the one cut), random
+    weights; one flash prefill against einsum in float32."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.model import build_model, synthetic_train_batch
+
+    deterministic_f32()
+    cfg = get_config(YI).with_updates(num_layers=layers, dtype="float32",
+                                      attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(generator(seed), device)
+    batch = {"tokens": synthetic_train_batch(generator(seed + 1), cfg, B, S,
+                                             device=device)["tokens"]}
+    want, plain_ms = _timed(lambda: make_prefill_step(build_model(
+        cfg.with_updates(attn_impl="einsum")))(params, batch))
+    _reset_launches()                    # the main path's count starts here
+    got, ms = _timed(lambda: make_prefill_step(model)(params, batch))
+    _expect("yi-9b flash prefill", _counts(), {"flash_attention": layers,
+                                               "ssm_scan": 0})
+    err, scale = _rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    out = {"config": f"yi-9b at full width, {layers} of 48 layers",
+           "reduced": {"num_layers": [48, layers]},
+           "params": model.param_count(params), "B": B, "S": S,
+           "launches": _counts(), "max_abs_err": err, "max_abs": scale,
+           "argmax_agree": agree, "flash_prefill_ms": ms,
+           "plain_prefill_ms": plain_ms}
+    print(f"  yi-9b ({layers} of 48 layers cut: num_layers 48 -> {layers}), "
+          f"{out['params']} parameters: f32 flash prefill vs einsum max|d| "
+          f"{err:.3e} of {scale:.3f}, argmax agree {agree:.6f}; "
+          f"{ms:.1f} ms (einsum {plain_ms:.1f} ms)", flush=True)
+    if not (err <= F32_PREFILL_TOL * scale and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"9(d) yi-9b flash prefill {err} > "
+                         f"{F32_PREFILL_TOL} x {scale}")
+    del params, want, got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -1358,6 +1989,18 @@ def main():
     parity["transport"] = transport_parity_phase("cuda", "cpu")
     print("  -- (c) the codec and async study", flush=True)
     transport = transport_phase("cuda")
+    _phase("model zoo serving (slice 5 main path)")
+    print("  -- (a) flash_attention and ssm_scan against their plain "
+          "versions", flush=True)
+    zoo_kernels = zoo_kernel_phase()
+    kernels["flash_attention"] = zoo_kernels["flash_attention"]
+    kernels["ssm_scan"] = zoo_kernels["ssm_scan"]
+    print("  -- (b) card against CPU: zamba2 reduced to 4 layers", flush=True)
+    parity["zoo"] = zoo_parity_phase("cuda", "cpu")
+    print("  -- (c) zamba2-1.2b at full width and depth", flush=True)
+    zamba = zamba2_phase("cuda")
+    print("  -- (d) yi-9b at full width, 4 of its 48 layers", flush=True)
+    yi = yi_phase("cuda")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -1411,6 +2054,33 @@ def main():
         "bound_ms": drep["bound_ms"], "bound_by": drep["bound_by"],
         "library_ms": None, "cast_gemv_ms": drep["cast_gemv_ms"],
         "shape": [32, 7900], "shapes": [r for r in drows if "ms" in r]}
+    frows = kernels["flash_attention"]
+    frep = next(r for r in frows if r["case"] == ZAMBA
+                and r["dtype"] == "bfloat16")
+    flentry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:104",
+        "launches": zamba["launches"]["flash_attention"],
+        "launches_yi": yi["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "ms": frep["ms"], "plain_ms": frep["plain_ms"],
+        "bound_ms": frep["bound_ms"], "bound_by": frep["bound_by"],
+        "library_ms": frep["library_ms"], "shape": [2, 4096, 32, 64],
+        "dtype": "bfloat16", "shapes": [r for r in frows if "ms" in r]}
+    srows = kernels["ssm_scan"]
+    srep = next(r for r in srows if r["case"] == ZAMBA
+                and r["dtype"] == "bfloat16")
+    sentry = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:84",
+        "launches": zamba["launches"]["ssm_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in srows),
+        "ms": srep["ms"], "plain_ms": srep["plain_ms"],
+        "bound_ms": srep["bound_ms"], "bound_by": srep["bound_by"],
+        "library_ms": None, "shape": [2, 4096, 64, 64, 64],
+        "dtype": "bfloat16", "shapes": [r for r in srows if "ms" in r]}
     for e in (entry, tentry):
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]
@@ -1418,7 +2088,9 @@ def main():
            "cuda": torch.version.cuda, "build_s": build_s,
            "kernels": kernels, "parity": parity, "study": study,
            "adversarial": adversarial, "churn": churn,
-           "transport_kernels": transport_kernels, "transport": transport}
+           "transport_kernels": transport_kernels, "transport": transport,
+           "zoo_occupancy": zoo_kernels["occupancy"],
+           "zoo": {"zamba2": zamba, "yi": yi}}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(doc, indent=1))
@@ -1459,9 +2131,20 @@ def main():
             "kernel_graph_us": r["graph_ms"] * 1e3,
             "plain_graph_us": r["plain_graph_ms"] * 1e3,
             "cast_gemv_graph_us": r["cast_gemv_graph_ms"] * 1e3,
-            "launches": dentry["launches"]} for r in dentry["shapes"]]))
+            "launches": dentry["launches"]} for r in dentry["shapes"]]
+        + [{"name": e["name"], "replaces": e["replaces"], "case": r["case"],
+            "dtype": r["dtype"], "max_err": r["max_abs_err"],
+            "kernel_us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
+            "library_us": (r["library_ms"] * 1e3 if "library_ms" in r
+                           else None),
+            "bound_us": r["bound_ms"] * 1e3,
+            "kernel_graph_us": r["graph_ms"] * 1e3,
+            "plain_graph_us": r["plain_graph_ms"] * 1e3,
+            "launches": e["launches"]}
+           for e in (flentry, sentry) for r in e["shapes"]]))
     print(card)
-    print(json.dumps({"kernels": [entry, tentry, gentry, dentry]}))
+    print(json.dumps({"kernels": [entry, tentry, gentry, dentry, flentry,
+                                  sentry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the federated-learning simulator (`repro`).
 
-The package mirrors the reference layout (`core/`, `data/`, `kernels/`,
-`models/`, `obs/`, `optim/`) and keeps its `FLConfig` fields, strategy
+The package mirrors the reference layout (`configs/`, `core/`, `data/`,
+`kernels/`, `launch/`, `models/`, `obs/`, `optim/`) and keeps its `FLConfig` fields, strategy
 names and result fields, so one config means the same run in either
 package. It imports torch, numpy and the standard library only: never
 jax and never `repro`.
@@ -9,6 +9,8 @@ jax and never `repro`.
 Slice 1 covers the paper study: `FederatedSimulation` with the HFL, AFL
 and CFL strategies on the §2.4 CNN under the `loop` and `vectorized`
 engines, with every aggregation event on the hand-written CUDA
-`fedavg_agg` kernel (`kernels/csrc/fedavg_agg.cu`). Entry points run on
-the card unless the caller passes `device="cpu"` (`device.py`).
+`fedavg_agg` kernel (`kernels/csrc/fedavg_agg.cu`); later slices add the
+adversarial, churn and upload-transport axes and the model zoo's serving
+path (`models/`, `launch/serve.py`), each with its kernels. Entry points
+run on the card unless the caller passes `device="cpu"` (`device.py`).
 """

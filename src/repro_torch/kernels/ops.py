@@ -1,5 +1,5 @@
 """Public wrappers around the kernels and the ravel path (port of
-`repro.kernels.ops`, lines 32-162).
+`repro.kernels.ops`, lines 32-195).
 
 Every aggregation event funnels its stacked parameter tree through
 `stacked_ravel` onto the kernel's (C, N) layout and back through
@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.kernels import comm_agg as _ca
 from repro_torch.kernels import fedavg_agg as _fa
+from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import gossip_mix as _gm
 from repro_torch.kernels import robust_agg as _ra
+from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.obs import telemetry
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -122,3 +124,22 @@ def merge_aggregate_stacked(base_tree, stacked_tree, weights):
     base_row = stacked_ravel(tree_map(lambda leaf: leaf[None], base_tree))
     mat = torch.cat([base_row, stacked_ravel(stacked_tree)], dim=0)
     return tree_unravel(stacked_tree, fedavg_aggregate(mat, weights))
+
+
+# -- flash attention -----------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, S, H, d); k, v: (B, T, Hk, d) -> (B, S, H, d). Grouped-query
+    attention is folded inside the kernel, which reads key/value head
+    h // (H / Hk) for query head h: the same result as the reference's
+    repeat of the key/value heads, without the copy."""
+    telemetry.count("kernel.flash_attention")
+    return _fl.flash_attention(q, k, v, causal=causal, window=window)
+
+
+# -- ssm scan ------------------------------------------------------------------
+
+def ssm_scan(xh, a_log, dt, Bm, Cm, *, chunk=128):
+    """Chunked SSD scan -> (y, None), as the reference returns it."""
+    telemetry.count("kernel.ssm_scan")
+    return _ss.ssm_scan(xh, a_log, dt, Bm, Cm, chunk=chunk), None

@@ -1,0 +1,64 @@
+"""Public model API: build, init, prefill, loss and decode entry points
+(port of `repro.models.model` for the layer kinds the port builds; the
+dry-run input specs wait for ROADMAP A.18).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import decode as decode_mod
+from repro_torch.models import transformer
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class Model:
+    """Thin functional wrapper around the unified transformer."""
+
+    def __init__(self, cfg):
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+
+    def init(self, generator, device="cuda"):
+        """Random parameters drawn from `generator` (a CPU
+        torch.Generator) and moved to `device`."""
+        dev = resolve_device(device)
+        params = transformer.init_transformer(generator, self.cfg)
+        return tree_map(lambda a: a.to(dev), params)
+
+    def apply(self, params, batch):
+        return transformer.forward(params, self.cfg, batch)
+
+    def loss(self, params, batch):
+        return transformer.loss_fn(params, self.cfg, batch)
+
+    def init_decode_state(self, batch, capacity, prefill_len=0,
+                          device="cuda"):
+        return decode_mod.init_decode_state(self.cfg, batch, capacity,
+                                            prefill_len,
+                                            device=resolve_device(device))
+
+    def decode_step(self, params, state, tokens):
+        return decode_mod.decode_step(params, self.cfg, state, tokens)
+
+    def param_count(self, params) -> int:
+        return sum(p.numel() for p in tree_leaves(params))
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)
+
+
+def synthetic_train_batch(generator, cfg, batch, seq_len,
+                          device="cuda") -> Dict[str, Any]:
+    """A random token batch drawn from `generator` (a CPU
+    torch.Generator) on `device`; labels are the tokens shifted left, -1
+    at the end."""
+    dev = resolve_device(device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                           generator=generator, dtype=torch.int64)
+    labels = torch.cat([tokens[:, 1:],
+                        torch.full((batch, 1), -1, dtype=torch.int64)], 1)
+    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
