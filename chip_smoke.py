@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    edge shapes, and timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function where there is one
    (timed only; the port never calls it) and the bound of the card
-   (bytes or operations over the H100's peak rates);
+   (bytes or operations over the H100's peak rates), with the share of
+   the bound it reaches (and, on the progress lines only, the first
+   port's graph time beside it for reading);
+   `fedavg_agg`'s 32-client call must repeat bitwise;
 4. parity — the port on the card against the port on the CPU from one
    initial model (HFL, AFL, CFL x loop, vectorized; then five attack /
    defense configurations x loop, vectorized; 4 clients, 2 rounds),
@@ -71,14 +74,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 9. model zoo serving (slice 5 main path) — (a) `flash_attention` and
    `ssm_scan` against their plain versions on the card at the main
    path's shapes (zamba2-1.2b's shared block and Mamba2 scan at B = 2,
-   S = 4096; yi-9b's grouped heads at S = 2048) in bfloat16 and float32,
-   and at edge shapes (a window, no mask, T != S, S = 128, d = 256, one
-   chunk, S below the chunk), timed beside the plain version and, for
-   `flash_attention`, `scaled_dot_product_attention` (timed only), with
-   the occupancy of each; (b) zamba2 reduced to 4 layers on the card
-   against the CPU (the flash prefill, the kernel prefill, 8 decode
-   steps; 1e-4) with a bitwise repeat; (c) zamba2-1.2b at full width and
-   depth, random weights from a seed: the plain, flash and kernel
+   S = 4096; yi-9b's grouped heads at S = 2048) in bfloat16 (B5 on the
+   tensor cores) and float32 (B5's SIMT kernel), and at edge shapes (a
+   window, no mask, T != S, S = 128, d = 256 in both types; d = 80,
+   d = 48, d = 192, d = 160 and S = 192 with 8 query heads per key/value
+   head in bfloat16; one chunk, S below the chunk), timed beside the plain
+   version and, for `flash_attention`, `scaled_dot_product_attention`
+   (timed only), with the occupancy of each, B5's TFLOP/s and share of its
+   bound (and, on the progress lines only, the first port's graph time);
+   shapes off each kernel's envelope must raise before any launch; (b) zamba2 reduced to 4 layers
+   on the card against the CPU (the flash prefill, the kernel prefill,
+   8 decode steps; 1e-4) with a bitwise repeat; (c) zamba2-1.2b at full
+   width and depth, random weights from a seed: the plain, flash and kernel
    prefills (`make_prefill_step`; every mamba layer through
    `mamba2_forward(use_kernel=True)`) in float32 (gated) and bfloat16
    (printed), 64 teacher-forced decode steps against the prefill (5e-2),
@@ -184,7 +191,14 @@ def _fedavg_bound(C, N, itemsize):
 
 # CFL merge, HFL/AFL at 4 and 8 clients, the 32-client adversarial family
 MAIN_SHAPES = [(2, 7900), (4, 7900), (8, 7900), (32, 7900)]
-EDGE_SHAPES = [(1, 1), (3, 37), (5, 4097), (16, 1 << 20)]
+# then the edges; C > 4 splits the loads over warps (float4 at N = 7900,
+# scalar at N = 7901, rows past a multiple of 8 at 33)
+EDGE_SHAPES = [(1, 1), (3, 37), (5, 4097), (16, 1 << 20), (33, 7900),
+               (64, 7900), (32, 7901), (33, 7901), (64, 7901)]
+# the first port's graph times in us, before the redesign (PERF.md section
+# 6), printed on the progress lines beside this run's for reading only: not
+# a gate, and not in the kernels line
+FIRST_PORT_FEDAVG_GRAPH_US = {2: 1.488, 4: 1.725, 8: 1.989, 32: 3.588}
 
 
 def kernel_phase():
@@ -194,41 +208,60 @@ def kernel_phase():
 
 def _fedavg_rows():
     import torch
-    from repro_torch.kernels import fedavg_agg as fa
 
     gen = torch.Generator().manual_seed(0)
     cases = ([(C, N, torch.float32, True) for C, N in MAIN_SHAPES]
              + [(C, N, torch.float32, False) for C, N in EDGE_SHAPES]
-             + [(4, 5000, torch.bfloat16, False)])
+             + [(4, 5000, torch.bfloat16, False),
+                (32, 7900, torch.bfloat16, False)])
     rows = []
     for C, N, dtype, main in cases:
-        x = torch.randn((C, N), generator=gen).to("cuda", dtype)
-        w = torch.softmax(torch.randn((C,), generator=gen), 0).cuda()
-        before = fa.launches
-        out = fa.fedavg_agg(x, w)
-        torch.cuda.synchronize()
-        if fa.launches != before + 1:
-            raise SystemExit("fedavg_agg: the wrapper did not launch")
-        exp = fa.fedavg_agg_torch(x, w)
-        err = float((out.float() - exp.float()).abs().max())
-        tol = 1e-6 if dtype == torch.float32 else 2e-2
-        row = {"C": C, "N": N, "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err, "tol": tol}
-        if not (out.dtype == dtype and out.shape == (N,) and err <= tol):
-            raise SystemExit(f"fedavg_agg disagrees with its plain version: "
-                             f"{row}")
-        if main:
-            fns = {"": lambda: fa.fedavg_agg(x, w),
-                   "plain_": lambda: fa.fedavg_agg_torch(x, w),
-                   "library_": lambda: w @ x}             # yardstick only
-            for key, fn in fns.items():
-                row[f"{key}ms"] = _time_ms(fn)
-                row[f"{key}graph_ms"] = _graph_ms(fn)
-            row["bound_ms"], row["bound_by"] = _fedavg_bound(
-                C, N, x.element_size())
-        print("  fedavg_agg", json.dumps(row), flush=True)
+        row = fedavg_row(C, N, dtype, main, gen)
+        first = ({"first_port_graph_us": FIRST_PORT_FEDAVG_GRAPH_US[C]}
+                 if main else {})
+        print("  fedavg_agg", json.dumps({**row, **first}), flush=True)
         rows.append(row)
     return rows
+
+
+def fedavg_row(C, N, dtype, main, gen):
+    """`fedavg_agg` at (C, N) against its plain version; on a main shape
+    also timed beside the plain version and `w @ x`, with its bound."""
+    import torch
+    from repro_torch.kernels import fedavg_agg as fa
+
+    x = torch.randn((C, N), generator=gen).to("cuda", dtype)
+    w = torch.softmax(torch.randn((C,), generator=gen), 0).cuda()
+    before = fa.launches
+    out = fa.fedavg_agg(x, w)
+    torch.cuda.synchronize()
+    if fa.launches != before + 1:
+        raise SystemExit("fedavg_agg: the wrapper did not launch")
+    exp = fa.fedavg_agg_torch(x, w)
+    err = float((out.float() - exp.float()).abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    row = {"C": C, "N": N, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": tol}
+    if not (out.dtype == dtype and out.shape == (N,) and err <= tol):
+        raise SystemExit(f"fedavg_agg disagrees with its plain version: "
+                         f"{row}")
+    if main:
+        fns = {"": lambda: fa.fedavg_agg(x, w),
+               "plain_": lambda: fa.fedavg_agg_torch(x, w),
+               "library_": lambda: w @ x}             # yardstick only
+        for key, fn in fns.items():
+            row[f"{key}ms"] = _time_ms(fn)
+            row[f"{key}graph_ms"] = _graph_ms(fn)
+        row["bound_ms"], row["bound_by"] = _fedavg_bound(
+            C, N, x.element_size())
+        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+    if (C, N, dtype) == (32, 7900, torch.float32):
+        # the rows are added in one fixed order
+        row["bitwise_repeat"] = all(
+            torch.equal(fa.fedavg_agg(x, w), out) for _ in range(3))
+        if not row["bitwise_repeat"]:
+            raise SystemExit(f"fedavg_agg is not bitwise repeatable: {row}")
+    return row
 
 
 def _cx_count(C):
@@ -1407,62 +1440,94 @@ FLASH_EDGE = [("window-256", 1, 2048, 2048, 8, 8, 64, True, 256),
               ("T!=S", 1, 1024, 2048, 8, 2, 128, True, 0),
               ("S=128", 2, 128, 128, 4, 4, 64, True, 0),
               ("d=256", 1, 512, 512, 4, 2, 256, True, 0)]
+# the bfloat16 kernel only: head dims off the float32 kernel's set (zero
+# columns up to the next 64: d = 160 and 192 take the 192-column tiles), a
+# half query tile (S % 128 == 64) with 8 query heads per key/value head
+FLASH_EDGE_BF16 = [("d=80", 1, 1024, 1024, 8, 4, 80, True, 0),
+                   ("d=48", 1, 1024, 1024, 8, 8, 48, True, 128),
+                   ("d=192", 1, 1024, 1024, 8, 4, 192, True, 256),
+                   ("d=160", 1, 1024, 1024, 8, 8, 160, True, 128),
+                   ("S=192 G=8", 2, 192, 192, 16, 2, 128, True, 0)]
+# the first port's graph times in ms, before the redesign (PERF.md section
+# 6), printed on the progress lines beside this run's for reading only: not
+# a gate, and not in the kernels line
+FIRST_PORT_FLASH_GRAPH_MS = {
+    (ZAMBA, "bfloat16"): 5.837, (ZAMBA, "float32"): 5.753,
+    (YI, "bfloat16"): 1.918, (YI, "float32"): 1.978}
 
 
 def _flash_rows():
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fl
 
     gen = torch.Generator().manual_seed(9)
     cases = ([(c, dt, True) for c in FLASH_MAIN
               for dt in (torch.bfloat16, torch.float32)]
-             + [(c, torch.float32, False) for c in FLASH_EDGE]
-             + [(FLASH_EDGE[0], torch.bfloat16, False)])
+             + [(c, dt, False) for c in FLASH_EDGE
+                for dt in (torch.float32, torch.bfloat16)]
+             + [(c, torch.bfloat16, False) for c in FLASH_EDGE_BF16])
     rows = []
-    for (label, B, S, T, H, Hk, d, causal, window), dtype, main in cases:
-        q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
-        k = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
-        v = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
-        before = fl.launches
-        out = fl.flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        if fl.launches != before + 1:
-            raise SystemExit("flash_attention: the wrapper did not launch")
-        want = fl.flash_attention_torch(q, k, v, causal=causal,
-                                        window=window)
-        err, _ = _rel_err(out, want)
-        # float32: the same sums in another order, within 1e-5; bfloat16:
-        # both round float32 results that agree that closely, so each
-        # element is at most one bfloat16 ulp (2^-7 of |want|) apart
-        tol = 1e-5 if dtype == torch.float32 else "2^-7 |want| + 1e-5"
-        ok = err <= 1e-5 if dtype == torch.float32 else bool(
-            ((out.float() - want.float()).abs()
-             <= BF16_ULP * want.float().abs() + 1e-5).all())
-        row = {"case": label, "B": B, "S": S, "T": T, "H": H, "Hk": Hk,
-               "d": d, "causal": causal, "window": window,
-               "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err, "tol": tol}
-        if not (out.dtype == dtype and out.shape == q.shape and ok):
-            raise SystemExit(f"flash_attention disagrees with its plain "
-                             f"version: {row}")
-        if main:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            fns = {"": lambda: fl.flash_attention(q, k, v, causal=causal),
-                   "plain_": lambda: fl.flash_attention_torch(
-                       q, k, v, causal=causal),
-                   # the yardstick, timed only: the port never calls it
-                   "library_": lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=causal, enable_gqa=H != Hk)}
-            for key, fn in fns.items():
-                row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
-            row["bound_ms"], row["bound_by"] = _flash_bound(
-                B, S, T, H, Hk, d, causal, window, dtype)
-        print("  flash_attention", json.dumps(row), flush=True)
+    for case, dtype, main in cases:
+        row = flash_row(case, dtype, main, gen)
+        first = ({"first_port_graph_ms": FIRST_PORT_FLASH_GRAPH_MS[
+            (row["case"], row["dtype"])]} if main else {})
+        print("  flash_attention", json.dumps({**row, **first}),
+              flush=True)
         rows.append(row)
-        del q, k, v, out, want
     torch.cuda.empty_cache()
     return rows
+
+
+def flash_row(case, dtype, main, gen):
+    """`flash_attention` at one (label, B, S, T, H, Hk, d, causal, window)
+    against its plain version; on a main shape also timed beside the
+    plain version and SDPA, with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+
+    label, B, S, T, H, Hk, d, causal, window = case
+    q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
+    k = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
+    v = torch.randn((B, T, Hk, d), generator=gen).to("cuda", dtype)
+    before = fl.launches
+    out = fl.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if fl.launches != before + 1:
+        raise SystemExit("flash_attention: the wrapper did not launch")
+    want = fl.flash_attention_torch(q, k, v, causal=causal, window=window)
+    err, _ = _rel_err(out, want)
+    # float32: the same sums in another order, within 1e-5; bfloat16:
+    # both round float32 results that agree that closely, so each
+    # element is at most one bfloat16 ulp (2^-7 of |want|) apart
+    tol = 1e-5 if dtype == torch.float32 else "2^-7 |want| + 1e-5"
+    ok = err <= 1e-5 if dtype == torch.float32 else bool(
+        ((out.float() - want.float()).abs()
+         <= BF16_ULP * want.float().abs() + 1e-5).all())
+    row = {"case": label, "B": B, "S": S, "T": T, "H": H, "Hk": Hk,
+           "d": d, "causal": causal, "window": window,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": tol}
+    if not (out.dtype == dtype and out.shape == q.shape and ok):
+        raise SystemExit(f"flash_attention disagrees with its plain "
+                         f"version: {row}")
+    if main:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        fns = {"": lambda: fl.flash_attention(q, k, v, causal=causal),
+               "plain_": lambda: fl.flash_attention_torch(
+                   q, k, v, causal=causal),
+               # the yardstick, timed only: the port never calls it
+               "library_": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=H != Hk)}
+        for key, fn in fns.items():
+            row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
+        row["bound_ms"], row["bound_by"] = _flash_bound(
+            B, S, T, H, Hk, d, causal, window, dtype)
+        flops = 4 * B * H * d * _attn_pairs(S, T, causal, window)
+        row["tflops"] = flops / (row["graph_ms"] * 1e-3) / 1e12
+        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+        row["design"] = ("wgmma" if dtype == torch.bfloat16
+                         else "simt f32")
+    return row
 
 
 # (label, B, S, H, dh, N): zamba2-1.2b's prefill (64 heads of 64, state
@@ -1566,18 +1631,33 @@ def zoo_kernel_phase():
     deterministic_f32()
     out = {"flash_attention": _flash_rows(), "ssm_scan": _ssm_rows(),
            "occupancy": _occupancy()}
+    # shapes off the kernels' envelopes raise before any launch: S off the
+    # 64-row tiling, a float32 head dim off the SIMT kernel's set; S off
+    # the chunk, a head dim and a state width the scan does not take
     xh = torch.zeros((1, 200, 2, 64), device="cuda")
+    q48 = torch.zeros((1, 128, 2, 48), device="cuda")
+    x48 = torch.zeros((1, 256, 2, 48), device="cuda")
+    n200 = torch.zeros((1, 256, 200), device="cuda")
+    a = torch.zeros((1, 256, 2), device="cuda")
+    before = (fl.launches, ss.launches)
     for bad in (lambda: fl.flash_attention(xh[:, :96].contiguous(),
                                            xh[:, :96].contiguous(),
                                            xh[:, :96].contiguous()),
+                lambda: fl.flash_attention(q48, q48, q48),
                 lambda: ss.ssm_scan(xh, xh[..., 0], xh[..., 0],
                                     xh[:, :, 0, :16].contiguous(),
-                                    xh[:, :, 0, :16].contiguous())):
+                                    xh[:, :, 0, :16].contiguous()),
+                lambda: ss.ssm_scan(x48, a, a, n200[..., :16].contiguous(),
+                                    n200[..., :16].contiguous()),
+                lambda: ss.ssm_scan(x48[..., :32].contiguous(), a, a, n200,
+                                    n200)):
         try:
             bad()
         except ValueError:
             continue
         raise SystemExit("a zoo kernel took a shape it does not tile")
+    if (fl.launches, ss.launches) != before:
+        raise SystemExit("a zoo kernel launched on a shape it refused")
     return out
 
 
@@ -1689,12 +1769,18 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+# the port's zoo kernels (B5's two instantiations, B6), listed by _profile
+# even when they fall outside its top rows
+PORT_KERNELS = ("flash_tc_kernel", "flash_kernel", "ssd_kernel")
+
+
 def _profile(fn, top=8):
     """Device time by kernel over one call of fn, from torch.profiler:
     {"wall_ms", "device_busy_ms", "idle_share", "kernels": [[name, ms,
-    launches], ...]}, or None when the profiler records no device time.
-    The profiler's own host cost lengthens the wall time, so the idle
-    share is an upper bound."""
+    launches, share of busy], ...]} (the `top` longest, then any of the
+    port's kernels below them), or None when the profiler records no
+    device time. The profiler's own host cost lengthens the wall time, so
+    the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1716,8 +1802,12 @@ def _profile(fn, top=8):
         return None
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    for r in rows:
+        r.append(r[1] / busy)
+    kept = rows[:top] + [r for r in rows[top:]
+                         if any(k in r[0] for k in PORT_KERNELS)]
     return {"wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall), "kernels": rows[:top]}
+            "idle_share": max(0.0, 1.0 - busy / wall), "kernels": kept}
 
 
 F32_PREFILL_TOL = 1e-3    # relative to max |logits|: float32 sums in another
@@ -1875,8 +1965,9 @@ def zamba2_phase(device="cuda", seed=0, B=2, S=4096):
             print(f"  profile {name}: wall {prof['wall_ms']:.1f} ms, device "
                   f"busy {prof['device_busy_ms']:.1f} ms, idle share <= "
                   f"{prof['idle_share']:.3f}", flush=True)
-            for kname, ms, n in prof["kernels"]:
-                print(f"    {ms:9.2f} ms {n:6d}x  {kname}", flush=True)
+            for kname, ms, n, share in prof["kernels"]:
+                print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
+                      flush=True)
     steps = [_timed(lambda: _decode(model, params, tokens, 16, device))[1]
              / 16 for _ in range(3)]
     out["decode_ms_per_step_runs"] = steps
@@ -2067,7 +2158,9 @@ def main():
         "ms": frep["ms"], "plain_ms": frep["plain_ms"],
         "bound_ms": frep["bound_ms"], "bound_by": frep["bound_by"],
         "library_ms": frep["library_ms"], "shape": [2, 4096, 32, 64],
-        "dtype": "bfloat16", "shapes": [r for r in frows if "ms" in r]}
+        "dtype": "bfloat16", "design": frep["design"],
+        "tflops": frep["tflops"],
+        "shapes": [r for r in frows if "ms" in r]}
     srows = kernels["ssm_scan"]
     srep = next(r for r in srows if r["case"] == ZAMBA
                 and r["dtype"] == "bfloat16")
@@ -2103,6 +2196,7 @@ def main():
         "kernel_graph_us": r["graph_ms"] * 1e3,
         "plain_graph_us": r["plain_graph_ms"] * 1e3,
         "library_graph_us": r["library_graph_ms"] * 1e3,
+        "bound_share": r["bound_share"],
         "launches": entry["launches"]} for r in entry["shapes"]]
         + [{"name": "trimmed_mean_agg", "replaces": tentry["replaces"],
             "C": r["C"], "N": r["N"], "trim": r["trim"],
@@ -2140,6 +2234,9 @@ def main():
             "bound_us": r["bound_ms"] * 1e3,
             "kernel_graph_us": r["graph_ms"] * 1e3,
             "plain_graph_us": r["plain_graph_ms"] * 1e3,
+            **({"design": r["design"], "tflops": r["tflops"],
+                "bound_share": r["bound_share"]}
+               if "design" in r else {}),
             "launches": e["launches"]}
            for e in (flentry, sentry) for r in e["shapes"]]))
     print(card)

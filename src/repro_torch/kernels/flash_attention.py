@@ -6,17 +6,20 @@
 with G = H / Hk query heads per key/value head (grouped-query attention),
 a causal mask (t <= s) and an optional sliding window (t > s - window).
 
-The kernel is `csrc/flash_attention.cu`, a hand-written CUDA C++ kernel
-for Hopper (sm_90a) that replaces the TPU kernel
-`repro/kernels/flash_attention.py::_flash_kernel`; its source notes say
-what bounds it and how the design answers. It reads the (B, S, H, d)
-layout of the attention layer directly and indexes the key/value head
-h // G itself, where the reference folds heads into the batch and
-repeats the key/value heads. `flash_attention` is its wrapper: a CUDA
-tensor launches the kernel (or the wrapper raises), a CPU tensor takes
-the plain PyTorch version `flash_attention_torch`, a twin of the
-reference's oracle `repro/kernels/ref.py::flash_attention_ref`. There is
-no fallback from the card to the plain version.
+The kernels are in `csrc/flash_attention.cu`, hand-written CUDA C++ for
+Hopper (sm_90a) that replaces the TPU kernel
+`repro/kernels/flash_attention.py::_flash_kernel`: for bfloat16 a
+tensor-core kernel (wgmma products fed by TMA, any head dim d % 8 == 0 up
+to 256), for float32 a SIMT kernel (head dims in HEAD_DIMS); the source
+notes say what bounds each and how the design answers. Both read the
+(B, S, H, d) layout of the attention layer directly and index the
+key/value head h // G themselves, where the reference folds heads into the
+batch and repeats the key/value heads. `flash_attention` is their
+wrapper: a CUDA tensor launches a kernel (or the wrapper raises, before
+any launch, on a shape outside the kernel's envelope), a CPU tensor of
+any shape takes the plain PyTorch version `flash_attention_torch`, a twin
+of the reference's oracle `repro/kernels/ref.py::flash_attention_ref`.
+There is no fallback from the card to the plain version.
 
 `launches` counts kernel launches in this process; it moves only where
 the kernel is launched.
@@ -33,8 +36,9 @@ from repro_torch.kernels import build
 launches = 0
 
 NEG_INF = -2.0e38            # the oracle's mask value (ref.py)
-TILE = 64                    # the kernel's query and key tile
-HEAD_DIMS = (32, 64, 96, 128, 256)
+TILE = 64                    # S and T are multiples of this on the card
+HEAD_DIMS = (32, 64, 96, 128, 256)     # the float32 kernel's head dims
+MAX_HEAD_DIM_BF16 = 256      # the bfloat16 kernel: d % 8 == 0, d <= 256
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -62,26 +66,22 @@ def flash_attention_torch(q, k, v, *, causal=True, window=0):
 
 
 def _check(q, k, v, window):
+    """What every device takes: the plain version's contract."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, S, H, d), (B, T, Hk, d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, S, H, d = q.shape
+    B, _, H, d = q.shape
     if tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"k shape {tuple(k.shape)} != v shape "
                          f"{tuple(v.shape)}")
-    Bk, T, Hk, dk = k.shape
+    Bk, _, Hk, dk = k.shape
     if Bk != B or dk != d:
         raise ValueError(f"k shape {tuple(k.shape)} does not fit q shape "
                          f"{tuple(q.shape)}")
     if Hk < 1 or H % Hk:
         raise ValueError(f"{H} query heads are not a multiple of {Hk} "
                          f"key/value heads")
-    if B < 1 or S < TILE or T < TILE or S % TILE or T % TILE:
-        raise ValueError(f"S = {S} and T = {T} must be positive multiples "
-                         f"of {TILE}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not one of {HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -92,6 +92,34 @@ def _check(q, k, v, window):
         raise ValueError("q, k and v must be contiguous")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _check_kernel(q, k):
+    """The CUDA kernel's envelope, checked before any launch: S and T
+    positive multiples of 64; bfloat16 (tensor cores) any d % 8 == 0 up to
+    256 and ceil(S / 128) query tiles on the grid's y axis, float32 (SIMT)
+    d in HEAD_DIMS and B * H on the grid's y axis."""
+    B, S, H, d = q.shape
+    T = k.shape[1]
+    if B < 1 or S < TILE or T < TILE or S % TILE or T % TILE:
+        raise ValueError(f"the CUDA kernel takes S and T positive multiples "
+                         f"of {TILE}, got S = {S}, T = {T}")
+    if q.dtype == torch.bfloat16:
+        if d < 8 or d % 8 or d > MAX_HEAD_DIM_BF16:
+            raise ValueError(f"the bfloat16 CUDA kernel takes head dims "
+                             f"d % 8 == 0, 8 <= d <= {MAX_HEAD_DIM_BF16}, "
+                             f"got {d}")
+        if B * H > 2**31 - 1 or -(-S // 128) > 65535:
+            raise ValueError(f"the bfloat16 CUDA kernel takes B * H <= "
+                             f"2^31 - 1 and S <= 128 * 65535, got B * H = "
+                             f"{B * H}, S = {S}")
+    else:
+        if d not in HEAD_DIMS:
+            raise ValueError(f"the float32 CUDA kernel takes head dims "
+                             f"{HEAD_DIMS}, got {d}")
+        if B * H > 65535:
+            raise ValueError(f"the float32 CUDA kernel takes B * H <= "
+                             f"65535, got {B * H}")
 
 
 def _bind():
@@ -108,8 +136,8 @@ def _bind():
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, S, H, d); k, v: (B, T, Hk, d), all float32 or all bfloat16,
-    contiguous, on one device; S and T multiples of 64, d one of
-    HEAD_DIMS. Returns (B, S, H, d) in q's dtype."""
+    contiguous, on one device. Returns (B, S, H, d) in q's dtype. A CPU
+    tensor takes any shape; a CUDA tensor must fit `_check_kernel`."""
     global launches
     window = int(window or 0)
     _check(q, k, v, window)
@@ -117,6 +145,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         return flash_attention_torch(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _check_kernel(q, k)
     B, S, H, d = q.shape
     T, Hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

@@ -11,8 +11,11 @@ Hopper (sm_90a) that replaces the TPU kernel
 bounds it and how the design answers. `ssm_scan` is its wrapper: a CUDA
 tensor launches the kernel (or the wrapper raises), a CPU tensor takes
 the plain PyTorch version `ssm_scan_torch`, which repeats the kernel's
-chunked arithmetic. There is no fallback from the card to the plain
-version.
+chunked arithmetic. A CPU tensor takes any head dim, state width and
+chunk (the reference's kernel asserts only S % chunk == 0); a CUDA tensor
+outside the kernel's envelope (dh in HEAD_DIMS, N and the chunk up to 128,
+the shared memory a block may use) raises before any launch. There is no
+fallback from the card to the plain version.
 
 `launches` counts kernel launches in this process; it moves only where
 the kernel is launched.
@@ -83,7 +86,8 @@ def ssm_scan_torch(xh, a_log, dt, Bm, Cm, *, chunk=128):
     return torch.cat(ys, dim=1).to(xh.dtype)
 
 
-def _check(xh, a_log, dt, Bm, Cm, Q):
+def _check(xh, a_log, dt, Bm, Cm):
+    """What every device takes: the plain version's contract."""
     if xh.dim() != 4:
         raise ValueError(f"xh must be (B, S, H, dh), got {tuple(xh.shape)}")
     B, S, H, dh = xh.shape
@@ -95,16 +99,6 @@ def _check(xh, a_log, dt, Bm, Cm, Q):
             or tuple(Cm.shape) != tuple(Bm.shape):
         raise ValueError(f"Bm, Cm must be (B, S, N) = ({B}, {S}, N), got "
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
-    N = Bm.shape[-1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not one of {HEAD_DIMS}")
-    if not 1 <= N <= MAX_STATE or Q > MAX_CHUNK or B < 1 or H < 1:
-        raise ValueError(f"state width {N} or chunk {Q} above "
-                         f"{MAX_STATE} / {MAX_CHUNK}")
-    if smem_bytes(dh, N, Q) > MAX_SMEM:
-        raise ValueError(f"(dh, N, chunk) = ({dh}, {N}, {Q}) needs "
-                         f"{smem_bytes(dh, N, Q)} bytes of shared memory, "
-                         f"above {MAX_SMEM}")
     if xh.dtype not in _DTYPES or Bm.dtype != xh.dtype \
             or Cm.dtype != xh.dtype:
         raise TypeError(f"xh, Bm, Cm must all be float32 or bfloat16, got "
@@ -115,6 +109,22 @@ def _check(xh, a_log, dt, Bm, Cm, Q):
         raise ValueError("xh, a_log, dt, Bm, Cm must be on one device")
     if not all(t.is_contiguous() for t in (xh, Bm, Cm)):
         raise ValueError("xh, Bm and Cm must be contiguous")
+
+
+def _check_kernel(xh, Bm, Q):
+    """The CUDA kernel's envelope, checked before any launch."""
+    B, _, H, dh = xh.shape
+    N = Bm.shape[-1]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, "
+                         f"got {dh}")
+    if not 1 <= N <= MAX_STATE or Q > MAX_CHUNK or B < 1 or H < 1:
+        raise ValueError(f"the CUDA kernel takes a state width and chunk "
+                         f"up to {MAX_STATE} / {MAX_CHUNK}, got {N} / {Q}")
+    if smem_bytes(dh, N, Q) > MAX_SMEM:
+        raise ValueError(f"the CUDA kernel at (dh, N, chunk) = ({dh}, {N}, "
+                         f"{Q}) needs {smem_bytes(dh, N, Q)} bytes of "
+                         f"shared memory, above {MAX_SMEM}")
 
 
 def _bind():
@@ -130,15 +140,17 @@ def ssm_scan(xh, a_log, dt, Bm, Cm, *, chunk=128):
     """xh: (B, S, H, dh) float32 or bfloat16; a_log, dt: (B, S, H) (read
     as float32); Bm, Cm: (B, S, N) in xh's dtype, shared by the heads.
     S must be a multiple of min(chunk, S). Returns y: (B, S, H, dh) in
-    xh's dtype."""
+    xh's dtype. A CPU tensor takes any dh, N and chunk; a CUDA tensor
+    must fit `_check_kernel`."""
     global launches
+    _check(xh, a_log, dt, Bm, Cm)
     B, S = xh.shape[:2]
     Q = _chunk(S, chunk)
-    _check(xh, a_log, dt, Bm, Cm, Q)
     if xh.device.type == "cpu":
         return ssm_scan_torch(xh, a_log, dt, Bm, Cm, chunk=Q)
     if xh.device.type != "cuda":
         raise ValueError(f"unsupported device {xh.device}")
+    _check_kernel(xh, Bm, Q)
     H, dh = xh.shape[2:]
     N = Bm.shape[-1]
     a32 = a_log.to(torch.float32).contiguous()     # exact from bf16

@@ -104,7 +104,13 @@ def cuda():
     (2, 7900, torch.float32), (4, 7900, torch.float32),
     (8, 7900, torch.float32), (1, 1, torch.float32),
     (3, 37, torch.float32), (5, 4097, torch.float32),
-    (16, 1 << 20, torch.float32), (4, 5000, torch.bfloat16)])
+    (16, 1 << 20, torch.float32), (4, 5000, torch.bfloat16),
+    # C > 4 splits the loads over 8 warps: the float4 path (N = 7900), the
+    # scalar path (N = 7901), rows past a multiple of 8 (33), bf16
+    (32, 7900, torch.float32), (33, 7900, torch.float32),
+    (64, 7900, torch.float32), (32, 7901, torch.float32),
+    (33, 7901, torch.float32), (64, 7901, torch.float32),
+    (32, 7900, torch.bfloat16)])
 def test_cuda_kernel_matches_plain(cuda, C, N, dtype):
     x, w = _inputs(C, N, C + N)
     tx = torch.as_tensor(x, device=cuda).to(dtype)
@@ -117,3 +123,13 @@ def test_cuda_kernel_matches_plain(cuda, C, N, dtype):
     tol = 1e-6 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                exp.float().cpu().numpy(), atol=tol)
+
+
+def test_cuda_row_split_repeats_bitwise(cuda):
+    """The rows are added in one fixed order: no atomics, so two calls on
+    the same inputs give the same bits."""
+    x, w = _inputs(32, 7900, 7)
+    tx, tw = torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda)
+    first = port_fa.fedavg_agg(tx, tw)
+    for _ in range(3):
+        assert torch.equal(port_fa.fedavg_agg(tx, tw), first)

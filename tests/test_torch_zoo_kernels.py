@@ -110,6 +110,13 @@ def test_flash_cpu_tensor_takes_plain_path_without_launch():
         rtol=0, atol=0)
 
 
+# S and T off the kernel's 64-row tiling and a head dim outside the
+# float32 kernel's set are the CUDA kernel's envelope, not the function's:
+# on the CPU they take the plain version (the refusal on the card is in
+# test_cuda_bad_shapes_raise_without_launch)
+CPU_TAKES = ("S", "T", "head_dim")
+
+
 @pytest.mark.parametrize("case", ["rank", "S", "T", "head_dim", "heads",
                                   "dtype", "mixed_dtype", "noncontiguous",
                                   "batch", "window"])
@@ -138,9 +145,32 @@ def test_flash_wrapper_rejects_bad_arguments(case):
     else:
         window = -1
     before = port_fl.launches
-    with pytest.raises(exc):
-        port_fl.flash_attention(q, k, v, window=window)
+    if case in CPU_TAKES:
+        out = port_fl.flash_attention(q, k, v, window=window)
+        assert tuple(out.shape) == tuple(q.shape)
+        torch.testing.assert_close(
+            out, port_fl.flash_attention_torch(q, k, v, window=window),
+            rtol=0, atol=0)
+    else:
+        with pytest.raises(exc):
+            port_fl.flash_attention(q, k, v, window=window)
     assert port_fl.launches == before
+
+
+@pytest.mark.parametrize("d", [80, 48])
+@pytest.mark.parametrize("window", [0, 96])
+def test_flash_head_dims_off_the_f32_kernel_match_reference(d, window):
+    """Head dims the reference's gate sends to its kernel (dh % 8 == 0)
+    but the float32 CUDA kernel does not take: the CPU runs them."""
+    jnp = pytest.importorskip("jax.numpy")
+    ref_ops = pytest.importorskip("repro.kernels.ops")
+    q, k, v = _qkv(1, 256, 256, 4, 2, d, d + window)
+    port = port_fl.flash_attention(*_t(q, k, v), causal=True, window=window)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   window=window, interpret=True)
+    np.testing.assert_allclose(port.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 # -- B6 ----------------------------------------------------------------------
@@ -184,6 +214,13 @@ def test_ssm_ops_returns_pair_and_counts_without_launch():
                                rtol=0, atol=0)
 
 
+# head dims, state widths and shared-memory sizes off the CUDA kernel's
+# envelope take the plain version on the CPU (the refusal on the card is
+# in test_cuda_bad_shapes_raise_without_launch); S % chunk stays refused,
+# as in the reference
+SSM_CPU_TAKES = ("head_dim", "state", "smem")
+
+
 @pytest.mark.parametrize("case", ["chunk", "head_dim", "state", "dtype",
                                   "mixed_dtype", "shape", "noncontiguous",
                                   "smem"])
@@ -208,9 +245,32 @@ def test_ssm_wrapper_rejects_bad_arguments(case):
         xh = torch.zeros((1, 256, 2, 64))
         Bm = Cm = torch.zeros((1, 256, 128))
     before = port_ss.launches
-    with pytest.raises(exc):
-        port_ss.ssm_scan(xh, a, dt, Bm, Cm, chunk=chunk)
+    if case in SSM_CPU_TAKES:
+        y = port_ss.ssm_scan(xh, a, dt, Bm, Cm, chunk=chunk)
+        assert tuple(y.shape) == tuple(xh.shape)
+        torch.testing.assert_close(
+            y, port_ss.ssm_scan_torch(xh, a, dt, Bm, Cm, chunk=chunk),
+            rtol=0, atol=0)
+    else:
+        with pytest.raises(exc):
+            port_ss.ssm_scan(xh, a, dt, Bm, Cm, chunk=chunk)
     assert port_ss.launches == before
+
+
+@pytest.mark.parametrize("S,chunk,N,dh", [(256, 128, 64, 128),
+                                          (128, 64, 200, 32)])
+def test_ssm_widths_off_the_kernel_match_reference(S, chunk, N, dh):
+    """A head dim and a state width the CUDA kernel does not take: the
+    reference's kernel computes them, and so does the CPU path."""
+    jnp = pytest.importorskip("jax.numpy")
+    ref_ss = pytest.importorskip("repro.kernels.ssm_scan")
+    arrays = _ssm_inputs(2, S, 3, dh, N, S + N + dh)
+    port = port_ss.ssm_scan(*_t(*arrays), chunk=chunk)
+    kern, _ = ref_ss.ssm_scan(*(jnp.asarray(a) for a in arrays),
+                              chunk=chunk, interpret=True)
+    scale = float(np.abs(np.asarray(kern)).max())
+    np.testing.assert_allclose(port.numpy(), np.asarray(kern), rtol=0,
+                               atol=1e-5 * scale)
 
 
 # -- on the card -------------------------------------------------------------
@@ -223,11 +283,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,T,H,Hk,d,causal,window", [
+FLASH_CUDA = [
     (2, 512, 512, 4, 4, 64, True, 0), (1, 512, 512, 8, 2, 128, True, 0),
     (1, 256, 256, 2, 1, 64, True, 100), (1, 256, 384, 2, 2, 32, False, 0),
-    (1, 128, 256, 2, 2, 256, True, 0), (1, 192, 192, 3, 1, 96, True, 64)])
+    (1, 128, 256, 2, 2, 256, True, 0), (1, 192, 192, 3, 1, 96, True, 64)]
+# the bfloat16 tensor-core kernel only: head dims off the float32 set
+# (d = 160 and 192 take the 192-column tiles), S % 128 == 64 (a half query
+# tile), 8 query heads per key/value head
+FLASH_CUDA_BF16 = [
+    (1, 256, 256, 4, 2, 80, True, 0), (1, 256, 256, 4, 2, 48, True, 96),
+    (1, 256, 256, 4, 2, 192, True, 96), (1, 256, 256, 4, 2, 160, True, 128),
+    (2, 192, 192, 4, 4, 64, True, 0), (1, 192, 320, 4, 1, 128, False, 0),
+    (1, 512, 512, 16, 2, 128, True, 0)]
+
+
+@pytest.mark.parametrize(
+    "dtype,B,S,T,H,Hk,d,causal,window",
+    [(dt, *c) for c in FLASH_CUDA for dt in ("float32", "bfloat16")]
+    + [("bfloat16", *c) for c in FLASH_CUDA_BF16])
 def test_cuda_flash_matches_plain(cuda, dtype, B, S, T, H, Hk, d, causal,
                                   window):
     dt = getattr(torch, dtype)
@@ -266,14 +339,48 @@ def test_cuda_ssm_scan_matches_plain(cuda, dtype, B, S, H, dh, N, chunk):
     assert float((y.float() - want.float()).abs().max()) <= tol * scale
 
 
-def test_cuda_bad_shapes_raise_without_launch(cuda):
-    q = torch.zeros((1, 96, 2, 64), device=cuda)
+def test_cuda_flash_grid_limits_follow_the_dtype(cuda):
+    """B * H = 66,560 is past the float32 kernel's grid.y (65535) but on
+    the bfloat16 kernel's grid.x: float32 raises before any launch,
+    bfloat16 launches and holds its gate."""
+    q, k, v = (t.to(torch.bfloat16) for t in _t(
+        *_qkv(1024, 64, 64, 65, 65, 32, 7), device=cuda))
     before = port_fl.launches
-    with pytest.raises(ValueError):
-        port_fl.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="B \\* H <= 65535"):
+        port_fl.flash_attention(q.float(), k.float(), v.float())
+    assert port_fl.launches == before
+    out = port_fl.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert port_fl.launches == before + 1
+    want = port_fl.flash_attention_torch(q, k, v).float()
+    assert bool(((out.float() - want).abs()
+                 <= 2.0 ** -7 * want.abs() + 1e-5).all())
+
+
+def test_cuda_bad_shapes_raise_without_launch(cuda):
+    """Shapes off the CUDA kernels' envelopes raise before any launch: S
+    off the 64-row tiling, a float32 head dim outside the SIMT kernel's
+    set, a bfloat16 head dim that is not a multiple of 8; an SSM sequence
+    off the chunk, a head dim and a state width the scan does not take."""
+    q = torch.zeros((1, 96, 2, 64), device=cuda)
+    q48 = torch.zeros((1, 128, 2, 48), device=cuda)
+    q20 = torch.zeros((1, 128, 2, 20), device=cuda, dtype=torch.bfloat16)
+    before = port_fl.launches
+    for bad in (q, q48, q20):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            port_fl.flash_attention(bad, bad, bad)
+    assert port_fl.launches == before
+    before = port_ss.launches
     xh = torch.zeros((1, 200, 2, 64), device=cuda)
     a = torch.zeros((1, 200, 2), device=cuda)
     Bm = torch.zeros((1, 200, 16), device=cuda)
     with pytest.raises(ValueError):
         port_ss.ssm_scan(xh, a, a, Bm, Bm)
-    assert port_fl.launches == before
+    a = torch.zeros((1, 256, 2), device=cuda)
+    for xh, Bm in ((torch.zeros((1, 256, 2, 48), device=cuda),
+                    torch.zeros((1, 256, 16), device=cuda)),
+                   (torch.zeros((1, 256, 2, 32), device=cuda),
+                    torch.zeros((1, 256, 200), device=cuda))):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            port_ss.ssm_scan(xh, a, a, Bm, Bm)
+    assert port_ss.launches == before
