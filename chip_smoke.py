@@ -39,7 +39,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 7. churn (slice 3 main path) — (a) `gossip_mix_agg` against its plain
    version on the card, with mixing matrices from real fault schedules
    (dead clients' identity rows must come back bit for bit), timed as
-   the other kernels; (b) the port on the card against the port on the
+   the other kernels beside `mix @ x` at C = 8 and C = 32; (b) the port on the card against the port on the
    CPU under fault profiles (masked gossip with MTD, HFL quorum holds,
    AFL star with median, CFL under `mid`, FedAvgM with quorum holds,
    FedProx, FedAdam; both engines), event by event, with a bitwise repeat
@@ -80,9 +80,13 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    d = 48, d = 192, d = 160 and S = 192 with 8 query heads per key/value
    head in bfloat16; one chunk, S below the chunk), timed beside the plain
    version and, for `flash_attention`, `scaled_dot_product_attention`
-   (timed only), with the occupancy of each, B5's TFLOP/s and share of its
-   bound (and, on the progress lines only, the first port's graph time);
-   shapes off each kernel's envelope must raise before any launch; (b) zamba2 reduced to 4 layers
+   (timed only), with the occupancy of each (B6: its three passes,
+   `ssd_chunk_state`, `ssd_state_pass`, `ssd_chunk_scan`, in both types),
+   B5's TFLOP/s and share of its bound (and, on the progress lines only,
+   the first port's graph time); B6's states entering every chunk, as its
+   first two passes leave them, against the plain rendering of its passes
+   (`ssm_scan_passes_torch`) at the mid edge shape; shapes off each
+   kernel's envelope must raise before any launch; (b) zamba2 reduced to 4 layers
    on the card against the CPU (the flash prefill, the kernel prefill,
    8 decode steps; 1e-4) with a bitwise repeat; (c) zamba2-1.2b at full
    width and depth, random weights from a seed: the plain, flash and kernel
@@ -747,11 +751,9 @@ GOSSIP_EDGE = [(1, 7900), (2, 37), (5, 4097), (33, 4097), (256, 7900),
 
 
 def _gossip_rows():
-    import numpy as np
     import torch
     from repro_torch.kernels import gossip_mix as gm
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
     gen = torch.Generator().manual_seed(2)
     cases = []
     for C, N, label, (mtd, degree, rounds, ev) in GOSSIP_MAIN:
@@ -764,38 +766,8 @@ def _gossip_rows():
     mix, alive = _schedule_mix(32, True, 4, 10, 0)
     cases.append((32, 7900, torch.bfloat16, mix, alive, "churn32-mtd", False))
     rows = []
-    for C, N, dtype, mix_np, alive, label, main in cases:
-        x = torch.randn((C, N), generator=gen).to("cuda", dtype)
-        mix = torch.as_tensor(mix_np, device="cuda")
-        before = gm.launches
-        out = gm.gossip_mix_agg(x, mix)
-        torch.cuda.synchronize()
-        if gm.launches != before + 1:
-            raise SystemExit("gossip_mix_agg: the wrapper did not launch")
-        exp = gm.gossip_mix_torch(x, mix)
-        err = float((out.float() - exp.float()).abs().max())
-        tol = 1e-6 if dtype == torch.float32 else 2e-2
-        within = bool(((out.float() - exp.float()).abs()
-                       <= tol + tol * exp.float().abs()).all())
-        dead = torch.as_tensor(np.flatnonzero(~alive), device="cuda")
-        identity = bool(torch.equal(out[dead], x[dead]))
-        row = {"C": C, "N": N, "schedule": label,
-               "dtype": str(dtype).replace("torch.", ""),
-               "dead_rows": int(dead.numel()), "max_abs_err": err,
-               "tol": tol, "identity_rows_bitwise": identity}
-        if not (out.dtype == dtype and out.shape == (C, N) and within
-                and identity):
-            raise SystemExit(f"gossip_mix_agg disagrees with its plain "
-                             f"version: {row}")
-        if main:
-            fns = {"": lambda: gm.gossip_mix_agg(x, mix),
-                   "plain_": lambda: gm.gossip_mix_torch(x, mix),
-                   "library_": lambda: mix @ x}           # yardstick only
-            for key, fn in fns.items():
-                row[f"{key}ms"] = _time_ms(fn)
-                row[f"{key}graph_ms"] = _graph_ms(fn)
-            row["bound_ms"], row["bound_by"] = _gossip_bound(
-                C, N, x.element_size())
+    for case in cases:
+        row = gossip_row(*case, gen)
         print("  gossip_mix_agg", json.dumps(row), flush=True)
         rows.append(row)
     n = gm.MAX_CLIENTS + 1
@@ -808,6 +780,54 @@ def _gossip_rows():
         raise SystemExit(f"gossip_mix_agg took C = {n}, above its stated "
                          f"maximum")
     return rows
+
+
+def gossip_row(C, N, dtype, mix_np, alive, label, main, gen):
+    """`gossip_mix_agg` at (C, N) with one schedule's mixing matrix
+    against its plain version (dead clients' identity rows bit for bit);
+    on a main shape also timed beside the plain version and `mix @ x`,
+    with its bound and a digest of its output's bits."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gossip_mix as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    x = torch.randn((C, N), generator=gen).to("cuda", dtype)
+    mix = torch.as_tensor(mix_np, device="cuda")
+    before = gm.launches
+    out = gm.gossip_mix_agg(x, mix)
+    torch.cuda.synchronize()
+    if gm.launches != before + 1:
+        raise SystemExit("gossip_mix_agg: the wrapper did not launch")
+    exp = gm.gossip_mix_torch(x, mix)
+    err = float((out.float() - exp.float()).abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    within = bool(((out.float() - exp.float()).abs()
+                   <= tol + tol * exp.float().abs()).all())
+    dead = torch.as_tensor(np.flatnonzero(~alive), device="cuda")
+    identity = bool(torch.equal(out[dead], x[dead]))
+    row = {"C": C, "N": N, "schedule": label,
+           "dtype": str(dtype).replace("torch.", ""),
+           "dead_rows": int(dead.numel()), "max_abs_err": err,
+           "tol": tol, "identity_rows_bitwise": identity}
+    if not (out.dtype == dtype and out.shape == (C, N) and within
+            and identity):
+        raise SystemExit(f"gossip_mix_agg disagrees with its plain "
+                         f"version: {row}")
+    if main:
+        fns = {"": lambda: gm.gossip_mix_agg(x, mix),
+               "plain_": lambda: gm.gossip_mix_torch(x, mix),
+               "library_": lambda: mix @ x}           # yardstick only
+        for key, fn in fns.items():
+            row[f"{key}ms"] = _time_ms(fn)
+            row[f"{key}graph_ms"] = _graph_ms(fn)
+        row["bound_ms"], row["bound_by"] = _gossip_bound(
+            C, N, x.element_size())
+        row["out_sha256"] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()
+    return row
 
 
 def churn_parity_specs():
@@ -1555,7 +1575,6 @@ def _ssm_inputs(B, S, H, dh, N, gen, dtype):
 
 def _ssm_rows():
     import torch
-    from repro_torch.kernels import ssm_scan as ss
 
     gen = torch.Generator().manual_seed(10)
     cases = ([(c, dt, True) for c in SSM_MAIN
@@ -1563,57 +1582,104 @@ def _ssm_rows():
              + [(c, dt, False) for c in SSM_EDGE
                 for dt in (torch.float32, torch.bfloat16)])
     rows = []
-    for (label, B, S, H, dh, N), dtype, main in cases:
-        xh, a, dt, Bm, Cm = _ssm_inputs(B, S, H, dh, N, gen, dtype)
-        before = ss.launches
-        y = ss.ssm_scan(xh, a, dt, Bm, Cm)
-        torch.cuda.synchronize()
-        if ss.launches != before + 1:
-            raise SystemExit("ssm_scan: the wrapper did not launch")
-        want = ss.ssm_scan_torch(xh, a, dt, Bm, Cm)
-        err, scale = _rel_err(y, want)
-        # relative to max |y|: products of the size of y summed in another
-        # order and exp of a cumsum taken in another order (float32);
-        # bfloat16 rounds the output
-        tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
-        row = {"case": label, "B": B, "S": S, "H": H, "dh": dh, "N": N,
-               "chunk": min(128, S), "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err, "max_abs_y": scale, "tol": tol}
-        if not (y.dtype == dtype and y.shape == xh.shape and err <= tol
-                and bool(torch.isfinite(y).all())):
-            raise SystemExit(f"ssm_scan disagrees with its plain version: "
-                             f"{row}")
-        if main:
-            fns = {"": lambda: ss.ssm_scan(xh, a, dt, Bm, Cm),
-                   "plain_": lambda: ss.ssm_scan_torch(xh, a, dt, Bm, Cm)}
-            for key, fn in fns.items():
-                row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
-            row["bound_ms"], row["bound_by"] = _ssm_bound(
-                B, S, H, dh, N, min(128, S), dtype)
+    for case, dtype, main in cases:
+        row = ssm_row(case, dtype, main, gen)
         print("  ssm_scan", json.dumps(row), flush=True)
         rows.append(row)
     return rows
 
 
+def ssm_row(case, dtype, main, gen):
+    """`ssm_scan` at one (label, B, S, H, dh, N) against its plain
+    version; on a main shape also timed beside the plain version, with its
+    bound."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+
+    label, B, S, H, dh, N = case
+    xh, a, dt, Bm, Cm = _ssm_inputs(B, S, H, dh, N, gen, dtype)
+    before = ss.launches
+    y = ss.ssm_scan(xh, a, dt, Bm, Cm)
+    torch.cuda.synchronize()
+    if ss.launches != before + 1:
+        raise SystemExit("ssm_scan: the wrapper did not launch")
+    want = ss.ssm_scan_torch(xh, a, dt, Bm, Cm)
+    err, scale = _rel_err(y, want)
+    # relative to max |y|: products of the size of y summed in another
+    # order and exp of a cumsum taken in another order (float32);
+    # bfloat16 rounds the output
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+    row = {"case": label, "B": B, "S": S, "H": H, "dh": dh, "N": N,
+           "chunk": min(128, S), "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "max_abs_y": scale, "tol": tol}
+    if not (y.dtype == dtype and y.shape == xh.shape and err <= tol
+            and bool(torch.isfinite(y).all())):
+        raise SystemExit(f"ssm_scan disagrees with its plain version: "
+                         f"{row}")
+    if main:
+        fns = {"": lambda: ss.ssm_scan(xh, a, dt, Bm, Cm),
+               "plain_": lambda: ss.ssm_scan_torch(xh, a, dt, Bm, Cm)}
+        for key, fn in fns.items():
+            row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
+        row["bound_ms"], row["bound_by"] = _ssm_bound(
+            B, S, H, dh, N, min(128, S), dtype)
+    return row
+
+
+def _ssm_state_check():
+    """B6's first two passes on the card (each chunk's own state, then the
+    states passed from chunk to chunk) against the plain rendering of the
+    passes, at the "mid" edge shape in both types: the states entering
+    every chunk within 1e-4 (float32) / 2e-2 (bfloat16: x o u is rounded
+    to bf16 once, and the states are stored in bf16) of their largest
+    magnitude."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+
+    label, B, S, H, dh, N = next(c for c in SSM_EDGE if c[0] == "mid")
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssm_inputs(B, S, H, dh, N, gen, dtype)
+        h_in = ss.ssm_chunk_states(*args)
+        _, want = ss.ssm_scan_passes_torch(*args)
+        err, scale = _rel_err(h_in, want)
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+        row = {"case": label, "states": list(h_in.shape),
+               "max_abs_err": err, "max_abs_h": scale, "tol": tol}
+        if not (h_in.shape == want.shape and err <= tol
+                and bool(torch.isfinite(h_in).all())):
+            raise SystemExit(f"ssm_scan's chunk states disagree with the "
+                             f"plain passes: {row}")
+        out[str(dtype).replace("torch.", "")] = row
+    print("  ssm_scan chunk states " + json.dumps(out), flush=True)
+    return out
+
+
 def _occupancy():
     """Resident blocks per SM and shared memory per block at the main
-    path's shapes, from the CUDA occupancy API."""
+    path's shapes, from the CUDA occupancy API: B5's tiles at d = 64 and
+    128, B6's three passes at zamba2's widths in both types."""
     import ctypes
     from repro_torch.kernels import build
 
+    queries = [("flash_attention d=64", "flash_attention", (64, 1)),
+               ("flash_attention d=128", "flash_attention", (128, 1))]
+    for dtype, code in (("bf16", 1), ("f32", 0)):
+        for kernel, pass_ in (("ssd_chunk_state", 1), ("ssd_state_pass", 2),
+                              ("ssd_chunk_scan", 3)):
+            queries.append((f"ssm_scan {kernel} {dtype} dh=64 N=64",
+                            "ssm_scan", (pass_, code, 64, 64, 128)))
     out = {}
-    for name, fn, args in (
-            ("flash_attention d=64", "flash_attention_occupancy", (64, 1)),
-            ("flash_attention d=128", "flash_attention_occupancy", (128, 1)),
-            ("ssm_scan dh=64 N=64", "ssm_scan_occupancy", (64, 64, 128))):
-        query = getattr(build.load(name.split()[0]), fn)
+    for name, lib, args in queries:
+        query = getattr(build.load(lib), f"{lib}_occupancy")
         query.argtypes = [ctypes.c_int] * len(args) + [
             ctypes.POINTER(ctypes.c_int)] * 2
         query.restype = ctypes.c_int
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
         err = query(*args, ctypes.byref(blocks), ctypes.byref(smem))
         if err != 0:
-            raise SystemExit(f"{fn}{args}: cudaError {err}")
+            raise SystemExit(f"{lib}_occupancy{args}: cudaError {err}")
         out[name] = {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
     print("  occupancy " + json.dumps(out), flush=True)
     return out
@@ -1630,6 +1696,7 @@ def zoo_kernel_phase():
 
     deterministic_f32()
     out = {"flash_attention": _flash_rows(), "ssm_scan": _ssm_rows(),
+           "ssm_chunk_states": _ssm_state_check(),
            "occupancy": _occupancy()}
     # shapes off the kernels' envelopes raise before any launch: S off the
     # 64-row tiling, a float32 head dim off the SIMT kernel's set; S off
@@ -1769,9 +1836,10 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-# the port's zoo kernels (B5's two instantiations, B6), listed by _profile
-# even when they fall outside its top rows
-PORT_KERNELS = ("flash_tc_kernel", "flash_kernel", "ssd_kernel")
+# the port's zoo kernels (B5's two instantiations, B6's three passes),
+# listed by _profile even when they fall outside its top rows
+PORT_KERNELS = ("flash_tc_kernel", "flash_kernel", "ssd_chunk_state",
+                "ssd_state_pass", "ssd_chunk_scan")
 
 
 def _profile(fn, top=8):
@@ -1806,8 +1874,15 @@ def _profile(fn, top=8):
         r.append(r[1] / busy)
     kept = rows[:top] + [r for r in rows[top:]
                          if any(k in r[0] for k in PORT_KERNELS)]
+    port = {}                    # ms and launches of each of the port's
+    for name, marks in (("flash_attention", PORT_KERNELS[:2]),   # kernels,
+                        ("ssm_scan", PORT_KERNELS[2:])):        # passes summed
+        mine = [r for r in rows if any(k in r[0] for k in marks)]
+        port[name] = [sum(r[1] for r in mine), sum(r[2] for r in mine),
+                      sum(r[1] for r in mine) / busy]
     return {"wall_ms": wall, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall), "kernels": kept}
+            "idle_share": max(0.0, 1.0 - busy / wall), "kernels": kept,
+            "port_kernels": port}
 
 
 F32_PREFILL_TOL = 1e-3    # relative to max |logits|: float32 sums in another
@@ -1968,6 +2043,9 @@ def zamba2_phase(device="cuda", seed=0, B=2, S=4096):
             for kname, ms, n, share in prof["kernels"]:
                 print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
                       flush=True)
+            for kname, (ms, n, share) in prof["port_kernels"].items():
+                print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname} "
+                      f"(all its kernels)", flush=True)
     steps = [_timed(lambda: _decode(model, params, tokens, 16, device))[1]
              / 16 for _ in range(3)]
     out["decode_ms_per_step_runs"] = steps

@@ -8,8 +8,12 @@ heartbeat-decayed supports, the moving-target ring), applied to the
 (C, N) client-stacked parameter matrix. The kernel is
 `csrc/gossip_mix.cu`, a hand-written CUDA C++ kernel for Hopper (sm_90a)
 that replaces the TPU kernel `repro/kernels/gossip_mix.py::_gossip_kernel`:
-a tiled product in float32 fused multiply-adds, never TF32, so it holds
-to a float32 matmul. `gossip_mix_agg` is its wrapper: a CUDA tensor
+a product in float32 fused multiply-adds, never TF32, so it holds to a
+float32 matmul. Up to 32 clients its row tile is sized to C (8 or 32
+rows) and each thread's loads are 16 bytes wide and all in flight before
+the first multiply-add; above 32 it tiles 32 x 64 outputs. Every output is
+one chain of multiply-adds over j = 0 .. C - 1 in both, so the bits do not
+depend on C's path. `gossip_mix_agg` is its wrapper: a CUDA tensor
 launches the kernel (or the wrapper raises), a CPU tensor takes the plain
 PyTorch version `gossip_mix_torch`. There is no fallback from the card
 to the plain version.

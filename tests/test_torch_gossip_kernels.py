@@ -143,3 +143,35 @@ def test_cuda_kernel_matches_plain(cuda, C, N, dtype):
                                rtol=_tol(dtype))
     dead = torch.as_tensor(np.flatnonzero(~alive), device=cuda)
     assert torch.equal(out[dead], x[dead])
+
+
+# the row tile is sized to C (8 rows up to C = 8, 32 up to C = 32, the
+# 32 x 64 tiled kernel above): each side of both limits, 16-byte loads
+# (N % 4 == 0 in float32, N % 8 == 0 in bfloat16) and element loads
+@pytest.mark.parametrize("C,N,dtype", [
+    (8, 7901, torch.float32), (9, 7900, torch.float32),
+    (32, 7902, torch.float32), (32, 64, torch.float32),
+    (8, 7900, torch.bfloat16), (8, 7903, torch.bfloat16),
+    (31, 4100, torch.bfloat16), (33, 7900, torch.bfloat16)])
+def test_cuda_kernel_edges_match_plain(cuda, C, N, dtype):
+    test_cuda_kernel_matches_plain(cuda, C, N, dtype)
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_cuda_kernel_bits_do_not_depend_on_the_load_path(cuda, C):
+    """Every output is one chain of multiply-adds over j = 0 .. C - 1,
+    whether x comes in 16-byte or element loads (a view 4 bytes off
+    alignment), and on repeat; a dead client's row comes back bit for
+    bit."""
+    x, mix, alive = _inputs(C, 7900, 5 * C)
+    x = torch.as_tensor(x, device=cuda)
+    mix = torch.as_tensor(mix, device=cuda)
+    out = port_gm.gossip_mix_agg(x, mix)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(port_gm.gossip_mix_agg(shifted, mix), out)
+    assert torch.equal(port_gm.gossip_mix_agg(x, mix), out)
+    dead = torch.as_tensor(np.flatnonzero(~alive), device=cuda)
+    assert torch.equal(out[dead], x[dead])

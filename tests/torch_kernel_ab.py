@@ -1,17 +1,24 @@
-"""Card readings of B5 (`flash_attention`, bfloat16) and B1 (`fedavg_agg`)
-of one checkout, for comparing two checkouts on one card in one call.
-Not collected by pytest (no `test_` prefix); needs a CUDA card.
+"""Card readings of B5 (`flash_attention`, bfloat16), B1 (`fedavg_agg`), B3
+(`gossip_mix_agg`) and B6 (`ssm_scan`) of one checkout, for comparing two
+checkouts on one card in one call. Not collected by pytest (no `test_`
+prefix); needs a CUDA card.
 
-    python3 tests/torch_kernel_ab.py ROOT [ROOT ...]
+    python3 tests/torch_kernel_ab.py [--kernels NAME,...] ROOT [ROOT ...]
 
 For each ROOT (a checkout of the repository, e.g. a `git archive` of the
 parent commit unpacked into a git-ignored directory, and `.`), one process
 builds that checkout's kernels into its own `build/` and prints one line
 `AB {json}`. The shapes, the gates and the timing are this checkout's
 chip_smoke.py's (`flash_row` at every bfloat16 shape of `FLASH_MAIN`,
-`fedavg_row` at N = 7900 float32 and C = 2, 4, 8, 32, 33, 64); only the
-kernels and their wrappers come from ROOT. Run the roots in turns
-(A, B, B, A) to see the spread of the card beside the difference.
+`fedavg_row` at N = 7900 float32 and C = 2, 4, 8, 32, 33, 64,
+`gossip_row` at the three `GOSSIP_MAIN` schedules, `ssm_row` at
+`SSM_MAIN` in bfloat16 and float32); only the kernels and their wrappers
+come from ROOT. `--kernels` picks some of flash_attention, fedavg_agg,
+gossip_mix_agg and ssm_scan (default: all). Run the roots in turns
+(A, B, B, A) to see the spread of the card beside the difference. The
+last line, `AB gossip_bits {json}`, says whether every root's B3 outputs
+at the `GOSSIP_MAIN` shapes are the same bits (a digest of each output,
+from the same inputs).
 """
 import json
 import os
@@ -19,38 +26,77 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = ("flash_attention", "fedavg_agg", "gossip_mix_agg", "ssm_scan")
+SOURCES = {"flash_attention": "flash_attention", "fedavg_agg": "fedavg_agg",
+           "gossip_mix_agg": "gossip_mix", "ssm_scan": "ssm_scan"}
 
 CHILD = r"""
 import json, sys
-root, here = sys.argv[1], sys.argv[2]
+root, here, kernels = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
+sources = json.loads(sys.argv[4])
 sys.path[:0] = [root + "/src", here]
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
 
-build.build_all(["flash_attention", "fedavg_agg"])
+build.build_all([sources[k] for k in kernels])
 out = {"root": root, "card": cs._card_line()}
-gen = torch.Generator().manual_seed(9)
-for case in cs.FLASH_MAIN:
-    row = cs.flash_row(case, torch.bfloat16, True, gen)
-    row.pop("design")             # names this checkout's kernel, not ROOT's
-    out[case[0]] = row
-gen = torch.Generator().manual_seed(0)
-for C in (2, 4, 8, 32, 33, 64):
-    out[f"fedavg_agg C={C}"] = cs.fedavg_row(C, 7900, torch.float32, True,
-                                             gen)
+if "flash_attention" in kernels:
+    gen = torch.Generator().manual_seed(9)
+    for case in cs.FLASH_MAIN:
+        row = cs.flash_row(case, torch.bfloat16, True, gen)
+        row.pop("design")         # names this checkout's kernel, not ROOT's
+        out[case[0]] = row
+if "fedavg_agg" in kernels:
+    gen = torch.Generator().manual_seed(0)
+    for C in (2, 4, 8, 32, 33, 64):
+        out[f"fedavg_agg C={C}"] = cs.fedavg_row(C, 7900, torch.float32,
+                                                 True, gen)
+if "gossip_mix_agg" in kernels:
+    gen = torch.Generator().manual_seed(2)
+    for C, N, label, (mtd, degree, rounds, ev) in cs.GOSSIP_MAIN:
+        mix, alive = cs._schedule_mix(C, mtd, degree, rounds, ev)
+        out[f"gossip_mix_agg {label}"] = cs.gossip_row(
+            C, N, torch.float32, mix, alive, label, True, gen)
+if "ssm_scan" in kernels:
+    gen = torch.Generator().manual_seed(10)
+    for case in cs.SSM_MAIN:
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"ssm_scan {case[0]} {dtype}"] = cs.ssm_row(case, dtype,
+                                                           True, gen)
 print("AB " + json.dumps(out), flush=True)
 """
 
 
-def main(roots):
-    if not roots:
+def main(argv):
+    kernels = list(KERNELS)
+    if argv[:1] == ["--kernels"]:
+        kernels = argv[1].split(",")
+        argv = argv[2:]
+    if not argv or not set(kernels) <= set(KERNELS):
         raise SystemExit(__doc__)
-    for root in roots:
+    digests = {}
+    for root in argv:
         if not os.path.exists(os.path.join(root, "src", "repro_torch")):
             raise SystemExit(f"{root} is not a checkout of the repository")
-        subprocess.run([sys.executable, "-c", CHILD, root, HERE], check=True,
-                       timeout=600)
+        done = subprocess.run(
+            [sys.executable, "-c", CHILD, root, HERE, ",".join(kernels),
+             json.dumps(SOURCES)],
+            check=True, timeout=900, capture_output=True, text=True)
+        sys.stderr.write(done.stderr)
+        for line in done.stdout.splitlines():
+            print(line, flush=True)
+            if line.startswith("AB "):
+                rows = json.loads(line[3:])
+                digests.setdefault(root, []).append(
+                    {k: r["out_sha256"] for k, r in rows.items()
+                     if k.startswith("gossip_mix_agg")})
+    if "gossip_mix_agg" in kernels:
+        every = [d for runs in digests.values() for d in runs]
+        print("AB gossip_bits " + json.dumps({
+            "roots": list(digests), "same_bits_everywhere":
+                all(d == every[0] for d in every),
+            "digests": digests}), flush=True)
 
 
 if __name__ == "__main__":
