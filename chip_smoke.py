@@ -13,10 +13,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    plain PyTorch version on the card, at the main paths' shapes and at
    edge shapes, and timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function where there is one
-   (timed only; the port never calls it) and the bound of the card
-   (bytes or operations over the H100's peak rates), with the share of
-   the bound it reaches (and, on the progress lines only, the first
-   port's graph time beside it for reading);
+   (`w @ x`; `torch.quantile` for the median; timed only, the port never
+   calls it) and the bound of the card (bytes or operations over the
+   H100's peak rates), with the share of the bound it reaches, which
+   must not pass 1 (and, on the progress lines only, the first port's
+   graph time beside it for reading);
    `fedavg_agg`'s 32-client call must repeat bitwise;
 4. parity — the port on the card against the port on the CPU from one
    initial model (HFL, AFL, CFL x loop, vectorized; then five attack /
@@ -75,10 +76,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    `ssm_scan` against their plain versions on the card at the main
    path's shapes (zamba2-1.2b's shared block and Mamba2 scan at B = 2,
    S = 4096; yi-9b's grouped heads at S = 2048) in bfloat16 (B5 on the
-   tensor cores) and float32 (B5's SIMT kernel), and at edge shapes (a
-   window, no mask, T != S, S = 128, d = 256 in both types; d = 80,
-   d = 48, d = 192, d = 160 and S = 192 with 8 query heads per key/value
-   head in bfloat16; one chunk, S below the chunk), timed beside the plain
+   tensor cores) and float32 (B5 in 3xTF32 on the tensor cores), and at
+   edge shapes (a window, no mask, T != S, S = 128, d = 256 in both
+   types; d = 80, d = 48, d = 192, d = 160 and S = 192 with 8 query heads
+   per key/value head in bfloat16; one chunk, S below the chunk), timed
+   beside the plain
    version and, for `flash_attention`, `scaled_dot_product_attention`
    (timed only), with the occupancy of each (B6: its three passes,
    `ssd_chunk_state`, `ssd_state_pass`, `ssd_chunk_scan`, in both types),
@@ -193,6 +195,16 @@ def _fedavg_bound(C, N, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _share(row):
+    """The share of the bound a timed row reaches in a CUDA graph. A bound
+    is the least time the card could take: a kernel that beats it means
+    the bound is wrong, and the run fails."""
+    share = row["bound_ms"] / row["graph_ms"]
+    if share > 1:
+        raise SystemExit(f"a kernel beat its bound: {row}")
+    return share
+
+
 # CFL merge, HFL/AFL at 4 and 8 clients, the 32-client adversarial family
 MAIN_SHAPES = [(2, 7900), (4, 7900), (8, 7900), (32, 7900)]
 # then the edges; C > 4 splits the loads over warps (float4 at N = 7900,
@@ -258,7 +270,7 @@ def fedavg_row(C, N, dtype, main, gen):
             row[f"{key}graph_ms"] = _graph_ms(fn)
         row["bound_ms"], row["bound_by"] = _fedavg_bound(
             C, N, x.element_size())
-        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+        row["bound_share"] = _share(row)
     if (C, N, dtype) == (32, 7900, torch.float32):
         # the rows are added in one fixed order
         row["bitwise_repeat"] = all(
@@ -290,6 +302,7 @@ def _trimmed_bound(C, N, trim, itemsize):
 TRIM_MAIN = [(32, 7900, 8), (32, 7900, 15), (8, 7900, 2), (8, 7900, 3),
              (4, 7900, 1)]
 TRIM_EDGE = [(1, 37, 0), (2, 37, 0), (5, 4097, 2), (33, 4097, 8),
+             (48, 4097, 23), (64, 7900, 16), (65, 7900, 16),
              (256, 7900, 64), (600, 300, 100), (16, 1 << 20, 4)]
 
 
@@ -304,6 +317,57 @@ def _same_values(out, exp):
                    and torch.isfinite(out[fin]).all())
     err = float((out[fin] - exp[fin]).abs().max()) if fin.any() else 0.0
     return pattern, err
+
+
+def trimmed_row(x, trim, main, kind=""):
+    """`trimmed_mean_agg` on the card tensor x against its plain version
+    (NaN and inf where the plain version has them); on a main shape also
+    timed beside the plain version, its `torch.sort` step and, for the
+    median, `torch.quantile`, with its bound and a digest of its output's
+    bits."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import robust_agg as ra
+
+    C, N = x.shape
+    before = ra.launches
+    out = ra.trimmed_mean_agg(x, trim)
+    torch.cuda.synchronize()
+    if ra.launches != before + 1:
+        raise SystemExit("trimmed_mean_agg: the wrapper did not launch")
+    exp = ra.trimmed_mean_torch(x, trim)
+    pattern, err = _same_values(out, exp)
+    tol = 1e-6 if x.dtype == torch.float32 else 2e-2
+    row = {"C": C, "N": N, "trim": trim, "kind": kind,
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": tol}
+    if kind == "nan":
+        pattern = pattern and bool(torch.isnan(out[[5, 17, 18]]).all())
+    if not (out.dtype == x.dtype and out.shape == (N,) and pattern
+            and err <= tol):
+        raise SystemExit(f"trimmed_mean_agg disagrees with its plain "
+                         f"version: {row}")
+    if main:
+        fns = {"": lambda: ra.trimmed_mean_agg(x, trim),
+               "plain_": lambda: ra.trimmed_mean_torch(x, trim),
+               # a step of the plain version, timed for reading
+               "sort_": lambda: torch.sort(x, dim=0)}
+        if trim == (C - 1) // 2:
+            # the median: one PyTorch call computes it, the yardstick
+            # (timed only: the port never calls it)
+            fns["library_"] = lambda: torch.quantile(
+                x, 0.5, dim=0, interpolation="midpoint")
+        for key, fn in fns.items():
+            row[f"{key}ms"] = _time_ms(fn)
+            row[f"{key}graph_ms"] = _graph_ms(fn)
+        row.setdefault("library_ms", None)
+        row["bound_ms"], row["bound_by"] = _trimmed_bound(
+            C, N, trim, x.element_size())
+        row["bound_share"] = _share(row)
+        row["out_sha256"] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()
+    return row
 
 
 def _trimmed_rows():
@@ -328,36 +392,7 @@ def _trimmed_rows():
                  False, "")])
     rows = []
     for x, trim, main, kind in cases:
-        x = x.cuda()
-        C, N = x.shape
-        before = ra.launches
-        out = ra.trimmed_mean_agg(x, trim)
-        torch.cuda.synchronize()
-        if ra.launches != before + 1:
-            raise SystemExit("trimmed_mean_agg: the wrapper did not launch")
-        exp = ra.trimmed_mean_torch(x, trim)
-        pattern, err = _same_values(out, exp)
-        tol = 1e-6 if x.dtype == torch.float32 else 2e-2
-        row = {"C": C, "N": N, "trim": trim, "kind": kind,
-               "dtype": str(x.dtype).replace("torch.", ""),
-               "max_abs_err": err, "tol": tol}
-        if kind == "nan":
-            pattern = pattern and bool(torch.isnan(out[[5, 17, 18]]).all())
-        if not (out.dtype == x.dtype and out.shape == (N,) and pattern
-                and err <= tol):
-            raise SystemExit(f"trimmed_mean_agg disagrees with its plain "
-                             f"version: {row}")
-        if main:
-            fns = {"": lambda: ra.trimmed_mean_agg(x, trim),
-                   "plain_": lambda: ra.trimmed_mean_torch(x, trim),
-                   # a step of the plain version, not a yardstick: no
-                   # single PyTorch call computes a trimmed mean
-                   "sort_": lambda: torch.sort(x, dim=0)}
-            for key, fn in fns.items():
-                row[f"{key}ms"] = _time_ms(fn)
-                row[f"{key}graph_ms"] = _graph_ms(fn)
-            row["bound_ms"], row["bound_by"] = _trimmed_bound(
-                C, N, trim, x.element_size())
+        row = trimmed_row(x.cuda(), trim, main, kind)
         print("  trimmed_mean_agg", json.dumps(row), flush=True)
         rows.append(row)
     too_many = torch.zeros((ra.MAX_CLIENTS + 1, 8), device="cuda")
@@ -1385,16 +1420,23 @@ def transport_phase(device="cuda"):
 # -- phase 9 -----------------------------------------------------------------
 
 H100_BF16_FLOPS = 989e12         # dense bf16 tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12         # dense TF32 tensor cores, H100 SXM data sheet
 ZAMBA, YI = "zamba2-1.2b", "yi-9b"
 
 
 def _bound(nbytes, flops, dtype):
     """Least time for the work: the bytes over the memory rate, the
-    operations over the peak rate of their type (bf16 tensor cores for
-    bfloat16 inputs, float32 outside the tensor cores for float32)."""
+    operations over the peak rate of their type. bfloat16 inputs: the bf16
+    tensor cores, once. float32 inputs: the zoo's kernels run every
+    product as three TF32 products (3xTF32), the least work that keeps
+    float32's precision on the tensor cores, so three times the
+    operations over the TF32 peak."""
     import torch
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    if dtype == torch.bfloat16:
+        t_ops = flops / H100_BF16_FLOPS
+    else:
+        t_ops = 3 * flops / H100_TF32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1544,9 +1586,9 @@ def flash_row(case, dtype, main, gen):
             B, S, T, H, Hk, d, causal, window, dtype)
         flops = 4 * B * H * d * _attn_pairs(S, T, causal, window)
         row["tflops"] = flops / (row["graph_ms"] * 1e-3) / 1e12
-        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+        row["bound_share"] = _share(row)
         row["design"] = ("wgmma" if dtype == torch.bfloat16
-                         else "simt f32")
+                         else "3xtf32 mma")
     return row
 
 
@@ -1623,6 +1665,7 @@ def ssm_row(case, dtype, main, gen):
             row[f"{key}ms"], row[f"{key}graph_ms"] = _big_ms(fn)
         row["bound_ms"], row["bound_by"] = _ssm_bound(
             B, S, H, dh, N, min(128, S), dtype)
+        row["bound_share"] = _share(row)
     return row
 
 
@@ -1659,12 +1702,15 @@ def _ssm_state_check():
 def _occupancy():
     """Resident blocks per SM and shared memory per block at the main
     path's shapes, from the CUDA occupancy API: B5's tiles at d = 64 and
-    128, B6's three passes at zamba2's widths in both types."""
+    128 in both types, B6's three passes at zamba2's widths in both
+    types."""
     import ctypes
     from repro_torch.kernels import build
 
     queries = [("flash_attention d=64", "flash_attention", (64, 1)),
-               ("flash_attention d=128", "flash_attention", (128, 1))]
+               ("flash_attention d=128", "flash_attention", (128, 1)),
+               ("flash_attention f32 d=64", "flash_attention", (64, 0)),
+               ("flash_attention f32 d=128", "flash_attention", (128, 0))]
     for dtype, code in (("bf16", 1), ("f32", 0)):
         for kernel, pass_ in (("ssd_chunk_state", 1), ("ssd_state_pass", 2),
                               ("ssd_chunk_scan", 3)):
@@ -1838,7 +1884,7 @@ def _timed(fn):
 
 # the port's zoo kernels (B5's two instantiations, B6's three passes),
 # listed by _profile even when they fall outside its top rows
-PORT_KERNELS = ("flash_tc_kernel", "flash_kernel", "ssd_chunk_state",
+PORT_KERNELS = ("flash_tc_kernel", "flash_tf32_kernel", "ssd_chunk_state",
                 "ssd_state_pass", "ssd_chunk_scan")
 
 
@@ -2184,8 +2230,10 @@ def main():
         "library_ms": rep["library_ms"], "shape": [4, 7900],
         "shapes": [r for r in rows if "ms" in r]}
     trows = kernels["trimmed_mean_agg"]
+    # the 32-client median: half of the acceptance family's launches, and
+    # the one with a library call (torch.quantile)
     trep = next(r for r in trows
-                if (r["C"], r["N"], r["trim"]) == (32, 7900, 8))
+                if (r["C"], r["N"], r["trim"]) == (32, 7900, 15))
     tentry = {
         "name": "trimmed_mean_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/trimmed_mean_agg.cu",
@@ -2194,8 +2242,8 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in trows),
         "ms": trep["ms"], "plain_ms": trep["plain_ms"],
         "bound_ms": trep["bound_ms"], "bound_by": trep["bound_by"],
-        "library_ms": None, "sort_ms": trep["sort_ms"],
-        "shape": [32, 7900], "trim": 8,
+        "library_ms": trep["library_ms"], "sort_ms": trep["sort_ms"],
+        "shape": [32, 7900], "trim": 15,
         "shapes": [r for r in trows if "ms" in r]}
     grows = kernels["gossip_mix_agg"]
     grep = next(r for r in grows if r["schedule"] == "churn32-mtd"
@@ -2239,6 +2287,13 @@ def main():
         "dtype": "bfloat16", "design": frep["design"],
         "tflops": frep["tflops"],
         "shapes": [r for r in frows if "ms" in r]}
+    # the float32 kernel (3xTF32) at the same shape, its own numbers
+    f32 = next(r for r in frows if r["case"] == ZAMBA
+               and r["dtype"] == "float32")
+    flentry["float32"] = {k: f32[k] for k in (
+        "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+        "bound_ms", "bound_by", "bound_share", "design", "tflops",
+        "max_abs_err")}
     srows = kernels["ssm_scan"]
     srep = next(r for r in srows if r["case"] == ZAMBA
                 and r["dtype"] == "bfloat16")
@@ -2280,10 +2335,15 @@ def main():
             "C": r["C"], "N": r["N"], "trim": r["trim"],
             "max_err": r["max_abs_err"], "kernel_us": r["ms"] * 1e3,
             "plain_us": r["plain_ms"] * 1e3, "sort_us": r["sort_ms"] * 1e3,
+            "library_us": (r["library_ms"] * 1e3 if r["library_ms"]
+                           else None),
             "bound_us": r["bound_ms"] * 1e3,
             "kernel_graph_us": r["graph_ms"] * 1e3,
             "plain_graph_us": r["plain_graph_ms"] * 1e3,
             "sort_graph_us": r["sort_graph_ms"] * 1e3,
+            "library_graph_us": (r["library_graph_ms"] * 1e3
+                                 if r["library_ms"] else None),
+            "bound_share": r["bound_share"],
             "launches": tentry["launches"]} for r in tentry["shapes"]]
         + [{"name": "gossip_mix_agg", "replaces": gentry["replaces"],
             "C": r["C"], "N": r["N"], "schedule": r["schedule"],

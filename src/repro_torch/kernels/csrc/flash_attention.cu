@@ -19,9 +19,11 @@
 //
 // What bounds it: operations. At zamba2-1.2b's prefill (B*H = 64,
 // S = T = 4096, d = 64, causal) the call does 4*B*H*S*S*d/2 = 137 GFLOP
-// and moves 134 MB: 139 us at the tensor cores' bf16 peak (989 TFLOP/s),
-// 40 us of memory. On the float32 pipe outside the tensor cores (67
-// TFLOP/s) the same work needs 2 ms, so bfloat16 runs on the tensor cores.
+// and moves 134 MB. At an H100 SXM's data-sheet peaks that is 139 us at
+// the tensor cores' bf16 rate (989 TFLOP/s) and 40 us of memory; on the
+// float32 pipe outside the tensor cores (67 TFLOP/s) the same work needs
+// 2 ms, so both types run on the tensor cores: bfloat16 once, float32 as
+// three TF32 products (3xTF32), 0.83 ms at the TF32 rate (495 TFLOP/s).
 //
 // bfloat16: a warp-specialised wgmma kernel (namespace tc).
 //  * One block of 384 threads per (b*h, 128-row query tile): two consumer
@@ -65,25 +67,61 @@
 //  the ring to the swizzle's 1024-byte period: 81 KB at d = 64, 161 KB
 //  at d = 128, 193 KB at d = 256; one block per SM.
 //
-// float32: the first port's SIMT kernel (namespace simt), kept for the
-// gated f32 prefills, whose 1e-5 kernel gate TF32 tensor cores would not
-// hold:
-//  * one block of 128 threads per (b*h, 64-row query tile); the loop over
-//    key tiles runs inside the block and the running max, sum and float32
-//    accumulator stay in registers for the whole loop;
-//  * the query tile and one 64-row key tile, then the value tile in the
-//    same buffer, are staged in shared memory as float32 with rows padded
-//    to D + 1 floats, so the strided reads below are free of bank
-//    conflicts; the 64 x 64 probability tile goes through shared memory
-//    between the two products (12 shared loads per 32 FMAs: it is bound
-//    by shared-memory loads, near a third of the f32 pipe);
-//  * thread (ty, tx) = (tid / 8, tid % 8) owns query rows 4*ty .. 4*ty+3,
-//    key columns tx + 8*j (j < 8) of each score tile and output columns
-//    tx + 8*m (m < D / 8); the row max and row sum are reduced over the
-//    8 lanes of a row with warp shuffles;
-//  * dynamic shared memory: (2 * 64 * (D + 1) + 64 * 65) floats, 49.9 KB
-//    at D = 64, 82.7 KB at D = 128, 148 KB at D = 256.
-//  D is a template parameter (32, 64, 96, 128, 256).
+// float32: a 3xTF32 tensor-core kernel (namespace tf32x3). One TF32
+// product keeps 11 bits of each operand and misses the 1e-5 gate; three
+// keep about float32's 21: a = a_hi + a_lo, a_hi rounded to TF32 to
+// nearest with ties away (the bits of cvt.rna.tf32.f32, in two integer
+// instructions), a_lo = a - a_hi exactly, which the tensor core reads
+// truncated to TF32; a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi.
+//  * FlashAttention-2's split: one block per (b*h, query tile of BQ rows)
+//    with one warp per 16 query rows, so a row's max and sum live in the
+//    4 lanes of a quad; the loop over key tiles runs inside the block and
+//    the running max, sum and output accumulator stay in registers.
+//  * Products on mma.sync.m16n8k8 (tf32). Inside every 8-deep step the
+//    depth index is permuted (logical k = t, t + 4 stored at 2t, 2t + 1)
+//    in both operands alike, which leaves the sum unchanged: the score
+//    accumulator (rows g, g + 8; columns 2t, 2t + 1) is then P's A
+//    fragment as it stands, with the value tile's rows taken in the same
+//    order, so P never goes through shared memory.
+//  * Accumulation: the tensor core truncates what it adds into an
+//    accumulator. Q K^T keeps the two small products in an accumulator of
+//    their own, added to the hi product's once; each key tile's P V goes
+//    into a fresh accumulator and o = o * alpha + that, one rounding a
+//    tile. Both into the running o (as a first design did) reached
+//    8.8e-6 of the 1e-5 gate at zamba2's shape (the loss grew with the
+//    row's 4096 keys); now 1.7-2.0e-6.
+//  * The query tile is split once per block, hi and lo interleaved in
+//    shared memory so that one 16-byte load gives a row's fragment of
+//    both. Key and value tiles arrive by cp.async, each in its own
+//    buffer: the next key tile loads while the softmax and P V run, the
+//    next value tile while Q K^T runs. Each warp splits the key and value
+//    fragments it loads, and P's once a tile.
+//  * Rows are padded so fragment loads are free of bank conflicts: Q
+//    rows of 2D + 16 floats (16-byte loads), K rows of D + 8 (8-byte
+//    loads of a row's pair), V rows of D + 4 (4-byte loads two rows
+//    apart).
+//  * exp2 with scale * log2(e) folded into the score; masks and window
+//    are applied only in the tiles they cut, for each warp's 16 rows.
+//  * Tiles: D <= 128 eight warps (BQ = 128) and 64-key tiles, D = 256
+//    four warps (BQ = 64) and 32-key tiles, so that the output
+//    accumulator (D / 2 registers a thread) fits. One block an SM (the
+//    occupancy API on an NVIDIA H100 80GB HBM3, 700 W): 107 KB of shared
+//    memory and 231 registers a thread (ptxas, sm_90a) at D = 64, 203 KB
+//    and 255 at D = 128, 198 KB at D = 256; no spills.
+//  What bounds it: the tensor cores' mma.sync rate. At zamba2's shape
+//  (NVIDIA H100 80GB HBM3, 700 W, in a CUDA graph) it takes 3.2-3.3 ms
+//  (the first port's SIMT kernel 5.7 ms, SDPA's float32 attention 4.3
+//  ms, the bound of three products at the TF32 peak 0.83 ms). Probes of
+//  variants (tests/torch_kernel_probe.py): one TF32 product instead of
+//  three 1.52 ms, so the two small products cost ~1.8 ms, ~155 TFLOP/s
+//  of TF32 work; cvt.rna for the split 4.85 ms; the first design's
+//  single accumulators the same time at 8.8e-6 error; four warps a block
+//  or 32-key tiles 3-4% slower. wgmma reaches the full TF32 rate, but
+//  needs both operands' hi and lo tiles in shared memory, K-major (the
+//  value tile transposed).
+//  D is a template parameter (32, 64, 96, 128, 256); S and T are
+//  multiples of 64; query rows past S (S % BQ == 64) are zero-filled
+//  and not stored.
 //
 // Both kernels raise their dynamic shared-memory limit with
 // cudaFuncSetAttribute before their first launch.
@@ -99,181 +137,309 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace simt {
+namespace tf32x3 {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // key rows per tile
-constexpr int kThreads = 128;
-constexpr int kTM = 4;           // query rows per thread
-constexpr int kTN = 8;           // key columns per thread (stride 8)
-constexpr int kLP = kBK + 1;     // padded row of the probability tile
 constexpr float kNegInf = -1.0e30f;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBQ + kBK) * (D + 1) + size_t(kBQ) * kLP);
+struct Cfg {
+  static constexpr int kWarps = D <= 128 ? 8 : 4;  // 16 query rows each
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * kWarps;           // query rows per block
+  static constexpr int BK = D <= 128 ? 64 : 32;    // keys per tile
+  static constexpr int LDQ = 2 * D + 16;           // hi, lo interleaved
+  static constexpr int LDK = D + 8;
+  static constexpr int LDV = D + 4;
+  static constexpr int kSmem = 4 * (BQ * LDQ + BK * LDK + BK * LDV);
+};
+
+// v = hi + lo: hi is v rounded to TF32, to nearest with ties away from
+// zero (the bits cvt.rna.tf32.f32 gives a finite v, in two integer
+// instructions where the cvt takes more), lo = v - hi exactly; the tensor
+// core reads the top 19 bits of lo, i.e. truncates it to TF32.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-// rows [row0, row0 + 64) of a (B, L, heads, D) tensor at (b, head) into a
-// padded float32 tile
-template <int D>
+__device__ __forceinline__ void mma8(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma8(d, al, bh);
+  mma8(d, ah, bl);
+  mma8(d, ah, bh);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most the newest group is in flight
+__device__ __forceinline__ void cp_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (B, L, heads, D) tensor at (b, head) into
+// a tile of row stride LD, by cp.async (16 bytes a copy)
+template <int D, int ROWS, int LD, int THREADS>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src, int b,
-                                          int L, int heads, int head,
+                                          const float* __restrict__ src,
+                                          int b, int L, int heads, int head,
                                           int row0) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int64_t off =
-        ((int64_t(b) * L + row0 + r) * heads + head) * D + c;
-    dst[r * LD + c] = src[off];
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = e % kChunks;
+    cp_async16(dst + r * LD + 4 * c,
+               src + ((int64_t(b) * L + row0 + r) * heads + head) * D + 4 * c);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
-                 int T_, int H, int Hk, int causal, int window, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int kTD = D / 8;     // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // kBQ x LD
-  float* kv_s = q_s + kBQ * LD;      // kBK x LD: the key tile, then values
-  float* p_s = kv_s + kBK * LD;      // kBQ x kLP
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+    flash_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      int S, int T_, int H, int Hk, int causal, int window,
+                      float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDQ = C::LDQ, LDK = C::LDK,
+                LDV = C::LDV, kThreads = C::kThreads;
+  constexpr int NT = BK / 8;     // 8-key column tiles of a score tile
+  constexpr int ND = D / 8;      // 8-wide steps over the head dim
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                 // BQ x LDQ: split query tile
+  float* k_s = q_s + BQ * LDQ;       // BK x LDK
+  float* v_s = k_s + BK * LDK;       // BK x LDV
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kTN, ty = tid / kTN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
-  const int q0 = qt * kBQ;
+  const int q0 = qt * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hk);
 
-  load_tile<D>(q_s, q, b, S, H, h, q0);
+  // the key tiles that some row of [q0, min(q0 + BQ, S)) sees
+  const int nk = T_ / BK;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kt_hi = causal ? min(nk, q_last / BK + 1) : nk;
+  const int first = q0 - window + 1;   // the oldest key row q0 keeps
+  const int kt_lo = (window > 0 && first > 0) ? first / BK : 0;
 
-  float acc[kTM][kTD];
-  float m_i[kTM], l_i[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int m = 0; m < kTD; ++m) acc[i][m] = 0.f;
+  if (kt_lo < kt_hi)
+    load_tile<D, BK, LDK, kThreads>(k_s, k, b, T_, Hk, hk, kt_lo * BK);
+  cp_commit();
+  if (kt_lo < kt_hi)
+    load_tile<D, BK, LDV, kThreads>(v_s, v, b, T_, Hk, hk, kt_lo * BK);
+  cp_commit();
+
+  // the query tile, split once: per 8-wide step of a row, lane t's
+  // {hi(2t), hi(2t + 1), lo(2t), lo(2t + 1)} at 16 * step + 4 * t
+  for (int e = threadIdx.x; e < BQ * (D / 2); e += kThreads) {
+    const int r = e / (D / 2), c = 2 * (e % (D / 2));
+    float2 x = make_float2(0.f, 0.f);
+    if (q0 + r < S)
+      x = *reinterpret_cast<const float2*>(
+          q + ((int64_t(b) * S + q0 + r) * H + h) * D + c);
+    uint32_t h0, l0, h1, l1;
+    split(x.x, h0, l0);
+    split(x.y, h1, l1);
+    *reinterpret_cast<uint4*>(q_s + r * LDQ + 2 * (c & ~7) + 2 * (c & 7)) =
+        make_uint4(h0, h1, l0, l1);
   }
 
-  const int nk = T_ / kBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    if (causal && k0 > q0 + kBQ - 1) break;      // above the diagonal
-    if (window > 0 && k0 + kBK - 1 <= q0 - window) continue;  // out of window
-    __syncthreads();             // the last tile's P.V is done with kv_s, p_s
-    load_tile<D>(kv_s, k, b, T_, Hk, hk, k0);
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};   // rows g and g + 8 of this warp
+  float l_r[2] = {0.f, 0.f};           // this lane's part of the row sum
+  float alpha[2];                      // the rescale of the last max
+  const int r0 = 16 * warp;
+  const int qpos0 = q0 + r0 + g;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    cp_wait_prior();             // the key tile (and the query tile) landed
     __syncthreads();
 
-    float s[kTM][kTN];
+    // Q K^T: the hi products and the two small ones in accumulators of
+    // their own, added once at the end, so the tensor core's truncation
+    // of the small terms' partial sums is relative to their size
+    float s[NT][4], sm[NT][4];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[kTM], kv[kTN];
+      for (int e = 0; e < 4; ++e) s[n][e] = sm[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) qv[i] = q_s[(ty * kTM + i) * LD + c];
+    for (int ks = 0; ks < ND; ++ks) {
+      const uint4 a0 = *reinterpret_cast<const uint4*>(
+          q_s + (r0 + g) * LDQ + 16 * ks + 4 * t);
+      const uint4 a1 = *reinterpret_cast<const uint4*>(
+          q_s + (r0 + g + 8) * LDQ + 16 * ks + 4 * t);
+      const uint32_t ah[4] = {a0.x, a1.x, a0.y, a1.y};
+      const uint32_t al[4] = {a0.z, a1.z, a0.w, a1.w};
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) kv[j] = kv_s[(tx + kTN * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int qpos = q0 + ty * kTM + i;
-      float mx = m_i[i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int kpos = k0 + tx + kTN * j;
-        bool ok = true;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        const float sv = ok ? s[i][j] * scale : kNegInf;
-        s[i][j] = sv;
-        mx = fmaxf(mx, sv);
+      for (int n = 0; n < NT; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(
+            k_s + (8 * n + g) * LDK + 8 * ks + 2 * t);
+        uint32_t bh[2], bl[2];
+        split(y.x, bh[0], bl[0]);
+        split(y.y, bh[1], bl[1]);
+        mma8(sm[n], al, bh);
+        mma8(sm[n], ah, bl);
+        mma8(s[n], ah, bh);
       }
+    }
 #pragma unroll
-      for (int off = kTN / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m_i[i] - mx);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += sm[n][e];
+    __syncthreads();             // every warp is done with the key tile
+    if (kt + 1 < kt_hi)
+      load_tile<D, BK, LDK, kThreads>(k_s, k, b, T_, Hk, hk, k0 + BK);
+    cp_commit();
+
+    // this warp's rows [qpos0 - g, qpos0 - g + 16) against keys
+    // [k0, k0 + BK): does a mask cut this tile?
+    const bool cut = (causal && k0 + BK - 1 > qpos0 - g) ||
+                     (window > 0 && k0 <= qpos0 - g + 15 - window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = qpos0 + 8 * i;
+      float mx = m_r[i];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float x = s[n][2 * i + j] * scale_log2;
+          if (cut) {
+            const int kpos = k0 + 8 * n + 2 * t + j;
+            const bool ok = (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            x = ok ? x : kNegInf;
+          }
+          s[n][2 * i + j] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = exp2f(m_r[i] - mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const float p = expf(s[i][j] - mx);
-        s[i][j] = p;
-        sum += p;
-      }
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int off = kTN / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[i] = l_i[i] * alpha + sum;
-      m_i[i] = mx;
-#pragma unroll
-      for (int m = 0; m < kTD; ++m) acc[i][m] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        p_s[(ty * kTM + i) * kLP + tx + kTN * j] = s[i][j];
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2f(s[n][2 * i + j] - mx);
+          s[n][2 * i + j] = p;
+          sum += p;
+        }
+      l_r[i] = l_r[i] * alpha[i] + sum;
+      m_r[i] = mx;
     }
 
-    __syncthreads();             // every thread is done with the key tile
-    load_tile<D>(kv_s, v, b, T_, Hk, hk, k0);
+    // P's A fragments, split once: keys 8j + 2t (logical depth t) and
+    // 8j + 2t + 1 (t + 4)
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split(s[j][0], ph[j][0], pl[j][0]);
+      split(s[j][2], ph[j][1], pl[j][1]);
+      split(s[j][1], ph[j][2], pl[j][2]);
+      split(s[j][3], ph[j][3], pl[j][3]);
+    }
+    cp_wait_prior();             // the value tile landed
     __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kTM];
+    // per 8 output columns, this tile's P V into a fresh accumulator, then
+    // o = o * alpha + that in one rounding: the tensor core truncates the
+    // sums it adds into an accumulator, and over thousands of keys that
+    // loss would grow with the row, where here it stays one tile's
+    const float* v0 = v_s + 2 * t * LDV + g;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) pv[i] = p_s[(ty * kTM + i) * kLP + j];
+    for (int n = 0; n < ND; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int m = 0; m < kTD; ++m) {
-        const float vv = kv_s[j * LD + tx + kTN * m];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) acc[i][m] = fmaf(pv[i], vv, acc[i][m]);
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[2], bl[2];
+        split(v0[8 * j * LDV + 8 * n], bh[0], bl[0]);
+        split(v0[(8 * j + 1) * LDV + 8 * n], bh[1], bl[1]);
+        mma3(acc, ph[j], pl[j], bh, bl);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = fmaf(o[n][e], alpha[e / 2], acc[e]);
     }
+    __syncthreads();             // every warp is done with the value tile
+    if (kt + 1 < kt_hi)
+      load_tile<D, BK, LDV, kThreads>(v_s, v, b, T_, Hk, hk, k0 + BK);
+    cp_commit();
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const float l = fmaxf(l_i[i], 1e-30f);
-    const int64_t row =
-        ((int64_t(b) * S + q0 + ty * kTM + i) * H + h) * D;
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int qpos = qpos0 + 8 * i;
+    if (qpos >= S) continue;
+    float* row = out + ((int64_t(b) * S + qpos) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int m = 0; m < kTD; ++m)
-      out[row + tx + kTN * m] = acc[i][m] / l;
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(o[n][2 * i] / l, o[n][2 * i + 1] / l);
   }
+}
+
+template <int D>
+int set_smem() {
+  static bool done = false;            // once per instantiation
+  if (!done) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Cfg<D>::kSmem);
+    if (e != cudaSuccess) return int(e);
+    done = true;
+  }
+  return 0;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_, int H, int Hk, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  static bool attr_set = false;          // once per instantiation
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (e != cudaSuccess) return int(e);
-    attr_set = true;
-  }
+  using C = Cfg<D>;
+  int e = set_smem<D>();
+  if (e != 0) return e;
   const int64_t bh = int64_t(B) * H;
   if (bh > 65535) return int(cudaErrorInvalidValue);    // grid.y limit
-  dim3 grid(S / kBQ, unsigned(bh));
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  // 16-byte copies and 8-byte loads and stores
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return int(cudaErrorInvalidValue);
+  dim3 grid((S + C::BQ - 1) / C::BQ, unsigned(bh));
+  flash_tf32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, T_, H, Hk,
-      causal, window, scale);
+      causal, window, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
@@ -302,17 +468,15 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 template <int D>
-int occupancy(int* blocks) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (e != cudaSuccess) return int(e);
+int occupancy(int* blocks, int* smem) {
+  int e = set_smem<D>();
+  if (e != 0) return e;
+  *smem = Cfg<D>::kSmem;
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_kernel<D>, kThreads, smem));
+      blocks, flash_tf32_kernel<D>, Cfg<D>::kThreads, Cfg<D>::kSmem));
 }
 
-}  // namespace simt
+}  // namespace tf32x3
 
 namespace tc {
 
@@ -1066,7 +1230,7 @@ int occupancy(int* blocks, int* smem) {
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel)
+// dtype: 0 = float32 (3xTF32 kernel), 1 = bfloat16 (wgmma kernel)
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int S, int T, int H, int Hk, int D, int causal,
                     int window, float scale, int dtype, void* stream) {
@@ -1074,8 +1238,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::dispatch(q, k, v, out, B, S, T, H, Hk, D, causal, window,
-                          scale, st);
+    return tf32x3::dispatch(q, k, v, out, B, S, T, H, Hk, D, causal,
+                            window, scale, st);
   if (dtype == 1)
     return tc::dispatch(q, k, v, out, B, S, T, H, Hk, D, causal, window,
                         scale, st);
@@ -1083,16 +1247,15 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
 }
 
 // Resident blocks per SM and the dynamic shared memory of one block at
-// head dim D (64 or 128): the SIMT kernel for float32 (dtype 0), the
-// tensor-core kernel for bfloat16 (dtype 1).
+// head dim D (64 or 128): the 3xTF32 kernel for float32 (dtype 0), the
+// wgmma kernel for bfloat16 (dtype 1).
 int flash_attention_occupancy(int D, int dtype, int* blocks, int* smem) {
   if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
   if (dtype == 1)
     return D == 64 ? tc::occupancy<64>(blocks, smem)
                    : tc::occupancy<128>(blocks, smem);
-  *smem = int(D == 64 ? simt::smem_bytes<64>() : simt::smem_bytes<128>());
-  return D == 64 ? simt::occupancy<64>(blocks)
-                 : simt::occupancy<128>(blocks);
+  return D == 64 ? tf32x3::occupancy<64>(blocks, smem)
+                 : tf32x3::occupancy<128>(blocks, smem);
 }
 
 }  // extern "C"

@@ -13,40 +13,51 @@
 // spreads a NaN to every rank); +-inf sort as ordinary values.
 //
 // What bounds it: memory. Each x element is read once and each output
-// written once: C*N*sizeof(T) + N*sizeof(T) bytes. The sorting network
-// does ~Cp*log2(Cp)^2/4 compare-exchanges per column (240 at C = 32),
-// i.e. ~4 operations per f32 byte read at C = 32 -- below the card's
-// ~20 f32 operations per byte, so the bytes bound it up to C ~ 2^10.
-// On the main path (C = 4..32, N = 7900) the call moves 0.1-1 MB, which
-// the card streams in well under a microsecond: the launch is the real
-// cost, as for fedavg_agg.
+// written once: C*N*sizeof(T) + N*sizeof(T) bytes, 1 MB at C = 32,
+// N = 7900 f32: 0.31 us at an H100 SXM's 3.35 TB/s (data sheet). On the
+// main path (C = 4..32, N = 7900) the call is short enough that the
+// launch and the latency of its dependent steps decide its time: the
+// first port gave one thread to one column (7900 threads, 247 one-warp
+// blocks on 132 SMs) and sorted it with a bitonic network through shared
+// memory, 240 compare-exchanges at C = 32, each a round trip: 7.0 us in a
+// CUDA graph (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Design (not the TPU structure, which sorted (C, BLOCK) VMEM tiles with
-// vectorized min/max over reshaped slices, one grid step after another):
-//  * one thread owns one column; a block owns `threads` neighbouring
-//    columns, and blocks are independent (nothing carries between them);
-//  * the thread copies its column into shared memory, padded to
-//    Cp = next power of two with +inf (the pad sorts above every kept
-//    rank, as on the TPU), and sorts it with a bitonic network;
-//  * shared memory is laid out [row][thread]: a thread only ever touches
-//    its own column, so no barrier is needed, neighbouring threads hit
-//    neighbouring banks (no conflicts), and the loads x[c*N + n] of a
-//    warp are coalesced;
-//  * rows lo..hi-1 of the sorted column are summed in f32 and divided by
-//    hi - lo; the NaN check is a flag kept while loading, so the network
-//    itself uses plain fminf/fmaxf;
-//  * up to Cp = 64 the network is unrolled at compile time (one kernel
-//    per Cp), so a stage's independent compare-exchanges overlap instead
-//    of waiting on each other's shared-memory round trips; larger Cp
-//    loops at run time. On an H100 the unrolled kernel takes 6.9-7.0 us
-//    at C = 32, N = 7900 against 17.8 us for the runtime loop, and 2.3
-//    against 3.6 us at C = 8 (device time in a CUDA graph; PERF.md);
+// Design for C <= 64 (trimmed_reg_kernel): the same bitonic network, in
+// registers. One thread owns one column and loads it (C independent
+// coalesced loads, all in flight at once) into a register array padded to
+// Cp = 4, 8, 16, 32 or 64 with +inf; the network (240 compare-exchanges at
+// Cp = 32, 2 instructions each, 16 independent a stage) is unrolled at
+// compile time, so its indices are immediates and no value goes through
+// memory; ranks lo..hi-1 are summed in ascending order as one chain,
+// acc += sorted[r] from acc = 0, and divided by hi - lo. The same sorted
+// values added in the same order as the first port's kernel: the same
+// bits (equal values are the same number, but for -0 and +0, whose order
+// moves no sum). A NaN anywhere in a column makes the column NaN; +-inf
+// sort as ordinary values. One-warp blocks: 247 at N = 7900.
+//
+// What the probes showed (NVIDIA H100 80GB HBM3, 700.00 W; CUDA graph,
+// C = 32, N = 7900 f32; PERF.md section 6): the first port 6.95-7.07 us;
+// rank selection (a (C, 16) tile a block staged in shared memory, each
+// thread ranking R = 2 of a column's values by C compares, 494 blocks of
+// 8 warps) 3.45-3.59 us, with R = 4 3.18-3.26 us: filling the card with
+// C^2 compares a column cost more than it hid; the register network
+// 2.24-2.29 us, 1.53-1.57 at C = 8, 1.46-1.48 at C = 4, where fedavg_agg
+// reads the same bytes in 2.08 us at C = 32: the launch and one pass over
+// the bytes, not the network, are what is left.
+//
+// Above C = 64 the first port's kernel runs (trimmed_mean_kernel), the
+// column in shared memory:
+//  * one thread owns one column; the thread copies its column into shared
+//    memory, padded to Cp = next power of two with +inf (the pad sorts
+//    above every kept rank, as on the TPU), and sorts it with a bitonic
+//    network over runtime loops, laid out [row][thread] (no barrier, no
+//    bank conflicts, coalesced loads);
 //  * shared memory per block is Cp * threads * 4 bytes: threads shrink
 //    from 256 to 32 as Cp grows (32 KB per block up to Cp = 256), and
-//    while the grid would leave SMs idle (N = 7900 runs 247 one-warp
-//    blocks on the 132 SMs); above 48 KB (Cp >= 512) the kernel opts in
-//    to more dynamic shared memory. kMaxClients = 1024 keeps a 32-thread
-//    block at 128 KB.
+//    while the grid would leave SMs idle; above 48 KB (Cp >= 512) the
+//    kernel opts in to more dynamic shared memory. kMaxClients = 1024
+//    keeps a 32-thread block at 128 KB.
+// Both kernels sort and sum in float32 and store the input's type.
 //
 // C interface (bound with ctypes): every pointer and the stream is a
 // void*; the launch runs on the caller's stream, does not synchronize and
@@ -79,29 +90,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <int V>
-struct Log2 {
-  static constexpr int value = 1 + Log2<V / 2>::value;
-};
-template <>
-struct Log2<1> {
-  static constexpr int value = 0;
-};
-template <>
-struct Log2<0> {
-  static constexpr int value = 0;
-};
-
-// CP > 0: the padded row count is a compile-time constant and the network
-// unrolls fully (indices and directions become immediates, and the 2..32
-// independent compare-exchanges of a stage overlap); CP == 0: runtime
-// loops over the padded row count `cp`.
-template <typename T, int CP>
+// The bitonic network over the padded row count Cp (a power of two).
+template <typename T>
 __global__ void trimmed_mean_kernel(const T* __restrict__ x,
-                                    T* __restrict__ out, int C, int cp,
+                                    T* __restrict__ out, int C, int Cp,
                                     int64_t N, int lo, int hi) {
   extern __shared__ float s[];  // [Cp][blockDim.x]
-  const int Cp = CP > 0 ? CP : cp;
   const int T_ = blockDim.x;
   const int64_t n = static_cast<int64_t>(blockIdx.x) * T_ + threadIdx.x;
   if (n >= N) return;  // no barrier below: each thread owns its column
@@ -115,16 +109,12 @@ __global__ void trimmed_mean_kernel(const T* __restrict__ x,
   }
   for (int c = C; c < Cp; ++c) col[c * T_] = INFINITY;
 
-  // bitonic network: merge phase k = 2^kb, compare distance j = 2^jb;
-  // pair (i, i^j), ascending where bit k of i is clear
-  int lg = Log2<CP>::value;
-  if (CP == 0)
-    while ((1 << lg) < Cp) ++lg;
-#pragma unroll
+  // merge phase k = 2^kb, compare distance j = 2^jb; pair (i, i^j),
+  // ascending where bit k of i is clear
+  int lg = 0;
+  while ((1 << lg) < Cp) ++lg;
   for (int kb = 1; kb <= lg; ++kb) {
-#pragma unroll
     for (int jb = kb - 1; jb >= 0; --jb) {
-#pragma unroll
       for (int i = 0; i < Cp; ++i) {
         const int l = i ^ (1 << jb);
         if (l <= i) continue;
@@ -144,6 +134,59 @@ __global__ void trimmed_mean_kernel(const T* __restrict__ x,
   out[n] = from_f32<T>(has_nan ? NAN : acc);
 }
 
+constexpr int kRegClients = 64;   // the register kernel's largest C
+
+// One thread per column, the column in registers, padded to CP (a power
+// of two, at most 64) with +inf; the network and the sum unroll at
+// compile time, so every index is an immediate and nothing goes through
+// memory between the loads and the store.
+template <typename T, int CP>
+__global__ void __launch_bounds__(32)
+    trimmed_reg_kernel(const T* __restrict__ x, T* __restrict__ out, int C,
+                       int64_t N, int lo, int hi) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * 32 + threadIdx.x;
+  if (n >= N) return;
+  float v[CP];
+  bool has_nan = false;
+#pragma unroll
+  for (int i = 0; i < CP; ++i) {
+    v[i] = i < C ? to_f32(x[static_cast<int64_t>(i) * N + n]) : INFINITY;
+    has_nan |= isnan(v[i]);
+  }
+  // merge phase k, compare distance j; pair (i, i^j), ascending where
+  // bit k of i is clear
+#pragma unroll
+  for (int k = 2; k <= CP; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < CP; ++i) {
+        const int l = i ^ j;
+        if (l <= i) continue;
+        const float a = v[i], b = v[l];
+        const bool asc = (i & k) == 0;
+        v[i] = asc ? fminf(a, b) : fmaxf(a, b);
+        v[l] = asc ? fmaxf(a, b) : fminf(a, b);
+      }
+  float acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < CP; ++r)
+    if (r >= lo && r < hi) acc += v[r];
+  acc /= static_cast<float>(hi - lo);
+  out[n] = from_f32<T>(has_nan ? NAN : acc);
+}
+
+template <typename T, int CP>
+int launch_reg(const T* x, T* out, int C, int64_t N, int lo, int hi,
+               cudaStream_t stream) {
+  const int64_t blocks = (N + 31) / 32;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  trimmed_reg_kernel<T, CP>
+      <<<static_cast<unsigned int>(blocks), 32, 0, stream>>>(x, out, C, N,
+                                                             lo, hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Threads per block: at most the shared-memory budget allows, and fewer
 // (down to one warp) while the grid would not give every SM two blocks.
 int threads_for(int Cp, int64_t N) {
@@ -155,20 +198,20 @@ int threads_for(int Cp, int64_t N) {
   return threads;
 }
 
-template <typename T, int CP>
-int launch_cp(const T* x, T* out, int C, int Cp, int64_t N, int lo, int hi,
-              cudaStream_t stream) {
+template <typename T>
+int launch_sort(const T* x, T* out, int C, int Cp, int64_t N, int lo,
+                int hi, cudaStream_t stream) {
   const int threads = threads_for(Cp, N);
   const size_t smem = static_cast<size_t>(Cp) * threads * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        trimmed_mean_kernel<T, CP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        trimmed_mean_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int64_t blocks = (N + threads - 1) / threads;
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  trimmed_mean_kernel<T, CP>
+  trimmed_mean_kernel<T>
       <<<static_cast<unsigned int>(blocks), threads, smem, stream>>>(
           x, out, C, Cp, N, lo, hi);
   return static_cast<int>(cudaGetLastError());
@@ -182,17 +225,15 @@ int launch(const void* xv, void* outv, int C, int64_t N, int lo, int hi,
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
   const cudaStream_t stream = static_cast<cudaStream_t>(sv);
+  if (C <= 4) return launch_reg<T, 4>(x, out, C, N, lo, hi, stream);
+  if (C <= 8) return launch_reg<T, 8>(x, out, C, N, lo, hi, stream);
+  if (C <= 16) return launch_reg<T, 16>(x, out, C, N, lo, hi, stream);
+  if (C <= 32) return launch_reg<T, 32>(x, out, C, N, lo, hi, stream);
+  if (C <= kRegClients)
+    return launch_reg<T, 64>(x, out, C, N, lo, hi, stream);
   int Cp = 1;
   while (Cp < C) Cp <<= 1;
-  switch (Cp) {
-    case 2: return launch_cp<T, 2>(x, out, C, Cp, N, lo, hi, stream);
-    case 4: return launch_cp<T, 4>(x, out, C, Cp, N, lo, hi, stream);
-    case 8: return launch_cp<T, 8>(x, out, C, Cp, N, lo, hi, stream);
-    case 16: return launch_cp<T, 16>(x, out, C, Cp, N, lo, hi, stream);
-    case 32: return launch_cp<T, 32>(x, out, C, Cp, N, lo, hi, stream);
-    case 64: return launch_cp<T, 64>(x, out, C, Cp, N, lo, hi, stream);
-    default: return launch_cp<T, 0>(x, out, C, Cp, N, lo, hi, stream);
-  }
+  return launch_sort<T>(x, out, C, Cp, N, lo, hi, stream);
 }
 
 }  // namespace

@@ -8,9 +8,10 @@ a causal mask (t <= s) and an optional sliding window (t > s - window).
 
 The kernels are in `csrc/flash_attention.cu`, hand-written CUDA C++ for
 Hopper (sm_90a) that replaces the TPU kernel
-`repro/kernels/flash_attention.py::_flash_kernel`: for bfloat16 a
-tensor-core kernel (wgmma products fed by TMA, any head dim d % 8 == 0 up
-to 256), for float32 a SIMT kernel (head dims in HEAD_DIMS); the source
+`repro/kernels/flash_attention.py::_flash_kernel`, both on the tensor
+cores: for bfloat16 wgmma products fed by TMA (any head dim d % 8 == 0 up
+to 256), for float32 mma.sync products in 3xTF32, three TF32 products
+that keep about float32's precision (head dims in HEAD_DIMS); the source
 notes say what bounds each and how the design answers. Both read the
 (B, S, H, d) layout of the attention layer directly and index the
 key/value head h // G themselves, where the reference folds heads into the
@@ -97,8 +98,8 @@ def _check(q, k, v, window):
 def _check_kernel(q, k):
     """The CUDA kernel's envelope, checked before any launch: S and T
     positive multiples of 64; bfloat16 (tensor cores) any d % 8 == 0 up to
-    256 and ceil(S / 128) query tiles on the grid's y axis, float32 (SIMT)
-    d in HEAD_DIMS and B * H on the grid's y axis."""
+    256 and ceil(S / 128) query tiles on the grid's y axis, float32
+    (3xTF32) d in HEAD_DIMS and B * H on the grid's y axis."""
     B, S, H, d = q.shape
     T = k.shape[1]
     if B < 1 or S < TILE or T < TILE or S % TILE or T % TILE:

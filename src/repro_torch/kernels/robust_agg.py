@@ -8,7 +8,8 @@ and even C (one or two middle values kept). The kernel is
 `csrc/trimmed_mean_agg.cu`, a hand-written CUDA C++ kernel for Hopper
 (sm_90a) that replaces the TPU kernel
 `repro/kernels/robust_agg.py::_trimmed_kernel`: a bitonic sorting
-network per column in shared memory. `trimmed_mean_agg` is its wrapper:
+network per column, in registers up to 64 clients and in shared memory
+above. `trimmed_mean_agg` is its wrapper:
 a CUDA tensor launches the kernel (or the wrapper raises), a CPU tensor
 takes the plain PyTorch version `trimmed_mean_torch`. There is no
 fallback from the card to the plain version.
@@ -17,7 +18,9 @@ A column that holds a NaN comes back NaN under both versions, as under
 the TPU kernel and its CPU network (their min/max spreads a NaN to every
 rank); a sort-based mean would sort the NaN last and drop it. ±inf are
 ordinary values. `torch.median` is not used: it returns the lower middle
-value for even C, where the median here averages the two.
+value for even C, where the median here averages the two. Both versions
+add the kept order statistics in ascending order as one float32 chain
+per column, so they give the same bits for the same sorted values.
 
 `launches` counts kernel launches in this process; it moves only where
 the kernel is launched.
@@ -46,14 +49,17 @@ def _check_trim(C: int, trim: int) -> None:
 
 
 def trimmed_mean_torch(x: torch.Tensor, trim: int) -> torch.Tensor:
-    """Plain PyTorch version: sort each column in f32, average rows
-    trim..C-trim-1, NaN for a column that holds a NaN, output in x's
-    dtype."""
+    """Plain PyTorch version: sort each column in f32, add rows
+    trim..C-trim-1 in ascending order as one chain and divide by their
+    count, NaN for a column that holds a NaN, output in x's dtype."""
     C = x.shape[0]
     _check_trim(C, trim)
     x32 = x.float()
     kept = torch.sort(x32, dim=0).values[trim:C - trim]
-    out = kept.sum(0) / (C - 2 * trim)
+    acc = torch.zeros_like(kept[0])
+    for row in kept:         # the kernel's order (torch.sum reassociates)
+        acc = acc + row
+    out = acc / (C - 2 * trim)
     out = torch.where(torch.isnan(x32).any(0),
                       torch.full_like(out, float("nan")), out)
     return out.to(x.dtype)

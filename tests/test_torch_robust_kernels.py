@@ -167,7 +167,17 @@ def cuda():
     (33, 4097, 8, "", torch.float32), (256, 7900, 64, "", torch.float32),
     (600, 300, 100, "", torch.float32), (16, 1 << 20, 4, "", torch.float32),
     (9, 300, 2, "ties", torch.float32), (7, 300, 2, "inf", torch.float32),
-    (6, 300, 1, "nan", torch.float32), (4, 5000, 1, "", torch.bfloat16)])
+    (6, 300, 1, "nan", torch.float32), (4, 5000, 1, "", torch.bfloat16),
+    # the register kernel's padded column heights (C <= 64) and the
+    # shared-memory kernel past them, at the main path's width, with ties,
+    # inf, NaN and bfloat16 at 32 clients
+    (16, 7900, 4, "", torch.float32), (33, 7900, 8, "", torch.float32),
+    (64, 7900, 16, "", torch.float32), (64, 7900, 31, "", torch.float32),
+    (65, 7900, 16, "", torch.float32),
+    (32, 7900, 8, "ties", torch.float32), (32, 7900, 15, "nan",
+                                           torch.float32),
+    (32, 7900, 8, "inf", torch.float32), (32, 7900, 15, "",
+                                          torch.bfloat16)])
 def test_cuda_kernel_matches_plain(cuda, C, N, trim, kind, dtype):
     x = torch.as_tensor(_inputs(C, N, C + N, kind), device=cuda).to(dtype)
     before = port_ra.launches

@@ -1,7 +1,7 @@
-"""Card readings of B5 (`flash_attention`, bfloat16), B1 (`fedavg_agg`), B3
-(`gossip_mix_agg`) and B6 (`ssm_scan`) of one checkout, for comparing two
-checkouts on one card in one call. Not collected by pytest (no `test_`
-prefix); needs a CUDA card.
+"""Card readings of B5 (`flash_attention`, bfloat16 and float32), B1
+(`fedavg_agg`), B2 (`trimmed_mean_agg`), B3 (`gossip_mix_agg`) and B6
+(`ssm_scan`) of one checkout, for comparing two checkouts on one card in
+one call. Not collected by pytest (no `test_` prefix); needs a CUDA card.
 
     python3 tests/torch_kernel_ab.py [--kernels NAME,...] ROOT [ROOT ...]
 
@@ -9,16 +9,19 @@ For each ROOT (a checkout of the repository, e.g. a `git archive` of the
 parent commit unpacked into a git-ignored directory, and `.`), one process
 builds that checkout's kernels into its own `build/` and prints one line
 `AB {json}`. The shapes, the gates and the timing are this checkout's
-chip_smoke.py's (`flash_row` at every bfloat16 shape of `FLASH_MAIN`,
-`fedavg_row` at N = 7900 float32 and C = 2, 4, 8, 32, 33, 64,
-`gossip_row` at the three `GOSSIP_MAIN` schedules, `ssm_row` at
-`SSM_MAIN` in bfloat16 and float32); only the kernels and their wrappers
-come from ROOT. `--kernels` picks some of flash_attention, fedavg_agg,
+chip_smoke.py's (`flash_row` at every shape of `FLASH_MAIN`, in bfloat16
+for flash_attention and in float32 for flash_attention_f32, `fedavg_row`
+at N = 7900 float32 and C = 2, 4, 8, 32, 33, 64, `trimmed_row` at the
+`TRIM_MAIN` shapes, `gossip_row` at the three `GOSSIP_MAIN` schedules,
+`ssm_row` at `SSM_MAIN` in bfloat16 and float32); only the kernels and
+their wrappers come from ROOT. `--kernels` picks some of
+flash_attention, flash_attention_f32, fedavg_agg, trimmed_mean_agg,
 gossip_mix_agg and ssm_scan (default: all). Run the roots in turns
 (A, B, B, A) to see the spread of the card beside the difference. The
-last line, `AB gossip_bits {json}`, says whether every root's B3 outputs
-at the `GOSSIP_MAIN` shapes are the same bits (a digest of each output,
-from the same inputs).
+last lines, `AB gossip_bits {json}` and `AB trimmed_bits {json}`, say
+whether every root's B3 outputs at the `GOSSIP_MAIN` shapes, and B2's at
+the `TRIM_MAIN` shapes, are the same bits (a digest of each output, from
+the same inputs).
 """
 import json
 import os
@@ -26,9 +29,13 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("flash_attention", "fedavg_agg", "gossip_mix_agg", "ssm_scan")
-SOURCES = {"flash_attention": "flash_attention", "fedavg_agg": "fedavg_agg",
+KERNELS = ("flash_attention", "flash_attention_f32", "fedavg_agg",
+           "trimmed_mean_agg", "gossip_mix_agg", "ssm_scan")
+SOURCES = {"flash_attention": "flash_attention",
+           "flash_attention_f32": "flash_attention",
+           "fedavg_agg": "fedavg_agg", "trimmed_mean_agg": "trimmed_mean_agg",
            "gossip_mix_agg": "gossip_mix", "ssm_scan": "ssm_scan"}
+BITS = {"gossip_mix_agg": "gossip_bits", "trimmed_mean_agg": "trimmed_bits"}
 
 CHILD = r"""
 import json, sys
@@ -39,19 +46,27 @@ import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
 
-build.build_all([sources[k] for k in kernels])
+build.build_all(sorted({sources[k] for k in kernels}))
 out = {"root": root, "card": cs._card_line()}
-if "flash_attention" in kernels:
-    gen = torch.Generator().manual_seed(9)
-    for case in cs.FLASH_MAIN:
-        row = cs.flash_row(case, torch.bfloat16, True, gen)
-        row.pop("design")         # names this checkout's kernel, not ROOT's
-        out[case[0]] = row
+for name, dtype, tag in (("flash_attention", torch.bfloat16, ""),
+                         ("flash_attention_f32", torch.float32, " f32")):
+    if name in kernels:
+        gen = torch.Generator().manual_seed(9)
+        for case in cs.FLASH_MAIN:
+            row = cs.flash_row(case, dtype, True, gen)
+            row.pop("design")     # names this checkout's kernel, not ROOT's
+            out[case[0] + tag] = row
 if "fedavg_agg" in kernels:
     gen = torch.Generator().manual_seed(0)
     for C in (2, 4, 8, 32, 33, 64):
         out[f"fedavg_agg C={C}"] = cs.fedavg_row(C, 7900, torch.float32,
                                                  True, gen)
+if "trimmed_mean_agg" in kernels:
+    gen = torch.Generator().manual_seed(1)
+    for C, N, trim in cs.TRIM_MAIN:
+        x = torch.randn((C, N), generator=gen).cuda()
+        out[f"trimmed_mean_agg C={C} trim={trim}"] = cs.trimmed_row(
+            x, trim, True)
 if "gossip_mix_agg" in kernels:
     gen = torch.Generator().manual_seed(2)
     for C, N, label, (mtd, degree, rounds, ev) in cs.GOSSIP_MAIN:
@@ -88,15 +103,20 @@ def main(argv):
             print(line, flush=True)
             if line.startswith("AB "):
                 rows = json.loads(line[3:])
-                digests.setdefault(root, []).append(
-                    {k: r["out_sha256"] for k, r in rows.items()
-                     if k.startswith("gossip_mix_agg")})
-    if "gossip_mix_agg" in kernels:
-        every = [d for runs in digests.values() for d in runs]
-        print("AB gossip_bits " + json.dumps({
-            "roots": list(digests), "same_bits_everywhere":
+                for name in BITS:
+                    digests.setdefault(name, {}).setdefault(
+                        root, []).append(
+                        {k: r["out_sha256"] for k, r in rows.items()
+                         if k.startswith(name)})
+    for name, label in BITS.items():
+        if name not in kernels:
+            continue
+        by_root = digests[name]
+        every = [d for runs in by_root.values() for d in runs]
+        print(f"AB {label} " + json.dumps({
+            "roots": list(by_root), "same_bits_everywhere":
                 all(d == every[0] for d in every),
-            "digests": digests}), flush=True)
+            "digests": by_root}), flush=True)
 
 
 if __name__ == "__main__":
