@@ -57,9 +57,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    real payloads (the port's qsgd encoding of the 32 trained uploads of
    event 0 of `comm-qsgd-accept-32c-vec`), where it must agree with
    `fedavg_agg` over the decoded matrix; then against its plain version
-   at main and edge shapes, timed as the other kernels beside
-   `sw @ q.float()` (a cast plus a GEMV: no single PyTorch call takes
-   int8 input); (b) the port on the card against the port on the CPU
+   at main and edge shapes (C up to 12288, unaligned N), with the
+   design's name, a bitwise repeat at C = 32, timed as the other kernels
+   beside `sw @ q.float()` (a cast plus a GEMV: no single PyTorch call
+   takes int8 input) with the share of its bound, and at the (16, 2^20)
+   edge, where bytes decide the time, with its streaming rate; (b) the port on the card against the port on the CPU
    with a codec on the wire and under the async runtime (8 configurations
    x 2 engines), event by event, with a bitwise repeat on the card and
    the codec payloads of event 0 re-encoded on the CPU from the card's
@@ -102,14 +104,25 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the plain one, or a launch count other than 6 flash / 38 scan per
    zamba2 prefill and 4 flash in the yi-9b prefill.
 
-Phases 5, 6, 7(c), 8(a), 8(c), 9(c) and 9(d) set every kernel's launch
-count to 0 just before they start and read the counts just after.
+10. result documents (the scenario runner) — the 7 loop and vectorized
+   registrations of the reference's baseline grid (`iid-hfl-vec`,
+   `iid-hfl-loop`, `iid-afl-vec`, `iid-cfl-vec`, `ring-gossip-vec`,
+   `dirichlet-hfl-loop`, `dirichlet-afl-loop`; 8 clients, 2 rounds)
+   through `scenarios.run_scenario` on the card, printing each run's
+   metrics and rounds per second. Fails on a document whose keys or
+   blocks differ from schema v2.5, one that does not come back unchanged
+   through `json` and the port's `load_result`, a non-finite metric, or
+   `fedavg_agg` launched no time in a run.
+
+Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d) and 10 set every kernel's
+launch count to 0 just before they start and read the counts just after.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
 results also go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -121,6 +134,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
+L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
 
 
 def _phase(name):
@@ -1031,9 +1045,13 @@ def _dequant_err(out, exp, q, s, w):
 # run (32), at the paper CNN's N
 DEQUANT_MAIN = [(8, 7900), (32, 7900), (64, 7900)]
 DEQUANT_EDGE = [(1, 7900, ""), (4, 1, ""), (7, 7901, ""), (7, 7902, ""),
-                (1024, 7900, ""), (16, 1 << 20, ""), (32, 7900, "zero"),
-                (32, 7900, "pm127"), (32, 7900, "zero_scale"),
-                (32, 7900, "zero_weight")]
+                (33, 7901, ""), (33, 7902, ""), (65, 7900, ""),
+                (1024, 7900, ""), (12288, 7900, ""), (16, 1 << 20, ""),
+                (32, 7900, "zero"), (32, 7900, "pm127"),
+                (32, 7900, "zero_scale"), (32, 7900, "zero_weight")]
+# the edge where bytes, not the launch, decide the time (~21 MB): timed,
+# with its streaming rate
+DEQUANT_STREAM = (16, 1 << 20)
 
 
 def _dequant_case(C, N, gen, kind=""):
@@ -1131,40 +1149,87 @@ def real_payload_check():
     return row
 
 
+def _cast_gemv(q, s, w):
+    import torch
+    return (s * w) @ q.to(torch.float32)
+
+
+def dequant_row(C, N, kind, timed, gen):
+    """`dequant_agg` at (C, N) against its plain version (the `kind` edge
+    values of `_dequant_case`); when `timed`, also timed beside the plain
+    version and a cast plus a GEMV, with its bound, the share of it the
+    kernel reaches, its streaming rate and a digest of its output's bits
+    (at `DEQUANT_STREAM` from device memory: see `input_copies`). At
+    (32, 7900) the kernel must repeat bitwise."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import comm_agg as ca
+
+    q, s, w = _dequant_case(C, N, gen, kind)
+    before = ca.launches
+    out = ca.dequant_agg(q, s, w)
+    torch.cuda.synchronize()
+    if ca.launches != before + 1:
+        raise SystemExit("dequant_agg: the wrapper did not launch")
+    exp = ca.dequant_agg_torch(q, s, w)
+    err, ok = _dequant_err(out, exp, q, s, w)
+    row = {"C": C, "N": N, "kind": kind, "max_abs_err": err,
+           "tol": "1e-6 x sum_c |s_c w_c q[c, n]|",
+           "design": ("rows over warps, word loads" if N % 4 == 0
+                      else "rows over warps, byte loads")}
+    if not (out.dtype == torch.float32 and out.shape == (N,) and ok):
+        raise SystemExit(f"dequant_agg disagrees with its plain "
+                         f"version: {row}")
+    if kind == "zero" and bool(out.any()):
+        raise SystemExit("dequant_agg: all-zero uploads gave non-zero")
+    if timed:
+        # the main shapes stay in the 50 MB L2 between calls, as they do
+        # on their path; the streaming edge cycles through copies of its
+        # inputs that together exceed L2, so each call reads device memory
+        copies = [(q, s, w)] + [
+            tuple(t.clone() for t in (q, s, w))
+            for _ in range(math.ceil(L2_BYTES * 2 / q.numel())
+                           if (C, N) == DEQUANT_STREAM else 0)]
+        nxt = itertools.cycle(copies).__next__
+        fns = {"": lambda: ca.dequant_agg(*nxt()),
+               "plain_": lambda: ca.dequant_agg_torch(*nxt()),
+               # no single PyTorch call takes int8 input: a cast and
+               # a GEMV, timed only
+               "cast_gemv_": lambda: _cast_gemv(*nxt())}
+        for key, fn in fns.items():
+            row[f"{key}ms"] = _time_ms(fn)
+            row[f"{key}graph_ms"] = _graph_ms(fn)
+        row["input_copies"] = len(copies)
+        row["bound_ms"], row["bound_by"] = _dequant_bound(C, N)
+        row["bound_share"] = _share(row)
+        # bytes each input read once, the output written once, over the
+        # graph time: the kernel's streaming rate
+        row["graph_gb_per_s"] = ((C * N + 4 * N + 8 * C)
+                                 / (row["graph_ms"] * 1e-3) / 1e9)
+        row["out_sha256"] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()
+    if (C, N, kind) == (32, 7900, ""):
+        # no atomics: the partial sums are added in one fixed order
+        row["bitwise_repeat"] = all(
+            torch.equal(ca.dequant_agg(q, s, w), out) for _ in range(3))
+        if not row["bitwise_repeat"]:
+            raise SystemExit(f"dequant_agg is not bitwise repeatable: "
+                             f"{row}")
+    return row
+
+
 def _dequant_rows():
     import torch
     from repro_torch.kernels import comm_agg as ca
 
     gen = torch.Generator().manual_seed(3)
     cases = ([(C, N, "", True) for C, N in DEQUANT_MAIN]
-             + [(C, N, kind, False) for C, N, kind in DEQUANT_EDGE])
+             + [(C, N, kind, (C, N) == DEQUANT_STREAM)
+                for C, N, kind in DEQUANT_EDGE])
     rows = []
-    for C, N, kind, main in cases:
-        q, s, w = _dequant_case(C, N, gen, kind)
-        before = ca.launches
-        out = ca.dequant_agg(q, s, w)
-        torch.cuda.synchronize()
-        if ca.launches != before + 1:
-            raise SystemExit("dequant_agg: the wrapper did not launch")
-        exp = ca.dequant_agg_torch(q, s, w)
-        err, ok = _dequant_err(out, exp, q, s, w)
-        row = {"C": C, "N": N, "kind": kind, "max_abs_err": err,
-               "tol": "1e-6 x sum_c |s_c w_c q[c, n]|"}
-        if not (out.dtype == torch.float32 and out.shape == (N,) and ok):
-            raise SystemExit(f"dequant_agg disagrees with its plain "
-                             f"version: {row}")
-        if kind == "zero" and bool(out.any()):
-            raise SystemExit("dequant_agg: all-zero uploads gave non-zero")
-        if main:
-            fns = {"": lambda: ca.dequant_agg(q, s, w),
-                   "plain_": lambda: ca.dequant_agg_torch(q, s, w),
-                   # no single PyTorch call takes int8 input: a cast and
-                   # a GEMV, timed only
-                   "cast_gemv_": lambda: (s * w) @ q.to(torch.float32)}
-            for key, fn in fns.items():
-                row[f"{key}ms"] = _time_ms(fn)
-                row[f"{key}graph_ms"] = _graph_ms(fn)
-            row["bound_ms"], row["bound_by"] = _dequant_bound(C, N)
+    for C, N, kind, timed in cases:
+        row = dequant_row(C, N, kind, timed, gen)
         print("  dequant_agg", json.dumps(row), flush=True)
         rows.append(row)
     try:
@@ -2151,6 +2216,91 @@ def yi_phase(device="cuda", seed=0, B=1, S=2048, layers=4):
     return out
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+# the result document's keys and the keys of its always-present blocks
+# (schema v2.5, the reference's `run_scenario`)
+DOC_KEYS = ("schema_version", "scenario", "spec", "strategy", "metrics",
+            "timing", "async", "attack", "communication", "telemetry",
+            "serving", "faults")
+DOC_METRICS = ("test_accuracy", "train_accuracy", "precision", "recall",
+               "f1", "balanced_accuracy")
+DOC_TIMING = ("build_time_s", "warmup_time_s", "steady_time_s",
+              "classification_time_s", "rounds_per_s")
+DOC_TELEMETRY = ("enabled", "phases", "run", "fused_phase_proxy",
+                 "counters", "series", "dispatch", "peak_rss_mb")
+
+
+def _check_document(name, doc):
+    """Fail unless `doc` has schema v2.5's keys and blocks, survives a
+    JSON round trip and the port's `load_result` unchanged, and holds
+    finite metrics. The 7 registrations run here are clean, dense, sync
+    and fault-free, so their optional blocks are null."""
+    from repro_torch.core import scenarios
+    from repro_torch.core.strategies import STRATEGY_REGISTRY_VERSION
+
+    spec = scenarios.get(name)
+    want = {"schema_version": scenarios.RESULT_SCHEMA_VERSION,
+            "scenario": name, "spec": spec.asdict(),
+            "strategy": {"plugin": spec.strategy,
+                         "registry_version": STRATEGY_REGISTRY_VERSION},
+            "async": None, "attack": None, "communication": None,
+            "serving": None, "faults": None}
+    wrong = [k for k, v in want.items() if doc.get(k) != v]
+    if (tuple(doc) != DOC_KEYS or wrong
+            or tuple(doc["metrics"]) != DOC_METRICS
+            or tuple(doc["timing"]) != DOC_TIMING
+            or tuple(doc["telemetry"]) != DOC_TELEMETRY):
+        raise SystemExit(f"{name}: the result document differs from "
+                         f"schema 2.5 (keys {list(doc)}, blocks {wrong})")
+    if scenarios.load_result(json.loads(json.dumps(doc))) != doc:
+        raise SystemExit(f"{name}: the result document does not survive "
+                         f"json and load_result")
+    if not all(math.isfinite(v) for v in doc["metrics"].values()):
+        raise SystemExit(f"{name}: non-finite metric {doc['metrics']}")
+
+
+def result_doc_phase(device="cuda"):
+    """10: the 7 loop and vectorized registrations of the reference's
+    baseline grid through `run_scenario` (the schema-v2.5 result
+    document), each checked by `_check_document`; on the card each must
+    launch `fedavg_agg` (HFL, AFL and vectorized CFL aggregate through
+    it)."""
+    from repro_torch.core import scenarios
+    from repro_torch.kernels import fedavg_agg as fa
+
+    _reset_launches()                    # the main path's count starts here
+    t0 = time.perf_counter()
+    out = {"runs": []}
+    for name in scenarios.BASELINE_SCENARIOS:
+        before = fa.launches
+        t1 = time.perf_counter()
+        doc = scenarios.run_scenario(name, device=device)
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        launches = fa.launches - before
+        _check_document(name, doc)
+        m, t = doc["metrics"], doc["timing"]
+        print(f"  {name}: test_acc={m['test_accuracy']:.4f} "
+              f"f1={m['f1']:.4f} precision={m['precision']:.4f} "
+              f"recall={m['recall']:.4f} "
+              f"balanced_acc={m['balanced_accuracy']:.4f} "
+              f"build={t['build_time_s']:.3f}s "
+              f"rounds_per_s={t['rounds_per_s']:.3f} "
+              f"fedavg_agg launches={launches} "
+              f"({time.perf_counter() - t1:.1f}s)", flush=True)
+        if device == "cuda" and launches == 0:
+            raise SystemExit(f"{name}: fedavg_agg was launched no time")
+        out["runs"].append({"scenario": name, "metrics": m, "timing": t,
+                            "fedavg_agg_launches": launches})
+    out["fedavg_agg_launches"] = fa.launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  result documents: fedavg_agg launched {fa.launches} times in "
+          f"{out['seconds']:.1f}s", flush=True)
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -2216,6 +2366,8 @@ def main():
     zamba = zamba2_phase("cuda")
     print("  -- (d) yi-9b at full width, 4 of its 48 layers", flush=True)
     yi = yi_phase("cuda")
+    _phase("result documents (the scenario runner, schema v2.5)")
+    documents = result_doc_phase("cuda")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -2270,6 +2422,7 @@ def main():
         "ms": drep["ms"], "plain_ms": drep["plain_ms"],
         "bound_ms": drep["bound_ms"], "bound_by": drep["bound_by"],
         "library_ms": None, "cast_gemv_ms": drep["cast_gemv_ms"],
+        "bound_share": drep["bound_share"], "design": drep["design"],
         "shape": [32, 7900], "shapes": [r for r in drows if "ms" in r]}
     frows = kernels["flash_attention"]
     frep = next(r for r in frows if r["case"] == ZAMBA
@@ -2310,13 +2463,14 @@ def main():
     for e in (entry, tentry):
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]
+    entry["launches_documents"] = documents["fedavg_agg_launches"]
     doc = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
            "kernels": kernels, "parity": parity, "study": study,
            "adversarial": adversarial, "churn": churn,
            "transport_kernels": transport_kernels, "transport": transport,
            "zoo_occupancy": zoo_kernels["occupancy"],
-           "zoo": {"zamba2": zamba, "yi": yi}}
+           "zoo": {"zamba2": zamba, "yi": yi}, "documents": documents}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(doc, indent=1))
@@ -2363,6 +2517,8 @@ def main():
             "kernel_graph_us": r["graph_ms"] * 1e3,
             "plain_graph_us": r["plain_graph_ms"] * 1e3,
             "cast_gemv_graph_us": r["cast_gemv_graph_ms"] * 1e3,
+            "bound_share": r["bound_share"],
+            "graph_gb_per_s": r["graph_gb_per_s"], "design": r["design"],
             "launches": dentry["launches"]} for r in dentry["shapes"]]
         + [{"name": e["name"], "replaces": e["replaces"], "case": r["case"],
             "dtype": r["dtype"], "max_err": r["max_abs_err"],

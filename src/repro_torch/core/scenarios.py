@@ -1,8 +1,8 @@
-"""Declarative scenario registry (a partial port of
+"""Declarative scenario registry and result documents (port of
 `repro.core.scenarios`): `ScenarioSpec` with the reference's fields and
-defaults, its `to_fl_config`, and the registrations of the adversarial
-axis, the strategy plugins, the async runtime, the upload codecs and the
-churn-tolerant runtime.
+defaults, its `to_fl_config` and `asdict`, all 41 of the reference's
+registrations word for word, `run_scenario`, which returns the
+reference's result document (schema v2.5), and `load_result`.
 
 A spec names one point of the evaluation space:
 
@@ -13,36 +13,57 @@ A spec names one point of the evaluation space:
              x faults (profile, churn rate, quorum, MTD; DESIGN.md §15)
              x engine (loop / vectorized / fused)
 
-`run(name)` builds the dataset and partition, runs the simulation and
-returns its `FLResult`; it runs on the card unless `device="cpu"` is
-passed. A spec accepts every engine the reference accepts, so the
-reference's registrations are kept word for word; running
-`engine="fused"` raises NotImplementedError naming ROADMAP §A.13, and
-`serve=True` naming §A.14. `communication_block(result)` is the
-reference's `communication` block of the result document, with the codec
-registry version; the rest of the reference's result document (schema
-v2.5) waits for ROADMAP §A.10.
+`run_scenario(name)` builds the dataset and partition, runs the
+simulation and returns the result document, every value a plain Python
+type; `run(name)` returns the run's `FLResult`. Both run on the card
+unless `device="cpu"` is passed. The registrations the port cannot run
+yet raise NotImplementedError naming their ROADMAP items (`pending`):
+`engine="fused"` §A.13, `serve=True` and the trace demo §A.14.
 
     PYTHONPATH=src python -m repro_torch.core.scenarios --list
     PYTHONPATH=src python -m repro_torch.core.scenarios \\
-        --run churn-signflip-median-mtd [--device cpu] \\
+        --run iid-hfl-vec [--device cpu] [--json out.json] \\
         [--fault-profile mid] [--churn-rate 0.3] [--quorum-frac 0.6]
+
+The document written by `--json` diffs against the reference's
+(`python -m repro.core.scenarios --run iid-hfl-vec --json ref.json`).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.core.codecs import (CODEC_REGISTRY_VERSION, codec_names,
                                      get_codec)
 from repro_torch.core.faults import FAULT_PROFILES
 from repro_torch.core.fl_types import ATTACKS, FLConfig
 from repro_torch.core.simulation import FederatedSimulation
-from repro_torch.core.strategies import get_strategy
+from repro_torch.core.strategies import (STRATEGY_REGISTRY_VERSION,
+                                         get_strategy)
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import DATASETS
+
+# The reference's result-document schema (DESIGN.md §6): v2.5 added the
+# "faults" block, v2.4 "serving", v2.3 "telemetry" and the warmup/steady
+# timing split, v2.2 "communication", v2.1 "strategy", v2 "attack".
+# `load_result` reads the older versions.
+RESULT_SCHEMA_VERSION = 2.5
+
+# One output root for every result writer (env-overridable), as in the
+# reference: `--json` with a bare filename lands under <root>/results/.
+OUTPUT_DIR = os.environ.get("REPRO_OUTPUT_DIR", "experiments")
+
+
+def output_path(*parts: str) -> str:
+    """Join under the shared output root, creating directories."""
+    path = os.path.join(OUTPUT_DIR, *parts)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return path
+
 
 PARTITIONS = ("iid", "dirichlet")
 ENGINES = ("loop", "vectorized", "fused")
@@ -210,6 +231,9 @@ class ScenarioSpec:
             serve_round_duration=self.serve_round_duration,
             engine=self.engine)
 
+    def asdict(self) -> Dict:
+        return dataclasses.asdict(self)
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -236,7 +260,50 @@ def names() -> List[str]:
     return sorted(REGISTRY)
 
 
-# heterogeneous async runtime (DESIGN.md §5), word for word
+# Every registration of the reference, word for word and in its order.
+# strategy x engine coverage on the paper's IID setting
+register(ScenarioSpec(
+    "iid-hfl-vec", "centralized two-tier HFL, IID shards, stacked engine",
+    strategy="hfl", topology="hierarchical", local_epochs=2))
+register(ScenarioSpec(
+    "iid-hfl-loop", "loop-engine twin of iid-hfl-vec (paper-faithful "
+    "per-client dispatch timing)",
+    strategy="hfl", topology="hierarchical", local_epochs=2, engine="loop"))
+register(ScenarioSpec(
+    "iid-afl-vec", "decentralized AFL, 50% participation, masked FedAvg",
+    strategy="afl", topology="star", participation=0.5, local_epochs=2))
+register(ScenarioSpec(
+    "iid-cfl-vec", "decentralized continual CFL, sequential client pass",
+    strategy="cfl", topology="sequential"))
+register(ScenarioSpec(
+    "ring-gossip-vec", "AFL in gossip mode: ring-neighbor averaging, full "
+    "participation",
+    strategy="afl", topology="ring", participation=1.0))
+# fused-executor twins (DESIGN.md §10; run by ROADMAP §A.13)
+register(ScenarioSpec(
+    "iid-hfl-fused", "fused-executor twin of iid-hfl-vec: all rounds in "
+    "one lax.scan, device-resident group/global state, in-scan "
+    "dissemination schedule",
+    strategy="hfl", topology="hierarchical", local_epochs=2,
+    engine="fused"))
+register(ScenarioSpec(
+    "attack-signflip-median-fused", "sign-flip attackers vs the bitonic "
+    "median kernel, corrupted and defended entirely inside the fused "
+    "round scan",
+    strategy="afl", topology="star", participation=1.0, engine="fused",
+    attack="sign_flip", attack_scale=4.0, defense="median"))
+# non-IID Dirichlet label skew — loop engine (uneven shards are the loop
+# engine's territory: the stacked engine truncates to the federation-min
+# batch count)
+register(ScenarioSpec(
+    "dirichlet-afl-loop", "AFL under Dirichlet(0.3) label skew",
+    strategy="afl", topology="star", engine="loop", partition="dirichlet",
+    dirichlet_alpha=0.3, participation=0.5, n_train=768))
+register(ScenarioSpec(
+    "dirichlet-hfl-loop", "HFL under mild Dirichlet(1.0) label skew",
+    strategy="hfl", topology="hierarchical", engine="loop",
+    partition="dirichlet", dirichlet_alpha=1.0, n_train=768))
+# heterogeneous async runtime (DESIGN.md §5)
 register(ScenarioSpec(
     "async-uniform-vec", "async staleness-aware merge, homogeneous "
     "clients (full-federation tick batches)",
@@ -336,9 +403,9 @@ register(ScenarioSpec(
     strategy="async", topology="event", speed_model="uniform",
     attack="gauss", attack_scale=3.0, defense="norm_clip", clip_tau=3.0))
 
-# communication axis — upload codecs on the wire (DESIGN.md §12), word
-# for word. The acceptance pair is `comm-qsgd-accept-32c-vec` against its
-# dense twin (same data, schedule and seed; only the codec toggles): the
+# communication axis — upload codecs on the wire (DESIGN.md §12). The
+# acceptance pair is `comm-qsgd-accept-32c-vec` against its dense twin
+# (same data, schedule and seed; only the codec toggles): the
 # reference's bar is >= 3.5x uplink compression with macro-F1 within
 # 0.02 of the dense run. The pair runs the 32-client basis for 12 rounds.
 register(ScenarioSpec(
@@ -372,6 +439,30 @@ register(ScenarioSpec(
     "dense twin with int8 uploads (~4x uplink compression at matched "
     "macro-F1)",
     codec="qsgd", **_COMM32))
+
+# observability (DESIGN.md §13): the trace-demo scenario, a fused run
+# whose point is its Chrome trace (run by ROADMAP §A.13 and §A.14)
+register(ScenarioSpec(
+    "obs-trace-fused-16c", "16-client fused sign-flip/median run for "
+    "the telemetry trace demo (make trace-demo / the CI trace artifact)",
+    strategy="afl", topology="star", engine="fused", participation=1.0,
+    num_clients=16, rounds=4, n_train=1024, attack="sign_flip",
+    attack_scale=4.0, defense="median"))
+
+# federation-in-the-loop serving (DESIGN.md §14; run by ROADMAP §A.14)
+register(ScenarioSpec(
+    "serve-iid-fused", "fused-executor HFL with the serving side-car: "
+    "per-round global models stacked in-scan, hot-swap replayed at "
+    "round boundaries, Poisson traffic",
+    strategy="hfl", topology="hierarchical", local_epochs=2,
+    engine="fused", serve=True))
+register(ScenarioSpec(
+    "serve-hfl-burst", "centralized HFL under on/off burst traffic: "
+    "3x-rate bursts against the bounded queue — occupancy high, "
+    "overflow shed and accounted",
+    strategy="hfl", topology="hierarchical", local_epochs=2, serve=True,
+    serve_arrival="burst", serve_qps=256.0, serve_batch=4,
+    serve_queue=8, serve_max_wait=0.02))
 register(ScenarioSpec(
     "serve-qsgd-signflip-median", "the full-stack crossing: sign-flip "
     "attackers quantized on the wire, median-defended aggregation, and "
@@ -379,17 +470,8 @@ register(ScenarioSpec(
     strategy="afl", topology="star", participation=1.0, codec="qsgd",
     attack="sign_flip", attack_scale=4.0, defense="median", serve=True,
     serve_arrival="diurnal"))
-ASYNC_SCENARIOS = ("async-uniform-vec", "async-straggler-vec",
-                   "async-dropout-vec", "async-lognormal-loop",
-                   "attack-gauss-async-clip-vec")
-CODEC_SCENARIOS = ("comm-topk-afl-vec", "comm-qsgd-signflip-median-vec",
-                   "comm-topk-async-loop", "comm-dense-accept-32c-vec",
-                   "comm-qsgd-accept-32c-vec")
-COMM_ACCEPTANCE_PAIR = ("comm-qsgd-accept-32c-vec",
-                        "comm-dense-accept-32c-vec")
 
-# churn-tolerant runtime (DESIGN.md §15): the reference's dynamic-
-# membership registrations, word for word. The acceptance PAIR is
+# churn-tolerant runtime (DESIGN.md §15). The acceptance PAIR is
 # `churn-signflip-median-mtd` against its `-static` twin: same data,
 # schedule, seed and churn; only the per-round moving-target ring
 # re-randomization toggles, against colluding sign-flip neighborhoods
@@ -422,25 +504,70 @@ register(ScenarioSpec(
     "churn-signflip-median-mtd (the colluding sandwich persists every "
     "round — the baseline MTD is measured against)",
     fault_mtd=False, **_CHURN32))
+
+# the reference's CI bench-smoke grid, as data: its fused and serving
+# entries wait for ROADMAP §A.13 and §A.14, so `--grid ci` refuses to
+# start until every entry runs (`pending`)
+CI_SMOKE_GRID: Tuple[str, ...] = (
+    "iid-hfl-vec", "ring-gossip-vec", "async-straggler-vec",
+    "attack-replace-cfl-clip-vec", "fedprox-dirichlet-vec",
+    "fedadam-iid-vec", "iid-hfl-fused", "comm-qsgd-signflip-median-vec",
+    "serve-iid-fused")
+
+# the port's groupings of the registrations, read by chip_smoke.py
+BASELINE_SCENARIOS = ("iid-hfl-vec", "iid-hfl-loop", "iid-afl-vec",
+                      "iid-cfl-vec", "ring-gossip-vec", "dirichlet-hfl-loop",
+                      "dirichlet-afl-loop")
+ASYNC_SCENARIOS = ("async-uniform-vec", "async-straggler-vec",
+                   "async-dropout-vec", "async-lognormal-loop",
+                   "attack-gauss-async-clip-vec")
+CODEC_SCENARIOS = ("comm-topk-afl-vec", "comm-qsgd-signflip-median-vec",
+                   "comm-topk-async-loop", "comm-dense-accept-32c-vec",
+                   "comm-qsgd-accept-32c-vec")
+COMM_ACCEPTANCE_PAIR = ("comm-qsgd-accept-32c-vec",
+                        "comm-dense-accept-32c-vec")
 CHURN_SCENARIOS = ("churn-afl-gossip-mtd", "churn-hfl-quorum",
                    "churn-signflip-median-mtd",
                    "churn-signflip-median-static")
-
 ACCEPTANCE_FAMILY = ("attack-none-32c-vec", "attack-signflip-fedavg-32c-vec",
                      "attack-signflip-median-32c-vec",
                      "attack-signflip-trimmed-32c-vec")
+# the telemetry trace demo: its point is the Chrome trace (§A.14)
+TRACE_DEMO = "obs-trace-fused-16c"
 
 
 # ---------------------------------------------------------------------------
 # resolution + execution
 # ---------------------------------------------------------------------------
 
-def resolve(spec: ScenarioSpec, device="cuda") -> FederatedSimulation:
+def pending(spec: ScenarioSpec) -> Tuple[str, ...]:
+    """The ROADMAP items a registration waits for before the port can
+    run it (empty when it runs): the fused executor (§A.13), the serving
+    side-car and the Chrome trace (§A.14)."""
+    items = []
+    if spec.engine == "fused":
+        items.append("§A.13 (fused executor)")
+    if spec.serve or spec.name == TRACE_DEMO:
+        items.append("§A.14 (obs/ and serve/)")
+    return tuple(items)
+
+
+def resolve(spec: ScenarioSpec, device="cuda",
+            model_init=None) -> FederatedSimulation:
     """Spec -> FederatedSimulation on `device`, with the dataset built and
-    the partition applied."""
+    the partition applied. `model_init` passes through to the simulation
+    (the parity tests inject the reference's initial parameters there).
+    A registration the port cannot run yet raises NotImplementedError
+    naming its ROADMAP items, before any data is built."""
+    items = pending(spec)
+    if items:
+        raise NotImplementedError(
+            f"scenario {spec.name!r} is not runnable in repro_torch yet: "
+            f"ROADMAP {' and '.join(items)}")
     ds = DATASETS[spec.dataset](seed=spec.seed, n_train=spec.n_train,
                                 n_test=spec.n_test)
-    sim = FederatedSimulation(spec.to_fl_config(), ds, device=device)
+    sim = FederatedSimulation(spec.to_fl_config(), ds, model_init=model_init,
+                              device=device)
     if spec.partition == "dirichlet":
         # every client must fill at least one local batch
         sim.set_partition(dirichlet_partition(
@@ -466,12 +593,114 @@ def communication_block(result) -> Optional[Dict]:
     return {**comm, "registry_version": CODEC_REGISTRY_VERSION}
 
 
+def run_scenario(scenario: Union[str, ScenarioSpec], device="cuda",
+                 trace_out: Optional[str] = None, model_init=None) -> Dict:
+    """Run one scenario on `device` and return the reference's result
+    document (schema v2.5, DESIGN.md §6), block for block.
+    `rounds_per_s` is sync rounds (or async merge batches) per second of
+    build time. `trace_out` (the run's Chrome trace) raises: its writer is
+    ported in ROADMAP §A.14. `model_init` is the simulation's (see
+    `resolve`), not an option of the run."""
+    spec = get(scenario) if isinstance(scenario, str) else scenario
+    if trace_out:
+        raise NotImplementedError(
+            "trace_out writes the run's Chrome trace, whose writer "
+            "(obs.export.write_chrome_trace) is not ported yet: ROADMAP "
+            "§A.14 (obs/ and serve/) brings it to repro_torch")
+    sim = resolve(spec, device, model_init)
+    r = sim.run()
+    async_block = None
+    units = spec.rounds
+    if sim.strategy.timeline_result:
+        async_block = {k: r.extra.get(k) for k in
+                       ("merges", "batches", "mean_staleness", "makespan",
+                        "dropped_clients", "participants")}
+        units = r.extra.get("batches", spec.rounds)
+    attack_block = None
+    if spec.attack != "none" or spec.defense != "none":
+        # the Byzantine allowance applied at one aggregation event: the
+        # strategy declares its event size (an HFL group, AFL's sampled
+        # participants)
+        attack_block = {
+            "attack": spec.attack,
+            "fraction": spec.attack_fraction,
+            "scale": spec.attack_scale,
+            "attacked_clients": [int(c) for c in sim.attackers],
+            "defense": spec.defense,
+            "defense_f": sim.fl.resolved_defense_f(
+                sim.strategy.event_size()),
+            "clip_tau": spec.clip_tau,
+        }
+    return {
+        "schema_version": RESULT_SCHEMA_VERSION,
+        "scenario": spec.name,
+        "spec": spec.asdict(),
+        "strategy": {
+            "plugin": sim.strategy.name,
+            "registry_version": STRATEGY_REGISTRY_VERSION,
+        },
+        "metrics": {
+            "test_accuracy": r.test_accuracy,
+            "train_accuracy": r.train_accuracy,
+            "precision": r.precision, "recall": r.recall, "f1": r.f1,
+            "balanced_accuracy": r.balanced_accuracy,
+        },
+        "timing": {
+            "build_time_s": r.build_time_s,
+            "warmup_time_s": r.warmup_time_s,
+            "steady_time_s": r.steady_time_s,
+            "classification_time_s": r.classification_time_s,
+            "rounds_per_s": (units / r.build_time_s
+                             if r.build_time_s > 0 else 0.0),
+        },
+        "async": async_block,
+        "attack": attack_block,
+        "communication": communication_block(r),
+        "telemetry": r.extra.get("telemetry"),
+        "serving": r.extra.get("serving"),
+        "faults": r.extra.get("faults"),
+    }
+
+
+def load_result(doc: Dict) -> Dict:
+    """A result document of any schema version, upgraded to the current
+    one (the reference's `load_result`): v1 documents read as unattacked,
+    v2 as carrying the spec's strategy with a null registry version, v2.1
+    as dense, v2.2 as untraced, v2.3 as train-only and v2.4 as fault-free
+    runs. An unknown version raises ValueError."""
+    v = doc.get("schema_version")
+    if v == RESULT_SCHEMA_VERSION:
+        return doc
+    if v not in (2.4, 2.3, 2.2, 2.1, 2, 1):
+        raise ValueError(f"unknown result schema_version {v!r}")
+    added = {"faults": None}                                  # v2.4
+    if v in (2.3, 2.2, 2.1, 2, 1):
+        added["serving"] = None
+    if v in (2.2, 2.1, 2, 1):
+        added["telemetry"] = None
+    if v in (2.1, 2, 1):
+        added["communication"] = None
+    if v in (2, 1):
+        plugin = (doc.get("spec") or {}).get("strategy")
+        added["strategy"] = {"plugin": plugin, "registry_version": None}
+    if v == 1:
+        added["attack"] = None
+    return {**doc, "schema_version": RESULT_SCHEMA_VERSION, **added}
+
+
 def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--list", action="store_true",
                     help="print the registry and exit")
     ap.add_argument("--run", nargs="+", metavar="NAME",
                     help="run the named scenario(s)")
+    ap.add_argument("--grid", choices=["ci"],
+                    help="run a predefined grid (ci = the bench-smoke set)")
+    ap.add_argument("--json", metavar="PATH",
+                    help="also write the result documents as a JSON list "
+                         f"(bare filenames land under {OUTPUT_DIR}/results/)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="not ported yet (ROADMAP §A.14)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--fault-profile", choices=FAULT_PROFILES,
@@ -488,7 +717,17 @@ def main(argv: Optional[List[str]] = None):
                                    ("churn_rate", args.churn_rate),
                                    ("quorum_frac", args.quorum_frac))
                  if v is not None}
-    if args.list or not args.run:
+    if args.trace_out:
+        ap.error("--trace-out writes a Chrome trace, whose writer is not "
+                 "ported yet: ROADMAP §A.14 (obs/ and serve/)")
+    if args.grid:
+        waiting = {n: pending(get(n)) for n in CI_SMOKE_GRID
+                   if pending(get(n))}
+        if waiting:
+            ap.error("--grid ci has entries the port cannot run yet: "
+                     + "; ".join(f"{n} (ROADMAP {' and '.join(items)})"
+                                 for n, items in waiting.items()))
+    if args.list or not (args.run or args.grid):
         for n in names():
             s = REGISTRY[n]
             adv = ("clean" if s.attack == "none" and s.defense == "none"
@@ -496,27 +735,36 @@ def main(argv: Optional[List[str]] = None):
             print(f"{n:34s} {s.strategy}/{s.topology}/{s.engine:10s} "
                   f"clients={s.num_clients:<3d} {adv:24s} {s.description}")
         return
-    for name in args.run:
+    todo = list(args.run or []) + (list(CI_SMOKE_GRID) if args.grid else [])
+    results = []
+    for name in todo:
         spec = get(name)
         if overrides:
             # dataclasses.replace re-runs __post_init__, so an invalid
             # override combination fails before any training
             spec = dataclasses.replace(spec, **overrides)
         t0 = time.perf_counter()
-        r = run(spec, device=args.device)
-        faults = r.extra.get("faults")
-        comm = communication_block(r)
+        res = run_scenario(spec, device=args.device)
+        results.append(res)
+        m, t = res["metrics"], res["timing"]
+        faults, comm = res["faults"], res["communication"]
         tail = ("" if faults is None else
                 f" quorum_failures={faults['quorum_failures']} "
                 f"mean_alive_frac={faults['mean_alive_frac']:.3f}")
         if comm is not None:
             tail += (f" uplink_bytes={comm['uplink_bytes']} "
                      f"compression={comm['compression_ratio']:.4f}")
-        print(f"{name}: test_acc={r.test_accuracy:.3f} f1={r.f1:.3f} "
-              f"build={r.build_time_s:.2f}s "
-              f"launches={r.extra['kernel_launches']}{tail} "
-              f"({time.perf_counter() - t0:.1f}s on {r.extra['device']})",
+        print(f"{name}: test_acc={m['test_accuracy']:.3f} f1={m['f1']:.3f} "
+              f"build={t['build_time_s']:.2f}s "
+              f"rounds_per_s={t['rounds_per_s']:.3f}{tail} "
+              f"({time.perf_counter() - t0:.1f}s on {args.device})",
               flush=True)
+    if args.json:
+        path = (args.json if os.path.dirname(args.json)
+                else output_path("results", args.json))
+        with open(path, "w") as f:
+            json.dump(results, f, indent=1)
+        print(f"results -> {path}")
 
 
 if __name__ == "__main__":

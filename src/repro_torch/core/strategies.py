@@ -47,6 +47,11 @@ from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
 
+# Bump when the Strategy protocol or the registry's semantics change in a
+# way a result document's reader can observe (recorded in every
+# `run_scenario` document's "strategy" block, as in the reference).
+STRATEGY_REGISTRY_VERSION = 1
+
 
 # ---------------------------------------------------------------------------
 # plan / local-objective descriptors

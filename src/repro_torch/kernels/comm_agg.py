@@ -7,7 +7,10 @@ client; folding `scale * weight` into the reduction reads the int8 matrix
 once, a quarter of the bytes of decode-then-`fedavg_agg`. The kernel is
 `csrc/dequant_agg.cu`, a hand-written CUDA C++ kernel for Hopper (sm_90a)
 that replaces the TPU kernel `repro/kernels/comm_agg.py::
-_dequant_agg_kernel`. `dequant_agg` is its wrapper: a CUDA tensor
+_dequant_agg_kernel`. It splits the rows over up to 8 warps (one for
+every 8 rows) and adds their partial sums in one fixed order, so it
+agrees with the plain version to float32 reassociation (1e-6 of
+sum_c |s_c w_c q[c, n]|) and repeats bit for bit. `dequant_agg` is its wrapper: a CUDA tensor
 launches the kernel (or the wrapper raises), a CPU tensor takes the plain
 PyTorch version `dequant_agg_torch`. There is no fallback from the card
 to the plain version.
@@ -29,7 +32,7 @@ from repro_torch.kernels import build
 
 launches = 0
 
-MAX_CLIENTS = 48 * 1024 // 4       # s*w staged in 48 KB of shared memory
+MAX_CLIENTS = 48 * 1024 // 4       # the first port's envelope (s*w in 48 KB)
 
 
 def dequant_agg_torch(values: torch.Tensor, scales: torch.Tensor,

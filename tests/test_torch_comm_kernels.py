@@ -150,7 +150,11 @@ def cuda():
     (8, 7900, ""), (32, 7900, ""), (64, 7900, ""), (1, 7900, ""),
     (4, 1, ""), (7, 7901, ""), (7, 7902, ""), (1024, 300, ""),
     (16, 1 << 20, ""), (32, 7900, "zero"), (32, 7900, "pm127"),
-    (32, 7900, "zero_scale"), (32, 7900, "zero_weight")])
+    (32, 7900, "zero_scale"), (32, 7900, "zero_weight"),
+    # row groups: past one batch of loads, many batches, the envelope's
+    # top, and the byte path with rows split over the warps
+    (65, 7900, ""), (1024, 7900, ""), (12288, 7900, ""), (33, 7901, ""),
+    (33, 7902, "")])
 def test_cuda_kernel_matches_plain(cuda, C, N, kind):
     q, s, w = _inputs(C, N, C + N, kind)
     tq, ts, tw = (torch.as_tensor(a, device=cuda) for a in (q, s, w))
@@ -175,3 +179,13 @@ def test_cuda_unaligned_view_is_read_correctly(cuda):
     want = port_ca.dequant_agg_torch(view, ts, tw)
     _assert_close(out.cpu().numpy(), want.cpu().numpy(),
                   view.cpu().numpy(), s[:8], w[:8])
+
+
+def test_cuda_kernel_repeats_bitwise(cuda):
+    """The row groups' partial sums are added in one fixed order, without
+    atomics: one input gives one result, bit for bit."""
+    q, s, w = _inputs(32, 7900, 11)
+    tq, ts, tw = (torch.as_tensor(a, device=cuda) for a in (q, s, w))
+    first = port_ca.dequant_agg(tq, ts, tw)
+    for _ in range(3):
+        assert torch.equal(port_ca.dequant_agg(tq, ts, tw), first)

@@ -1,6 +1,6 @@
 """Card readings of B5 (`flash_attention`, bfloat16 and float32), B1
-(`fedavg_agg`), B2 (`trimmed_mean_agg`), B3 (`gossip_mix_agg`) and B6
-(`ssm_scan`) of one checkout, for comparing two checkouts on one card in
+(`fedavg_agg`), B2 (`trimmed_mean_agg`), B3 (`gossip_mix_agg`), B4
+(`dequant_agg`) and B6 (`ssm_scan`) of one checkout, for comparing two checkouts on one card in
 one call. Not collected by pytest (no `test_` prefix); needs a CUDA card.
 
     python3 tests/torch_kernel_ab.py [--kernels NAME,...] ROOT [ROOT ...]
@@ -13,10 +13,11 @@ chip_smoke.py's (`flash_row` at every shape of `FLASH_MAIN`, in bfloat16
 for flash_attention and in float32 for flash_attention_f32, `fedavg_row`
 at N = 7900 float32 and C = 2, 4, 8, 32, 33, 64, `trimmed_row` at the
 `TRIM_MAIN` shapes, `gossip_row` at the three `GOSSIP_MAIN` schedules,
+`dequant_row` at the `DEQUANT_MAIN` shapes and `DEQUANT_STREAM`,
 `ssm_row` at `SSM_MAIN` in bfloat16 and float32); only the kernels and
 their wrappers come from ROOT. `--kernels` picks some of
 flash_attention, flash_attention_f32, fedavg_agg, trimmed_mean_agg,
-gossip_mix_agg and ssm_scan (default: all). Run the roots in turns
+gossip_mix_agg, dequant_agg and ssm_scan (default: all). Run the roots in turns
 (A, B, B, A) to see the spread of the card beside the difference. The
 last lines, `AB gossip_bits {json}` and `AB trimmed_bits {json}`, say
 whether every root's B3 outputs at the `GOSSIP_MAIN` shapes, and B2's at
@@ -30,11 +31,12 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("flash_attention", "flash_attention_f32", "fedavg_agg",
-           "trimmed_mean_agg", "gossip_mix_agg", "ssm_scan")
+           "trimmed_mean_agg", "gossip_mix_agg", "dequant_agg", "ssm_scan")
 SOURCES = {"flash_attention": "flash_attention",
            "flash_attention_f32": "flash_attention",
            "fedavg_agg": "fedavg_agg", "trimmed_mean_agg": "trimmed_mean_agg",
-           "gossip_mix_agg": "gossip_mix", "ssm_scan": "ssm_scan"}
+           "gossip_mix_agg": "gossip_mix", "dequant_agg": "dequant_agg",
+           "ssm_scan": "ssm_scan"}
 BITS = {"gossip_mix_agg": "gossip_bits", "trimmed_mean_agg": "trimmed_bits"}
 
 CHILD = r"""
@@ -73,6 +75,12 @@ if "gossip_mix_agg" in kernels:
         mix, alive = cs._schedule_mix(C, mtd, degree, rounds, ev)
         out[f"gossip_mix_agg {label}"] = cs.gossip_row(
             C, N, torch.float32, mix, alive, label, True, gen)
+if "dequant_agg" in kernels:
+    gen = torch.Generator().manual_seed(3)
+    for C, N in cs.DEQUANT_MAIN + [cs.DEQUANT_STREAM]:
+        row = cs.dequant_row(C, N, "", True, gen)
+        row.pop("design")         # names this checkout's kernel, not ROOT's
+        out[f"dequant_agg C={C} N={N}"] = row
 if "ssm_scan" in kernels:
     gen = torch.Generator().manual_seed(10)
     for case in cs.SSM_MAIN:
@@ -97,8 +105,11 @@ def main(argv):
         done = subprocess.run(
             [sys.executable, "-c", CHILD, root, HERE, ",".join(kernels),
              json.dumps(SOURCES)],
-            check=True, timeout=900, capture_output=True, text=True)
+            timeout=900, capture_output=True, text=True)
         sys.stderr.write(done.stderr)
+        if done.returncode:
+            sys.stdout.write(done.stdout)
+            raise SystemExit(f"{root}: exit code {done.returncode}")
         for line in done.stdout.splitlines():
             print(line, flush=True)
             if line.startswith("AB "):
