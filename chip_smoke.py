@@ -114,8 +114,37 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    through `json` and the port's `load_result`, a non-finite metric, or
    `fedavg_agg` launched no time in a run.
 
-Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d) and 10 set every kernel's
-launch count to 0 just before they start and read the counts just after.
+11. fused executor and serving — (a) the reference's fused-parity
+   configurations (tests/test_fused.py: HFL over 3 rounds, AFL at
+   participation 0.5, CFL, FedProx, FedAvgM, FedAdam, AFL gossip, AFL
+   sign-flip against the median; 8 clients, the paper CNN at full width)
+   and the `churn-afl-gossip-mtd` and `comm-qsgd-hfl-fused`
+   configurations, each run four times: vectorized, fused (one CUDA graph
+   of a round, replayed) and the fused eager loop on the card, and fused
+   on the CPU. Fails unless the graph run is within the reference's fused
+   tolerances of the vectorized run (round accuracies 1e-5, losses 1e-4,
+   final metrics 1e-5, confusion equal), equals the eager run bit for bit,
+   and holds to the CPU at phase 4's tolerances (FedAdam and the codec
+   run printed); a profile of each fused run's build window counts the
+   round kernels on the device, and the graph run's replays must launch
+   what the eager rounds launch, with no wrapper called in its window;
+   (b) the 4 fused registrations through the scenario runner,
+   schema-checked as in phase 10, with `fedavg_agg` launched inside the
+   replayed graph (so counted by the profile of the build window) in
+   every run but the median one, `trimmed_mean_agg` in the median run,
+   `gossip_mix_agg` in the churn-gossip run and `dequant_agg` in none;
+   (c) the 3 serving registrations and the trace demo: every request
+   completed or shed, `serve-iid-fused`'s serving block byte for byte its
+   vectorized twin's, the trace valid; (d) rounds per second of the fused
+   graph, the fused eager loop and the vectorized engine for
+   `iid-hfl-fused` (2 rounds and 20), and an AFL star at 64 clients: the
+   median and range of 5 interleaved runs each, with the device idle
+   share of one profiled run (printed, not gated).
+
+Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10 and 11(b)-(c) set every
+kernel's launch count to 0 just before they start and read the counts
+just after; a replayed graph runs no wrapper, so 11(b) also reads the
+launches a profile counts on the device.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -2234,8 +2263,10 @@ DOC_TELEMETRY = ("enabled", "phases", "run", "fused_phase_proxy",
 def _check_document(name, doc):
     """Fail unless `doc` has schema v2.5's keys and blocks, survives a
     JSON round trip and the port's `load_result` unchanged, and holds
-    finite metrics. The 7 registrations run here are clean, dense, sync
-    and fault-free, so their optional blocks are null."""
+    finite metrics. An optional block (async, attack, communication,
+    serving, faults) is null exactly when the spec leaves its axis off,
+    and an object otherwise (phase 10's 7 registrations are clean, dense,
+    sync and fault-free, so theirs are all null)."""
     from repro_torch.core import scenarios
     from repro_torch.core.strategies import STRATEGY_REGISTRY_VERSION
 
@@ -2243,10 +2274,16 @@ def _check_document(name, doc):
     want = {"schema_version": scenarios.RESULT_SCHEMA_VERSION,
             "scenario": name, "spec": spec.asdict(),
             "strategy": {"plugin": spec.strategy,
-                         "registry_version": STRATEGY_REGISTRY_VERSION},
-            "async": None, "attack": None, "communication": None,
-            "serving": None, "faults": None}
+                         "registry_version": STRATEGY_REGISTRY_VERSION}}
     wrong = [k for k, v in want.items() if doc.get(k) != v]
+    present = {"async": spec.strategy == "async",
+               "attack": spec.attack != "none" or spec.defense != "none",
+               "communication": spec.codec != "none",
+               "serving": spec.serve,
+               "faults": spec.fault_profile != "none"}
+    wrong += [k for k, on in present.items()
+              if isinstance(doc.get(k), dict) != on
+              or (not on and doc.get(k) is not None)]
     if (tuple(doc) != DOC_KEYS or wrong
             or tuple(doc["metrics"]) != DOC_METRICS
             or tuple(doc["timing"]) != DOC_TIMING
@@ -2298,6 +2335,338 @@ def result_doc_phase(device="cuda"):
     out["seconds"] = time.perf_counter() - t0
     print(f"  result documents: fedavg_agg launched {fa.launches} times in "
           f"{out['seconds']:.1f}s", flush=True)
+    return out
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+# the reference's own fused-parity configurations (tests/test_fused.py):
+# 8 clients x 32 images, the paper CNN at full width (N = 7900 float32)
+FUSED_DS = dict(seed=0, n_train=256, n_test=128)
+FUSED_CFG = dict(num_clients=8, num_groups=2, rounds=2, local_epochs=1,
+                 local_batch_size=16, lr=0.05, seed=0, participation=1.0)
+FUSED_CASES = {
+    "hfl": dict(strategy="hfl", rounds=3),
+    "afl-p0.5": dict(strategy="afl", participation=0.5),
+    "cfl": dict(strategy="cfl"),
+    "fedprox": dict(strategy="fedprox", prox_mu=0.1),
+    "fedavgm": dict(strategy="fedavgm", server_lr=0.7, server_momentum=0.9),
+    "fedadam": dict(strategy="fedadam", server_lr=0.1),
+    "afl-gossip": dict(strategy="afl", afl_mode="gossip"),
+    "afl-signflip-median": dict(strategy="afl", attack="sign_flip",
+                                attack_scale=4.0, defense="median",
+                                rounds=3),
+}
+# then two registrations, each at its own configuration and data
+FUSED_REGISTRATION_CASES = ("churn-afl-gossip-mtd", "comm-qsgd-hfl-fused")
+# the reference's fused tolerances (tests/test_fused.py)
+FUSED_TOL = {"round_train_acc": 1e-5, "round_train_loss": 1e-4,
+             "round_test_acc": 1e-5, "train_accuracy": 1e-5,
+             "test_accuracy": 1e-5, "f1": 1e-5}
+_RESULT_FIELDS = ("round_train_acc", "round_train_loss", "round_test_acc",
+                  "train_accuracy", "test_accuracy", "precision", "recall",
+                  "f1", "balanced_accuracy")
+
+
+def _served_leaves(sim):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(sim.strategy.round_model(sim.final_state))
+
+
+def _same_leaves(a, b):
+    return all(x.equal(y) for x, y in zip(_served_leaves(a),
+                                          _served_leaves(b)))
+
+
+def _fused_case(label, make, device, reference, codec=False):
+    """Four runs of one configuration: the vectorized engine, the fused
+    engine (one CUDA graph of a round, replayed) and the fused eager loop
+    on `device`, and the fused engine on `reference`. Fails unless the
+    graph run is within the reference's fused tolerances of the
+    vectorized run with the same confusion matrix, equals the eager run
+    bit for bit (metrics, curves, served model), and its served model is
+    within phase 4's tolerance of the `reference` run
+    (HFL 1e-3, else 1e-4; printed, not gated, for FedAdam — ROADMAP C.2 —
+    and with a codec on the wire, where a quantization level may flip
+    between devices). Whether the graph run's served model is the
+    vectorized run's bit for bit is printed.
+
+    On the card a profile of each fused run's build window
+    (`obs.collectors.device_window`) counts the round kernels executed on
+    the device, and fails unless the graph run's replays launched the
+    same kernels as the eager rounds, no wrapper is called in the graph
+    run's window (so the replays launched them), and the eager window's
+    profile agrees with its wrappers' counts."""
+    import numpy as np
+    from repro_torch.obs import collectors
+
+    vsim = make("vectorized", device)
+    rv = vsim.run()
+    boxes = {"graph": {}, "eager": {}}
+    gsim = make("fused", device)
+    esim = make("fused", device)
+    if device == "cuda":
+        gsim.build_hook = collectors.device_window(boxes["graph"])
+        esim.build_hook = collectors.device_window(boxes["eager"])
+    rg = gsim.run()
+    re_ = esim.run_fused(graph=False)
+    csim = make("fused", reference)
+    csim.run()
+    gaps = {k: float(np.max(np.abs(np.asarray(getattr(rg, k), np.float64)
+                                   - np.asarray(getattr(rv, k),
+                                                np.float64))))
+            for k in FUSED_TOL}
+    bad = [k for k, v in gaps.items() if not v <= FUSED_TOL[k]]
+    if bad or not (rg.confusion == rv.confusion).all():
+        raise SystemExit(f"fused {label}: graph run vs vectorized beyond "
+                         f"the fused tolerances {bad} {gaps} (confusion "
+                         f"equal: {(rg.confusion == rv.confusion).all()})")
+    same = (all(np.array_equal(np.asarray(getattr(rg, k)),
+                               np.asarray(getattr(re_, k)), equal_nan=True)
+                for k in _RESULT_FIELDS)
+            and (rg.confusion == re_.confusion).all()
+            and _same_leaves(gsim, esim))
+    if not same:
+        raise SystemExit(f"fused {label}: the graph run differs from the "
+                         f"eager fused run")
+    lg = boxes["graph"].get("kernels")
+    if device == "cuda":
+        le = boxes["eager"]["kernels"]
+        calls = {m: boxes[m]["wrapper_calls"] for m in boxes}
+        if (lg != le or le != calls["eager"] or any(calls["graph"].values())
+                or not sum(lg.values())):
+            raise SystemExit(
+                f"fused {label}: kernels executed in the build window: graph "
+                f"replays {lg}, eager {le}; wrapper calls there {calls}")
+    tol = 1e-3 if gsim.fl.strategy == "hfl" else 1e-4
+    gated = gsim.fl.strategy != "fedadam" and not codec
+    card_cpu = 0.0
+    for x, y in zip(_served_leaves(gsim), _served_leaves(csim)):
+        x, y = x.cpu().double().numpy(), y.cpu().double().numpy()
+        if not (np.isfinite(x).all() and np.isfinite(y).all()):
+            raise SystemExit(f"fused {label}: non-finite served model")
+        if gated and not np.allclose(x, y, atol=tol, rtol=tol):
+            raise SystemExit(f"fused {label}: {device} vs {reference} "
+                             f"beyond {tol}")
+        card_cpu = max(card_cpu, float(np.abs(x - y).max()))
+    vec_bits = _same_leaves(gsim, vsim)
+    print(f"  {label}: graph vs vectorized {gaps}, confusion equal, "
+          f"served model bitwise {vec_bits}; graph == eager bitwise; "
+          f"replayed launches {lg} (profiled, == eager); served model "
+          f"|{device} - {reference}| "
+          f"{card_cpu:.3g} "
+          f"({f'tol {tol}' if gated else 'printed, not gated'})",
+          flush=True)
+    return {"vs_vectorized": gaps, "served_bitwise_vectorized": vec_bits,
+            "graph_equals_eager": True, "launches": lg,
+            "card_vs_cpu": card_cpu,
+            "card_vs_cpu_tol": tol if gated else None,
+            "build_s": {"graph": rg.build_time_s, "eager": re_.build_time_s,
+                        "vectorized": rv.build_time_s}}
+
+
+def fused_parity_phase(device="cuda", reference="cpu"):
+    """11(a): `_fused_case` for the reference's fused configurations, then
+    `churn-afl-gossip-mtd`'s and `comm-qsgd-hfl-fused`'s."""
+    from repro_torch.core import scenarios
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.data.synthetic import mnist_like
+
+    ds = mnist_like(**FUSED_DS)
+    report = {}
+    for label, kw in FUSED_CASES.items():
+        def make(engine, d, kw=kw):
+            return FederatedSimulation(
+                FLConfig(engine=engine, **dict(FUSED_CFG, **kw)), ds,
+                device=d)
+        report[label] = _fused_case(label, make, device, reference)
+    for name in FUSED_REGISTRATION_CASES:
+        spec = scenarios.get(name)
+
+        def make(engine, d, spec=spec):
+            return scenarios.resolve(dataclasses.replace(spec, engine=engine),
+                                     d)
+        report[name] = _fused_case(name, make, device, reference,
+                                   codec=spec.codec != "none")
+    return report
+
+
+def fused_document_phase(device="cuda"):
+    """11(b): the 4 fused registrations through `run_scenario`, each held
+    to `_check_document`; on the card `fedavg_agg` must launch in every
+    run whose aggregation is a weighted mean (all but the median run,
+    whose rounds and served model reduce through `trimmed_mean_agg`
+    alone, in the reference too), `trimmed_mean_agg` in the median run,
+    `gossip_mix_agg` in the churn-gossip run, and `dequant_agg` in none.
+    The launches gated are those a profile of the build window
+    (`obs.collectors.device_window`) counts on the device, where no
+    wrapper is called: the replayed graph's. Each such kernel's wrapper
+    must also have been called in the run (the warmup and the capture)."""
+    from repro_torch.core import scenarios
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.obs import collectors
+
+    out = {}
+    for name in scenarios.FUSED_SCENARIOS:
+        before = FederatedSimulation._kernel_launches()
+        box = {}
+        t0 = time.perf_counter()
+        doc = scenarios.run_scenario(
+            name, device=device,
+            build_hook=(collectors.device_window(box) if device == "cuda"
+                        else None))
+        calls = {k: v - before[k] for k, v in
+                 FederatedSimulation._kernel_launches().items()}
+        _check_document(name, doc)
+        want = {"fedavg_agg": scenarios.get(name).defense != "median",
+                "trimmed_mean_agg": name == "attack-signflip-median-fused",
+                "gossip_mix_agg": name == "churn-afl-gossip-mtd"}
+        got = box.get("kernels")
+        if device == "cuda" and (
+                any(not (got[k] > 0 and calls[k] > 0)
+                    for k, v in want.items() if v)
+                or got["dequant_agg"] or calls["dequant_agg"]
+                or any(box["wrapper_calls"].values())):
+            raise SystemExit(
+                f"{name}: kernels replayed {got}, wrapper calls in the run "
+                f"{calls}, in the build window {box['wrapper_calls']} (want "
+                f"> 0: {[k for k, v in want.items() if v]}, dequant_agg 0, "
+                f"no call in the build window)")
+        m, t = doc["metrics"], doc["timing"]
+        print(f"  {name}: test_acc={m['test_accuracy']:.4f} "
+              f"f1={m['f1']:.4f} build={t['build_time_s']:.4f}s "
+              f"rounds_per_s={t['rounds_per_s']:.2f} (profiled window) "
+              f"replayed launches "
+              f"{got} (profiled); wrapper calls {calls} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        out[name] = {"metrics": m, "timing": t, "launches": got,
+                     "wrapper_calls": calls}
+    return out
+
+
+def serve_trace_phase(device="cuda"):
+    """11(c): the serving registrations and the trace demo through
+    `run_scenario`. Fails unless every document passes `_check_document`,
+    every request of a serving block is completed or shed, the serving
+    block of `serve-iid-fused` is byte for byte its vectorized twin's,
+    and the trace of `obs-trace-fused-16c` passes
+    `validate_chrome_trace`."""
+    from repro_torch.core import scenarios
+    from repro_torch.obs import validate_chrome_trace
+
+    out = {}
+    trace_path = ROOT / "chiprun_out" / "trace_obs_fused_16c.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    for name in scenarios.SERVE_SCENARIOS + (scenarios.TRACE_DEMO,):
+        t0 = time.perf_counter()
+        trace = name == scenarios.TRACE_DEMO
+        doc = scenarios.run_scenario(
+            name, device=device, trace_out=str(trace_path) if trace else None)
+        _check_document(name, doc)
+        s = doc["serving"]
+        row = {"metrics": doc["metrics"], "serving": s}
+        if s is not None and s["completed"] + s["shed"] != s["requests"]:
+            raise SystemExit(f"{name}: serving block loses requests {s}")
+        if name == "serve-iid-fused":
+            twin = dataclasses.replace(scenarios.get(name),
+                                       engine="vectorized")
+            vs = scenarios.run_scenario(twin, device=device)["serving"]
+            if json.dumps(vs) != json.dumps(s):
+                raise SystemExit(f"{name}: serving block differs from its "
+                                 f"vectorized twin's:\n{s}\n{vs}")
+            row["serving_equals_vectorized"] = True
+        if trace:
+            errors = validate_chrome_trace(json.loads(trace_path.read_text()))
+            if errors:
+                raise SystemExit(f"{name}: invalid Chrome trace {errors[:5]}")
+            row["trace_events"] = len(json.loads(
+                trace_path.read_text())["traceEvents"])
+        print(f"  {name}: test_acc={doc['metrics']['test_accuracy']:.4f}"
+              + ("" if s is None else
+                 f" requests={s['requests']} shed={s['shed']} "
+                 f"p99={s['latency_ms']['p99']:.2f}ms "
+                 f"served_acc={s['served_accuracy']} "
+                 f"swaps={s['swap_count']}")
+              + (f" serving == vectorized twin's"
+                 if "serving_equals_vectorized" in row else "")
+              + (f" trace valid ({row['trace_events']} events)"
+                 if trace else "")
+              + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+        out[name] = row
+    return out
+
+
+RATE_REPEATS = 5
+
+
+def _spread(xs):
+    import statistics
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "runs": list(xs)}
+
+
+def fused_rate_phase(device="cuda", repeats=RATE_REPEATS):
+    """11(d), printed and not gated: rounds per second of the build window
+    under the fused graph, the fused eager loop and the vectorized engine,
+    for `iid-hfl-fused` (8 clients, 2 rounds), the same at 20 rounds (a
+    2-round window is mostly the replay launches and the final transfer),
+    and an AFL star at 64 clients (participation 1, 64 training images a
+    client, batch 32, 5 rounds). Each engine runs `repeats` times, the
+    three interleaved in every repeat; a rate is reported as the median
+    with its range, a ratio as the median and range of the repeats'
+    ratios. Beside each, the device idle share of one more, profiled run
+    (`obs.collectors.device_window`)."""
+    from repro_torch.core import scenarios
+    from repro_torch.obs import collectors
+
+    hfl = scenarios.get("iid-hfl-fused")
+    hfl20 = dataclasses.replace(hfl, name="iid-hfl-fused-20r", rounds=20)
+    star64 = scenarios.ScenarioSpec(
+        "afl-star-64c-fused", "AFL star at 64 clients (rate probe)",
+        strategy="afl", topology="star", engine="fused", num_clients=64,
+        participation=1.0, n_train=64 * 64, rounds=5, local_batch_size=32)
+    modes = ("graph", "eager", "vectorized")
+
+    def once(spec, mode, hook=None):
+        sim = scenarios.resolve(dataclasses.replace(
+            spec, engine="vectorized" if mode == "vectorized" else "fused"),
+            device)
+        sim.build_hook = hook
+        r = sim.run_fused(graph=False) if mode == "eager" else sim.run()
+        return spec.rounds / r.build_time_s
+
+    def fmt(d):
+        return f"{d['median']:.2f} [{d['min']:.2f}, {d['max']:.2f}]"
+
+    out = {}
+    for spec in (hfl, hfl20, star64):
+        rates = {m: [] for m in modes}
+        for _ in range(repeats):
+            for m in modes:
+                rates[m].append(once(spec, m))
+        row = {}
+        for m in modes:
+            box = {}
+            if device == "cuda":
+                once(spec, m, collectors.device_window(box))
+            box.pop("kernels", None)
+            box.pop("wrapper_calls", None)
+            row[m] = {"rounds_per_s": _spread(rates[m]), **box}
+        for other in ("vectorized", "eager"):
+            row[f"graph_over_{other}"] = _spread(
+                [g / o for g, o in zip(rates["graph"], rates[other])])
+        print(f"  {spec.name} ({spec.num_clients} clients, {spec.rounds} "
+              f"rounds; median [min, max] of {repeats} runs): " + "; ".join(
+                  f"{m} {fmt(row[m]['rounds_per_s'])} rounds/s (profiled "
+                  f"run: device busy {row[m].get('device_busy_ms')} of "
+                  f"{row[m].get('wall_ms')} ms, "
+                  f"{row[m].get('device_events')} device events, idle share "
+                  f"{row[m].get('idle_share')})"
+                  for m in modes)
+              + f"; graph/vectorized {fmt(row['graph_over_vectorized'])}x, "
+              f"graph/eager {fmt(row['graph_over_eager'])}x", flush=True)
+        out[spec.name] = row
     return out
 
 
@@ -2368,6 +2737,29 @@ def main():
     yi = yi_phase("cuda")
     _phase("result documents (the scenario runner, schema v2.5)")
     documents = result_doc_phase("cuda")
+    _phase("fused executor and serving")
+    t_fused = time.perf_counter()
+    print("  -- (a) fused against vectorized, eager and the CPU", flush=True)
+    fused_parity = fused_parity_phase("cuda", "cpu")
+    _reset_launches()                    # the main path's count starts here
+    print("  -- (b) result documents of the fused registrations", flush=True)
+    fused_docs = fused_document_phase("cuda")
+    print("  -- (c) serving and the Chrome trace", flush=True)
+    serving = serve_trace_phase("cuda")
+    torch.cuda.synchronize()
+    from repro_torch.core.simulation import FederatedSimulation
+    fused_calls = FederatedSimulation._kernel_launches()
+    # the launches the 4 fused registrations' replayed graphs made, as the
+    # profiles of their build windows counted them on the device
+    fused_launches = {k: sum(d["launches"][k] for d in fused_docs.values())
+                      for k in fused_calls}
+    print(f"  fused registrations: replayed launches {fused_launches} "
+          f"(profiled); wrapper calls in 11(b)-(c) {fused_calls}",
+          flush=True)
+    print("  -- (d) rounds per second", flush=True)
+    rates = fused_rate_phase("cuda")
+    fused_s = time.perf_counter() - t_fused
+    print(f"  phase 11 took {fused_s:.1f}s", flush=True)
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -2464,13 +2856,19 @@ def main():
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]
     entry["launches_documents"] = documents["fedavg_agg_launches"]
+    for e in (entry, tentry, gentry, dentry):
+        e["launches_fused"] = fused_launches[e["name"]]
     doc = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
            "kernels": kernels, "parity": parity, "study": study,
            "adversarial": adversarial, "churn": churn,
            "transport_kernels": transport_kernels, "transport": transport,
            "zoo_occupancy": zoo_kernels["occupancy"],
-           "zoo": {"zamba2": zamba, "yi": yi}, "documents": documents}
+           "zoo": {"zamba2": zamba, "yi": yi}, "documents": documents,
+           "fused": {"parity": fused_parity, "documents": fused_docs,
+                     "serving": serving, "launches": fused_launches,
+                     "wrapper_calls": fused_calls,
+                     "rates": rates, "seconds": fused_s}}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(doc, indent=1))

@@ -142,7 +142,8 @@ def _as_f32(weights, device) -> torch.Tensor:
 
 def tree_where(flag, on_true: Params, on_false: Params) -> Params:
     """Per-leaf `torch.where` over two identically-shaped trees with a
-    scalar boolean."""
+    scalar boolean (a device tensor in the fused executor; a host value
+    is copied to the device)."""
     return tree_map(
         lambda a, b: torch.where(torch.as_tensor(flag, device=a.device),
                                  a, b),
@@ -305,8 +306,19 @@ def gossip_mix_matrix(neighbors: List[List[int]]) -> np.ndarray:
     return mix
 
 
+def gossip_gather_indices(neighbors: List[List[int]]) -> np.ndarray:
+    """(C, K) int64 neighborhood gather of defended ring gossip: row c
+    lists client c, then its neighbors."""
+    if len({len(n) for n in neighbors}) != 1:
+        raise ValueError("defended gossip needs equal-size neighborhoods "
+                         "(ring topology)")
+    return np.stack([np.asarray([c] + list(nbrs), np.int64)
+                     for c, nbrs in enumerate(neighbors)])
+
+
 def gossip_stacked(stacked: Params, neighbors: List[List[int]], *,
-                   defense: str = "none", f: int = 1) -> Params:
+                   defense: str = "none", f: int = 1, mix=None,
+                   gather_idx=None) -> Params:
     """Synchronous ring gossip on the stack. Undefended: the (C, C)
     row-stochastic mixing matrix (self + neighbors, uniform) applied to
     the raveled parameter matrix.
@@ -315,21 +327,25 @@ def gossip_stacked(stacked: Params, neighbors: List[List[int]], *,
     of its gathered neighborhood instead — one batched `torch.sort` over
     the (C, K, N) gathered tensor, as the reference sorts there with
     `jnp.sort` rather than its selection kernel (neighborhoods hold
-    K = degree + 1 models)."""
+    K = degree + 1 models).
+
+    `mix` / `gather_idx` are those arrays as device tensors built once
+    per run (the fused executor); by default each call builds them from
+    `neighbors`."""
     mat = kops.stacked_ravel(stacked)
     if defense in ("none", None):
-        mix = torch.as_tensor(gossip_mix_matrix(neighbors), device=mat.device)
+        if mix is None:
+            mix = torch.as_tensor(gossip_mix_matrix(neighbors),
+                                  device=mat.device)
         return kops.stacked_unravel(stacked, mix @ mat)
     if defense not in ("median", "trimmed_mean"):
         raise ValueError(f"gossip mixing supports median/trimmed_mean "
                          f"defenses, not {defense!r} (DESIGN.md §8)")
-    if len({len(n) for n in neighbors}) != 1:
-        raise ValueError("defended gossip needs equal-size neighborhoods "
-                         "(ring topology)")
-    idx = torch.as_tensor(np.stack([np.asarray([c] + list(nbrs))
-                                    for c, nbrs in enumerate(neighbors)]),
-                          device=mat.device)                    # (C, K)
-    return kops.stacked_unravel(stacked, _defended_mix(mat, idx, defense, f))
+    if gather_idx is None:
+        gather_idx = torch.as_tensor(gossip_gather_indices(neighbors),
+                                     device=mat.device)         # (C, K)
+    return kops.stacked_unravel(stacked,
+                                _defended_mix(mat, gather_idx, defense, f))
 
 
 def _defended_mix(mat: torch.Tensor, idx: torch.Tensor, defense: str,
@@ -354,30 +370,40 @@ def masked_gossip_stacked(stacked: Params, *, mix=None, gather_idx=None,
     decayed supports, optionally the moving-target ring), applied by the
     `gossip_mix_agg` kernel, or the (C, K) `gather_idx` neighborhoods
     (defended: dead or detected neighbors replaced by self, so the sorted
-    neighborhood keeps its static K)."""
+    neighborhood keeps its static K). Either array may be a device tensor
+    (the fused executor's per-round inputs)."""
     mat = kops.stacked_ravel(stacked)
     if defense in ("none", None):
         return kops.stacked_unravel(stacked, kops.masked_gossip_aggregate(
             mat, _as_f32(mix, mat.device).contiguous()))
-    idx = torch.as_tensor(np.asarray(gather_idx, np.int64),
-                          device=mat.device)
+    idx = (gather_idx.long() if isinstance(gather_idx, torch.Tensor)
+           else torch.as_tensor(np.asarray(gather_idx, np.int64),
+                                device=mat.device))
     return kops.stacked_unravel(stacked, _defended_mix(mat, idx, defense, f))
 
 
+def cfl_merge_weights(alpha) -> np.ndarray:
+    """The (2,) float32 continual-merge weights (1 - alpha, alpha)."""
+    a = np.float32(alpha)
+    return np.array([np.float32(1.0) - a, a], np.float32)
+
+
 def cfl_merge_stacked(global_params: Params, client_params: Params,
-                      alpha) -> Params:
+                      alpha, weights=None) -> Params:
     """Continual merge as a C=2 kernel reduction with weights
-    (1-alpha, alpha) — same math as host `cfl_merge`, kernel-routed."""
+    (1-alpha, alpha) — same math as host `cfl_merge`, kernel-routed.
+    `weights` is `cfl_merge_weights(alpha)` as a device tensor built once
+    per run (the fused executor); by default each merge builds it."""
     stacked = tree_map(lambda g, c: torch.stack([g, c]),
                        global_params, client_params)
-    a = np.float32(alpha)
-    w = torch.as_tensor(np.array([np.float32(1.0) - a, a], np.float32),
-                        device=_device(stacked))
-    return fedavg_stacked(stacked, w)
+    if weights is None:
+        weights = torch.as_tensor(cfl_merge_weights(alpha),
+                                  device=_device(stacked))
+    return fedavg_stacked(stacked, weights)
 
 
 def defended_cfl_merge(global_params: Params, client_params: Params,
-                       alpha, tau: float) -> Params:
+                       alpha, tau: float, weights=None) -> Params:
     """norm_clip-defended continual merge: the arriving update's delta is
     L2-clipped against the current global model before the merge — the
     only defense of a redundancy-1 merge event (DESIGN.md §8). The loop
@@ -385,7 +411,8 @@ def defended_cfl_merge(global_params: Params, client_params: Params,
     clipped = robust.clip_deltas_stacked(
         global_params, tree_map(lambda leaf: leaf[None], client_params), tau)
     return cfl_merge_stacked(global_params,
-                             tree_map(lambda leaf: leaf[0], clipped), alpha)
+                             tree_map(lambda leaf: leaf[0], clipped), alpha,
+                             weights=weights)
 
 
 def staleness_batch_weights(alphas) -> torch.Tensor:

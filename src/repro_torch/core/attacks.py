@@ -26,6 +26,13 @@ parity tests replace `gauss_noise` with the reference's draws.
 
 A noise key is the tuple (seed, event, client id): `event_key` and
 `client_keys` build it as the reference builds its PRNG keys.
+
+Device flags (the fused executor): `corrupt_tree` and `corrupt_stacked`
+take the attacker flags as a bool tensor and the gauss noise hoisted
+(`stacked_noise`, drawn through the same seam before the run); they then
+corrupt every row and keep the honest rows with `torch.where`, reading
+nothing back to the host. Honest rows pass through bitwise, attackers'
+rows are the host path's values.
 """
 from __future__ import annotations
 
@@ -116,31 +123,64 @@ def _attack_leaf(kind, local32, base32, scale, noise=None):
     return local32 + scale * noise                  # gauss
 
 
-def corrupt_tree(local: Params, base: Params, flag: bool, key: NoiseKey, *,
-                 kind: str, scale: float) -> Params:
+def stacked_noise(keys: Sequence[NoiseKey], template_stacked: Params
+                  ) -> List[torch.Tensor]:
+    """The gauss noise of `keys` (one per row) for every leaf of a stacked
+    tree, drawn on the CPU through `gauss_noise`: a list of (k, ...)
+    float32 tensors in leaf order (the fused executor hoists these)."""
+    return [torch.stack([gauss_noise(*key, i, leaf.shape[1:], "cpu")
+                         for key in keys])
+            for i, leaf in enumerate(tree_leaves(template_stacked))]
+
+
+def _row_where(flags: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """torch.where over the leading axis of `a`/`b` (flags 0-dim or (k,))."""
+    return torch.where(flags.reshape(tuple(flags.shape)
+                                     + (1,) * (a.dim() - flags.dim())), a, b)
+
+
+def corrupt_tree(local: Params, base: Params, flag, key: NoiseKey, *,
+                 kind: str, scale: float, noise=None) -> Params:
     """One client's corruption; `flag` gates the attack (honest clients
     pass through unchanged), `key` = (seed, event, client id) keys the
-    gauss noise, one draw per leaf in sorted-key order."""
+    gauss noise, one draw per leaf in sorted-key order. A tensor `flag`
+    selects branch-free, with `noise` the hoisted per-leaf draws."""
     _check_kind(kind)
-    if kind in ("none", "label_flip") or not flag:
+    device_flag = isinstance(flag, torch.Tensor)
+    if kind in ("none", "label_flip") or not (device_flag or flag):
         return local
     scale = float(np.float32(scale))
     out = []
     for i, (l, b) in enumerate(zip(tree_leaves(local), tree_leaves(base))):
-        noise = (gauss_noise(*key, i, l.shape, l.device)
-                 if kind == "gauss" else None)
-        out.append(_attack_leaf(kind, l.float(), b.float(), scale,
-                                noise).to(l.dtype))
+        n = None
+        if kind == "gauss":
+            n = (noise[i] if noise is not None
+                 else gauss_noise(*key, i, l.shape, l.device))
+        atk = _attack_leaf(kind, l.float(), b.float(), scale, n).to(l.dtype)
+        out.append(_row_where(flag, atk, l) if device_flag else atk)
     return tree_unflatten(local, out)
 
 
 def corrupt_stacked(stacked: Params, base_stacked: Params, flags,
                     keys: Sequence[NoiseKey], *, kind: str,
-                    scale: float) -> Params:
+                    scale: float, noise=None) -> Params:
     """Corruption over the leading client axis: row c of every leaf is
     corrupted iff flags[c], with noise keyed by keys[c] (derive them with
-    `client_keys` from absolute ids for engine parity)."""
+    `client_keys` from absolute ids for engine parity). Tensor `flags`
+    corrupt every row and keep the honest ones with `torch.where`, with
+    `noise` the hoisted per-leaf (k, ...) draws (`stacked_noise`)."""
     _check_kind(kind)
+    if isinstance(flags, torch.Tensor):
+        if kind in ("none", "label_flip"):
+            return stacked
+        scale = float(np.float32(scale))
+        out = []
+        for i, (l, b) in enumerate(zip(tree_leaves(stacked),
+                                       tree_leaves(base_stacked))):
+            atk = _attack_leaf(kind, l.float(), b.float(), scale,
+                               None if noise is None else noise[i])
+            out.append(_row_where(flags, atk.to(l.dtype), l))
+        return tree_unflatten(stacked, out)
     flags = np.asarray(flags, bool)
     if kind in ("none", "label_flip") or not flags.any():
         return stacked

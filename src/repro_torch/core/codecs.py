@@ -24,6 +24,10 @@ given the same row and the same uniforms, `q` and `scale` are bitwise
 the reference's (same operations: `/ scale`, `floor`, a strict `<`,
 clip, cast).
 
+The fused executor (DESIGN.md §10) draws each round's randomness before
+the run through the same seam (`Codec.draws`) and passes the (k, N)
+tensor of draws in place of the keys, so no round draws on the host.
+
 Top-k selects by a stable descending sort of |delta|, so ties go to the
 lower index as under `jax.lax.top_k`; `torch.topk` promises no order.
 """
@@ -84,12 +88,16 @@ class Codec:
                        rounds.
       needs_bases    — `encode` is relative to each participant's base
                        (pre-training) parameters.
+      supports_fused — the codec composes with the fused executor: its
+                       randomness, if any, comes from `draws`, which the
+                       executor hoists before the run.
     """
 
     name: str = ""
     defenses: Tuple[str, ...] = ("none",)
     stateful: bool = False
     needs_bases: bool = False
+    supports_fused: bool = True
 
     def __init__(self, fl):
         self.fl = fl
@@ -120,6 +128,12 @@ class Codec:
     def bytes_on_wire(self, dim: int) -> int:
         """Uplink bytes one client pays to ship one encoded upload."""
         raise NotImplementedError
+
+    def draws(self, keys, n: int):
+        """The (k, n) host tensor of random draws `encode` consumes for
+        `keys`, or None for a deterministic codec. `encode` accepts this
+        tensor (on the device) in place of the keys."""
+        return None
 
     def scan_encode_decode(self, mat, keys, *, base=None, rows=None):
         """One encode -> decode round trip: (decoded, new rows). The one
@@ -236,8 +250,12 @@ class QSGDCodec(Codec):
         super().__init__(fl)
         self.bits = int(fl.quant_bits)
 
+    def draws(self, keys, n: int):
+        return _uniforms(keys, n, "cpu")
+
     def encode(self, mat, keys, *, base=None, rows=None):
-        u = _uniforms(keys, mat.shape[1], mat.device)
+        u = (keys if isinstance(keys, torch.Tensor)
+             else _uniforms(keys, mat.shape[1], mat.device))
         if self.bits == 8:
             q, scale = self._enc_int8(mat, u)
             return {"q": q, "scale": scale}, rows

@@ -9,17 +9,23 @@ operators of `core/aggregation.py`.
 Pieces:
 
 * stack/unstack utilities — list-of-trees <-> stacked tree.
-* `train_clients` — local SGD for every participant at once.
+* `train_clients` — local SGD for every participant at once;
+  `train_clients_chunked` trains the stack one sub-stack at a time (the
+  fused executor's `fused_chunk`).
 * `predict_clients` — post-training local-shard evaluation.
 * `cfl_round_scan` — the continual (sequential) strategy as a loop over
   the visit order, with per-visit corruption and norm clipping, each
-  merge on the `fedavg_agg` kernel.
+  merge on the `fedavg_agg` kernel. It reads no device value back to the
+  host: dead visitors and below-quorum rounds are selected away with
+  `torch.where`, so the fused executor can capture it.
+* `batch_indices` / `gather_batches` / `stacked_dataset` — batch
+  construction split so the per-round path gathers on the host while
+  the fused executor (DESIGN.md §10) hoists the (rounds, k, T, B) index
+  tensor out of its rounds and gathers from the device-resident
+  federation dataset on the device.
 * `VectorizedClientEngine` — host-side driver state: per-client shards,
   stacked eval sets, and the rng-consumption protocol shared with the
   loop engine so both engines see identical batch orders (DESIGN.md §4).
-
-The fused executor's pieces (`gather_batches`, `stacked_dataset`, the
-chunked trainer) belong to a later slice (ROADMAP §A.13).
 """
 from __future__ import annotations
 
@@ -74,9 +80,13 @@ def replicate_tree(tree: Params, n: int) -> Params:
 
 def repeat_groups(stacked_groups: Params, per: int) -> Params:
     """(G, ...) group models -> (G*per, ...) client stack, contiguous
-    group blocks (matches `topology.hierarchical_groups` ordering)."""
-    return tree_map(lambda leaf: torch.repeat_interleave(leaf, per, dim=0),
-                    stacked_groups)
+    group blocks (matches `topology.hierarchical_groups` ordering). An
+    expand and a copy: no repeat count is read back from the device."""
+    def rep(leaf):
+        G = leaf.shape[0]
+        return (leaf.unsqueeze(1).expand((G, per) + tuple(leaf.shape[1:]))
+                .reshape((G * per,) + tuple(leaf.shape[1:])))
+    return tree_map(rep, stacked_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +149,51 @@ def train_clients(stacked_params, data, *, stacked_loss_fn, lr, momentum,
     return params, torch.stack(losses, dim=1), torch.stack(accs, dim=1)
 
 
+def train_clients_chunked(stacked_params, data, *, stacked_loss_fn, lr,
+                          momentum, extra=None, chunk):
+    """`train_clients` one participant SUB-STACK of `chunk` clients at a
+    time (DESIGN.md §11 chunking): peak training-activation memory scales
+    with `chunk` rather than the federation size. Clients are
+    independent, so this equals the unchunked path up to the order the
+    convolutions of a smaller batch sum in (not bitwise). `chunk` <= 0 or
+    >= the stack trains it whole; otherwise it must divide the stack."""
+    C = tree_leaves(stacked_params)[0].shape[0]
+    if chunk <= 0 or chunk >= C:
+        return train_clients(stacked_params, data,
+                             stacked_loss_fn=stacked_loss_fn, lr=lr,
+                             momentum=momentum, extra=extra)
+    if C % chunk:
+        raise ValueError(f"fused_chunk={chunk} must divide the participant "
+                         f"stack ({C} clients)")
+
+    def part(tree, a):
+        return tree_map(lambda leaf: leaf[a:a + chunk], tree)
+
+    runs = [train_clients(part(stacked_params, a), part(data, a),
+                          stacked_loss_fn=stacked_loss_fn, lr=lr,
+                          momentum=momentum,
+                          extra=None if extra is None else part(extra, a))
+            for a in range(0, C, chunk)]
+    params = tree_map(lambda *ls: torch.cat(ls), *[r[0] for r in runs])
+    return (params, torch.cat([r[1] for r in runs]),
+            torch.cat([r[2] for r in runs]))
+
+
+def gather_batches(data_x, data_y, pids, idx):
+    """Device-side batch construction for one fused round: gather the
+    event's participants' batches out of the stacked federation dataset
+    (`stacked_dataset`). `pids`: (k,) absolute client ids; `idx`: (k, T,
+    B) per-client shard indices (`batch_indices`). Returns {"image": (k,
+    T, B, ...), "label": (k, T, B)} — the values `batched_clients` builds
+    on the host, with no host round trip."""
+    k, T, B = idx.shape
+    rows = idx.reshape(k, -1)
+    pid_col = pids[:, None]
+    img = data_x[pid_col, rows].reshape((k, T, B) + tuple(data_x.shape[2:]))
+    lab = data_y[pid_col, rows].reshape(k, T, B)
+    return {"image": img, "label": lab}
+
+
 @torch.no_grad()
 def predict_clients(stacked_params, images, *, stacked_apply_fn):
     """Per-client predictions on per-client eval shards: (C, n, ...) ->
@@ -149,8 +204,9 @@ def predict_clients(stacked_params, images, *, stacked_apply_fn):
 def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
                    loss_fn, apply_fn, lr, momentum, attack="none",
                    attack_scale=1.0, attack_flags=None, attack_keys=None,
-                   defense="none", clip_tau=10.0, codec=None,
-                   codec_keys=None, fault_alive=None, fault_qok=None):
+                   attack_noise=None, defense="none", clip_tau=10.0,
+                   codec=None, codec_keys=None, fault_alive=None,
+                   fault_qok=None, merge_weights=None):
     """One CFL round — the sequential client-to-client continual pass —
     as a loop over clients in visit order.
 
@@ -171,16 +227,23 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
     codecs reach here (the driver validates).
 
     Fault injection (DESIGN.md §15): `fault_alive` is a per-visit (C,)
-    0/1 mask — a dead visitor trains (rng parity) but its merge is
-    discarded and the carried model passes through unchanged, as the
-    loop engine skips its host merge; `fault_qok` False holds the whole
-    round at its start model. Both None is the fault-free pass.
+    0/1 mask — a dead visitor trains (rng parity) and its merge is
+    computed, then discarded: `torch.where` keeps the carried model, the
+    exact values of the loop engine's skipped host merge; `fault_qok`
+    False holds the whole round at its start model the same way. Both
+    None is the fault-free pass.
+
+    Device inputs (the fused executor): `attack_flags` may be a (C,) bool
+    tensor (corruption then runs branch-free, `attacks.corrupt_tree`),
+    `attack_noise` the hoisted per-leaf (C, ...) gauss noise in place of
+    `attack_keys`, `codec_keys` a (C, N) tensor of hoisted codec draws,
+    and `merge_weights` the (2,) merge weights built once per run.
 
     Returns (final model, losses (C, T), post-train local accs (C,))."""
     opt = optimizers.sgd(lr, momentum=momentum)
     C = data["label"].shape[0]
     attacking = attack not in ("none", "label_flip")
-    if attacking and attack_keys is None:
+    if attacking and attack_keys is None and attack_noise is None:
         raise ValueError(
             f"cfl_round_scan: attack={attack!r} corrupts uploads per visit "
             f"and needs per-visit attack_keys (derive them from the run "
@@ -189,6 +252,10 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
         raise ValueError(
             f"cfl_round_scan: codec={codec.name!r} needs per-visit "
             f"codec_keys (derive them via codecs.upload_keys)")
+    dev = tree_leaves(model)[0].device
+    if fault_alive is not None:
+        fault_alive = torch.as_tensor(fault_alive, dtype=torch.float32,
+                                      device=dev)
     losses, accs = [], []
     model0 = model
     for i in range(C):
@@ -198,22 +265,32 @@ def cfl_round_scan(model, data, eval_images, eval_labels, alpha, *,
             preds = apply_fn(local, eval_images[i]).argmax(-1)
             accs.append((preds == eval_labels[i]).float().mean())
         losses.append(loss_t)
-        if fault_alive is not None and not fault_alive[i] > 0:
-            continue                 # upload lost: the merge is discarded
         if attacking:
-            local = attacks.corrupt_tree(local, model, bool(attack_flags[i]),
-                                         attack_keys[i], kind=attack,
-                                         scale=attack_scale)
+            local = attacks.corrupt_tree(
+                local, model, attack_flags[i],
+                None if attack_keys is None else attack_keys[i],
+                kind=attack, scale=attack_scale,
+                noise=(None if attack_noise is None
+                       else [n[i] for n in attack_noise]))
         if codec is not None:
-            local = codecs.roundtrip_tree(codec, local, [codec_keys[i]],
+            local = codecs.roundtrip_tree(codec, local, codec_keys[i:i + 1],
                                           base_tree=model)
         if defense == "norm_clip":
-            model = aggregation.defended_cfl_merge(model, local, alpha,
-                                                   clip_tau)
+            merged = aggregation.defended_cfl_merge(
+                model, local, alpha, clip_tau, weights=merge_weights)
         else:
-            model = aggregation.cfl_merge_stacked(model, local, alpha)
-    if fault_qok is not None and not fault_qok:
-        model = model0               # below quorum: the round holds
+            merged = aggregation.cfl_merge_stacked(model, local, alpha,
+                                                   weights=merge_weights)
+        if fault_alive is not None:
+            # a dead visitor's upload is lost: its merge is discarded
+            merged = aggregation.tree_where(fault_alive[i] > 0, merged,
+                                            model)
+        model = merged
+    if fault_qok is not None:
+        # below quorum: the round holds its start model
+        model = aggregation.tree_where(
+            torch.as_tensor(fault_qok, dtype=torch.bool, device=dev),
+            model, model0)
     return model, torch.stack(losses), torch.stack(accs)
 
 
@@ -314,6 +391,27 @@ class VectorizedClientEngine:
             labs[i] = y[idx[i]]
         return {"image": torch.as_tensor(imgs, device=self.device),
                 "label": torch.as_tensor(labs, device=self.device)}
+
+    def stacked_dataset(self):
+        """The whole federation's shards as ONE device-resident pair
+        (images (C, n_max, ...), labels (C, n_max)), built once and cached
+        — the fused executor's gather source. Shards shorter than n_max
+        are zero-padded; batch indices never reference the pad (they are
+        permutations of each client's own shard length)."""
+        cached = getattr(self, "_stacked_dataset", None)
+        if cached is None:
+            n_max = max(len(x) for x, _ in self.client_data)
+            x0 = self.client_data[0][0]
+            imgs = np.zeros((len(self.client_data), n_max) + x0.shape[1:],
+                            x0.dtype)
+            labs = np.zeros((len(self.client_data), n_max), np.int64)
+            for c, (x, y) in enumerate(self.client_data):
+                imgs[c, :len(x)] = x
+                labs[c, :len(y)] = y
+            cached = (torch.as_tensor(imgs, device=self.device),
+                      torch.as_tensor(labs, device=self.device))
+            self._stacked_dataset = cached
+        return cached
 
     # -- device-program wrappers --------------------------------------------
     def train(self, stacked_params, data, *, stacked_loss_fn=None,

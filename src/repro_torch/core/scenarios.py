@@ -16,14 +16,18 @@ A spec names one point of the evaluation space:
 `run_scenario(name)` builds the dataset and partition, runs the
 simulation and returns the result document, every value a plain Python
 type; `run(name)` returns the run's `FLResult`. Both run on the card
-unless `device="cpu"` is passed. The registrations the port cannot run
-yet raise NotImplementedError naming their ROADMAP items (`pending`):
-`engine="fused"` §A.13, `serve=True` and the trace demo §A.14.
+unless `device="cpu"` is passed. Every registration runs: the fused
+executor (`engine="fused"`, one CUDA graph of a round replayed on the
+card), the serving side-car (`serve=True`) and the Chrome trace
+(`trace_out=` / `--trace-out`).
 
     PYTHONPATH=src python -m repro_torch.core.scenarios --list
     PYTHONPATH=src python -m repro_torch.core.scenarios \\
         --run iid-hfl-vec [--device cpu] [--json out.json] \\
         [--fault-profile mid] [--churn-rate 0.3] [--quorum-frac 0.6]
+    PYTHONPATH=src python -m repro_torch.core.scenarios \\
+        --run obs-trace-fused-16c --trace-out trace.json
+    PYTHONPATH=src python -m repro_torch.core.scenarios --grid ci
 
 The document written by `--json` diffs against the reference's
 (`python -m repro.core.scenarios --run iid-hfl-vec --json ref.json`).
@@ -40,7 +44,7 @@ from typing import Dict, List, Optional, Tuple, Union
 from repro_torch.core.codecs import (CODEC_REGISTRY_VERSION, codec_names,
                                      get_codec)
 from repro_torch.core.faults import FAULT_PROFILES
-from repro_torch.core.fl_types import ATTACKS, FLConfig
+from repro_torch.core.fl_types import ARRIVALS, ATTACKS, FLConfig
 from repro_torch.core.simulation import FederatedSimulation
 from repro_torch.core.strategies import (STRATEGY_REGISTRY_VERSION,
                                          get_strategy)
@@ -127,7 +131,7 @@ class ScenarioSpec:
     quant_bits: int = 8
     # observability
     telemetry: bool = True
-    # federation-in-the-loop serving (ROADMAP §A.14)
+    # federation-in-the-loop serving (DESIGN.md §14)
     serve: bool = False
     serve_qps: float = 64.0
     serve_arrival: str = "poisson"
@@ -154,6 +158,10 @@ class ScenarioSpec:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r} "
                              f"(expected one of {ENGINES})")
+        if self.engine == "fused" and not cls.supports_fused:
+            raise ValueError(
+                f"{self.name}: strategy {self.strategy!r} does not support "
+                f"the fused executor (DESIGN.md §10)")
         if self.attack not in ATTACKS:
             raise ValueError(f"unknown attack {self.attack!r} "
                              f"(expected one of {ATTACKS})")
@@ -188,6 +196,10 @@ class ScenarioSpec:
             raise ValueError(
                 f"{self.name}: fault_mtd re-randomizes the GOSSIP ring "
                 f"per round — it needs topology='ring' (DESIGN.md §15)")
+        if self.serve and self.serve_arrival not in ARRIVALS:
+            raise ValueError(
+                f"{self.name}: unknown serve_arrival "
+                f"{self.serve_arrival!r} (expected one of {ARRIVALS})")
         if self.attack_placement not in ("random", "colluding"):
             raise ValueError(
                 f"{self.name}: unknown attack placement "
@@ -279,7 +291,7 @@ register(ScenarioSpec(
     "ring-gossip-vec", "AFL in gossip mode: ring-neighbor averaging, full "
     "participation",
     strategy="afl", topology="ring", participation=1.0))
-# fused-executor twins (DESIGN.md §10; run by ROADMAP §A.13)
+# fused-executor twins (DESIGN.md §10)
 register(ScenarioSpec(
     "iid-hfl-fused", "fused-executor twin of iid-hfl-vec: all rounds in "
     "one lax.scan, device-resident group/global state, in-scan "
@@ -441,7 +453,7 @@ register(ScenarioSpec(
     codec="qsgd", **_COMM32))
 
 # observability (DESIGN.md §13): the trace-demo scenario, a fused run
-# whose point is its Chrome trace (run by ROADMAP §A.13 and §A.14)
+# whose point is its Chrome trace
 register(ScenarioSpec(
     "obs-trace-fused-16c", "16-client fused sign-flip/median run for "
     "the telemetry trace demo (make trace-demo / the CI trace artifact)",
@@ -449,7 +461,7 @@ register(ScenarioSpec(
     num_clients=16, rounds=4, n_train=1024, attack="sign_flip",
     attack_scale=4.0, defense="median"))
 
-# federation-in-the-loop serving (DESIGN.md §14; run by ROADMAP §A.14)
+# federation-in-the-loop serving (DESIGN.md §14)
 register(ScenarioSpec(
     "serve-iid-fused", "fused-executor HFL with the serving side-car: "
     "per-round global models stacked in-scan, hot-swap replayed at "
@@ -505,9 +517,7 @@ register(ScenarioSpec(
     "round — the baseline MTD is measured against)",
     fault_mtd=False, **_CHURN32))
 
-# the reference's CI bench-smoke grid, as data: its fused and serving
-# entries wait for ROADMAP §A.13 and §A.14, so `--grid ci` refuses to
-# start until every entry runs (`pending`)
+# the reference's CI bench-smoke grid (`--grid ci`)
 CI_SMOKE_GRID: Tuple[str, ...] = (
     "iid-hfl-vec", "ring-gossip-vec", "async-straggler-vec",
     "attack-replace-cfl-clip-vec", "fedprox-dirichlet-vec",
@@ -532,7 +542,11 @@ CHURN_SCENARIOS = ("churn-afl-gossip-mtd", "churn-hfl-quorum",
 ACCEPTANCE_FAMILY = ("attack-none-32c-vec", "attack-signflip-fedavg-32c-vec",
                      "attack-signflip-median-32c-vec",
                      "attack-signflip-trimmed-32c-vec")
-# the telemetry trace demo: its point is the Chrome trace (§A.14)
+FUSED_SCENARIOS = ("iid-hfl-fused", "attack-signflip-median-fused",
+                   "churn-afl-gossip-mtd", "comm-qsgd-hfl-fused")
+SERVE_SCENARIOS = ("serve-iid-fused", "serve-hfl-burst",
+                   "serve-qsgd-signflip-median")
+# the telemetry trace demo: its point is the Chrome trace
 TRACE_DEMO = "obs-trace-fused-16c"
 
 
@@ -540,30 +554,11 @@ TRACE_DEMO = "obs-trace-fused-16c"
 # resolution + execution
 # ---------------------------------------------------------------------------
 
-def pending(spec: ScenarioSpec) -> Tuple[str, ...]:
-    """The ROADMAP items a registration waits for before the port can
-    run it (empty when it runs): the fused executor (§A.13), the serving
-    side-car and the Chrome trace (§A.14)."""
-    items = []
-    if spec.engine == "fused":
-        items.append("§A.13 (fused executor)")
-    if spec.serve or spec.name == TRACE_DEMO:
-        items.append("§A.14 (obs/ and serve/)")
-    return tuple(items)
-
-
 def resolve(spec: ScenarioSpec, device="cuda",
             model_init=None) -> FederatedSimulation:
     """Spec -> FederatedSimulation on `device`, with the dataset built and
     the partition applied. `model_init` passes through to the simulation
-    (the parity tests inject the reference's initial parameters there).
-    A registration the port cannot run yet raises NotImplementedError
-    naming its ROADMAP items, before any data is built."""
-    items = pending(spec)
-    if items:
-        raise NotImplementedError(
-            f"scenario {spec.name!r} is not runnable in repro_torch yet: "
-            f"ROADMAP {' and '.join(items)}")
+    (the parity tests inject the reference's initial parameters there)."""
     ds = DATASETS[spec.dataset](seed=spec.seed, n_train=spec.n_train,
                                 n_test=spec.n_test)
     sim = FederatedSimulation(spec.to_fl_config(), ds, model_init=model_init,
@@ -594,21 +589,23 @@ def communication_block(result) -> Optional[Dict]:
 
 
 def run_scenario(scenario: Union[str, ScenarioSpec], device="cuda",
-                 trace_out: Optional[str] = None, model_init=None) -> Dict:
+                 trace_out: Optional[str] = None, model_init=None,
+                 build_hook=None) -> Dict:
     """Run one scenario on `device` and return the reference's result
     document (schema v2.5, DESIGN.md §6), block for block.
     `rounds_per_s` is sync rounds (or async merge batches) per second of
-    build time. `trace_out` (the run's Chrome trace) raises: its writer is
-    ported in ROADMAP §A.14. `model_init` is the simulation's (see
-    `resolve`), not an option of the run."""
+    build time. `trace_out` additionally writes the run's Chrome-trace
+    JSON there (open it in Perfetto or chrome://tracing). `model_init` is
+    the simulation's (see `resolve`) and `build_hook` is entered around
+    its build window (`FederatedSimulation.build_hook`, e.g.
+    `obs.collectors.device_window`); neither is an option of the run."""
     spec = get(scenario) if isinstance(scenario, str) else scenario
-    if trace_out:
-        raise NotImplementedError(
-            "trace_out writes the run's Chrome trace, whose writer "
-            "(obs.export.write_chrome_trace) is not ported yet: ROADMAP "
-            "§A.14 (obs/ and serve/) brings it to repro_torch")
     sim = resolve(spec, device, model_init)
+    sim.build_hook = build_hook
     r = sim.run()
+    if trace_out:
+        from repro_torch.obs import write_chrome_trace
+        write_chrome_trace(sim.telemetry, trace_out)
     async_block = None
     units = spec.rounds
     if sim.strategy.timeline_result:
@@ -700,7 +697,8 @@ def main(argv: Optional[List[str]] = None):
                     help="also write the result documents as a JSON list "
                          f"(bare filenames land under {OUTPUT_DIR}/results/)")
     ap.add_argument("--trace-out", metavar="PATH",
-                    help="not ported yet (ROADMAP §A.14)")
+                    help="write the run's Chrome-trace JSON (one --run "
+                         "scenario)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--fault-profile", choices=FAULT_PROFILES,
@@ -717,16 +715,9 @@ def main(argv: Optional[List[str]] = None):
                                    ("churn_rate", args.churn_rate),
                                    ("quorum_frac", args.quorum_frac))
                  if v is not None}
-    if args.trace_out:
-        ap.error("--trace-out writes a Chrome trace, whose writer is not "
-                 "ported yet: ROADMAP §A.14 (obs/ and serve/)")
-    if args.grid:
-        waiting = {n: pending(get(n)) for n in CI_SMOKE_GRID
-                   if pending(get(n))}
-        if waiting:
-            ap.error("--grid ci has entries the port cannot run yet: "
-                     + "; ".join(f"{n} (ROADMAP {' and '.join(items)})"
-                                 for n, items in waiting.items()))
+    if args.trace_out and not (args.run and len(args.run) == 1
+                               and not args.grid):
+        ap.error("--trace-out needs exactly one --run scenario")
     if args.list or not (args.run or args.grid):
         for n in names():
             s = REGISTRY[n]
@@ -744,7 +735,8 @@ def main(argv: Optional[List[str]] = None):
             # override combination fails before any training
             spec = dataclasses.replace(spec, **overrides)
         t0 = time.perf_counter()
-        res = run_scenario(spec, device=args.device)
+        res = run_scenario(spec, device=args.device,
+                           trace_out=args.trace_out)
         results.append(res)
         m, t = res["metrics"], res["timing"]
         faults, comm = res["faults"], res["communication"]
@@ -765,6 +757,8 @@ def main(argv: Optional[List[str]] = None):
         with open(path, "w") as f:
             json.dump(results, f, indent=1)
         print(f"results -> {path}")
+    if args.trace_out:
+        print(f"trace -> {args.trace_out}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Host-level federated-learning simulation — the generic round driver
-(port of `repro.core.simulation` for the `loop` and `vectorized`
+(port of `repro.core.simulation`: the `loop`, `vectorized` and `fused`
 engines).
 
 Runs the paper's CNN on client-partitioned data under the HFL, AFL or
@@ -15,6 +15,14 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
     "vectorized" — the federation as one stacked tree; local training is
                    one stacked step sequence and aggregation goes through
                    the kernel-backed stacked operators.
+    "fused"      — the whole run on the device (`run_fused`, DESIGN.md
+                   §10): schedules, batch indices, attack, codec and fault
+                   inputs are hoisted out of the rounds (same rng order,
+                   so §4 parity holds), one round is one function of
+                   device tensors — on the card captured once as a CUDA
+                   graph and replayed every round, on the CPU run eagerly
+                   round by round — and the per-round metrics come back in
+                   ONE device-to-host transfer at run end.
 * rng-parity bookkeeping — batch construction consumes the run rng in
   one canonical order (client-major, epoch-minor) under both engines
   (DESIGN.md §4).
@@ -36,6 +44,12 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
   `fault_view`, the sequential pass masks dead visitors' merges, and the
   result carries the schema-v2.5 `faults` block. `fault_profile="none"`
   builds no schedule and every fault seam is a host-level `if`.
+* federation-in-the-loop serving (DESIGN.md §14) — `serve=True` runs the
+  `serve.ServeSession` side-car: each round's global model is published
+  at its round boundary (replayed after the run by the fused engine) and
+  a virtual-clock open-loop trace is served on the card between swaps;
+  the result carries the schema-v2.4 `serving` block, the same bytes
+  under every engine.
 * metric tracking + the paper's timing protocol (DESIGN.md §3): build
   time excludes the warmup, classification time is min-of-3 on the
   served model, and every timer synchronizes the card on entry and exit.
@@ -45,11 +59,12 @@ the tests pass "cpu"). Float32 convolutions and matmuls run in full f32
 on the card with deterministic cuDNN algorithms: the constructor turns
 TF32 off and determinism on (`device.deterministic_f32`).
 
-Configs the port does not run yet raise NotImplementedError naming the
-ROADMAP item that brings them.
+Configs the port does not run yet (`mesh_devices > 1`) raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List
 
@@ -65,16 +80,13 @@ from repro_torch.core import strategies as strat_mod
 from repro_torch.core.fl_types import FLConfig
 from repro_torch.core.metrics import Timer, classification_metrics
 from repro_torch.data.partition import iid_partition
-from repro_torch.kernels import comm_agg as comm_kernel
-from repro_torch.kernels import fedavg_agg as fedavg_kernel
-from repro_torch.kernels import gossip_mix as gossip_kernel
 from repro_torch.kernels import ops
-from repro_torch.kernels import robust_agg as robust_kernel
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.obs import collectors as obs_collectors
 from repro_torch.obs import export as obs_export
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.optim import optimizers
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -111,9 +123,7 @@ class FLResult:
 # Config values the port does not run yet, each with the ROADMAP item
 # that ports it.
 _LATER_SLICES = (
-    ("engine", lambda v: v == "fused", "§A.13 (fused executor)"),
     ("mesh_devices", lambda v: v > 1, "§A.16 (mesh)"),
-    ("serve", lambda v: bool(v), "§A.14 (obs/ and serve/)"),
 )
 
 
@@ -158,6 +168,136 @@ def _batched(x, y, batch_size, rng, device):
             "label": torch.as_tensor(
                 y[sel].reshape(nb, batch_size), dtype=torch.long,
                 device=device)}
+
+
+class FusedContext:
+    """What one fused round sees (DESIGN.md §10): the device-resident run
+    state — stacked federation dataset, per-client eval shards, client
+    weights, test split — plus the static config and the run's device
+    constants. `Strategy.scan_round` / `scan_bases` / `scan_aggregate`
+    receive it as their first argument."""
+
+    def __init__(self, sim, consts):
+        self.sim, self.fl, self.eng = sim, sim.fl, sim.vec
+        self.nb = sim.vec.nb
+        self.data_x = consts["data_x"]
+        self.data_y = consts["data_y"]
+        self.eval_x = consts["eval_x"]
+        self.eval_y = consts["eval_y"]
+        self.weights = consts["weights"]          # (C,) float32
+        self.x_test = consts["x_test"]
+        self.y_test = consts["y_test"]
+        self.track = sim.strategy.track_curves
+        self._consts: Dict[str, torch.Tensor] = {}
+        # per-client codec state (error-feedback residuals) of the
+        # current round: the driver parks the carried rows here across
+        # the strategy's scan_round call (None when stateless or off)
+        self._codec_carry = None
+
+    def const(self, key, make):
+        """The run's device constant `key`, built from the host array
+        `make()` at its first use — a warmup round, before any capture —
+        and reused by every round after (no host-to-device copy in a
+        round)."""
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(make(),
+                                                    device=self.sim.device)
+        return t
+
+    def defense_kwargs(self, event_size=None):
+        return self.sim.defense_kwargs(event_size)
+
+    @torch.no_grad()
+    def local_accs(self, params, pids):
+        """The paper's post-training local-shard accuracy, on the device —
+        `VectorizedClientEngine.local_accs` without the host read."""
+        preds = engine_mod.predict_clients(
+            params, self.eval_x[pids],
+            stacked_apply_fn=self.eng.stacked_apply_fn)
+        return (preds == self.eval_y[pids]).float().mean(dim=1)
+
+    def corrupt(self, uploads, bases, xs):
+        """In-round attack corruption: the per-round operator with the
+        flags and the gauss noise hoisted into the round's inputs; honest
+        rows pass through bitwise (DESIGN.md §8)."""
+        fl = self.fl
+        if fl.attack in ("none", "label_flip") \
+                or not self.sim.attack_mask.any():
+            return uploads
+        return attacks.corrupt_stacked(uploads, bases, xs["flags"], None,
+                                       kind=fl.attack, scale=fl.attack_scale,
+                                       noise=xs.get("noise"))
+
+    def transport(self, uploads, bases, xs):
+        """In-round codec round trip — the fused twin of
+        `FederatedSimulation.transport`, with the codec's draws hoisted
+        into `xs['ckeys']`; error-feedback rows ride the carry through
+        `_codec_carry`. Identity when codec="none"."""
+        codec = self.sim.codec
+        if codec is None:
+            return uploads
+        mat = ops.stacked_ravel(uploads)
+        base = ops.stacked_ravel(bases) if codec.needs_bases else None
+        keys = xs.get("ckeys")
+        if codec.stateful:
+            pids = xs["pids"]
+            rows = {k: a[pids] for k, a in self._codec_carry.items()}
+            dec, new_rows = codec.scan_encode_decode(mat, keys, base=base,
+                                                     rows=rows)
+            self._codec_carry = {k: a.index_copy(0, pids, new_rows[k])
+                                 for k, a in self._codec_carry.items()}
+        else:
+            dec, _ = codec.scan_encode_decode(mat, keys, base=base,
+                                              rows=None)
+        return ops.stacked_unravel(uploads, dec)
+
+    @torch.no_grad()
+    def test_acc(self, model):
+        """Per-round curve point on the full test split, in the per-round
+        driver's 500-image chunks (NaN when curves are off)."""
+        if not self.track:
+            return torch.full((), float("nan"), device=self.x_test.device)
+        n = self.x_test.shape[0]
+        preds = torch.cat([_predict(model, self.x_test[i:i + 500])
+                           for i in range(0, n, 500)])
+        return (preds == self.y_test).float().mean()
+
+
+def _fused_consts(sim):
+    """The device arrays every fused round reads."""
+    eng = sim.vec
+    data_x, data_y = eng.stacked_dataset()
+    x_test, y_test = sim.dataset["test"]
+    return {"data_x": data_x, "data_y": data_y,
+            "eval_x": eng.eval_x, "eval_y": eng.eval_y,
+            "weights": torch.as_tensor(
+                np.asarray(sim.weights, np.float64).astype(np.float32),
+                device=sim.device),
+            "x_test": torch.as_tensor(x_test, device=sim.device),
+            "y_test": torch.as_tensor(y_test, dtype=torch.long,
+                                      device=sim.device)}
+
+
+def _take(x, t):
+    """Round `t`'s slice of a stacked (R, ...) input (a list: per leaf),
+    selected on the device by the (1,) round-index tensor `t`."""
+    if isinstance(x, list):
+        return [_take(e, t) for e in x]
+    return x.index_select(0, t).squeeze(0)
+
+
+def _assign(dst, src) -> None:
+    """Copy tree `src` into the same-structured tree of buffers `dst`.
+    A leaf of `src` that shares storage with a buffer (a carried value
+    passed through) is cloned first, so no copy reads a buffer another
+    copy has already written."""
+    dl, sl = tree_leaves(dst), tree_leaves(src)
+    held = {d.untyped_storage().data_ptr() for d in dl}
+    sl = [x.clone() if x.untyped_storage().data_ptr() in held else x
+          for x in sl]
+    for d, x in zip(dl, sl):
+        d.copy_(x)
 
 
 class FederatedSimulation:
@@ -207,6 +347,10 @@ class FederatedSimulation:
                     f"aggregates sequentially "
                     f"(codec_seam={self.strategy.codec_seam!r}) — use a "
                     f"stateless codec or a stacked strategy")
+            if fl.engine == "fused" and not self.codec.supports_fused:
+                raise ValueError(
+                    f"codec {fl.codec!r} does not support the fused "
+                    f"executor (Codec.supports_fused)")
             self.codec_state = self._codec_init_state()
         # fault-injection schedule (DESIGN.md §15), from its own salted
         # generator so the run rng never shifts; None for "none"
@@ -214,6 +358,10 @@ class FederatedSimulation:
             fl, n_events=self.strategy.num_events(self),
             event_size=self.strategy.event_size())
         self._fault_log: Dict[int, Any] = {}
+        # a context-manager factory entered around the build window, e.g.
+        # `obs.collectors.device_window`, which profiles the timed rounds
+        # alone (idle share, kernels launched); None enters nothing
+        self.build_hook = None
         # Byzantine subset: drawn from a dedicated generator (never the
         # schedule rng), so the attack axis leaves the §4 parity intact
         self.attack_mask = (
@@ -276,10 +424,7 @@ class FederatedSimulation:
 
     @staticmethod
     def _kernel_launches():
-        return {"fedavg_agg": fedavg_kernel.launches,
-                "trimmed_mean_agg": robust_kernel.launches,
-                "gossip_mix_agg": gossip_kernel.launches,
-                "dequant_agg": comm_kernel.launches}
+        return obs_collectors.wrapper_launches()
 
     def set_partition(self, parts):
         """Re-partition the train split (e.g. Dirichlet non-IID) after
@@ -290,7 +435,8 @@ class FederatedSimulation:
         """Per-client shards from a partition: label_flip poisons the
         attackers' shards here (the poisoned shard is what both engines
         batch from), and the vectorized engine state is (re)built on the
-        final data."""
+        final data. The fused engine shares the vectorized engine's
+        stacked state."""
         xtr, ytr = self.dataset["train"]
         self.parts = parts
         self.client_data = []
@@ -305,9 +451,18 @@ class FederatedSimulation:
         self.vec = (engine_mod.VectorizedClientEngine(
                         self.fl, self.client_data, self.weights,
                         device=self.device)
-                    if self.fl.engine == "vectorized" else None)
+                    if self.fl.engine in ("vectorized", "fused") else None)
 
     # -- driver primitives (the plugin-facing surface) ----------------------
+    def tel_sync(self, x):
+        """Telemetry phase boundary: under the fused per-phase proxy
+        (`Telemetry.sync_active`) wait for the card's work, so the
+        enclosing span measures device time. A no-op otherwise: steady
+        spans measure host windows. Returns `x`."""
+        if self.telemetry.sync_active and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return x
+
     def defense_kwargs(self, event_size=None) -> Dict[str, Any]:
         """kwargs for the defended aggregation operators, with the
         Byzantine allowance resolved for this event's client count."""
@@ -348,15 +503,17 @@ class FederatedSimulation:
                     bases, data, stacked_loss_fn=spec.stacked_loss_fn,
                     extra=extra)
                 accs = eng.local_accs(params, plan.participants)
-                return (params,
-                        losses[:, -eng.nb:].mean(dim=1).cpu().numpy(), accs)
+                return self.tel_sync(
+                    (params, losses[:, -eng.nb:].mean(dim=1).cpu().numpy(),
+                     accs))
             locals_, losses, accs = [], [], []
             for c, base in zip(plan.participants, plan.bases):
                 p, loss, acc = self._local_train(base, c, spec=spec)
                 locals_.append(p)
                 losses.append(loss)
                 accs.append(acc)
-            return engine_mod.stack_forest(locals_), losses, accs
+            return self.tel_sync(
+                (engine_mod.stack_forest(locals_), losses, accs))
 
     def corrupt(self, uploads, plan):
         """Corrupt the attacker rows of the trained upload stack against
@@ -369,9 +526,9 @@ class FederatedSimulation:
         with self.telemetry.span("corrupt", attackers=int(flags.sum())):
             keys = attacks.client_keys(
                 attacks.event_key(fl.seed, plan.event), plan.participants)
-            return attacks.corrupt_stacked(
+            return self.tel_sync(attacks.corrupt_stacked(
                 uploads, self._bases_stacked(plan), flags, keys,
-                kind=fl.attack, scale=fl.attack_scale)
+                kind=fl.attack, scale=fl.attack_scale))
 
     def transport(self, uploads, plan):
         """Ship one event's upload stack through the active codec:
@@ -408,7 +565,7 @@ class FederatedSimulation:
             self.telemetry.counter(
                 "codec.uplink_bytes",
                 len(plan.participants) * codec.bytes_on_wire(self.model_dim))
-            return ops.stacked_unravel(uploads, dec)
+            return self.tel_sync(ops.stacked_unravel(uploads, dec))
 
     def _codec_init_state(self):
         return self.codec.init_state(self.fl.num_clients, self.model_dim,
@@ -471,9 +628,9 @@ class FederatedSimulation:
                     clip_tau=fl.clip_tau, codec=codec, codec_keys=ckeys,
                     fault_alive=None if fe is None else fe.alive,
                     fault_qok=None if fe is None else fe.qok)
-                return (model,
-                        losses[:, -eng.nb:].mean(dim=1).cpu().numpy(),
-                        accs.cpu().numpy())
+                return self.tel_sync(
+                    (model, losses[:, -eng.nb:].mean(dim=1).cpu().numpy(),
+                     accs.cpu().numpy()))
             losses, accs = [], []
             model0 = model
             for i, (c, key) in enumerate(zip(order, keys)):
@@ -496,7 +653,7 @@ class FederatedSimulation:
                 model = aggregation.cfl_merge(model, local, alpha)
             if fe is not None and not fe.qok:
                 model = model0       # below quorum: the round holds
-            return model, losses, accs
+            return self.tel_sync((model, losses, accs))
 
     # -- warmup (DESIGN.md §3: one-time costs stay out of the timers) -------
     def warmup_default(self, strategy):
@@ -558,6 +715,8 @@ class FederatedSimulation:
 
     # -- the generic driver loop --------------------------------------------
     def run(self) -> FLResult:
+        if self.fl.engine == "fused":
+            return self.run_fused()
         fl, strat = self.fl, self.strategy
         tel = self.telemetry
         curves = {"train_acc": [], "train_loss": [], "test_acc": []}
@@ -569,11 +728,16 @@ class FederatedSimulation:
             strat.warmup(self)
         self._reset_codec()
         n_events = strat.num_events(self)
+        # federation-in-the-loop serving (DESIGN.md §14): the session's
+        # traffic draws from its own seed fold, and the publish hook only
+        # READS the round model — training is the same with serving on or
+        # off
+        serve_sess = self._make_serve_session(n_events)
         all_accs: List[float] = []
         train_acc = 0.0
         build_timer = Timer(device=self.device)
 
-        with build_timer:
+        with build_timer, self._build_hook():
             for ev in range(n_events):
                 state, accs, losses = strat.run_event(self, state, ev)
                 train_acc = float(np.mean(np.asarray(accs)))
@@ -581,8 +745,259 @@ class FederatedSimulation:
                 if strat.track_curves:
                     self._track(curves, accs, losses,
                                 strat.round_model(state))
+                if serve_sess is not None:
+                    # round boundary: serve the window's traffic on the old
+                    # model, then hot-swap the fresh aggregate in — unless
+                    # the round failed quorum: then nothing publishes
+                    # (DESIGN.md §15)
+                    fe = self._fault_log.get(ev)
+                    if fe is not None and not fe.qok:
+                        serve_sess.hold_round(ev + 1)
+                    else:
+                        serve_sess.publish_round(ev + 1,
+                                                 strat.round_model(state))
         if strat.mean_train_acc_over_events:
             train_acc = float(np.mean(all_accs)) if all_accs else 0.0
+        return self._classify_and_result(state, curves, train_acc,
+                                         build_timer,
+                                         warmup_timer=warmup_timer)
+
+    # -- the fused executor (DESIGN.md §10) ---------------------------------
+    def _build_hook(self):
+        return (self.build_hook() if self.build_hook is not None
+                else contextlib.nullcontext())
+
+    def _fused_inputs(self, state0, R):
+        """The host precompute of a fused run: consume `self.rng` in the
+        per-round order — per event, the participant schedule
+        (`select_participants`, against the initial state), then one
+        batch permutation per (client, epoch) (`batch_indices`) — and
+        derive every other per-round input from the same seams the
+        per-round drivers call: attack flags and gauss noise, codec draws,
+        the fault schedule's views (also logged into `_fault_log`) and the
+        strategy's extra inputs. Returns ({name: (R, ...) device tensor,
+        or a list of them per leaf}, per-round participant arrays): one
+        host-to-device copy per array."""
+        fl, strat = self.fl, self.strategy
+        pids_l, idx_l = [], []
+        for ev in range(R):
+            plan = strat.select_participants(self, state0, ev, self.rng)
+            pids_l.append(np.asarray(plan.participants, np.int64))
+            idx_l.append(self.vec.batch_indices(self.rng, plan.participants,
+                                                fl.local_epochs))
+        pids = np.stack(pids_l)
+        host = {"pids": pids, "idx": np.stack(idx_l).astype(np.int64),
+                "flags": self.attack_mask[pids]}
+        if fl.attack == "gauss" and self.attack_mask.any():
+            one = tree_map(lambda leaf: leaf[None].cpu(), self.init_params)
+            noise = [attacks.stacked_noise(attacks.client_keys(
+                         attacks.event_key(fl.seed, ev), pids_l[ev]), one)
+                     for ev in range(R)]
+            host["noise"] = [torch.stack(leaf) for leaf in zip(*noise)]
+        if self.faults is not None:
+            # the SAME numpy views the per-round drivers index
+            host.update(self.faults.scan_xs(pids_l,
+                                            **strat.fault_scan_kwargs()))
+            for ev in range(R):
+                self._fault_log[ev] = self.faults.event_view(ev, pids_l[ev])
+        host.update(strat.scan_extra_xs(self, R))
+        if self.codec is not None:
+            draws = [self.codec.draws(codecs_mod.upload_keys(
+                         fl.seed, ev, pids_l[ev]), self.model_dim)
+                     for ev in range(R)]
+            if draws[0] is not None:
+                host["ckeys"] = torch.stack(draws)
+        dtypes = {"pids": torch.long, "idx": torch.long, "flags": torch.bool,
+                  "fault_alive": torch.float32, "fault_qok": torch.bool,
+                  "fault_gqok": torch.bool, "fault_mix": torch.float32,
+                  "fault_gidx": torch.long, "hfl_global": torch.bool}
+
+        def up(name, a):
+            if isinstance(a, list):
+                return [up(name, e) for e in a]
+            return torch.as_tensor(a, dtype=dtypes.get(name)).to(self.device)
+        return {k: up(k, v) for k, v in host.items()}, pids_l
+
+    def run_fused(self, graph: bool = True) -> FLResult:
+        """The whole run on the device: strategy state, optimizer state
+        and the stacked federation stay there from the first round to the
+        last, the per-round metrics are written into (R,) device buffers
+        and come back in ONE transfer at the end.
+
+        The host precompute (`_fused_inputs`, untimed) consumes `self.rng`
+        exactly as the per-round driver does (§4), so the rng state after
+        the run is the vectorized run's. One round is `body`: a function
+        of device tensors that reads round t's inputs by a device round
+        index, writes its outputs and the new carry into static buffers
+        and advances the index. On the card the warmup runs the body
+        eagerly on a side stream on a throwaway copy of the carry (kernel
+        builds, first-use allocations), then captures ONE round as a CUDA
+        graph; the build timer measures R replays and the one transfer. A
+        failed capture raises: the run never falls back. On the CPU, or
+        with `graph=False` (the card's eager loop, which chip_smoke.py
+        holds the graph to), the same body runs eagerly round by round.
+
+        Kernel launches: a wrapper counts its calls in Python — the
+        warmup's, the capture's (one a captured call), the per-phase
+        proxy's and, in the eager loop, every round's. A replay runs no
+        Python and counts nothing; `obs.collectors.device_window`, as the
+        `build_hook`, measures the replays' launches on the device."""
+        fl, strat = self.fl, self.strategy
+        if self.vec is None:
+            raise ValueError(
+                "run_fused needs the stacked engine state "
+                "(FLConfig.engine='fused', or 'vectorized' when calling "
+                "run_fused directly)")
+        if not strat.supports_fused:
+            raise ValueError(
+                f"strategy {strat.name!r} does not support the fused "
+                f"executor (Strategy.supports_fused; async-style "
+                f"data-dependent schedules cannot be hoisted out of the "
+                f"rounds)")
+        dev = self.device
+        use_graph = graph and dev.type == "cuda"
+        tel = self.telemetry
+        R = strat.num_events(self)
+        if R < 1:
+            raise ValueError("the fused executor needs at least one round")
+        state0 = strat.init_state(self)
+        with tel.span("precompute", cat="run", rounds=R):
+            xs, pids_l = self._fused_inputs(state0, R)
+            consts = _fused_consts(self)
+        k = len(pids_l[0])
+        if 0 < fl.fused_chunk < k and k % fl.fused_chunk:
+            raise ValueError(f"fused_chunk={fl.fused_chunk} must divide "
+                             f"the participant stack ({k} clients)")
+        # the carry: private buffers, written in place every round
+        carry = {"strategy": tree_map(torch.clone,
+                                      strat.scan_carry(self, state0))}
+        if self.codec is not None and self.codec.stateful:
+            carry["codec"] = self._codec_init_state()
+        fx = FusedContext(self, consts)
+        scan_tel = tel.enabled
+
+        def body(carry, t, bufs):
+            """One round: read round t's inputs, train, corrupt, ship,
+            aggregate; write the outputs into `bufs` and the new carry
+            into `carry`; t += 1. Device work only."""
+            x = {name: _take(v, t) for name, v in xs.items()}
+            sc = carry["strategy"]
+            fx._codec_carry = carry.get("codec")
+            sc_new, (acc, loss, tacc) = strat.scan_round(fx, sc, x)
+            out = {"train_acc": acc, "train_loss": loss, "test_acc": tacc}
+            if scan_tel:
+                out.update(("scan." + name, v) for name, v in
+                           obs_collectors.round_counters(
+                               strat, fx, sc, sc_new, x).items())
+            if fl.serve:
+                # serving (DESIGN.md §14): the round's global model is
+                # kept, and its publish is replayed after the run
+                out.update((("model", i), leaf) for i, leaf in enumerate(
+                    tree_leaves(strat.round_model(sc_new))))
+            for name, v in out.items():
+                buf = bufs.get(name)
+                if buf is None:
+                    buf = bufs[name] = torch.full(
+                        (R,) + tuple(v.shape), float("nan"), dtype=v.dtype,
+                        device=dev)
+                buf.index_copy_(0, t, v.unsqueeze(0))
+            new = {"strategy": sc_new}
+            if "codec" in carry:
+                new["codec"] = fx._codec_carry
+            _assign(carry, new)
+            t.add_(1)
+
+        t = torch.zeros((1,), dtype=torch.long, device=dev)
+        warmup_timer = Timer(device=dev)
+        with tel.span("warmup", cat="run"), warmup_timer, tel.suppress():
+            # first-use costs (kernel builds, allocator growth) on a
+            # throwaway copy of the carry, outside the build timer
+            wcarry = tree_map(torch.clone, carry)
+            wbufs: Dict[Any, torch.Tensor] = {}
+            if use_graph:
+                side = torch.cuda.Stream(device=dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for _ in range(3):
+                        body(wcarry, torch.zeros_like(t), wbufs)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                torch.cuda.synchronize(dev)
+            else:
+                body(wcarry, torch.zeros_like(t), wbufs)
+            # the output buffers exist before the first counted round, so
+            # a captured round writes into them and allocates none
+            bufs = {name: torch.full_like(b, float("nan"))
+                    for name, b in wbufs.items()}
+            del wcarry, wbufs
+            if use_graph:
+                g = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(g):
+                        body(carry, t, bufs)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"the fused round could not be captured as a CUDA "
+                        f"graph ({type(e).__name__}: {e}); the run does "
+                        f"not fall back to the eager loop") from e
+            self._warmup_predicts()
+        # per-phase device-time proxy (obs/collectors.py): one
+        # instrumented per-round event. Skipped when chunked (the
+        # per-round path would materialize the unchunked stack).
+        if tel.enabled and not fl.fused_chunk:
+            obs_collectors.fused_phase_proxy(self)
+            self._reset_codec()
+
+        build_timer = Timer(device=dev)
+        with build_timer, self._build_hook(), \
+                tel.span("fused_scan", cat="run", rounds=R):
+            if use_graph:
+                for _ in range(R):
+                    g.replay()
+            else:
+                for _ in range(R):
+                    body(carry, t, bufs)
+            names = [n for n in bufs if not isinstance(n, tuple)]
+            host = dict(zip(names, torch.stack(
+                [bufs[n].float() for n in names]).cpu().numpy()))
+        if "codec" in carry:
+            self.codec_state = carry["codec"]
+        if self.codec is not None:
+            # analytic wire accounting, from the hoisted schedules
+            self._comm_log = [len(p) for p in pids_l]
+        for name in names:
+            if name.startswith("scan."):
+                tel.record_series(name, host[name])
+        tel.record_series("participants", [len(p) for p in pids_l])
+        if self.codec is not None:
+            bw = self.codec.bytes_on_wire(self.model_dim)
+            tel.record_series("codec.uplink_bytes",
+                              [len(p) * bw for p in pids_l])
+            tel.counter("codec.uplink_bytes",
+                        sum(len(p) * bw for p in pids_l))
+        state = strat.scan_uncarry(self, carry["strategy"])
+        curves = {"train_acc": [], "train_loss": [], "test_acc": []}
+        if strat.track_curves:
+            curves = {key: [float(v) for v in host[key]]
+                      for key in curves}
+        train_acc = float(host["train_acc"][-1])
+        serve_sess = self._make_serve_session(R)
+        if serve_sess is not None:
+            # replay the publishes the per-round drivers make live: one
+            # hot-swap per round, in round order, at the same virtual
+            # times — the serving block is the same under every engine
+            template = strat.round_model(state)
+            n_leaves = len(tree_leaves(template))
+            with tel.span("serve_replay", cat="serve", rounds=R):
+                for ev in range(R):
+                    fe = self._fault_log.get(ev)
+                    if fe is not None and not fe.qok:
+                        # quorum-failed round: nothing published live
+                        # either — replay the hold (DESIGN.md §15)
+                        serve_sess.hold_round(ev + 1)
+                        continue
+                    serve_sess.publish_round(ev + 1, tree_unflatten(
+                        template, [bufs[("model", i)][ev]
+                                   for i in range(n_leaves)]))
         return self._classify_and_result(state, curves, train_acc,
                                          build_timer,
                                          warmup_timer=warmup_timer)
@@ -605,8 +1020,10 @@ class FederatedSimulation:
         strategies classify on-device — every client scores its own 1/N
         test shard in parallel, so measured wall time is one shard pass
         (+ any pre-serving aggregation the strategy's served_fn
-        performs)."""
+        performs). The run's final strategy state is kept as
+        `final_state`."""
         fl, strat = self.fl, self.strategy
+        self.final_state = state
         served_fn = strat.served_fn(self, state)
         x_test, y_true = self.dataset["test"]
         shard = (len(x_test) if strat.centralized
@@ -631,6 +1048,11 @@ class FederatedSimulation:
         if self.faults is not None:
             # schema-v2.5 faults block, absent when fault_profile="none"
             extra["faults"] = self._faults_block()
+        serve_sess = getattr(self, "_serve_session", None)
+        if serve_sess is not None:
+            # drains the tail traffic and summarizes (DESIGN.md §14):
+            # virtual-clock quantities, the same under every engine
+            extra["serving"] = serve_sess.result_block()
         if self.vec is not None and self.vec.dropped_samples:
             # the stacked engine trains every client for the federation-
             # minimum batch count (engine.ShardTruncationWarning)
@@ -659,6 +1081,38 @@ class FederatedSimulation:
             steady_time_s=build_timer.elapsed,
             extra=extra,
         )
+
+    def _make_serve_session(self, n_events: int):
+        """Build the DESIGN.md §14 serving side-car (None when serving is
+        off). The dispatch seam pads every micro-batch to the
+        `serve_batch` admission cap, so serving runs one classify shape on
+        the card. Sets `self._serve_session` (read by
+        `_classify_and_result` for the schema-v2.4 block)."""
+        fl = self.fl
+        self._serve_session = None
+        if not fl.serve:
+            return None
+        from repro_torch import serve as serve_mod
+        x_test, y_test = self.dataset["test"]
+        dispatch = None
+        if fl.serve_dispatch:
+            xd = torch.as_tensor(x_test, device=self.device)
+            yt = np.asarray(y_test)
+            pad = fl.serve_batch
+
+            def dispatch(params, example_idx):
+                ei = np.asarray(example_idx, np.int64)
+                idx = np.zeros(pad, np.int64)
+                idx[: len(ei)] = ei
+                preds = _predict(params, xd[torch.as_tensor(
+                    idx, device=self.device)]).cpu().numpy()
+                return preds[: len(ei)] == yt[ei]
+
+        self._serve_session = serve_mod.ServeSession(
+            fl, n_events=n_events, n_test=len(x_test),
+            init_params=self.init_params, dispatch_fn=dispatch,
+            telemetry=self.telemetry)
+        return self._serve_session
 
     def _faults_block(self) -> Dict[str, Any]:
         """The schema-v2.5 `faults` result block (DESIGN.md §15): the

@@ -23,8 +23,18 @@ round driver: dead participants' uploads carry zero weight, a
 below-quorum event holds its round-start state, HFL holds below-quorum
 groups, and AFL gossip mixes through the schedule's per-round masked
 matrix (the `gossip_mix_agg` kernel) or, defended, its gathered
-neighborhoods. The fused executor's `scan_*` hooks belong to a
-later slice of the port (ROADMAP §A.13).
+neighborhoods.
+
+A strategy may also opt into the FUSED executor (`engine="fused"`,
+DESIGN.md §10): the whole run's state stays on the device and one round
+is one function of device tensors — captured once as a CUDA graph and
+replayed every round on the card, run eagerly round by round on the CPU.
+The traceable half of the protocol — `scan_round` (the default wraps the
+lifecycle pieces), `scan_bases`, `scan_aggregate`, `scan_carry` /
+`scan_uncarry`, `scan_extra_xs`, `fault_scan_kwargs`, `scan_telemetry` —
+lives on the Strategy too; `supports_fused` declares the opt-in (async
+cannot fuse: its tick batches are data-dependent). The mesh hooks belong
+to a later slice of the port (ROADMAP §A.16).
 """
 from __future__ import annotations
 
@@ -199,6 +209,7 @@ class Strategy:
             uploads = sim.transport(uploads, plan)
             with tel.span("aggregate", event=event, **fargs):
                 state = self.aggregate_event(sim, state, plan, uploads)
+                sim.tel_sync(state)
         return state, accs, losses
 
     def _fault_telemetry(self, sim, plan) -> Dict[str, Any]:
@@ -241,6 +252,96 @@ class Strategy:
             sim, state, plan,
             sim.transport(sim.corrupt(uploads, plan), plan))
         self.served_fn(sim, state)()
+
+    # -- fused executor (DESIGN.md §10) -------------------------------------
+    # `engine="fused"` keeps the whole run on the device. The driver
+    # (`FederatedSimulation.run_fused`) hoists everything the per-round
+    # path does on the host — participant schedules, the (rounds, k,
+    # epochs*nb, B) batch-index tensor (consuming the run rng in the
+    # per-round order, so §4 parity holds), attack flags and noise, codec
+    # draws, the fault schedule — into per-round device inputs (`xs`),
+    # and `scan_round` runs one round on device tensors: no host read, no
+    # host-to-device copy, no Python branch on a device value, so the
+    # round can be captured as a CUDA graph. The two strategy-shaped
+    # holes are `scan_bases` (the round-start base stack from the carried
+    # state) and `scan_aggregate` (the aggregation event, built from the
+    # same `core.aggregation` operators as `aggregate_event`).
+    # `scan_carry` / `scan_uncarry` bound the carry to a tree of tensors
+    # (server optimizers re-attach their Optimizer on the way out).
+    #
+    # CONTRACT for `supports_fused = True`: besides the hooks being
+    # device-only, `select_participants` must derive its schedule from
+    # (event, rng) alone — the precompute calls it once per round with
+    # the INITIAL state.
+
+    supports_fused = False      # opt-in: see the contract above
+
+    def scan_carry(self, sim, state):
+        """Strategy state -> the tree of tensors carried from round to
+        round."""
+        return state
+
+    def scan_uncarry(self, sim, carry):
+        """Final carry -> full strategy state (for `round_model` /
+        `served_fn` / `extra_result`)."""
+        return carry
+
+    def scan_extra_xs(self, sim, n_events: int) -> Dict[str, Any]:
+        """Additional per-round inputs, each with leading dim n_events
+        (e.g. HFL's dissemination flag). Called after the precompute has
+        logged every event's fault view."""
+        return {}
+
+    def fault_scan_kwargs(self) -> Dict[str, Any]:
+        """`FaultSchedule.scan_xs` kwargs for the fused precompute: which
+        per-round fault arrays this strategy's `scan_aggregate` reads
+        beyond the alive mask and quorum flag (HFL: the group quorums;
+        gossip AFL: the mixing matrices or gather indices)."""
+        return {}
+
+    def scan_bases(self, fx, carry, xs) -> Params:
+        """The (k, ...) stacked round-start models for this round's
+        participants, from the carried state."""
+        raise NotImplementedError
+
+    def scan_aggregate(self, fx, carry, xs, uploads):
+        """Fold the (possibly corrupted) uploads into the carry — the
+        device-only twin of `aggregate_event`."""
+        raise NotImplementedError
+
+    def scan_round(self, fx, carry, xs):
+        """One fused round: gather this round's batches from the
+        device-resident federation dataset, train every participant,
+        evaluate the paper's local-shard training accuracy, corrupt
+        attacker uploads, ship them through the codec, aggregate. Returns
+        (carry, (train_acc, train_loss, test_acc)) as device scalars —
+        test_acc is NaN when curve tracking is off."""
+        fl = fx.fl
+        bases = self.scan_bases(fx, carry, xs)
+        batch = engine_mod.gather_batches(fx.data_x, fx.data_y,
+                                          xs["pids"], xs["idx"])
+        spec = self.local_spec(fx.sim, None, None)
+        extra = bases if spec.extra == "bases" else None
+        params, losses, _ = engine_mod.train_clients_chunked(
+            bases, batch, stacked_loss_fn=spec.stacked_loss_fn, lr=fl.lr,
+            momentum=fl.momentum, extra=extra, chunk=fl.fused_chunk)
+        accs = fx.local_accs(params, xs["pids"])
+        uploads = fx.corrupt(params, bases, xs)
+        uploads = fx.transport(uploads, bases, xs)
+        carry = self.scan_aggregate(fx, carry, xs, uploads)
+        return carry, (accs.mean(), losses[:, -fx.nb:].mean(),
+                       fx.test_acc(self.round_model(carry)))
+
+    def scan_telemetry(self, fx, carry, new_carry, xs) -> Dict[str, Any]:
+        """Strategy-specific per-round counters (device scalars; DESIGN.md
+        §13), computed from the pre- and post-round carries and
+        transferred once at run end. The default reports the L2 norm of
+        the round's global-model step. Counters only read: fused results
+        are the same with telemetry on or off."""
+        d2 = sum(torch.sum(torch.square(b.float() - a.float()))
+                 for a, b in zip(tree_leaves(self.round_model(carry)),
+                                 tree_leaves(self.round_model(new_carry))))
+        return {"model_delta_l2": torch.sqrt(d2)}
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +497,86 @@ class HFLStrategy(Strategy):
         return serve
 
 
+    # -- fused executor -----------------------------------------------------
+    supports_fused = True
+
+    def scan_carry(self, sim, state):
+        carry = {"groups": state["groups"], "global": state["global"],
+                 "up": engine_mod.replicate_tree(sim.init_params,
+                                                 self.fl.num_clients),
+                 "start": state["groups"]}
+        if sim.faults is not None:
+            # the last event's alive mask rides the carry, so the serving
+            # tuple re-aggregates with the same degraded masking
+            carry["alive"] = torch.ones((self.fl.num_clients,),
+                                        dtype=torch.float32,
+                                        device=sim.device)
+        return carry
+
+    def scan_uncarry(self, sim, carry):
+        last = (carry["up"], carry["start"])
+        if "alive" in carry:
+            last = last + (carry["alive"].cpu().numpy(),)
+        return {"groups": carry["groups"], "global": carry["global"],
+                "last": last}
+
+    def scan_extra_xs(self, sim, n_events):
+        fl = self.fl
+        # the per-round driver's dissemination schedule as a per-round
+        # flag (a Python `if` there, a `torch.where` here)
+        return {"hfl_global": np.array(
+            [((ev + 1) % fl.hfl_global_every == 0 or ev == fl.rounds - 1)
+             for ev in range(n_events)], bool)}
+
+    def fault_scan_kwargs(self):
+        return {"num_groups": self.fl.num_groups}
+
+    def scan_bases(self, fx, carry, xs):
+        # participants are always 0..C-1 in id order (select_participants)
+        return engine_mod.repeat_groups(carry["groups"],
+                                        self.fl.clients_per_group)
+
+    def scan_aggregate(self, fx, carry, xs, uploads):
+        fl = self.fl
+        start_groups = carry["groups"]
+        alive = xs.get("fault_alive")
+        groups, gw = agg.hfl_tier1_stacked(
+            uploads, fl.num_groups, fx.weights, centers=start_groups,
+            alive=alive, **fx.defense_kwargs(self.event_size()))
+        if alive is not None:
+            groups = agg.tree_where_rows(xs["fault_gqok"], groups,
+                                         start_groups)
+        # global aggregation and dissemination on the schedule flag: the
+        # tier-2 reduction over G group models runs every round and the
+        # flag selects it
+        new_global = agg.fedavg_stacked(groups, gw)
+        disseminate = xs["hfl_global"]
+        global_model = agg.tree_where(disseminate, new_global,
+                                      carry["global"])
+        groups = agg.tree_where(
+            disseminate, engine_mod.replicate_tree(new_global,
+                                                   fl.num_groups), groups)
+        out = {"groups": groups, "global": global_model,
+               "up": uploads, "start": start_groups}
+        if alive is not None:
+            # below-quorum round: every carried value holds
+            qok = xs["fault_qok"]
+            out = {key: agg.tree_where(qok, val, carry[key])
+                   for key, val in out.items()}
+            out["alive"] = torch.where(qok, alive, carry["alive"])
+        return out
+
+    def scan_telemetry(self, fx, carry, new_carry, xs):
+        # the hierarchy's dissemination lag: L2 spread of the group
+        # models around their mean (0 on dissemination rounds)
+        out = super().scan_telemetry(fx, carry, new_carry, xs)
+        d2 = sum(torch.sum(torch.square(
+                     g.float() - g.float().mean(dim=0, keepdim=True)))
+                 for g in tree_leaves(new_carry["groups"]))
+        out["group_spread_l2"] = torch.sqrt(d2)
+        return out
+
+
 @register_strategy
 class AFLStrategy(Strategy):
     """Decentralized aggregated FL (paper §2.2): sample a participant
@@ -495,6 +676,88 @@ class AFLStrategy(Strategy):
             uploads, pw, center=start, alive=alive, **defkw)
 
 
+    # -- fused executor -----------------------------------------------------
+    supports_fused = True
+
+    def scan_carry(self, sim, state):
+        k = self.event_size()
+        carry = {"global": state["global"],
+                 "up": engine_mod.replicate_tree(sim.init_params, k),
+                 "pw": torch.ones((k,), dtype=torch.float32,
+                                  device=sim.device),
+                 "start": state["global"]}
+        if sim.faults is not None:
+            carry["alive"] = torch.ones((k,), dtype=torch.float32,
+                                        device=sim.device)
+        return carry
+
+    def scan_uncarry(self, sim, carry):
+        last = (carry["up"], carry["pw"], carry["start"], self.event_size())
+        if "alive" in carry:
+            last = last + (carry["alive"].cpu().numpy(),)
+        return {"global": carry["global"], "last": last}
+
+    def fault_scan_kwargs(self):
+        fl = self.fl
+        if fl.afl_mode != "gossip":
+            return {}
+        if fl.defense == "none":
+            return {"gossip": True}
+        return {"gossip": True, "gossip_defended": True,
+                "gather_k": fl.gossip_neighbors + 1}
+
+    def scan_bases(self, fx, carry, xs):
+        return engine_mod.replicate_tree(carry["global"],
+                                         xs["pids"].shape[0])
+
+    def scan_aggregate(self, fx, carry, xs, uploads):
+        fl = self.fl
+        k = xs["pids"].shape[0]
+        pw = fx.weights[xs["pids"]]
+        start = carry["global"]
+        alive = xs.get("fault_alive")
+        defkw = fx.defense_kwargs(k)
+        if fl.afl_mode == "gossip":
+            if alive is None:
+                nbrs = topology.ring_neighbors(k, fl.gossip_neighbors)
+                if fl.defense == "none":
+                    ring = {"mix": fx.const("ring_mix", lambda:
+                                            agg.gossip_mix_matrix(nbrs))}
+                else:
+                    ring = {"gather_idx": fx.const(
+                        "ring_gather",
+                        lambda: agg.gossip_gather_indices(nbrs))}
+                uploads = agg.gossip_stacked(uploads, nbrs,
+                                             defense=fl.defense,
+                                             f=defkw["f"], **ring)
+            elif fl.defense == "none":
+                uploads = agg.masked_gossip_stacked(uploads,
+                                                    mix=xs["fault_mix"])
+            else:
+                uploads = agg.masked_gossip_stacked(
+                    uploads, gather_idx=xs["fault_gidx"],
+                    defense=fl.defense, f=defkw["f"])
+            global_model = agg.afl_aggregate_stacked(uploads, pw,
+                                                     alive=alive)
+        else:
+            global_model = agg.defended_aggregate_stacked(
+                uploads, pw, center=start, alive=alive, **defkw)
+        out = {"global": global_model, "up": uploads, "pw": pw,
+               "start": start}
+        return self._fault_hold(carry, xs, out, alive)
+
+    def _fault_hold(self, carry, xs, out, alive):
+        """Quorum gate of a fused round: a below-quorum round keeps the
+        carried values (the per-round driver's host `if`)."""
+        if alive is None:
+            return out
+        qok = xs["fault_qok"]
+        held = {key: agg.tree_where(qok, out[key], carry[key])
+                for key in out}
+        held["alive"] = torch.where(qok, alive, carry["alive"])
+        return held
+
+
 @register_strategy
 class CFLStrategy(Strategy):
     """Decentralized continual FL (paper §2.3): the model passes client
@@ -543,6 +806,33 @@ class CFLStrategy(Strategy):
 
     def round_model(self, state):
         return state["model"]
+
+
+    # -- fused executor -----------------------------------------------------
+    # CFL's training and aggregation already fuse in `cfl_round_scan`
+    # (one pass over the visit order, corruption and kernel-backed merge
+    # inside), so the fused round is that pass — `scan_round` is
+    # overridden whole, like `run_event` is for the per-round driver.
+    supports_fused = True
+
+    def scan_round(self, fx, carry, xs):
+        fl = self.fl
+        pids = xs["pids"]
+        batch = engine_mod.gather_batches(fx.data_x, fx.data_y, pids,
+                                          xs["idx"])
+        model, losses, accs = engine_mod.cfl_round_scan(
+            carry["model"], batch, fx.eval_x[pids], fx.eval_y[pids],
+            fl.merge_alpha, loss_fn=fx.eng.loss_fn, apply_fn=fx.eng.apply_fn,
+            lr=fl.lr, momentum=fl.momentum, attack=fl.attack,
+            attack_scale=fl.attack_scale, attack_flags=xs["flags"],
+            attack_noise=xs.get("noise"), defense=fl.defense,
+            clip_tau=fl.clip_tau, codec=fx.sim.codec,
+            codec_keys=xs.get("ckeys"), fault_alive=xs.get("fault_alive"),
+            fault_qok=xs.get("fault_qok"),
+            merge_weights=fx.const("cfl_merge", lambda: agg.cfl_merge_weights(
+                fl.merge_alpha)))
+        return {"model": model}, (accs.mean(), losses[:, -fx.nb:].mean(),
+                                  fx.test_acc(model))
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +929,39 @@ class ServerOptStrategy(AFLStrategy):
         # the server optimizer's state lives server-side: serve its model
         model = state["global"]
         return lambda: model
+
+
+    # -- fused executor -----------------------------------------------------
+    # The server optimizer's state is a tree of tensors (Adam's step count
+    # included): it rides the carry like the model does, and a
+    # below-quorum round holds it; the Optimizer is re-attached on the way
+    # out.
+
+    def scan_carry(self, sim, state):
+        carry = super().scan_carry(sim, state)
+        carry["opt_state"] = state["opt_state"]
+        return carry
+
+    def scan_uncarry(self, sim, carry):
+        state = super().scan_uncarry(sim, carry)
+        state["opt"] = self.make_opt()
+        state["opt_state"] = carry["opt_state"]
+        return state
+
+    def scan_aggregate(self, fx, carry, xs, uploads):
+        k = xs["pids"].shape[0]
+        pw = fx.weights[xs["pids"]]
+        g = carry["global"]
+        alive = xs.get("fault_alive")
+        aggregate = agg.defended_aggregate_stacked(
+            uploads, pw, center=g, alive=alive, **fx.defense_kwargs(k))
+        pseudo_grad = tree_map(lambda a, b: (a - b).float(), g, aggregate)
+        updates, opt_state = self.make_opt().update(
+            pseudo_grad, carry["opt_state"], g)
+        out = {"global": optimizers.apply_updates(g, updates),
+               "opt_state": opt_state, "up": uploads, "pw": pw,
+               "start": g}
+        return self._fault_hold(carry, xs, out, alive)
 
 
 @register_strategy

@@ -12,15 +12,18 @@ created fresh for every local-training event, as in the reference; there
 is no persistent `torch.optim` object. Adam (the FedAdam server
 optimizer) keeps its step count in its state. (The reference's Nesterov
 variant and learning-rate schedules serve no caller of the port.)
+
+Adam's step count is a float32 tensor on the parameters' device and its
+bias corrections are computed there, so a round captured as a CUDA graph
+reads each replay's own step.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -54,10 +57,13 @@ def _zeros_f32(p):
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0):
     """Adam with decoupled weight decay; moments in float32, the bias
-    corrections 1 - b**t computed in float32 as the reference does."""
+    corrections 1 - b**t computed in float32 as the reference does, from
+    the step count on the device."""
     def init(params):
+        device = tree_leaves(params)[0].device
         return {"m": tree_map(_zeros_f32, params),
-                "v": tree_map(_zeros_f32, params), "count": 0}
+                "v": tree_map(_zeros_f32, params),
+                "count": torch.zeros((), dtype=torch.float32, device=device)}
 
     def update(grads, state, params):
         c = state["count"] + 1
@@ -65,8 +71,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                      state["m"], grads)
         v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                      state["v"], grads)
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(c))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(c))
+        bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
 
         def upd(m, v, p):
             step = (m / bc1) / (torch.sqrt(v / bc2) + eps)

@@ -164,11 +164,14 @@ def test_scenarios_cli_lists_the_registry(capsys):
 
 def test_async_still_waits_for_its_slice(ds):
     """Async's slice (ROADMAP §A.8) has come: the strategy constructs on
-    the per-round drivers, and only its fused form still waits (§A.13)."""
+    the per-round drivers. Its fused form is refused as the reference
+    refuses it: the fused executor (§A.13) cannot hoist async's
+    data-dependent tick batches (`supports_fused` is False)."""
     fl = port_types.FLConfig(**dict(CFG, strategy="async"))
     sim = port_sim_mod.FederatedSimulation(fl, ds, device="cpu")
     assert sim.strategy.name == "async"
+    assert not sim.strategy.supports_fused
     fused = port_types.FLConfig(**dict(CFG, strategy="async",
                                        engine="fused"))
-    with pytest.raises(NotImplementedError, match="§A.13"):
-        port_sim_mod.FederatedSimulation(fused, ds, device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        port_sim_mod.FederatedSimulation(fused, ds, device="cpu").run()

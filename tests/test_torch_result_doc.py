@@ -1,7 +1,9 @@
 """The scenario runner's result document (schema v2.5) of repro_torch
 against the reference's (`repro.core.scenarios`): the registry and its
-specs, the registrations the port cannot run yet, `load_result`,
-`run_scenario` block by block, and the `--json` CLI.
+specs, the registrations that waited for the fused executor and the
+serving side-car (now runnable), `load_result`,
+`run_scenario` block by block, the Chrome trace, and the `--json`,
+`--trace-out` and `--grid ci` CLI.
 
 Parity runs start from the reference's initial parameters
 (`model_init`), and qsgd rounds with the reference's uniforms (the
@@ -36,8 +38,9 @@ EQUAL_BLOCKS = ("schema_version", "scenario", "spec", "strategy", "attack",
 # communication and attack
 PARITY = ("iid-hfl-vec", "ring-gossip-vec", "async-straggler-vec",
           "comm-qsgd-signflip-median-vec", "churn-hfl-quorum")
-# the registrations the port cannot run yet, with the ROADMAP items each
-# names
+# the registrations that waited for ROADMAP §A.13 (the fused executor)
+# and §A.14 (serving and the trace) until slice 10, with the items each
+# waited for
 PENDING = {"iid-hfl-fused": ("§A.13",),
            "attack-signflip-median-fused": ("§A.13",),
            "obs-trace-fused-16c": ("§A.13", "§A.14"),
@@ -97,23 +100,20 @@ def test_registry_equals_the_reference():
             == ref_scenarios.RESULT_SCHEMA_VERSION)
     assert (port_strategies.STRATEGY_REGISTRY_VERSION
             == ref_scenarios.STRATEGY_REGISTRY_VERSION)
-    assert sorted(n for n in port_scenarios.names()
-                  if port_scenarios.pending(port_scenarios.get(n))) == \
-        sorted(PENDING)
 
 
 @pytest.mark.parametrize("name", sorted(PENDING))
-def test_pending_registration_raises_before_any_training(name, monkeypatch):
-    def no_training(*args, **kwargs):
-        raise AssertionError("a simulation was built")
-
-    monkeypatch.setattr(port_scenarios, "FederatedSimulation", no_training)
-    monkeypatch.setattr(port_scenarios, "DATASETS", {})
-    for call in (port_scenarios.run_scenario, port_scenarios.run):
-        with pytest.raises(NotImplementedError) as info:
-            call(name, device="cpu")
-        for item in PENDING[name]:
-            assert item in str(info.value), (name, str(info.value))
+def test_pending_registration_raises_before_any_training(name):
+    """What these registrations waited for has been ported: each
+    resolves to a simulation of its engine
+    with the serving side-car when it serves; nothing raises and nothing
+    trains here (their runs are held to the reference in
+    test_torch_fused_docs.py and test_torch_serve.py)."""
+    spec = port_scenarios.get(name)
+    sim = port_scenarios.resolve(spec, device="cpu")
+    assert (sim.fl.engine, sim.fl.serve) == (spec.engine, spec.serve)
+    assert sim.strategy.supports_fused or spec.engine != "fused"
+    assert sim.vec is not None
 
 
 def _synthetic_doc(version):
@@ -198,23 +198,49 @@ def test_new_registration_runs_to_a_document(name):
     assert json.loads(json.dumps(doc)) == doc
 
 
-def test_trace_out_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="§A.14"):
-        port_scenarios.run_scenario("iid-hfl-vec", device="cpu",
-                                    trace_out="trace.json")
+def test_trace_out_raises_naming_its_item(tmp_path):
+    """`trace_out` (ROADMAP §A.14) no longer raises: it writes the run's
+    Chrome trace, which both packages' validators accept."""
+    from repro.obs import validate_chrome_trace as ref_validate
+    from repro_torch.obs import validate_chrome_trace
+    path = tmp_path / "trace.json"
+    doc = port_scenarios.run_scenario("iid-cfl-vec", device="cpu",
+                                      trace_out=str(path))
+    trace = json.loads(path.read_text())
+    assert validate_chrome_trace(trace) == [] == ref_validate(trace)
+    names = {e["name"] for e in trace["traceEvents"] if e["ph"] == "B"}
+    assert {"warmup", "round", "sequential_round", "classify"} <= names
+    assert doc["telemetry"]["enabled"]
 
 
 @pytest.mark.parametrize("argv,item", [
     (["--run", "iid-hfl-vec", "--trace-out", "t.json"], "§A.14"),
     (["--grid", "ci"], "§A.13")])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys, monkeypatch):
-    def no_run(*args, **kwargs):
-        raise AssertionError("a scenario ran")
+    """`--trace-out` and `--grid ci` waited for ROADMAP `item` and now
+    run: the CLI hands `run_scenario` the trace path and the whole CI
+    grid, in order, and refuses nothing."""
+    calls = []
 
-    monkeypatch.setattr(port_scenarios, "run_scenario", no_run)
-    with pytest.raises(SystemExit):
-        port_scenarios.main(argv + ["--device", "cpu"])
-    assert item in capsys.readouterr().err
+    def record(spec, device, trace_out=None):
+        calls.append((spec.name, device, trace_out))
+        doc = {"metrics": {"test_accuracy": 0.5, "f1": 0.5},
+               "timing": {"build_time_s": 1.0, "rounds_per_s": 1.0},
+               "faults": None, "communication": None}
+        return doc
+
+    monkeypatch.setattr(port_scenarios, "run_scenario", record)
+    port_scenarios.main(argv + ["--device", "cpu"])
+    captured = capsys.readouterr()
+    assert item not in captured.err
+    if "--grid" in argv:
+        assert [c[0] for c in calls] == list(port_scenarios.CI_SMOKE_GRID)
+        assert all(c[2] is None for c in calls)
+    else:
+        assert calls == [("iid-hfl-vec", "cpu", "t.json")]
+        assert "trace -> t.json" in captured.out
+    with pytest.raises(SystemExit):     # one trace names one run
+        port_scenarios.main(["--grid", "ci", "--trace-out", "t.json"])
 
 
 def test_cli_json_writes_one_document_per_run(tmp_path, monkeypatch,

@@ -118,11 +118,13 @@ def test_default_device_needs_a_card(ds):
 
 
 # configs the port admits since slice 2 (the adversarial axis and the
-# strategy plugins), slice 3 (fault injection) and slice 4 (upload codecs
-# and the async runtime) keep their cases here and must now construct
+# strategy plugins), slice 3 (fault injection), slice 4 (upload codecs
+# and the async runtime) and slice 10 (the fused executor and serving)
+# keep their cases here and must now construct
 _ADMITTED = {("attack", "sign_flip"), ("defense", "median"),
              ("strategy", "fedprox"), ("fault_profile", "churn"),
-             ("codec", "topk"), ("strategy", "async")}
+             ("codec", "topk"), ("strategy", "async"),
+             ("engine", "fused"), ("serve", True)}
 
 
 @pytest.mark.parametrize("field,value", [

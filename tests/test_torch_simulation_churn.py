@@ -192,7 +192,13 @@ def test_churn_registrations_equal_the_reference():
 
 
 def test_fused_churn_scenario_raises_naming_its_slice():
+    """The slice it waited for (§A.13, the fused executor) has come: the
+    fused churn registration builds its simulation
+    with the fault schedule the fused precompute turns into per-round
+    inputs (its run is held to the reference in
+    test_torch_fused_docs_axes.py)."""
     spec = port_scenarios.get("churn-afl-gossip-mtd")
     assert spec.engine == "fused"
-    with pytest.raises(NotImplementedError, match="§A.13"):
-        port_scenarios.run(spec, device="cpu")
+    sim = port_scenarios.resolve(spec, device="cpu")
+    assert sim.faults is not None and sim.fl.fault_mtd
+    assert sim.strategy.fault_scan_kwargs() == {"gossip": True}
