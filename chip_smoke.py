@@ -81,7 +81,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    tensor cores) and float32 (B5 in 3xTF32 on the tensor cores), and at
    edge shapes (a window, no mask, T != S, S = 128, d = 256 in both
    types; d = 80, d = 48, d = 192, d = 160 and S = 192 with 8 query heads
-   per key/value head in bfloat16; one chunk, S below the chunk), timed
+   per key/value head in bfloat16; one chunk, S below the chunk) and at
+   phase 12's phi-3-vision shape (32 heads of 96, S = 2048), timed
    beside the plain
    version and, for `flash_attention`, `scaled_dot_product_attention`
    (timed only), with the occupancy of each (B6: its three passes,
@@ -141,7 +142,32 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    median and range of 5 interleaved runs each, with the device idle
    share of one profiled run (printed, not gated).
 
-Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10 and 11(b)-(c) set every
+12. model zoo, rest (slice 11) — (a) the five configs slice 11 ports, at
+   their published widths with random weights from a seed, each freed
+   before the next: qwen3-moe-30b-a3b (4 of 48 layers; B = 1, S = 2048;
+   MoE with 128 experts, top 8), deepseek-v2-lite-16b (4 of 27; MLA and
+   MoE with 2 shared experts), xlstm-125m (all 12 layers, sLSTM at 3, 7,
+   11; B = 2, S = 2048), seamless-m4t-large-v2 (24 encoder + 24 decoder
+   layers; 1024 frames, S = 1024) and phi-3-vision-4.2b (8 of 32 layers;
+   576 patches + 1472 tokens). Each runs the plain (einsum) prefill in
+   float32 and the bfloat16 prefill (printed against it); qwen3-moe and
+   phi-3-vision also the float32 flash prefill, gated against einsum at
+   1e-3 of max |logits| with `flash_attention` launched once a layer;
+   64 teacher-forced decode steps gated at 5e-2 against a 64-token
+   prefill (MoE drop-free, capacity_factor = num_experts) for qwen3-moe,
+   deepseek and xlstm, timed for seamless (zero cross-attention K/V) and
+   phi-3-vision (no patch prefix), as in the reference; parameter count,
+   prefill ms and tokens/s, decode ms/step, peak memory and the device
+   busy / idle share of one bfloat16 prefill. (b) the five reduced on the
+   card against the CPU (MoE at its default capacity factor, so with
+   drops; xlstm with an sLSTM; seamless with its encoder; phi-3-vision
+   with its prefix): the flash prefill and 8 decode steps within 1e-4,
+   with a bitwise repeat. Phase 9(a) times B5 at phi-3-vision's shape
+   (32 heads of 96, S = 2048) in both types. Fails on a config that does
+   not build, non-finite logits, a gate missed or a launch count other
+   than one B5 a layer in the flash prefills and none elsewhere.
+
+Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c) and 12(a) set every
 kernel's launch count to 0 just before they start and read the counts
 just after; a replayed graph runs no wrapper, so 11(b) also reads the
 launches a profile counts on the device.
@@ -1591,6 +1617,10 @@ def _rel_err(out, want):
 # the widest head
 FLASH_MAIN = [("zamba2-1.2b", 2, 4096, 4096, 32, 32, 64, True, 0),
               ("yi-9b", 1, 2048, 2048, 32, 4, 128, True, 0)]
+# phase 12's new B5 shape, timed as the main ones: phi-3-vision's 32 heads
+# of 96 over 576 patches + 1472 tokens (qwen3-moe's layers have yi-9b's
+# shape)
+FLASH_ZOO = [("phi-3-vision-4.2b", 1, 2048, 2048, 32, 32, 96, True, 0)]
 FLASH_EDGE = [("window-256", 1, 2048, 2048, 8, 8, 64, True, 256),
               ("non-causal", 1, 1024, 1024, 8, 8, 64, False, 0),
               ("T!=S", 1, 1024, 2048, 8, 2, 128, True, 0),
@@ -1616,7 +1646,7 @@ def _flash_rows():
     import torch
 
     gen = torch.Generator().manual_seed(9)
-    cases = ([(c, dt, True) for c in FLASH_MAIN
+    cases = ([(c, dt, True) for c in FLASH_MAIN + FLASH_ZOO
               for dt in (torch.bfloat16, torch.float32)]
              + [(c, dt, False) for c in FLASH_EDGE
                 for dt in (torch.float32, torch.bfloat16)]
@@ -1624,8 +1654,9 @@ def _flash_rows():
     rows = []
     for case, dtype, main in cases:
         row = flash_row(case, dtype, main, gen)
-        first = ({"first_port_graph_ms": FIRST_PORT_FLASH_GRAPH_MS[
-            (row["case"], row["dtype"])]} if main else {})
+        key = (row["case"], row["dtype"])
+        first = ({"first_port_graph_ms": FIRST_PORT_FLASH_GRAPH_MS[key]}
+                 if key in FIRST_PORT_FLASH_GRAPH_MS else {})
         print("  flash_attention", json.dumps({**row, **first}),
               flush=True)
         rows.append(row)
@@ -1994,8 +2025,9 @@ def _profile(fn, top=8):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: host op events are not read, and recording
+    # them costs minutes on a prefill of ~150 k launches (xlstm's sLSTM)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2243,6 +2275,260 @@ def yi_phase(device="cuda", seed=0, B=1, S=2048, layers=4):
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+MOE, MLA, XLSTM = "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "xlstm-125m"
+SEAMLESS, VISION = "seamless-m4t-large-v2", "phi-3-vision-4.2b"
+DECODE_TOL = 5e-2          # the reference's decode-vs-prefill bar
+DECODE_STEPS = 64
+
+# arch -> (depth cuts {field: (published, run)}, B, token positions, flash
+# prefill gated against einsum, decode gated against the prefill). The
+# widths are the published ones; the cuts keep float32 weights within the
+# card (qwen3-moe whole is ~30.5 B parameters, 122 GB in float32).
+ZOO_REST = {
+    MOE: ({"num_layers": (48, 4)}, 1, 2048, True, True),
+    MLA: ({"num_layers": (27, 4)}, 1, 2048, False, True),
+    XLSTM: ({}, 2, 2048, False, True),
+    SEAMLESS: ({}, 1, 1024, False, False),
+    VISION: ({"num_layers": (32, 8)}, 1, 2048 - 576, True, False),
+}
+
+
+def _reduced_rest(arch):
+    """12(b)'s reduced config: float32, xlstm with an sLSTM, the MoE
+    configs at their default capacity factor (the prefill drops)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch).reduced(dtype="float32", attn_impl="flash")
+    if arch == XLSTM:
+        cfg = cfg.with_updates(block_pattern=("mlstm", "slstm"))
+    return cfg
+
+
+def zoo_rest_parity_phase(device="cuda", reference="cpu"):
+    """12(b): the five configs of slice 11 reduced, on the card against the
+    CPU from one init: the flash prefill over 128 positions (phi-3-vision:
+    8 patches + 120 tokens; seamless: 16 encoder frames) and 8 decode
+    steps, each within 1e-4, and a second card run bitwise equal to the
+    first."""
+    import torch
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.model import build_model, synthetic_train_batch
+    from repro_torch.tree import tree_map
+
+    deterministic_f32()
+    out = {}
+    for arch in ZOO_REST:
+        cfg = _reduced_rest(arch)
+        model = build_model(cfg)
+        ref_params = model.init(generator(0), device=reference)
+        params = tree_map(lambda a: a.to(device), ref_params)
+        batch = synthetic_train_batch(generator(1), cfg, 2,
+                                      128 - cfg.num_patches,
+                                      device=reference)
+        batch.pop("labels")
+
+        def run(dev, p):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            before = _counts()
+            res = {"prefill": make_prefill_step(model)(p, b),
+                   "decode": _decode(model, p, b["tokens"], 8, dev)}
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            return res, _delta(before)
+
+        ref, ref_delta = run(reference, ref_params)
+        first, delta = run(device, params)
+        second, _ = run(device, params)
+        n_flash = 0 if arch in (MLA, XLSTM) else cfg.num_layers
+        if device == "cuda":
+            _expect(f"12(b) {arch} card run", delta,
+                    {"flash_attention": n_flash, "ssm_scan": 0})
+        _expect(f"12(b) {arch} CPU run", ref_delta,
+                {"flash_attention": 0, "ssm_scan": 0})
+        row = {}
+        for key in ref:
+            err = float((first[key].cpu() - ref[key]).abs().max())
+            bitwise = bool(torch.equal(first[key], second[key]))
+            row[key] = {"max_abs_err": err, "bitwise_repeat": bitwise}
+            if not (err <= 1e-4 and bitwise
+                    and bool(torch.isfinite(first[key]).all())):
+                raise SystemExit(f"12(b) {arch} {key}: card vs CPU {err} > "
+                                 f"1e-4, the repeat differs or non-finite")
+        print(f"  {arch}: card vs CPU prefill {row['prefill']['max_abs_err']:.3e}"
+              f", decode {row['decode']['max_abs_err']:.3e}; repeats bitwise",
+              flush=True)
+        out[arch] = row
+    return out
+
+
+def zoo_rest_phase(arch, device="cuda", seed=0):
+    """12(a), one config: at its published widths (depth cut as ZOO_REST
+    lists), random weights from a seed, float32 for the gates and
+    bfloat16 (published) timed; the plain (einsum) prefill, the flash
+    prefill where B5 runs (gated against einsum), 64 teacher-forced decode
+    steps gated against a 64-token prefill (MoE drop-free at
+    capacity_factor = num_experts) or timed, the peak memory and the
+    device busy / idle share of one bf16 prefill."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.model import build_model, synthetic_train_batch
+
+    deterministic_f32()
+    cuts, B, S_tok, flash, gate_decode = ZOO_REST[arch]
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    impl = "flash" if flash else "einsum"
+    cfg = get_config(arch).with_updates(
+        dtype="float32", attn_impl=impl,
+        **{k: run for k, (_, run) in cuts.items()})
+    n_flash = cfg.num_layers if flash else 0
+    start, t0 = _counts(), time.perf_counter()
+    model = build_model(cfg)
+    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    batch = synthetic_train_batch(generator(seed + 1), cfg, B, S_tok,
+                                  device=device)
+    batch.pop("labels")
+    S = S_tok + cfg.num_patches
+    out = {"config": f"{arch} at its published widths, dtype float32 "
+                     f"(gates) and bfloat16 (published), attn_impl {impl}",
+           "reduced": {k: list(v) for k, v in cuts.items()},
+           "params": model.param_count(params), "init_ms": init_ms,
+           "B": B, "S": S}
+    print(f"  {arch}: {out['params']} parameters (cuts {out['reduced']}), "
+          f"init {init_ms:.0f} ms on the host, B = {B}, S = {S}", flush=True)
+    cfg16 = cfg.with_updates(dtype="bfloat16")
+    prefills = {             # name -> (the call, its flash launches)
+        "plain_prefill": (lambda: make_prefill_step(build_model(
+            cfg.with_updates(attn_impl="einsum")))(params, batch), 0),
+        "prefill_bf16": (lambda: make_prefill_step(build_model(cfg16))(
+            params, batch), n_flash)}
+    if flash:
+        prefills["flash_prefill"] = (
+            lambda: make_prefill_step(model)(params, batch), n_flash)
+
+    def prefill(name):
+        fn, want_flash = prefills[name]
+        before = _counts()
+        logits, ms = _timed(fn)
+        _expect(f"12(a) {arch} {name}", _delta(before),
+                {"flash_attention": want_flash, "ssm_scan": 0})
+        if not (bool(torch.isfinite(logits).all())
+                and logits.shape == (B, S, cfg.vocab_size)):
+            raise SystemExit(f"12(a) {arch} {name}: non-finite or "
+                             f"misshapen logits")
+        out[f"{name}_first_ms"] = ms
+        return logits
+
+    want = prefill("plain_prefill")
+    if flash:
+        err, scale = _rel_err(prefill("flash_prefill"), want)
+        out["f32 flash prefill vs plain"] = {"max_abs_err": err,
+                                             "max_abs": scale}
+        print(f"  f32 flash prefill vs plain: max|d| {err:.3e} of "
+              f"max|logits| {scale:.3f}", flush=True)
+        if not err <= F32_PREFILL_TOL * scale:
+            raise SystemExit(f"12(a) {arch} f32 flash prefill: {err} > "
+                             f"{F32_PREFILL_TOL} x {scale}")
+    got16 = prefill("prefill_bf16")
+    err, scale = _rel_err(got16, want)
+    agree = float((got16.argmax(-1) == want.argmax(-1)).float().mean())
+    out["bf16 prefill vs plain f32"] = {"max_abs_err": err, "max_abs": scale,
+                                        "argmax_agree": agree}
+    print(f"  bf16 prefill vs plain f32: max|d| {err:.3e} of {scale:.3f}, "
+          f"argmax agree {agree:.4f} (printed)", flush=True)
+    del want, got16
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # decode, in float32; the MoE configs drop-free, where decode and the
+    # parallel pass agree
+    dcfg = cfg.with_updates(attn_impl="einsum")
+    if cfg.moe:
+        dcfg = dcfg.with_updates(capacity_factor=float(cfg.num_experts))
+    dmodel = build_model(dcfg)
+    toks = batch["tokens"][:, :DECODE_STEPS]
+    dec, ms = _timed(lambda: _decode(dmodel, params, toks, DECODE_STEPS,
+                                     device))
+    out["decode_first_ms_per_step"] = ms / DECODE_STEPS
+    if not bool(torch.isfinite(dec).all()):
+        raise SystemExit(f"12(a) {arch}: non-finite decode logits")
+    if gate_decode:
+        head = make_prefill_step(dmodel)(params, {"tokens": toks})
+        err = float((dec - head).abs().max())
+        out["decode_vs_prefill_max_abs_err"] = err
+        print(f"  teacher-forced decode_step x {DECODE_STEPS} vs the "
+              f"{DECODE_STEPS}-token prefill: {err:.3e} (bar {DECODE_TOL})",
+              flush=True)
+        if not err <= DECODE_TOL:
+            raise SystemExit(f"12(a) {arch} decode vs prefill {err} > "
+                             f"{DECODE_TOL}")
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                if on_card else None)
+    # steady times: the host clock around the synchronized call, median
+    # of 3 for the published dtype, one more run of each other prefill
+    for name, (fn, _) in prefills.items():
+        runs = [_timed(fn)[1] for _ in range(3 if name == "prefill_bf16"
+                                             else 1)]
+        out[f"{name}_ms_runs"] = runs
+        out[f"{name}_ms"] = statistics.median(runs)
+        out[f"{name}_tokens_per_s"] = B * S / (out[f"{name}_ms"] / 1e3)
+        print(f"  {name}: {out[f'{name}_ms']:.1f} ms (runs "
+              f"{', '.join(f'{r:.1f}' for r in runs)}; first "
+              f"{out[f'{name}_first_ms']:.1f}), "
+              f"{out[f'{name}_tokens_per_s']:.0f} tokens/s", flush=True)
+    steps = _timed(lambda: _decode(dmodel, params, toks, 16, device))[1] / 16
+    out["decode_ms_per_step"] = steps
+    print(f"  decode_step at B = {B}: {steps:.2f} ms/step (16 steps; first "
+          f"{DECODE_STEPS}: {out['decode_first_ms_per_step']:.2f}); peak "
+          f"memory {(out['peak_memory_bytes'] or 0) / 2**30:.2f} GiB",
+          flush=True)
+    if on_card:                          # where the time goes
+        prof = _profile(prefills["prefill_bf16"][0])
+        out["profile prefill_bf16"] = prof
+        if prof is None:
+            print("  profile prefill_bf16: no device time recorded (not "
+                  "measured)", flush=True)
+        else:
+            print(f"  profile prefill_bf16: wall {prof['wall_ms']:.1f} ms, "
+                  f"device busy {prof['device_busy_ms']:.1f} ms, idle share "
+                  f"<= {prof['idle_share']:.3f}", flush=True)
+            for kname, kms, n, share in prof["kernels"]:
+                print(f"    {kms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
+                      flush=True)
+        out["card"] = _card_line()
+    out["launches"] = _delta(start)      # every prefill and decode above
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  {arch}: launches {out['launches']}, {out['seconds']:.1f}s in "
+          f"all", flush=True)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_rest_main_phase(device="cuda"):
+    """12(a): the five configs in turn, each model freed before the next;
+    the kernels' counts start at 0 here and are read at the end."""
+    _reset_launches()                    # the main path's count starts here
+    t0 = time.perf_counter()
+    runs = {arch: zoo_rest_phase(arch, device) for arch in ZOO_REST}
+    launches = _counts()                 # the main path's count ends here
+    # each prefill's launches were gated above (B5 once a layer in the
+    # flash prefills of qwen3-moe and phi-3-vision, never elsewhere)
+    if launches["flash_attention"] == 0 or launches["ssm_scan"] != 0:
+        raise SystemExit(f"12(a): launches {launches}")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 12(a) launches {launches}, {seconds:.1f}s (host init "
+          f"{sum(r['init_ms'] for r in runs.values()) / 1e3:.1f}s of it)",
+          flush=True)
+    return {"runs": runs, "launches": launches, "seconds": seconds}
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -2760,6 +3046,12 @@ def main():
     rates = fused_rate_phase("cuda")
     fused_s = time.perf_counter() - t_fused
     print(f"  phase 11 took {fused_s:.1f}s", flush=True)
+    _phase("model zoo, rest (slice 11)")
+    print("  -- (a) qwen3-moe, deepseek-v2-lite, xlstm, seamless, "
+          "phi-3-vision at their published widths", flush=True)
+    zoo_rest = zoo_rest_main_phase("cuda")
+    print("  -- (b) card against CPU: the five reduced", flush=True)
+    parity["zoo_rest"] = zoo_rest_parity_phase("cuda", "cpu")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -2825,6 +3117,7 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:104",
         "launches": zamba["launches"]["flash_attention"],
         "launches_yi": yi["launches"]["flash_attention"],
+        "launches_zoo_rest": zoo_rest["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in frows),
         "ms": frep["ms"], "plain_ms": frep["plain_ms"],
         "bound_ms": frep["bound_ms"], "bound_by": frep["bound_by"],
@@ -2851,7 +3144,8 @@ def main():
         "ms": srep["ms"], "plain_ms": srep["plain_ms"],
         "bound_ms": srep["bound_ms"], "bound_by": srep["bound_by"],
         "library_ms": None, "shape": [2, 4096, 64, 64, 64],
-        "dtype": "bfloat16", "shapes": [r for r in srows if "ms" in r]}
+        "dtype": "bfloat16", "shapes": [r for r in srows if "ms" in r],
+        "launches_zoo_rest": zoo_rest["launches"]["ssm_scan"]}
     for e in (entry, tentry):
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]
@@ -2864,7 +3158,8 @@ def main():
            "adversarial": adversarial, "churn": churn,
            "transport_kernels": transport_kernels, "transport": transport,
            "zoo_occupancy": zoo_kernels["occupancy"],
-           "zoo": {"zamba2": zamba, "yi": yi}, "documents": documents,
+           "zoo": {"zamba2": zamba, "yi": yi}, "zoo_rest": zoo_rest,
+           "documents": documents,
            "fused": {"parity": fused_parity, "documents": fused_docs,
                      "serving": serving, "launches": fused_launches,
                      "wrapper_calls": fused_calls,

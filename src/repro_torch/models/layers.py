@@ -22,13 +22,13 @@ import torch.nn.functional as F
 # -- initializers --------------------------------------------------------------
 
 def normal_init(generator, shape, stddev=0.02, dtype=torch.float32):
-    return (stddev * torch.randn(shape, generator=generator)).to(dtype)
+    return torch.randn(shape, generator=generator).mul_(stddev).to(dtype)
 
 
 def lecun_init(generator, shape, fan_in=None, dtype=torch.float32):
     fan_in = fan_in if fan_in is not None else shape[0]
-    return (torch.randn(shape, generator=generator)
-            / math.sqrt(max(1, fan_in))).to(dtype)
+    return torch.randn(shape, generator=generator).div_(
+        math.sqrt(max(1, fan_in))).to(dtype)
 
 
 # -- norms -----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Public model API: build, init, prefill, loss and decode entry points
-(port of `repro.models.model` for the layer kinds the port builds; the
-dry-run input specs wait for ROADMAP A.18).
+for every config of the zoo (port of `repro.models.model`; the dry-run
+input specs wait for ROADMAP A.18).
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ class Model:
     """Thin functional wrapper around the unified transformer."""
 
     def __init__(self, cfg):
-        transformer.check_supported(cfg)
         self.cfg = cfg
 
     def init(self, generator, device="cuda"):
@@ -55,10 +54,21 @@ def synthetic_train_batch(generator, cfg, batch, seq_len,
                           device="cuda") -> Dict[str, Any]:
     """A random token batch drawn from `generator` (a CPU
     torch.Generator) on `device`; labels are the tokens shifted left, -1
-    at the end."""
+    at the end. The vision frontend adds "vision_embeds" (batch,
+    num_patches, d_model) and the encoder "audio_frames" (batch,
+    num_frames, d_model), bfloat16 standard normals."""
     dev = resolve_device(device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len),
                            generator=generator, dtype=torch.int64)
     labels = torch.cat([tokens[:, 1:],
                         torch.full((batch, 1), -1, dtype=torch.int64)], 1)
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    b = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    if cfg.modality == "vision":
+        b["vision_embeds"] = torch.randn(
+            (batch, cfg.num_patches, cfg.d_model),
+            generator=generator).to(dev, torch.bfloat16)
+    if cfg.encoder_layers:
+        b["audio_frames"] = torch.randn(
+            (batch, cfg.num_frames, cfg.d_model),
+            generator=generator).to(dev, torch.bfloat16)
+    return b

@@ -1,20 +1,21 @@
-"""The unified transformer stack for the `attn` and `mamba` layer kinds
-(port of `repro.models.transformer`).
+"""The unified transformer stack covering every architecture family of the
+model zoo (port of `repro.models.transformer`).
 
 Layer kinds (per position, from `cfg.layer_kinds()`):
-  attn   — GQA attention + dense FFN (swiglu, or gelu under layernorm)
+  attn   — GQA or MLA attention + (dense | MoE) FFN
   mamba  — Mamba2 SSD block (zamba2)
+  mlstm / slstm — xLSTM blocks (xlstm-125m)
 plus zamba2's *shared* attention block (one parameter set run before
-every `shared_attn_every`-th mamba layer) and gemma3's local/global
-attention pattern.
+every `shared_attn_every`-th mamba layer), gemma3's local/global
+attention pattern, seamless' encoder-decoder with cross-attention and
+phi-3-vision's patch-embedding prefix.
 
 Homogeneous stacks keep their parameters stacked with a leading layer
 axis under "layers", as the reference does for `lax.scan`; here a Python
 loop walks the layers, and a Python `if` takes the place of the
 reference's `lax.cond` for the shared block. Other stacks are the
-"blocks" list. MoE and MLA attention, the xLSTM kinds, the
-encoder-decoder and the vision frontend are not ported yet (ROADMAP
-A.17): building such a model raises NotImplementedError.
+"blocks" list; seamless keeps its decoder under "layers" with
+"blocks": None, as the reference does.
 """
 from __future__ import annotations
 
@@ -23,43 +24,29 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, mla, moe, ssm, xlstm
 from repro_torch.models.layers import (apply_norm, dense, embed, init_dense,
                                        init_embedding, init_norm, unembed)
 from repro_torch.tree import tree_map
 
-PORTED_KINDS = ("attn", "mamba")
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for what this port does not build yet."""
-    missing = []
-    if cfg.moe:
-        missing.append("MoE FFN")
-    if cfg.attention_kind != "gqa":
-        missing.append(f"{cfg.attention_kind} attention")
-    kinds = sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS))
-    if kinds:
-        missing.append(f"layer kinds {kinds}")
-    if cfg.encoder_layers:
-        missing.append("the encoder-decoder")
-    if cfg.modality != "text":
-        missing.append(f"the {cfg.modality} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            f"(ROADMAP A.17)")
-
 
 # -- per-layer init ----------------------------------------------------------------
 
-def _init_attn_layer(generator, cfg, dtype=torch.float32):
+def _init_attn_layer(generator, cfg, cross=False, dtype=torch.float32):
     p = {
         "attn_norm": init_norm(cfg.norm_type, cfg.d_model, dtype),
         "mlp_norm": init_norm(cfg.norm_type, cfg.d_model, dtype),
-        "attn": attn_mod.init_attention(generator, cfg, dtype),
     }
-    if cfg.d_ff > 0:
+    if cfg.attention_kind == "mla":
+        p["attn"] = mla.init_mla(generator, cfg, dtype)
+    else:
+        p["attn"] = attn_mod.init_attention(generator, cfg, dtype)
+    if cross:
+        p["cross_norm"] = init_norm(cfg.norm_type, cfg.d_model, dtype)
+        p["cross_attn"] = attn_mod.init_attention(generator, cfg, dtype)
+    if cfg.moe:
+        p["mlp"] = moe.init_moe(generator, cfg, dtype)
+    elif cfg.d_ff > 0:
         if cfg.norm_type == "layernorm":   # seamless-style gelu FFN
             p["mlp"] = layers.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff,
                                             dtype)
@@ -72,10 +59,20 @@ def _init_attn_layer(generator, cfg, dtype=torch.float32):
 def _init_layer_of_kind(generator, cfg, kind, dtype=torch.float32):
     if kind == "attn":
         return _init_attn_layer(generator, cfg, dtype=dtype)
+    norm = init_norm(cfg.norm_type, cfg.d_model, dtype)
     if kind == "mamba":
-        return {"norm": init_norm(cfg.norm_type, cfg.d_model, dtype),
-                "mamba": ssm.init_mamba2(generator, cfg, dtype)}
+        return {"norm": norm, "mamba": ssm.init_mamba2(generator, cfg, dtype)}
+    if kind == "mlstm":
+        return {"norm": norm, "mlstm": xlstm.init_mlstm(generator, cfg, dtype)}
+    if kind == "slstm":
+        return {"norm": norm, "slstm": xlstm.init_slstm(generator, cfg, dtype)}
     raise ValueError(kind)
+
+
+def _stack_init(init_one, n):
+    """n layers' parameters stacked on a leading layer axis."""
+    return tree_map(lambda *ls: torch.stack(ls), *[init_one()
+                                                   for _ in range(n)])
 
 
 def is_homogeneous(cfg) -> bool:
@@ -87,24 +84,42 @@ def init_transformer(generator, cfg) -> Dict[str, Any]:
     """Random parameters drawn from `generator` (a CPU torch.Generator),
     with the reference's keys, layouts and distributions (not its
     draws)."""
-    check_supported(cfg)
     dtype = cfg.parameter_dtype
     p: Dict[str, Any] = {"embed": init_embedding(generator, cfg.vocab_size,
                                                  cfg.d_model, dtype)}
     kinds = cfg.layer_kinds()
-    if is_homogeneous(cfg) and cfg.scan_layers:
-        per_layer = [_init_layer_of_kind(generator, cfg, kinds[0], dtype)
-                     for _ in range(cfg.num_layers)]
-        p["layers"] = tree_map(lambda *ls: torch.stack(ls), *per_layer)
+    if cfg.encoder_layers:          # encoder-decoder (seamless)
+        enc_cfg = cfg.with_updates(moe=False)
+        p["encoder"] = {
+            "input_proj": init_dense(generator, cfg.d_model, cfg.d_model,
+                                     use_bias=True, dtype=dtype),
+            "layers": _stack_init(
+                lambda: _init_attn_layer(generator, enc_cfg, dtype=dtype),
+                cfg.encoder_layers),
+            "final_norm": init_norm(cfg.norm_type, cfg.d_model, dtype),
+        }
+        # decoder layers get cross-attention
+        p["blocks"] = None
+        p["layers"] = _stack_init(
+            lambda: _init_attn_layer(generator, cfg, cross=True, dtype=dtype),
+            cfg.num_layers)
+    elif is_homogeneous(cfg) and cfg.scan_layers:
+        p["layers"] = _stack_init(
+            lambda: _init_layer_of_kind(generator, cfg, kinds[0], dtype),
+            cfg.num_layers)
     else:
         p["blocks"] = [_init_layer_of_kind(generator, cfg, kind, dtype)
                        for kind in kinds]
     if cfg.shared_attn_every:       # zamba2's shared block
-        p["shared_attn"] = _init_attn_layer(generator, cfg, dtype=dtype)
+        p["shared_attn"] = _init_attn_layer(
+            generator, cfg.with_updates(moe=False), dtype=dtype)
     p["final_norm"] = init_norm(cfg.norm_type, cfg.d_model, dtype)
     if not cfg.tie_embeddings:
         p["unembed"] = init_dense(generator, cfg.d_model, cfg.vocab_size,
                                   dtype=dtype)
+    if cfg.modality == "vision":
+        p["vision_proj"] = init_dense(generator, cfg.d_model, cfg.d_model,
+                                      dtype=dtype)
     return p
 
 
@@ -118,27 +133,54 @@ def _layer_window(cfg, layer_idx):
     return cfg.sliding_window
 
 
-def _apply_attn_layer(lp, cfg, x, *, positions, mask, window=0):
+def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
+                      window=0):
+    """One attention layer -> (x, MoE aux loss or 0)."""
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(lp["attn"], cfg, h, positions=positions,
+    if cfg.attention_kind == "mla":
+        a = mla.mla_attention(lp["attn"], cfg, h, positions=positions,
+                              mask=mask)
+    else:
+        a = attn_mod.attention(lp["attn"], cfg, h, positions=positions,
                                mask=mask, window=window)
+    x = x + a
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if enc_out is not None:
+        h = apply_norm(cfg.norm_type, lp["cross_norm"], x, cfg.norm_eps)
+        Hk, dh = cfg.num_kv_heads, cfg.head_dim
+        k = dense(lp["cross_attn"]["wk"], enc_out)
+        v = dense(lp["cross_attn"]["wv"], enc_out)
+        k = k.reshape(*k.shape[:-1], Hk, dh)
+        v = v.reshape(*v.shape[:-1], Hk, dh)
+        x = x + attn_mod.attention(lp["cross_attn"], cfg, h,
+                                   positions=positions, mask=None,
+                                   causal=False, kv_override=(k, v))
     if "mlp" in lp:
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
-        if cfg.norm_type == "layernorm":
+        if cfg.moe:
+            y, aux = moe.moe_ffn(lp["mlp"], cfg, h)
+        elif cfg.norm_type == "layernorm":
             y = layers.gelu_mlp(lp["mlp"], h)
         else:
             y = layers.swiglu_mlp(lp["mlp"], h)
         x = x + y
-    return x
+    return x, aux
 
 
-def _apply_kind(lp, cfg, kind, x, *, positions, mask, window=0):
+def _apply_kind(lp, cfg, kind, x, *, positions, mask, enc_out=None,
+                window=0):
     if kind == "attn":
         return _apply_attn_layer(lp, cfg, x, positions=positions, mask=mask,
-                                 window=window)
+                                 enc_out=enc_out, window=window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
     if kind == "mamba":
-        return x + ssm.mamba2_forward(lp["mamba"], cfg, h)
+        return x + ssm.mamba2_forward(lp["mamba"], cfg, h), aux
+    if kind == "mlstm":
+        return x + xlstm.mlstm_block(lp["mlstm"], cfg, h), aux
+    if kind == "slstm":
+        y, _ = xlstm.slstm_forward(lp["slstm"], cfg, h)
+        return x + y, aux
     raise ValueError(kind)
 
 
@@ -156,21 +198,47 @@ def uses_shared(cfg, i):
                 and i % cfg.shared_attn_every == 0)
 
 
+def _encode(params, cfg, frames):
+    """seamless' encoder over (B, F, d) frame embeddings: the reference's
+    scanned stack with a bidirectional zero mask (which only the einsum
+    path reads: flash and chunked attention run it causally, as in the
+    reference)."""
+    enc_cfg = cfg.with_updates(moe=False)
+    e = dense(params["input_proj"], frames)
+    B, F = e.shape[:2]
+    epos = torch.arange(F, dtype=torch.int32, device=e.device)[None].expand(
+        B, F)
+    emask = torch.zeros((F, F), dtype=torch.float32, device=e.device)
+    for i in range(cfg.encoder_layers):
+        e, _ = _apply_attn_layer(layer_params(params, i), enc_cfg, e,
+                                 positions=epos, mask=emask)
+    return apply_norm(cfg.norm_type, params["final_norm"], e, cfg.norm_eps)
+
+
 def forward(params, cfg, batch):
-    """batch: {"tokens": (B,S) integer}. Returns (logits (B, S, V) float32,
-    aux_loss scalar). Mamba layers run the reference's prefill
-    (`ssd_chunked`); the scan kernel is reached, as in the reference,
-    through `ssm.mamba2_forward(..., use_kernel=True)`."""
-    check_supported(cfg)
+    """batch: {"tokens": (B,S) integer, ["vision_embeds" (B, P, d) |
+    "audio_frames" (B, F, d)]}. Returns (logits (B, S_total, V) float32,
+    aux_loss scalar), S_total = P + S under the vision frontend. Mamba
+    layers run the reference's prefill (`ssd_chunked`); the scan kernel is
+    reached, as in the reference, through
+    `ssm.mamba2_forward(..., use_kernel=True)`."""
     adt = cfg.activation_dtype
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, adt)
+    x = embed(params["embed"], batch["tokens"], adt)
+    if cfg.modality == "vision":
+        vis = dense(params["vision_proj"], batch["vision_embeds"].to(adt))
+        x = torch.cat([vis, x], dim=1)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
 
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = _encode(params["encoder"], cfg,
+                          batch["audio_frames"].to(adt))
+
     kinds = cfg.layer_kinds()
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.attn_impl == "chunked":
         # online-softmax path: no (S,S) mask tensors; windows are scalars
         masks = {"default": None, "global": None, "local": None}
@@ -186,7 +254,7 @@ def forward(params, cfg, batch):
     if params.get("layers") is not None:
         # the reference's scanned stack: the window rides on the mask, and
         # the window argument is 0 whenever a mask is given
-        kind = kinds[0]
+        kind = kinds[0] if is_homogeneous(cfg) else "attn"
         for i in range(cfg.num_layers):
             lp = layer_params(params, i)
             if cfg.sliding_window and cfg.global_every:
@@ -201,22 +269,24 @@ def forward(params, cfg, batch):
                 mask = masks["default"]
                 window = 0 if mask is not None else cfg.sliding_window
             if uses_shared(cfg, i):
-                x = _apply_attn_layer(params["shared_attn"], cfg, x,
-                                      positions=positions,
-                                      mask=masks["default"])
-            x = _apply_kind(lp, cfg, kind, x, positions=positions, mask=mask,
-                            window=window)
+                x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
+                                         positions=positions,
+                                         mask=masks["default"])
+            x, aux = _apply_kind(lp, cfg, kind, x, positions=positions,
+                                 mask=mask, enc_out=enc_out, window=window)
+            aux_total = aux_total + aux
     else:
         for i, (lp, kind) in enumerate(zip(params["blocks"], kinds)):
             if uses_shared(cfg, i):
-                x = _apply_attn_layer(params["shared_attn"], cfg, x,
-                                      positions=positions,
-                                      mask=masks["default"])
+                x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
+                                         positions=positions,
+                                         mask=masks["default"])
             w = _layer_window(cfg, i)
             mask = (masks["local"] if (w and masks.get("local") is not None)
                     else masks["default"])
-            x = _apply_kind(lp, cfg, kind, x, positions=positions, mask=mask,
-                            window=w)
+            x, aux = _apply_kind(lp, cfg, kind, x, positions=positions,
+                                 mask=mask, enc_out=enc_out, window=w)
+            aux_total = aux_total + aux
 
     x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -225,14 +295,15 @@ def forward(params, cfg, batch):
         logits = dense(params["unembed"], x).float()
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux_total
 
 
 def loss_fn(params, cfg, batch):
-    """Causal LM loss. labels: (B, S) with -1 = ignore. Returns
-    (loss, {"nll", "aux"})."""
+    """Causal LM loss plus `aux_loss_weight` x the MoE aux loss. labels:
+    (B, S) with -1 = ignore. Returns (loss, {"nll", "aux"})."""
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"]
+    # logits for token positions only (the vision prefix predicts nothing)
     logits = logits[:, -labels.shape[1]:, :]
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
