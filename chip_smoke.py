@@ -167,9 +167,34 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    not build, non-finite logits, a gate missed or a launch count other
    than one B5 a layer in the flash prefills and none elsewhere.
 
-Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c) and 12(a) set every
-kernel's launch count to 0 just before they start and read the counts
-just after; a replayed graph runs no wrapper, so 11(b) also reads the
+13. training (slice 12) — (a) zamba2-1.2b at full width, depth cut
+   38 -> 7 (printed) so the shared block runs once at its published
+   cadence, float32, B = 2, S = 256: one `make_train_step` with SGD
+   (lr 1e-2) and one with AdamW on the card against the CPU from one init
+   (loss and grad-norm within 1e-5 relative; SGD's parameters within
+   1e-6, AdamW's printed), the SGD step repeated bitwise on the card,
+   and on the card grad_accum = 2 against 1 and remat off against on at
+   the same tolerances; (b) zamba2-1.2b whole (1,104,777,344 parameters,
+   bfloat16 activations, float32 parameters, remat) on MarkovLM batches
+   of 4 x 2048 with grad_accum = 2 and AdamW (3e-4, weight decay 0.01,
+   clip 1.0): a warm-up and 4 timed steps on fresh batches, then 6 on one
+   repeated batch; ms per step (median and range), tokens/s, MFU (6 N D
+   over the step and the bf16 peak, `launch/roofline.py`), peak memory
+   and the device busy / idle share of the first repeated step, profiled; (c) the
+   federated trainer: phi3-mini reduced (float32; 4 clients in 2 groups,
+   K = 2) one round of HFL, AFL, AFL gossip and CFL on the card against
+   the CPU (1e-4) with a bitwise repeat, then xlstm-125m whole with 4
+   clients, K = 2 steps of 2 x 256 tokens, 2 rounds of HFL, AFL (client 0
+   alone in the second) and CFL, with seconds per round and peak memory. Fails
+   on a gate missed, a non-finite loss, grad-norm or parameter, the
+   repeated batch's loss not falling, clients apart after an HFL or AFL
+   round (or together after CFL's), or any kernel launched: training
+   runs the plain paths, as in the reference (B5 and B6 raise under
+   autograd).
+
+Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c), 12(a) and 13 set
+every kernel's launch count to 0 just before they start and read the
+counts just after; a replayed graph runs no wrapper, so 11(b) also reads the
 launches a profile counts on the device.
 
 The last lines are the card's nvidia-smi line, one JSON object
@@ -2531,6 +2556,387 @@ def zoo_rest_main_phase(device="cuda"):
     return {"runs": runs, "launches": launches, "seconds": seconds}
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+TRAIN_REL = 1e-5          # loss and grad-norm, card vs CPU, relative
+TRAIN_PARAM_ATOL = 1e-6   # params after one SGD step (lr 1e-2, clipped to
+                          # norm 1), card vs CPU: lr x a gradient off by
+                          # ~1e-6 of its norm moves a parameter ~1e-8
+TRAIN_CUT = {"num_layers": (38, 7)}   # the shared block runs once, layer 6
+
+
+def _kernel_counts():
+    from repro_torch.kernels import comm_agg as ca
+    from repro_torch.kernels import fedavg_agg as fa
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import ssm_scan as ss
+    return {"fedavg_agg": fa.launches, "trimmed_mean_agg": ra.launches,
+            "gossip_mix_agg": gm.launches, "dequant_agg": ca.launches,
+            "flash_attention": fl.launches, "ssm_scan": ss.launches}
+
+
+def _train_cut_cfg(**kw):
+    from repro_torch.configs.registry import get_config
+    layers = TRAIN_CUT["num_layers"][1]
+    return get_config(ZAMBA).with_updates(
+        dtype="float32", num_layers=layers,
+        block_pattern=("mamba",) * layers, **kw)
+
+
+def _step_once(cfg, params, batch, opt, device):
+    """One make_train_step from `params` (moved to `device`) -> (params,
+    metrics as floats); the step's inputs are left as they were."""
+    import torch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda a: a.to(device), params)
+    b = {k: v.to(device) for k, v in batch.items()}
+    p, _, m = make_train_step(build_model(cfg), opt)(p, opt.init(p), b)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return p, {k: float(v) for k, v in m.items()}
+
+
+def _leaves_err(a, b):
+    from repro_torch.tree import tree_leaves
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _leaves_equal(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
+    """13(a): zamba2-1.2b at full width, depth cut 38 -> 7 (the shared
+    block runs once, before layer 6, at its published cadence), float32,
+    B = 2, S = 256: one SGD step (lr 1e-2) and one AdamW step on the card
+    against the CPU from one init; the SGD step repeated bitwise on the
+    card; then on the card grad_accum = 2 against 1 over the same global
+    batch, and remat on against off."""
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.models.model import build_model, synthetic_train_batch
+    from repro_torch.optim import optimizers
+
+    deterministic_f32()
+    cfg = _train_cut_cfg()
+    print(f"  zamba2-1.2b cut {TRAIN_CUT}: {cfg.num_layers} Mamba2 layers, "
+          f"shared block before layer {cfg.shared_attn_every}; float32, "
+          f"B = {B}, S = {S}", flush=True)
+    params = build_model(cfg).init(generator(0), reference)
+    batch = synthetic_train_batch(generator(1), cfg, B, S, device=reference)
+    out = {"cut": TRAIN_CUT, "B": B, "S": S}
+    sgd = optimizers.sgd(1e-2)
+    adamw = optimizers.adamw(3e-4, weight_decay=0.01)
+    before = _kernel_counts()
+
+    def gate(label, got, want, params_gated=True):
+        (gp, gm), (wp, wm) = got, want
+        rel = {k: abs(gm[k] - wm[k]) / max(abs(wm[k]), 1e-30)
+               for k in ("loss", "grad_norm")}
+        perr = _leaves_err(gp, wp)
+        out[label] = {"metrics": gm, "rel": rel, "param_max_abs_err": perr}
+        print(f"  {label}: loss {gm['loss']:.6f} grad-norm "
+              f"{gm['grad_norm']:.6f}; rel {rel['loss']:.2e} / "
+              f"{rel['grad_norm']:.2e}; params max|d| {perr:.3e}"
+              f"{'' if params_gated else ' (printed)'}", flush=True)
+        if not (max(rel.values()) <= TRAIN_REL
+                and (perr <= TRAIN_PARAM_ATOL or not params_gated)):
+            raise SystemExit(f"13(a) {label}: rel {rel} > {TRAIN_REL} or "
+                             f"params {perr} > {TRAIN_PARAM_ATOL}")
+
+    ref_sgd, ms = _timed(lambda: _step_once(cfg, params, batch, sgd,
+                                            reference))
+    out["cpu_sgd_ms"] = ms
+    card_sgd, ms = _timed(lambda: _step_once(cfg, params, batch, sgd,
+                                             device))
+    out["card_sgd_ms"] = ms
+    gate("sgd card vs CPU", card_sgd, ref_sgd)
+    again = _step_once(cfg, params, batch, sgd, device)
+    bitwise = _leaves_equal(again[0], card_sgd[0]) and again[1] == card_sgd[1]
+    out["sgd_bitwise_repeat"] = bitwise
+    print(f"  sgd repeat on the card bitwise {bitwise}", flush=True)
+    if not bitwise:
+        raise SystemExit("13(a): the card's SGD step differs on a repeat")
+    del again, ref_sgd
+    # AdamW's first step moves a parameter by ~lr times the sign of its
+    # gradient, which flips where a gradient sums to ~0 in another order:
+    # its parameters are printed, its loss and grad-norm gated
+    gate("adamw card vs CPU", _step_once(cfg, params, batch, adamw, device),
+         _step_once(cfg, params, batch, adamw, reference),
+         params_gated=False)
+    for label, kw in (("grad_accum 2 vs 1 (card)", {"grad_accum": 2}),
+                      ("remat off vs on (card)", {"remat": False})):
+        gate(label, _step_once(_train_cut_cfg(**kw), params, batch, sgd,
+                               device), card_sgd)
+    delta = {k: v - before[k] for k, v in _kernel_counts().items()}
+    out["launches"] = delta
+    if any(delta.values()):
+        raise SystemExit(f"13(a): kernels launched {delta}")
+    return out
+
+
+def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
+                       timed=4, repeats=6):
+    """13(b): zamba2-1.2b whole (38 Mamba2 layers and the shared block) at
+    its published dtypes (bfloat16 activations, float32 parameters,
+    remat), MarkovLM batches over its 32,000 tokens, global batch
+    B x S with grad_accum, AdamW (3e-4, weight decay 0.01, clip 1.0): a
+    warm-up step and `timed` steps on fresh batches, then `repeats` steps
+    on one repeated batch, the first of them profiled."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import MarkovLM
+    from repro_torch.device import generator
+    from repro_torch.launch import roofline
+    from repro_torch.launch.train import device_batch, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import tree_leaves
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ZAMBA).with_updates(grad_accum=accum)
+    model = build_model(cfg)
+    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    n_params = model.param_count(params)
+    active = roofline.active_param_count(cfg, n_params)
+    lm = MarkovLM(cfg.vocab_size, seed=seed)
+    batches, data_ms = _timed(lambda: [
+        device_batch(b, device) for b in lm.batches(B, S, timed + 1,
+                                                    seed=seed)])
+    print(f"  zamba2-1.2b whole: {n_params} parameters ({cfg.dtype} "
+          f"activations, {cfg.param_dtype} parameters, remat "
+          f"{cfg.remat}); init {init_ms:.0f} ms, {timed + 1} MarkovLM "
+          f"batches of {B} x {S} in {data_ms:.0f} ms; grad_accum {accum}",
+          flush=True)
+    opt = optimizers.adamw(3e-4, weight_decay=0.01)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, clip_norm=1.0)
+    losses, norms = [], []
+
+    def run(b):
+        nonlocal params, opt_state
+        params, opt_state, m = step(params, opt_state, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        norms.append(gnorm)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise SystemExit(f"13(b) step {len(losses)}: loss {loss}, "
+                             f"grad-norm {gnorm}")
+
+    before = _kernel_counts()
+    _, warm_ms = _timed(lambda: run(batches[0]))
+    times = [_timed(lambda: run(b))[1] for b in batches[1:timed + 1]]
+    step_ms = statistics.median(times)
+    tokens = B * S
+    flops = roofline.model_flops_per_step(cfg, tokens, active)
+    out = {"config": "zamba2-1.2b (configs/zamba2_1_2b.py), nothing cut",
+           "params": n_params, "active_params": active, "B": B, "S": S,
+           "grad_accum": accum, "init_ms": init_ms, "warmup_ms": warm_ms,
+           "step_ms_runs": times, "step_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": roofline.mfu(step_ms / 1e3, flops)}
+    print(f"  train step: {step_ms:.1f} ms median of {timed} (range "
+          f"{min(times):.1f}-{max(times):.1f}; warm-up {warm_ms:.0f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, MFU {out['mfu']:.4f} "
+          f"(6 N D = {flops:.3e} FLOPs over {roofline.PEAK_FLOPS:.3g} "
+          f"FLOP/s)", flush=True)
+    rep = []
+    if on_card:              # the first step on the repeated batch, profiled
+        prof = _profile(lambda: run(batches[0]))
+        rep.append(losses[-1])
+        out["profile"] = prof
+        if prof is None:
+            print("  profile: no device time recorded (not measured)",
+                  flush=True)
+        else:
+            print(f"  profile of one step: wall {prof['wall_ms']:.1f} ms, "
+                  f"device busy {prof['device_busy_ms']:.1f} ms, idle "
+                  f"share <= {prof['idle_share']:.3f}", flush=True)
+            for kname, ms, n, share in prof["kernels"]:
+                print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
+                      flush=True)
+    while len(rep) < repeats:
+        run(batches[0])
+        rep.append(losses[-1])
+    out["repeated_batch_losses"] = rep
+    out["losses"], out["grad_norms"] = losses, norms
+    print(f"  {repeats} steps on one batch: losses "
+          f"{', '.join(f'{x:.4f}' for x in rep)}", flush=True)
+    if not rep[-1] < rep[0]:
+        raise SystemExit(f"13(b): the repeated batch's loss did not fall "
+                         f"({rep})")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)):
+        raise SystemExit("13(b): non-finite parameters after training")
+    delta = {k: v - before[k] for k, v in _kernel_counts().items()}
+    out["launches"] = delta
+    if any(delta.values()):
+        raise SystemExit(f"13(b): kernels launched {delta}")
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                if on_card else None)
+    print(f"  peak memory {(out['peak_memory_bytes'] or 0) / 2**30:.2f} "
+          f"GiB; launches {delta}", flush=True)
+    if on_card:
+        out["card"] = _card_line()
+        print(f"  on {out['card']}", flush=True)
+    del params, opt_state, batches
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+FL_TRAIN_CASES = {
+    "hfl": dict(strategy="hfl"),
+    "afl": dict(strategy="afl"),
+    "afl-gossip": dict(strategy="afl", afl_mode="gossip"),
+    "cfl": dict(strategy="cfl", merge_alpha=0.3),
+}
+
+
+def _fl_setup(cfg, case, C, K, B, S, device, seed=0, **kw):
+    import torch
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.device import generator
+    from repro_torch.models.model import build_model, synthetic_train_batch
+    fl = FLConfig(**dict(FL_TRAIN_CASES[case], num_clients=C, num_groups=2,
+                         local_steps=K, lr=0.05, **kw))
+    tr = FederatedTrainer(build_model(cfg), fl)
+    state = tr.init_state(generator(seed), device=device)
+    gen = generator(seed + 1)
+    rows = [synthetic_train_batch(gen, cfg, B, S, device=device)
+            for _ in range(C * K)]
+    batch = {k: torch.stack([r[k] for r in rows]).reshape(
+        (C, K) + tuple(rows[0][k].shape)) for k in rows[0]}
+    weights = torch.arange(1, C + 1, dtype=torch.float32, device=device)
+    part = torch.ones(C, dtype=torch.bool, device=device)
+    return tr, state, batch, weights, part
+
+
+def fl_train_parity_phase(device="cuda", reference="cpu"):
+    """13(c), first half: the reference test's config (phi3-mini-3.8b
+    reduced, in float32; 4 clients in 2 groups, K = 2, lr 0.05) for one
+    round of each strategy from one init, on the card against the CPU
+    (1e-4), with a bitwise repeat on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32
+    from repro_torch.tree import tree_map
+
+    deterministic_f32()
+    cfg = get_config("phi3-mini-3.8b").reduced(dtype="float32")
+    out = {}
+    for case in FL_TRAIN_CASES:
+        tr, state, batch, w, part = _fl_setup(cfg, case, 4, 2, 2, 32,
+                                              reference)
+        ref, rm = tr.fl_train_step(state, batch, w, part)
+
+        def card():
+            move = lambda t: tree_map(lambda a: a.to(device), t)  # noqa
+            return tr.fl_train_step(move(state), move(batch), w.to(device),
+                                    part.to(device))
+        first, fm = card()
+        second, _ = card()
+        err = max(_leaves_err(first["client_params"], ref["client_params"]),
+                  abs(float(fm["loss"]) - float(rm["loss"])))
+        bitwise = _leaves_equal(first["client_params"],
+                                second["client_params"])
+        out[case] = {"max_abs_err": err, "bitwise_repeat": bitwise,
+                     "loss": float(fm["loss"])}
+        print(f"  {case}: card vs CPU {err:.3e}, repeat bitwise {bitwise}",
+              flush=True)
+        if not (err <= 1e-4 and bitwise):
+            raise SystemExit(f"13(c) {case}: card vs CPU {err} > 1e-4 or "
+                             f"the repeat differs")
+    return out
+
+
+def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
+    """13(c), second half: xlstm-125m whole (12 layers, sLSTM at 3, 7 and
+    11; published dtypes), 4 clients in 2 groups, K = 2 local steps of
+    2 x 256 tokens, 2 rounds each of HFL, AFL (all clients in the first
+    round, client 0 alone in the second) and CFL (alpha 0.3). Gates:
+    every client's params bitwise equal after each HFL and AFL round, CFL's
+    clients apart, round == 2, finite losses."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.tree import tree_leaves
+
+    on_card = device == "cuda"
+    cfg = get_config(XLSTM)
+    out = {}
+    before = _kernel_counts()
+    for case in ("hfl", "afl", "cfl"):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        tr, state, batch, w, part = _fl_setup(cfg, case, C, K, B, S, device)
+        secs, losses, spreads = [], [], []
+        for r in range(rounds):
+            if case == "afl" and r == 1:
+                part = torch.zeros_like(part)       # client 0 alone
+                part[0] = True
+            (state, m), ms = _timed(lambda: tr.fl_train_step(state, batch, w,
+                                                             part))
+            secs.append(ms / 1e3)
+            losses.append(float(m["loss"]))
+            spreads.append(max(float((x - x[0:1]).abs().max())
+                               for x in tree_leaves(state["client_params"])))
+        row = {"seconds_per_round": secs, "losses": losses,
+               "client_spread": spreads, "round": int(state["round"]),
+               "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                     if on_card else None)}
+        out[case] = row
+        print(f"  {case}: {', '.join(f'{x:.2f}' for x in secs)} s/round, "
+              f"losses {', '.join(f'{x:.4f}' for x in losses)}, clients "
+              f"apart by {', '.join(f'{x:.3e}' for x in spreads)}, peak "
+              f"{(row['peak_memory_bytes'] or 0) / 2**30:.2f} GiB",
+              flush=True)
+        apart = [x > 0.0 for x in spreads]
+        consensus_ok = all(apart) if case == "cfl" else not any(apart)
+        if not (all(math.isfinite(x) for x in losses) and row["round"] == 2
+                and consensus_ok):
+            raise SystemExit(f"13(c) {case}: {row}")
+        del tr, state, batch
+    delta = {k: v - before[k] for k, v in _kernel_counts().items()}
+    out["launches"] = delta
+    if any(delta.values()):
+        raise SystemExit(f"13(c): kernels launched {delta}")
+    return out
+
+
+def train_phase(device="cuda"):
+    """Phase 13: the zoo's training and the federated trainer (slice
+    12); every kernel's count is 0 at its start and read at its end."""
+    _reset_launches()                    # the main path's count starts here
+    t0 = time.perf_counter()
+    print("  -- (a) card against CPU: zamba2-1.2b at full width, 7 layers",
+          flush=True)
+    parity = train_parity_phase(device, "cpu")
+    print("  -- (b) zamba2-1.2b whole: 38 layers and the shared block",
+          flush=True)
+    zamba = zamba2_train_phase(device)
+    print("  -- (c) the federated trainer", flush=True)
+    fl_parity = fl_train_parity_phase(device, "cpu")
+    fl = fl_train_phase(device)
+    launches = _kernel_counts()          # the main path's count ends here
+    if any(launches.values()):
+        raise SystemExit(f"phase 13: kernels launched {launches}")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 13 launches {launches}, {seconds:.1f}s", flush=True)
+    return {"parity": parity, "zamba2": zamba, "fl_parity": fl_parity,
+            "fl": fl, "launches": launches, "seconds": seconds}
+
+
 # -- phase 10 ----------------------------------------------------------------
 
 # the result document's keys and the keys of its always-present blocks
@@ -3052,6 +3458,8 @@ def main():
     zoo_rest = zoo_rest_main_phase("cuda")
     print("  -- (b) card against CPU: the five reduced", flush=True)
     parity["zoo_rest"] = zoo_rest_parity_phase("cuda", "cpu")
+    _phase("training (slice 12)")
+    train = train_phase("cuda")
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -3159,6 +3567,7 @@ def main():
            "transport_kernels": transport_kernels, "transport": transport,
            "zoo_occupancy": zoo_kernels["occupancy"],
            "zoo": {"zamba2": zamba, "yi": yi}, "zoo_rest": zoo_rest,
+           "train": train,
            "documents": documents,
            "fused": {"parity": fused_parity, "documents": fused_docs,
                      "serving": serving, "launches": fused_launches,

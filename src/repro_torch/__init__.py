@@ -11,6 +11,8 @@ and CFL strategies on the §2.4 CNN under the `loop` and `vectorized`
 engines, with every aggregation event on the hand-written CUDA
 `fedavg_agg` kernel (`kernels/csrc/fedavg_agg.cu`); later slices add the
 adversarial, churn and upload-transport axes and the model zoo's serving
-path (`models/`, `launch/serve.py`), each with its kernels. Entry points
+path (`models/`, `launch/serve.py`), each with its kernels, then the zoo's
+training (`launch/train.py`, `core/trainer.py`), which runs the plain
+paths as the reference does, and the public surface `api.py`. Entry points
 run on the card unless the caller passes `device="cpu"` (`device.py`).
 """

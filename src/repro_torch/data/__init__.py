@@ -1,2 +1,3 @@
-"""Datasets and client partitions (numpy only; bitwise copies of the
-reference's `repro.data.synthetic` and `repro.data.partition`)."""
+"""Datasets, client partitions and batch pipelines (numpy only; bitwise
+copies of the reference's `repro.data.synthetic`, `repro.data.partition`
+and `repro.data.pipeline`)."""

@@ -22,6 +22,11 @@ any shape takes the plain PyTorch version `flash_attention_torch`, a twin
 of the reference's oracle `repro/kernels/ref.py::flash_attention_ref`.
 There is no fallback from the card to the plain version.
 
+The kernel has no backward pass, as the reference's Pallas call has no
+`custom_vjp` (`jax.grad` through it raises): `flash_attention` raises on
+every device when grad mode is on and an input requires grad, so a
+training step never reaches it. The plain version stays differentiable.
+
 `launches` counts kernel launches in this process; it moves only where
 the kernel is launched.
 """
@@ -123,6 +128,17 @@ def _check_kernel(q, k):
                              f"65535, got {B * H}")
 
 
+def refuse_autograd(name, *tensors):
+    """Raise when a backward pass could run through a kernel that has
+    none: grad mode on and any of `tensors` requiring grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward pass (nor has the reference's Pallas "
+            f"kernel): run it under torch.no_grad(), or train through the "
+            f"plain path (attn_impl='einsum' or 'chunked'; "
+            f"mamba2_forward(use_kernel=False))")
+
+
 def _bind():
     fn = build.load("flash_attention").flash_attention
     if fn.argtypes is None:
@@ -140,6 +156,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     contiguous, on one device. Returns (B, S, H, d) in q's dtype. A CPU
     tensor takes any shape; a CUDA tensor must fit `_check_kernel`."""
     global launches
+    refuse_autograd("flash_attention", q, k, v)
     window = int(window or 0)
     _check(q, k, v, window)
     if q.device.type == "cpu":

@@ -21,6 +21,11 @@ asserts only S % chunk == 0); a CUDA tensor outside the kernels' envelope
 MAX_SMEM) raises before any launch. There is no fallback from the card to
 the plain version.
 
+The kernels have no backward pass, as the reference's Pallas call has
+none (`jax.grad` through it raises for every input): `ssm_scan` and
+`ssm_chunk_states` raise on every device when grad mode is on and an
+input requires grad. The plain versions stay differentiable.
+
 `launches` counts calls that launch on the card, one per `ssm_scan` (or
 `ssm_chunk_states`) call whatever passes it runs; it moves only where the
 kernels are launched.
@@ -32,6 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import refuse_autograd
 
 launches = 0
 
@@ -260,6 +266,7 @@ def ssm_scan(xh, a_log, dt, Bm, Cm, *, chunk=128):
     xh's dtype. A CPU tensor takes any dh, N and chunk; a CUDA tensor
     must fit `_check_kernel`, and takes `scratch_bytes` of device scratch
     for the call."""
+    refuse_autograd("ssm_scan", xh, a_log, dt, Bm, Cm)
     _check(xh, a_log, dt, Bm, Cm)
     Q = _chunk(xh.shape[1], chunk)
     if _device(xh) == "cpu":
@@ -273,6 +280,7 @@ def ssm_chunk_states(xh, a_log, dt, Bm, Cm, *, chunk=128):
     in float32, stored in xh's dtype) or as `ssm_scan_passes_torch`
     computes it (a CPU tensor). For checking the passes on the card; the
     model path does not call it."""
+    refuse_autograd("ssm_chunk_states", xh, a_log, dt, Bm, Cm)
     _check(xh, a_log, dt, Bm, Cm)
     Q = _chunk(xh.shape[1], chunk)
     if _device(xh) == "cpu":

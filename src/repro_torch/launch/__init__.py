@@ -1,1 +1,1 @@
-"""Entry points that serve the model zoo."""
+"""Entry points that serve and train the model zoo, and its roofline."""

@@ -1,6 +1,11 @@
 """Public model API: build, init, prefill, loss and decode entry points
-for every config of the zoo (port of `repro.models.model`; the dry-run
-input specs wait for ROADMAP A.18).
+for every config of the zoo, and the dry-run input specs (port of
+`repro.models.model`).
+
+The specs are tensors on the "meta" device, the port's
+`jax.ShapeDtypeStruct`: shapes and dtypes, no storage. They carry the
+reference's shapes and dtypes but one: its int32 tokens and labels are
+int64 here, the type the port's embedding gather and loss take.
 """
 from __future__ import annotations
 
@@ -44,6 +49,38 @@ class Model:
 
     def param_count(self, params) -> int:
         return sum(p.numel() for p in tree_leaves(params))
+
+    # -- dry-run input specs (no allocation) ---------------------------------
+
+    def train_batch_specs(self, global_batch, seq_len) -> Dict[str, Any]:
+        cfg = self.cfg
+        specs = {"tokens": _spec((global_batch, seq_len), torch.int64),
+                 "labels": _spec((global_batch, seq_len), torch.int64)}
+        if cfg.modality == "vision":
+            specs["vision_embeds"] = _spec(
+                (global_batch, cfg.num_patches, cfg.d_model), torch.bfloat16)
+        if cfg.encoder_layers:
+            specs["audio_frames"] = _spec(
+                (global_batch, cfg.num_frames, cfg.d_model), torch.bfloat16)
+        return specs
+
+    def decode_state_specs(self, batch, capacity) -> Any:
+        """The decode state as `init_decode_state` builds it with
+        `prefill_len = capacity - 1`, its tensors on the meta device (its
+        "index" is the port's Python int)."""
+        return decode_mod.init_decode_state(
+            self.cfg, batch, capacity, prefill_len=capacity - 1,
+            device=_META)
+
+    def decode_token_specs(self, batch):
+        return _spec((batch, 1), torch.int64)
+
+
+_META = torch.device("meta")
+
+
+def _spec(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=_META)
 
 
 def build_model(cfg) -> Model:

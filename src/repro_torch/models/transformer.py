@@ -13,7 +13,10 @@ phi-3-vision's patch-embedding prefix.
 Homogeneous stacks keep their parameters stacked with a leading layer
 axis under "layers", as the reference does for `lax.scan`; here a Python
 loop walks the layers, and a Python `if` takes the place of the
-reference's `lax.cond` for the shared block. Other stacks are the
+reference's `lax.cond` for the shared block. `cfg.remat` checkpoints the
+reference's units when a backward pass can run: one step of the scanned
+stack (the shared block included where it runs), one block of the
+per-block loop (the shared block not). Other stacks are the
 "blocks" list; seamless keeps its decoder under "layers" with
 "blocks": None, as the reference does.
 """
@@ -22,12 +25,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mla, moe, ssm, xlstm
 from repro_torch.models.layers import (apply_norm, dense, embed, init_dense,
                                        init_embedding, init_norm, unembed)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 # -- per-layer init ----------------------------------------------------------------
@@ -198,21 +202,42 @@ def uses_shared(cfg, i):
                 and i % cfg.shared_attn_every == 0)
 
 
-def _encode(params, cfg, frames):
+def _encode(params, cfg, frames, remat):
     """seamless' encoder over (B, F, d) frame embeddings: the reference's
     scanned stack with a bidirectional zero mask (which only the einsum
     path reads: flash and chunked attention run it causally, as in the
-    reference)."""
+    reference), each layer checkpointed under `remat`."""
     enc_cfg = cfg.with_updates(moe=False)
     e = dense(params["input_proj"], frames)
     B, F = e.shape[:2]
     epos = torch.arange(F, dtype=torch.int32, device=e.device)[None].expand(
         B, F)
     emask = torch.zeros((F, F), dtype=torch.float32, device=e.device)
+
+    def layer(lp, e):
+        return _apply_attn_layer(lp, enc_cfg, e, positions=epos, mask=emask)
+
     for i in range(cfg.encoder_layers):
-        e, _ = _apply_attn_layer(layer_params(params, i), enc_cfg, e,
-                                 positions=epos, mask=emask)
+        e, _ = _call(remat, layer, layer_params(params, i), e)
     return apply_norm(cfg.norm_type, params["final_norm"], e, cfg.norm_eps)
+
+
+def _remat(cfg, params):
+    """Whether to recompute each layer in the backward pass (`cfg.remat`,
+    the reference's `jax.checkpoint`): only when a backward pass can run,
+    i.e. grad mode is on and a parameter requires grad, so the prefill
+    and decode paths run as without it."""
+    return bool(cfg.remat and torch.is_grad_enabled()
+                and any(t.requires_grad for t in tree_leaves(params)))
+
+
+def _call(remat, fn, *args):
+    """fn(*args), checkpointed when `remat`: its activations are dropped
+    after the forward pass and recomputed in the backward pass. The values
+    are the same."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def forward(params, cfg, batch):
@@ -232,10 +257,11 @@ def forward(params, cfg, batch):
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
 
+    remat = _remat(cfg, params)
     enc_out = None
     if cfg.encoder_layers:
         enc_out = _encode(params["encoder"], cfg,
-                          batch["audio_frames"].to(adt))
+                          batch["audio_frames"].to(adt), remat)
 
     kinds = cfg.layer_kinds()
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -255,6 +281,16 @@ def forward(params, cfg, batch):
         # the reference's scanned stack: the window rides on the mask, and
         # the window argument is 0 whenever a mask is given
         kind = kinds[0] if is_homogeneous(cfg) else "attn"
+
+        def body(lp, x, shared, mask, window):
+            # one step of the reference's scan body: the shared block (where
+            # it runs) and the layer
+            if shared is not None:
+                x, _ = _apply_attn_layer(shared, cfg, x, positions=positions,
+                                         mask=masks["default"])
+            return _apply_kind(lp, cfg, kind, x, positions=positions,
+                               mask=mask, enc_out=enc_out, window=window)
+
         for i in range(cfg.num_layers):
             lp = layer_params(params, i)
             if cfg.sliding_window and cfg.global_every:
@@ -268,14 +304,14 @@ def forward(params, cfg, batch):
             else:
                 mask = masks["default"]
                 window = 0 if mask is not None else cfg.sliding_window
-            if uses_shared(cfg, i):
-                x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
-                                         positions=positions,
-                                         mask=masks["default"])
-            x, aux = _apply_kind(lp, cfg, kind, x, positions=positions,
-                                 mask=mask, enc_out=enc_out, window=window)
+            shared = params["shared_attn"] if uses_shared(cfg, i) else None
+            x, aux = _call(remat, body, lp, x, shared, mask, window)
             aux_total = aux_total + aux
     else:
+        def one_block(lp, x, kind, mask, window):
+            return _apply_kind(lp, cfg, kind, x, positions=positions,
+                               mask=mask, enc_out=enc_out, window=window)
+
         for i, (lp, kind) in enumerate(zip(params["blocks"], kinds)):
             if uses_shared(cfg, i):
                 x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
@@ -284,8 +320,7 @@ def forward(params, cfg, batch):
             w = _layer_window(cfg, i)
             mask = (masks["local"] if (w and masks.get("local") is not None)
                     else masks["default"])
-            x, aux = _apply_kind(lp, cfg, kind, x, positions=positions,
-                                 mask=mask, enc_out=enc_out, window=w)
+            x, aux = _call(remat, one_block, lp, x, kind, mask, w)
             aux_total = aux_total + aux
 
     x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_eps)

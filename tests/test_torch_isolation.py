@@ -2,8 +2,8 @@
 package `repro`, so it runs where jax is absent. A subprocess with both
 blocked in `sys.modules` imports every module of the port and runs a
 1-round CPU simulation, then slice 4's codec and async runs, secure
-aggregation and the dequantize-aggregate path; a source scan covers
-chip_smoke.py too."""
+aggregation and the dequantize-aggregate path, then one reduced zoo
+train step (slice 12); a source scan covers chip_smoke.py too."""
 import os
 import re
 import subprocess
@@ -55,6 +55,22 @@ assert torch.allclose(secure_agg.secure_fedavg([p, p])["w"], p["w"],
                       atol=1e-4)
 assert ops.dequant_aggregate(torch.ones((2, 3), dtype=torch.int8),
                              torch.ones(2), torch.full((2,), 0.5)).sum() == 3
+# slice 12: one reduced train step of the zoo, on MarkovLM tokens
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import MarkovLM
+from repro_torch.device import generator
+from repro_torch.launch.train import device_batch, make_train_step
+from repro_torch.models.model import build_model
+from repro_torch.optim import optimizers
+cfg = get_config("phi3-mini-3.8b").reduced(num_layers=1)
+model = build_model(cfg)
+params = model.init(generator(0), "cpu")
+opt = optimizers.adamw(1e-3, weight_decay=0.01)
+batch = next(MarkovLM(cfg.vocab_size).batches(2, 16, 1))
+params, _, m = make_train_step(model, opt)(params, opt.init(params),
+                                           device_batch(batch, "cpu"))
+assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+assert "repro_torch.api" in sys.modules and "repro_torch.core.trainer" in names
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print("ok", len(names))
