@@ -192,10 +192,37 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    runs the plain paths, as in the reference (B5 and B6 raise under
    autograd).
 
+14. mesh (slice 13) — (a) every mesh operator of `core/aggregation.py`
+   (`mesh_fedavg_stacked`, `mesh_gossip_stacked`, `mesh_hfl_stacked` with
+   groups that nest in, equal and span shards, each with and without the
+   one-hot fallback, `hfl_tier1_local`, `mesh_hfl` single-pod and on a
+   2 x 2 pod world, `mesh_afl_gossip`, `mesh_afl_fedavg`, `mesh_cfl`) on 4
+   ranks sharing the card (gloo over CUDA tensors) at the paper CNN's
+   width, against the host aggregate on the card (error below 1e-4, ranks
+   within 1e-5), HFL's tier 1 issuing no collective on any rank; (b) the
+   7 mesh preconditions raising before any rank starts, then the
+   reference's 5 mesh-parity configurations and HFL under churn at 16
+   clients on 8 ranks sharing the card (gloo, eager rounds) against the
+   single-device fused graph run trained in stacks of the ranks' size and
+   against the unchunked one (round accuracy 1e-5, loss 1e-4, test
+   accuracy and final metrics 1e-5; AFL star, AFL gossip and AFL chunked
+   miss the unchunked gate on the card and print that gap: ROADMAP §C.4),
+   no hand kernel launched in any
+   rank, the HFL run repeated bitwise, tier 1 without a collective on
+   every rank; (c) nccl at world 1, the round captured as a CUDA graph,
+   within 1e-5 of the single-device graph run on every metric and
+   repeated bitwise; (d) 1024 clients, fused_chunk=32, AFL star, 2 rounds
+   on the 8 ranks against the single-device chunked graph run, with
+   seconds per round beside it and each rank's peak memory (the ranks
+   share one card: not a speedup). Every run prints its backend and its
+   form (graph or eager).
+
 Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c), 12(a) and 13 set
 every kernel's launch count to 0 just before they start and read the
 counts just after; a replayed graph runs no wrapper, so 11(b) also reads the
-launches a profile counts on the device.
+launches a profile counts on the device. Phase 14's ranks count their own
+launches from the start of each run and must launch none: the mesh path,
+like the reference's, runs plain torch ops and collectives.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -3362,6 +3389,418 @@ def fused_rate_phase(device="cuda", repeats=RATE_REPEATS):
     return out
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+# the reference's mesh-parity configurations (tests/test_mesh_fused.py:57-67)
+# at 16 clients, with the churn case of tests/test_torch_mesh_fused.py
+MESH_DS = dict(seed=0, n_train=1024, n_test=256)
+MESH_CFG = dict(num_clients=16, rounds=3, num_groups=8, local_epochs=1,
+                local_batch_size=16, lr=0.05, seed=0, participation=1.0,
+                engine="fused", attack_fraction=0.25, attack_scale=0.5)
+MESH_CASES = {
+    "hfl": dict(strategy="hfl"),
+    "afl-star": dict(strategy="afl"),
+    "afl-gossip": dict(strategy="afl", afl_mode="gossip"),
+    "hfl-gauss": dict(strategy="hfl", attack="gauss"),
+    "afl-chunked": dict(strategy="afl", fused_chunk=1),
+    "hfl-churn": dict(strategy="hfl", fault_profile="churn", churn_rate=0.4),
+}
+# 14(b) gates every configuration against the single-device run trained in
+# stacks of the ranks' size and, but for these, against the unchunked run
+# too. These miss the unchunked gate on the card (an NVIDIA H100 80GB
+# HBM3 at 700 W: AFL star 1.95e-3 round accuracy and 7.8e-3 test
+# accuracy, AFL gossip 9.8e-4 / 7.8e-3): the chunked
+# single-device run lands as far, and so does a one-rank mesh of the whole
+# stack (ROADMAP §C.4). Their unchunked gaps are printed.
+MESH_UNCHUNKED_EXCEPTIONS = ("afl-star", "afl-gossip", "afl-chunked")
+MESH_RANKS = 8              # ranks sharing the card in 14(b) and 14(d)
+MESH_OP_RANKS = 4           # 14(a)
+MESH_OP_ERR = 1e-4          # against the host aggregate (the reference's)
+MESH_REPLICATED = 1e-5      # every rank holds the same global model
+# 14(d): DESIGN.md §11's chunking scale (benchmarks/kernel_bench.py's
+# measure_fused_chunked: 8 images a client, batch 8)
+MESH_SCALE = dict(strategy="afl", num_clients=1024, participation=1.0,
+                  rounds=2, local_epochs=1, local_batch_size=8, lr=0.05,
+                  seed=0, engine="fused", fused_chunk=32)
+MESH_SCALE_DS = dict(seed=0, n_train=1024 * 8, n_test=128)
+# preconditions that must raise before any rank starts (the reference's
+# tests/test_mesh_fused.py:150-205, and NCCL asked for 8 ranks on a card)
+MESH_REFUSALS = (("cfl", dict(strategy="cfl"), "supports_mesh"),
+                 ("defense", dict(defense="median"), "defense"),
+                 ("partial", dict(participation=0.5), "full participation"),
+                 ("indivisible", dict(mesh_devices=3), "equal shards"),
+                 ("groups", dict(strategy="hfl", num_groups=2),
+                  "aligned to shards"),
+                 ("chunk", dict(fused_chunk=3), "fused_chunk"),
+                 ("nccl-shared", dict(mesh_backend="nccl"), "nccl"))
+
+
+def _mesh_host(op, x, w, kw, device):
+    """The host aggregate of one 14(a) case on the card, from the port's
+    single-device operators."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import topology
+
+    if op == "fedavg":
+        return agg.fedavg_stacked({"w": x}, w)["w"]
+    if op == "hfl":
+        return agg.hfl_aggregate_stacked({"w": x}, kw["groups"], w)["w"]
+    if op == "gossip":
+        return agg.gossip_stacked(
+            {"w": x}, topology.ring_neighbors(x.shape[0], 2))["w"]
+    if op == "model-hfl":
+        return agg.hfl_aggregate_stacked(
+            {"w": x}, kw.get("groups", kw.get("pod", (0,))[0]), w)["w"]
+    if op == "afl_gossip":
+        return (torch.roll(x, 1, 0) + x + torch.roll(x, -1, 0)) / 3.0
+    if op == "afl_fedavg":
+        return agg.afl_aggregate_stacked(
+            {"w": x}, w, torch.as_tensor(kw["participate"],
+                                         device=device))["w"]
+    if op == "cfl":
+        mean = agg.fedavg_stacked({"w": x}, w)
+        g = agg.cfl_merge({"w": torch.as_tensor(kw["global"],
+                                                device=device)},
+                          mean, kw["alpha"])
+        clients = torch.stack([agg.cfl_merge({"w": row}, g, kw["alpha"])["w"]
+                               for row in x])
+        return {"global": g["w"], "w": clients}
+    raise ValueError(op)
+
+
+def mesh_operator_phase(device="cuda", ranks=MESH_OP_RANKS):
+    """14(a): every mesh operator case of tests/test_torch_mesh.py on
+    `ranks` ranks sharing the card (gloo over CUDA tensors; the rank
+    halves are tests/torch_mesh_cases.py), against the host aggregate of
+    the gathered stack on the card, at the reference tests' tolerances
+    (replicated to 1e-5, error below 1e-4), at the paper CNN's width. HFL's
+    tier 1 must issue no collective on any rank."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_mesh_cases as cases
+    from repro_torch.launch import mesh
+
+    C, N = 16, 7900
+    rng = np.random.default_rng(0)
+    stacked = rng.normal(size=(C, N)).astype(np.float32)
+    weights = rng.uniform(10.0, 100.0, C).astype(np.float32)
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import topology
+    mix = agg.gossip_mix_matrix(topology.ring_neighbors(C, 2))
+    stacked_cases = ([("fedavg", {}), ("gossip", dict(mix=mix))]
+                     + [("hfl", dict(groups=g, fallback=f))
+                        for g in (8, 4, 2) for f in (False, True)])
+    model_cases = [("hfl", dict(groups=2)), ("hfl", dict(groups=2,
+                                                         fallback=True)),
+                   ("hfl", dict(groups=4)), ("hfl", dict(pod=(2, 2))),
+                   ("afl_gossip", {}),
+                   ("afl_fedavg", dict(participate=np.array(
+                       [1, 0, 1, 1], np.float32))),
+                   ("afl_fedavg", dict(participate=np.array(
+                       [1, 0, 1, 1], np.float32), pod=(2, 2))),
+                   ("cfl", {"global": stacked[ranks], "alpha": 0.3})]
+    out = {}
+    t0 = time.perf_counter()
+    with mesh.World(ranks, device=device) as world:
+        start_s = time.perf_counter() - t0
+        print(f"  {ranks} ranks on {device}, backend {world.backend}, "
+              f"started in {start_s:.1f}s", flush=True)
+        for op, kw in stacked_cases + [("tier1", dict(groups_local=2))]:
+            outs = world.run(cases.stacked_op, op, stacked, weights, **kw)
+            label = op + "".join(f"-{k}{v}" for k, v in kw.items()
+                                 if k != "mix")
+            counts = [c for _, c in outs]
+            if op == "tier1":
+                bad = [c for c in counts
+                       if any(k.startswith("tier1/") for k in c["calls"])
+                       or not c["calls"].get("tier2/all_reduce")]
+                if bad:
+                    raise SystemExit(f"mesh {label}: tier 1 issued a "
+                                     f"collective (or tier 2 none): {bad}")
+                out[label] = {"tier1_collectives": 0,
+                              "tier2_collectives": [
+                                  c["calls"]["tier2/all_reduce"]
+                                  for c in counts]}
+                print(f"  {label}: tier 1 issued no collective on any rank, "
+                      f"tier 2 {out[label]['tier2_collectives']}", flush=True)
+                continue
+            x = torch.as_tensor(stacked, device=device)
+            w = torch.as_tensor(weights, device=device)
+            want = _mesh_host(op, x, w, kw, device).cpu().numpy()
+            if op == "gossip":
+                got, spread = np.concatenate([o["w"] for o, _ in outs]), 0.0
+            else:
+                got = outs[0][0]["w"]
+                spread = max(float(np.abs(o["w"] - got).max())
+                             for o, _ in outs)
+            err = float(np.abs(got - want).max())
+            if not (err < MESH_OP_ERR and spread <= MESH_REPLICATED):
+                raise SystemExit(f"mesh {label}: error {err} (limit "
+                                 f"{MESH_OP_ERR}), spread over ranks "
+                                 f"{spread}")
+            out[label] = {"max_abs_err": err, "rank_spread": spread,
+                          "calls": counts[0]["calls"]}
+            print(f"  stacked {label}: |mesh - host| {err:.3g}, ranks agree "
+                  f"to {spread:.3g}, collectives {counts[0]['calls']}",
+                  flush=True)
+        for op, kw in model_cases:
+            outs = world.run(cases.model_op, op, stacked[:ranks],
+                             weights[:ranks], **kw)
+            label = op + "".join(f"-{k}{v}" for k, v in kw.items()
+                                 if k in ("groups", "fallback", "pod"))
+            x = torch.as_tensor(stacked[:ranks], device=device)
+            w = torch.as_tensor(weights[:ranks], device=device)
+            host = _mesh_host("model-hfl" if op == "hfl" else op, x, w, kw,
+                              device)
+            if op == "cfl":
+                want_g = host["global"].cpu().numpy()
+                want = host["w"].cpu().numpy()
+                got = np.stack([o["w"] for o, _ in outs])
+                err = max(float(np.abs(got - want).max()),
+                          max(float(np.abs(o["global"] - want_g).max())
+                              for o, _ in outs))
+                spread = 0.0
+            elif op == "afl_gossip":
+                got = np.stack([o["w"] for o, _ in outs])
+                err = float(np.abs(got - host.cpu().numpy()).max())
+                spread = 0.0
+            else:
+                got = outs[0][0]["w"]
+                err = float(np.abs(got - host.cpu().numpy()).max())
+                spread = max(float(np.abs(o["w"] - got).max())
+                             for o, _ in outs)
+            if not (err < MESH_OP_ERR and spread <= MESH_REPLICATED):
+                raise SystemExit(f"mesh {label}: error {err}, spread {spread}")
+            out["model " + label] = {"max_abs_err": err,
+                                     "rank_spread": spread}
+            print(f"  one model a rank, {label}: |mesh - host| {err:.3g}, "
+                  f"ranks agree to {spread:.3g}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["start_s"] = start_s
+    return out
+
+
+def _mesh_gaps(a, b):
+    import numpy as np
+    return {k: float(np.max(np.abs(np.asarray(getattr(a, k), np.float64)
+                                   - np.asarray(getattr(b, k), np.float64))))
+            for k in FUSED_TOL}
+
+
+def _mesh_served_gap(a, b):
+    import numpy as np
+    return max(float(np.abs(x.cpu().double().numpy()
+                            - y.cpu().double().numpy()).max())
+               for x, y in zip(_served_leaves(a), _served_leaves(b)))
+
+
+def _mesh_same(ra, sa, rb, sb):
+    import numpy as np
+    return (all(np.array_equal(np.asarray(getattr(ra, k)),
+                               np.asarray(getattr(rb, k)), equal_nan=True)
+                for k in _RESULT_FIELDS)
+            and (ra.confusion == rb.confusion).all() and _same_leaves(sa, sb))
+
+
+def _mesh_pair(label, fl_kw, ds, device, world, tol=FUSED_TOL,
+               unchunked=True, **sim_kw):
+    """The mesh run of one config on the card and the single-device fused
+    graph runs it is gated against, within `tol`; the ranks must launch no
+    hand kernel (the mesh path is plain torch ops).
+
+    The first gate's single-device run trains in stacks of the ranks'
+    size: with `fused_chunk` 0 it is chunked at C / ranks. On the card
+    cuDNN picks a convolution algorithm by shape, so a 2-client stack
+    trains to other bits than the 16-client stack (ROADMAP §C.4). With
+    `unchunked`, the mesh run is also held to the unchunked single-device
+    run, as the reference holds it (tests/test_mesh_fused.py:41-42), but
+    for MESH_UNCHUNKED_EXCEPTIONS, whose gap is printed. A world of one
+    rank is asked for explicitly (`run_fused(ranks=1)`): `mesh_devices`
+    <= 1 is one device."""
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.simulation import FederatedSimulation
+
+    ndev = world.size
+    C = fl_kw["num_clients"]
+    chunk = fl_kw.get("fused_chunk", 0) or (C // ndev if ndev > 1 else 0)
+    single = FederatedSimulation(FLConfig(**dict(fl_kw, fused_chunk=chunk)),
+                                 ds, device=device)
+    rs = single.run()
+    sharded = FederatedSimulation(
+        FLConfig(**dict(fl_kw, mesh_devices=ndev if ndev > 1 else 0)), ds,
+        device=device, mesh_world=world, **sim_kw)
+    t0 = time.perf_counter()
+    rm = sharded.run() if ndev > 1 else sharded.run_fused(ranks=1)
+    wall = time.perf_counter() - t0
+    gaps = _mesh_gaps(rs, rm)
+    bad = [k for k in tol if not gaps[k] <= tol[k]]
+    rep = sharded.mesh_report
+    if bad:
+        raise SystemExit(f"mesh {label}: {rep['form']} run on {ndev} "
+                         f"{rep['backend']} ranks vs the single-device graph "
+                         f"run (fused_chunk={chunk}) beyond the tolerances "
+                         f"{bad}: {gaps}")
+    if any(sum(k.values()) for k in rep["kernel_launches"]):
+        raise SystemExit(f"mesh {label}: a rank launched a hand kernel "
+                         f"{rep['kernel_launches']}")
+    served = _mesh_served_gap(single, sharded)
+    whole = None
+    gated = unchunked and label not in MESH_UNCHUNKED_EXCEPTIONS
+    if unchunked and chunk:
+        whole = _mesh_gaps(FederatedSimulation(
+            FLConfig(**dict(fl_kw, fused_chunk=0)), ds,
+            device=device).run(), rm)
+        bad = [k for k in tol if not whole[k] <= tol[k]]
+        if gated and bad:
+            raise SystemExit(f"mesh {label}: {rep['form']} run on {ndev} "
+                             f"{rep['backend']} ranks vs the unchunked "
+                             f"single-device graph run beyond the "
+                             f"tolerances {bad}: {whole}")
+    print(f"  {label}: {ndev} ranks, backend {rep['backend']}, "
+          f"{rep['form']} rounds; vs single-device graph (fused_chunk="
+          f"{chunk}) {gaps}; served model |mesh - single| {served:.3g}; "
+          + ("" if whole is None else
+             f"vs the unchunked single-device run "
+             f"({'gated' if gated else 'printed: known exception'}) "
+             f"{whole}; ")
+          + f"build {rm.build_time_s:.3f}s (single {rs.build_time_s:.3f}s), "
+          f"run wall {wall:.1f}s", flush=True)
+    return single, rs, sharded, rm, {
+        "ranks": ndev, "backend": rep["backend"], "form": rep["form"],
+        "single_fused_chunk": chunk, "vs_single": gaps,
+        "vs_unchunked_single": whole,
+        "unchunked_gated": gated and whole is not None,
+        "served_vs_single": served,
+        "build_s": rm.build_time_s, "single_build_s": rs.build_time_s,
+        "rank_build_s": rep["build_s"], "wall_s": wall,
+        "peak_bytes": rep["peak_bytes"]}
+
+
+def _tier1_local(label, report):
+    bad = [(r, c) for r, c in enumerate(report["collectives"])
+           if not c["scopes"].get("hfl.tier1")
+           or any(k.startswith("hfl.tier1/") for k in c["calls"])
+           or not c["calls"].get("hfl.tier2/all_reduce")]
+    if bad:
+        raise SystemExit(f"mesh {label}: HFL tier 1 issued a collective (or "
+                         f"tier 2 none) on ranks {bad}")
+    return [c["calls"]["hfl.tier2/all_reduce"] for c in report["collectives"]]
+
+
+def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
+                        scale=MESH_SCALE):
+    """14(b)-(d). (b) the 6 mesh configurations at 16 clients on `ranks`
+    ranks sharing the card (gloo, eager rounds) against the single-device
+    fused graph run on the card at the reference's tolerances (trained in
+    stacks of the ranks' size, see `_mesh_pair`; no hand kernel launched
+    in any rank), the HFL run
+    repeated bitwise, HFL's tier 1 without a collective on every rank, and
+    the preconditions raising; (c) nccl at world 1, the round captured as
+    a CUDA graph, within 1e-5 of the single-device graph run on every
+    metric, repeated bitwise; (d) 1024 clients, fused_chunk=32, AFL star,
+    2 rounds on `ranks` ranks against the single-device chunked graph run,
+    with seconds per round and each rank's peak memory (not a speedup: the
+    ranks share one card)."""
+    import torch
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.launch import mesh
+
+    ds = mnist_like(**MESH_DS)
+    out = {"cases": {}}
+    t0 = time.perf_counter()
+    for name, kw, needle in MESH_REFUSALS:
+        kw = dict(kw)
+        backend = kw.pop("mesh_backend", None)
+        cfg = dict(MESH_CFG, strategy="afl", rounds=1, mesh_devices=ranks)
+        cfg.update(kw)
+        try:
+            FederatedSimulation(FLConfig(**cfg), ds, device=device,
+                                mesh_backend=backend).run()
+        except ValueError as e:
+            if needle not in str(e):
+                raise SystemExit(f"mesh refusal {name}: {e}") from e
+            continue
+        raise SystemExit(f"mesh refusal {name}: no error raised")
+    out["refusals_s"] = time.perf_counter() - t0
+    print(f"  the {len(MESH_REFUSALS)} preconditions raised before any rank "
+          f"started", flush=True)
+    with mesh.World(ranks, device=device) as world:
+        out["start_s"] = time.perf_counter() - t0 - out.get("refusals_s", 0)
+        print(f"  {ranks} ranks on {device}, backend {world.backend}, "
+              f"started in {out['start_s']:.1f}s", flush=True)
+        print("  -- (b) the mesh configurations against the single-device "
+              "graph run", flush=True)
+        runs = {}
+        for label, kw in MESH_CASES.items():
+            runs[label] = _mesh_pair(label, dict(MESH_CFG, **kw), ds, device,
+                                     world)
+            row = runs[label][4]
+            if MESH_CASES[label]["strategy"] == "hfl":
+                row["tier2_collectives"] = _tier1_local(
+                    label, runs[label][2].mesh_report)
+            out["cases"][label] = row
+        _, _, s1, r1, _ = runs["hfl"]
+        again = FederatedSimulation(
+            FLConfig(**dict(MESH_CFG, strategy="hfl", mesh_devices=ranks)),
+            ds, device=device, mesh_world=world)
+        r2 = again.run()
+        if not _mesh_same(r1, s1, r2, again):
+            raise SystemExit("mesh hfl: the repeated sharded run differs")
+        out["repeat_bitwise"] = True
+        print("  hfl: repeated sharded run bitwise equal; tier 1 issued no "
+              "collective on any rank", flush=True)
+        if nccl:
+            print("  -- (c) nccl at world 1, the round as a CUDA graph",
+                  flush=True)
+            with mesh.World(1, device=device, backend="nccl") as one:
+                cfg = dict(MESH_CFG, strategy="hfl")
+                tol = {k: 1e-5 for k in FUSED_TOL}
+                _, _, sa, ra, row = _mesh_pair("hfl-nccl", cfg, ds, device,
+                                               one, tol=tol)
+                sb = FederatedSimulation(FLConfig(**cfg), ds, device=device,
+                                         mesh_world=one)
+                rb = sb.run_fused(ranks=1)
+            if row["form"] != "graph" or row["backend"] != "nccl":
+                raise SystemExit(f"mesh hfl-nccl: ran {row['backend']} "
+                                 f"{row['form']}, want nccl graph")
+            if not _mesh_same(ra, sa, rb, sb):
+                raise SystemExit("mesh hfl-nccl: the repeated run differs")
+            row["tier2_collectives"] = _tier1_local("hfl-nccl", sa.mesh_report)
+            row["repeat_bitwise"] = True
+            out["nccl"] = row
+            print("  hfl-nccl: repeated graph run bitwise equal", flush=True)
+        C = scale["num_clients"]
+        print(f"  -- (d) {C} clients, fused_chunk={scale['fused_chunk']}, "
+              f"AFL star, {scale['rounds']} rounds", flush=True)
+        big = mnist_like(**dict(MESH_SCALE_DS, n_train=C * 8))
+        on_card = device == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _, rs, _, rm, row = _mesh_pair(f"afl-{C}c-chunk{scale['fused_chunk']}",
+                                       scale, big, device, world,
+                                       unchunked=False)
+        R = scale["rounds"]
+        row.update(single_s_per_round=rs.build_time_s / R,
+                   mesh_s_per_round=rm.build_time_s / R,
+                   caller_peak_bytes=(torch.cuda.max_memory_allocated()
+                                      if on_card else None))
+        mb = [None if b is None else round(b / 2**20, 1)
+              for b in row["peak_bytes"] + [row["caller_peak_bytes"]]]
+        print(f"  afl-{C}c: seconds per round single-device graph "
+              f"{row['single_s_per_round']:.4f}, {ranks} ranks sharing the "
+              f"card ({row['backend']}, {row['form']}) "
+              f"{row['mesh_s_per_round']:.4f} (not a speedup: one card); "
+              f"rank peak memory (MB) {mb[:-1]}; caller peak {mb[-1]} MB",
+              flush=True)
+        out["scale"] = row
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -3460,6 +3899,13 @@ def main():
     parity["zoo_rest"] = zoo_rest_parity_phase("cuda", "cpu")
     _phase("training (slice 12)")
     train = train_phase("cuda")
+    _phase("mesh (slice 13)")
+    t_mesh = time.perf_counter()
+    print("  -- (a) the mesh operators on ranks sharing the card", flush=True)
+    mesh_ops = mesh_operator_phase("cuda")
+    mesh_run = mesh_executor_phase("cuda")
+    mesh_s = time.perf_counter() - t_mesh
+    print(f"  phase 14 took {mesh_s:.1f}s", flush=True)
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -3568,6 +4014,8 @@ def main():
            "zoo_occupancy": zoo_kernels["occupancy"],
            "zoo": {"zamba2": zamba, "yi": yi}, "zoo_rest": zoo_rest,
            "train": train,
+           "mesh": {"operators": mesh_ops, "executor": mesh_run,
+                    "seconds": mesh_s},
            "documents": documents,
            "fused": {"parity": fused_parity, "documents": fused_docs,
                      "serving": serving, "launches": fused_launches,

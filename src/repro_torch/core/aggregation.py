@@ -22,8 +22,11 @@ Fault injection (DESIGN.md §15): `alive=` on the stacked operators is a
 (C,) 0/1 mask of the event's surviving uploads; `alive=None` is the exact
 fault-free path. The async runtime's batched staleness merge
 (`async_batch_merge`) is one weighted reduction on `fedavg_agg` over the
-server model and the batch's arrivals. The mesh operators belong to a
-later slice (ROADMAP §A.16).
+server model and the batch's arrivals.
+
+* MESH level (DESIGN.md §11) — the same events with the client axis laid
+  over the ranks of a `launch.mesh.World`: plain torch ops and one
+  counted sum all_reduce of one flat buffer per event.
 """
 from __future__ import annotations
 
@@ -32,9 +35,10 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import robust
+from repro_torch.core import robust, topology
+from repro_torch.core.collectives import all_reduce_sum
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
 
@@ -445,3 +449,250 @@ def async_batch_merge(global_params: Params, stacked_updates: Params,
         return global_params
     w = staleness_batch_weights(alphas).to(_device(stacked_updates))
     return kops.merge_aggregate_stacked(global_params, stacked_updates, w)
+
+
+# ===========================================================================
+# mesh-sharded STACKED operators — the fused executor on a rank world
+# (DESIGN.md §11)
+# ===========================================================================
+# These mirror the stacked operators above, but run in every rank of a
+# `launch.mesh.World` with the leading client axis laid over a mesh axis:
+# each rank holds a contiguous (C_loc, ...) sub-stack of clients, local
+# math stays per rank, and each aggregation event is exactly its
+# collective: ONE sum `all_reduce` of one flat buffer (the raveled
+# parameters ⊕ the weight total), never one per leaf. `axis` is the
+# rank's `launch.mesh.MeshAxis`. Plain torch ops and the counted
+# collectives of `core/collectives.py` only, as the reference's mesh path is
+# plain jnp and lax collectives: the hand kernels stay on the
+# single-device side.
+
+def _ravel(tree) -> torch.Tensor:
+    """Single tree -> (N,) float32 vector (sorted-key leaf order)."""
+    return torch.cat([leaf.reshape(-1).float() for leaf in tree_leaves(tree)])
+
+
+def _unravel(template, vec) -> Params:
+    """(N,) vector -> tree shaped and typed like the single tree
+    `template`."""
+    out, off = [], 0
+    for leaf in tree_leaves(template):
+        n = leaf.numel()
+        out.append(vec[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        off += n
+    return tree_unflatten(template, out)
+
+
+def _guarded(den: torch.Tensor) -> torch.Tensor:
+    """A denominator with 0 replaced by 1 (bitwise inert when > 0)."""
+    return torch.where(den > 0, den, torch.ones_like(den))
+
+
+def mesh_fedavg_stacked(stacked: Params, weights, *, axis) -> Params:
+    """Eq. (5) over the SHARDED client axis: each rank reduces its local
+    sub-stack, one all_reduce of (sum_c w_c theta_c ⊕ sum_c w_c) gives the
+    replicated global aggregate — the mesh twin of `fedavg_stacked` (AFL
+    star, FedProx, server-optimizer events, HFL tier 2). The denominator
+    is guarded against an all-masked federation (fault injection can zero
+    every weight in a round; the quorum hold discards the degenerate
+    value, but it must not be NaN — DESIGN.md §15)."""
+    mat = kops.stacked_ravel(stacked)
+    w = _as_f32(weights, mat.device)
+    buf = torch.cat([(mat * w[:, None]).sum(dim=0), w.sum()[None]])
+    all_reduce_sum(buf, axis)
+    return kops.tree_unravel(stacked, buf[:-1] / _guarded(buf[-1]))
+
+
+def hfl_tier1_local(stacked: Params, weights, num_groups_local: int, *,
+                    alive=None):
+    """HFL tier 1 over groups that nest INSIDE one rank's shard: (C_loc,
+    ...) -> ((G_loc, ...) group models, (G_loc,) group weight totals),
+    per-rank math with NO collective — the mesh executor's tier-1 event
+    (groups align to shards, so no group crosses a rank; DESIGN.md §11).
+
+    `alive` (fault injection, DESIGN.md §15) is the shard-local (C_loc,)
+    0/1 mask: dead clients are zero-weighted in their group's reduction
+    (guarded denominator; the caller's per-group quorum hold discards a
+    fully dead group's value). Group TOTALS stay the full sample weights,
+    as in `hfl_tier1_stacked`."""
+    mat = kops.stacked_ravel(stacked)
+    w = _as_f32(weights, mat.device)
+    C_loc = w.shape[0]
+    if C_loc % num_groups_local:
+        raise ValueError(f"{C_loc} local clients not divisible into "
+                         f"{num_groups_local} local groups")
+    per = C_loc // num_groups_local
+    wg = w.reshape(num_groups_local, per)
+    gw = wg.sum(dim=1)
+    if alive is not None:
+        wg = wg * _as_f32(alive, mat.device).reshape(num_groups_local, per)
+    den = _guarded(wg.sum(dim=1))
+    num = (mat.reshape(num_groups_local, per, -1) * wg[..., None]).sum(dim=1)
+    return kops.stacked_unravel(stacked, num / den[:, None]), gw
+
+
+def mesh_hfl_stacked(stacked: Params, weights, num_groups: int, *, axis,
+                     force_fallback: bool = False) -> Params:
+    """Two-tier HFL over a SHARDED client stack, for group sizes below,
+    equal to and above the shard size (the fused executor restricts to
+    shard-aligned groups and calls `hfl_tier1_local` itself, keeping tier
+    1 collective-free).
+
+    * group size <= shard size (groups nest in shards): tier 1 is the
+      local reshape (`hfl_tier1_local`), tier 2 one weighted all_reduce.
+    * group size > shard size (groups span whole shards): tier 1 is an
+      all_reduce over the group's ranks (a subgroup from `dist.new_group`)
+      — or, with `force_fallback`, the one-hot-masked full all_reduce with
+      the same math. Tier 2 then uses the tier-1 replication within each
+      group: the gw-weighted full-axis sum overcounts numerator AND
+      denominator by exactly the group's shard count, which cancels.
+
+    Matches host `hfl_aggregate` on the gathered stack."""
+    ndev = axis.size
+    mat = kops.stacked_ravel(stacked)
+    w = _as_f32(weights, mat.device)
+    C_loc = w.shape[0]
+    C = C_loc * ndev
+    if C % num_groups:
+        raise ValueError(f"{C} clients not divisible into {num_groups} "
+                         f"groups")
+    per = C // num_groups
+    if per <= C_loc:
+        groups, gw = hfl_tier1_local(stacked, w, C_loc // per)
+        return mesh_fedavg_stacked(groups, gw, axis=axis)
+    if per % C_loc:
+        raise ValueError(f"group size {per} neither nests in nor spans "
+                         f"whole shards of {C_loc} clients")
+    m = per // C_loc                      # shards per group
+    part = torch.cat([(mat * w[:, None]).sum(dim=0), w.sum()[None]])
+    if force_fallback:
+        # every rank writes its partial into its group's slot of a
+        # (G, N+1) expansion; one full all_reduce yields every group's
+        # sum, and each rank reads back its own group's row
+        onehot = (torch.arange(num_groups, device=mat.device)
+                  == axis.index // m).float()
+        slots = all_reduce_sum(onehot[:, None] * part[None, :], axis)
+        part = onehot @ slots
+    else:
+        sub = axis.split(topology.mesh_axis_groups(ndev, num_groups))
+        all_reduce_sum(part, sub)
+    gw = part[-1]
+    top = torch.cat([part[:-1] / gw * gw, gw[None]])
+    all_reduce_sum(top, axis)
+    return kops.tree_unravel(stacked, top[:-1] / top[-1])
+
+
+def mesh_gossip_stacked(stacked: Params, mix, *, axis) -> Params:
+    """Synchronous gossip on a SHARDED client stack as a masked
+    all-to-all: `mix` is the (C, C) row-stochastic mixing matrix of
+    `gossip_stacked` (self + ring neighbours, uniform) or a fault
+    schedule's masked one. Each rank multiplies the mixing COLUMNS it
+    owns by its local sub-stack, one all_reduce of the (C, N) product
+    assembles every mixed row, and the rank keeps its own row block."""
+    mat = kops.stacked_ravel(stacked)
+    mix = _as_f32(mix, mat.device)
+    C_loc = mat.shape[0]
+    lo = axis.index * C_loc
+    full = all_reduce_sum(mix[:, lo:lo + C_loc] @ mat, axis)
+    return kops.stacked_unravel(stacked, full[lo:lo + C_loc])
+
+
+# ===========================================================================
+# mesh-level operators — one model a rank (pod-scale FL)
+# ===========================================================================
+
+def _joint(a, b):
+    """The axis over both `a` and `b` of one rank mesh."""
+    return a.mesh.axis((a.name, b.name))
+
+
+def _wavg_psum(params, weight, axis):
+    """Weighted mean over a mesh axis: sum(w theta) / sum(w), one
+    all_reduce of (w theta ⊕ w)."""
+    vec = _ravel(params)
+    w = _as_f32(weight, vec.device).reshape(())
+    buf = all_reduce_sum(torch.cat([vec * w, w[None]]), axis)
+    return _unravel(params, buf[:-1] / buf[-1])
+
+
+def mesh_hfl(params, weight, *, client_axis, num_groups: int = 2,
+             pod_axis=None, force_fallback: bool = False):
+    """Two-tier hierarchical aggregation, one client a rank.
+
+    Single-pod: tier 1 over `mesh_axis_groups` partitions of the client
+    axis (subgroups; the one-hot-masked full all_reduce with
+    `force_fallback`), tier 2 over the full client axis. Multi-pod: tier
+    1 over the intra-pod client axis, tier 2 over the pod axis — the
+    clients -> group server -> global server schedule of paper Fig. 1."""
+    vec = _ravel(params)
+    w = _as_f32(weight, vec.device).reshape(())
+    part = torch.cat([vec * w, w[None]])
+    if pod_axis is not None:
+        all_reduce_sum(part, client_axis)                    # tier 1
+        gw = part[-1]
+        top = torch.cat([part[:-1] / gw * gw, gw[None]])
+        all_reduce_sum(top, pod_axis)                        # tier 2
+        return _unravel(params, top[:-1] / top[-1])
+    n = client_axis.size
+    groups = topology.mesh_axis_groups(n, num_groups)
+    if force_fallback:
+        onehot = (torch.arange(num_groups, device=vec.device)
+                  == client_axis.index // (n // num_groups)).float()
+        slots = all_reduce_sum(onehot[:, None] * part[None, :],
+                               client_axis)
+        part = onehot @ slots
+    else:
+        all_reduce_sum(part, client_axis.split(groups))
+    gw = part[-1]
+    # tier 2: each group model is replicated across its (equal-size)
+    # group, so numerator and denominator both overcount by the group
+    # size, which cancels
+    top = torch.cat([part[:-1] / gw * gw, gw[None]])
+    all_reduce_sum(top, client_axis)
+    return _unravel(params, top[:-1] / top[-1])
+
+
+def mesh_afl_fedavg(params, weight, participate, *, client_axis,
+                    pod_axis=None):
+    """Masked FedAvg over sampled participants; non-participants receive
+    the aggregate too."""
+    axis = client_axis if pod_axis is None else _joint(client_axis,
+                                                       pod_axis)
+    vec = _ravel(params)
+    m = (_as_f32(participate, vec.device).reshape(())
+         * _as_f32(weight, vec.device).reshape(()))
+    return _wavg_psum(params, m, axis)
+
+
+def mesh_afl_gossip(params, *, client_axis, steps: int = 1):
+    """Ring gossip: each client averages with its +-1 ring neighbours.
+    The reference's two `ppermute`s become one all_reduce of a one-hot
+    (n, N) slot expansion (gloo has no send/recv on CUDA tensors): every
+    rank writes its model into its own slot and reads its neighbours'."""
+    n, i = client_axis.size, client_axis.index
+    for _ in range(steps):
+        vec = _ravel(params)
+        slots = torch.zeros((n, vec.shape[0]), dtype=vec.dtype,
+                            device=vec.device)
+        slots[i] = vec
+        all_reduce_sum(slots, client_axis)
+        left, right = slots[(i - 1) % n], slots[(i + 1) % n]
+        params = _unravel(params, (vec + left + right) / 3.0)
+    return params
+
+
+def mesh_cfl(params, global_params, weight, alpha, *, client_axis,
+             pod_axis=None):
+    """Continual merge at pod scale: the federation mean is folded into
+    the running global model with rate alpha, and the new global into
+    each client's model likewise. Returns (new_client_params,
+    new_global_params)."""
+    axis = client_axis if pod_axis is None else _joint(client_axis,
+                                                       pod_axis)
+    mean = _wavg_psum(params, weight, axis)
+    new_global = tree_map(
+        lambda g, m: ((1 - alpha) * g.float() + alpha * m.float()).to(g.dtype),
+        global_params, mean)
+    new_client = tree_map(
+        lambda c, g: ((1 - alpha) * c.float() + alpha * g.float()).to(c.dtype),
+        params, new_global)
+    return new_client, new_global

@@ -22,7 +22,10 @@ matrix, and per-round accuracy/loss curves (Figures 9/11).
                    device tensors — on the card captured once as a CUDA
                    graph and replayed every round, on the CPU run eagerly
                    round by round — and the per-round metrics come back in
-                   ONE device-to-host transfer at run end.
+                   ONE device-to-host transfer at run end. With
+                   `mesh_devices=N` (DESIGN.md §11) the rounds run in N
+                   rank processes on `torch.distributed`, each on its
+                   contiguous sub-stack of clients (`run_fused`).
 * rng-parity bookkeeping — batch construction consumes the run rng in
   one canonical order (client-major, epoch-minor) under both engines
   (DESIGN.md §4).
@@ -58,21 +61,18 @@ Parameters, batches and eval sets live on `device` ("cuda" by default;
 the tests pass "cpu"). Float32 convolutions and matmuls run in full f32
 on the card with deterministic cuDNN algorithms: the constructor turns
 TF32 off and determinism on (`device.deterministic_f32`).
-
-Configs the port does not run yet (`mesh_devices > 1`) raise
-NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import aggregation, attacks, robust
+from repro_torch.core import aggregation, attacks, collectives, robust
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import engine as engine_mod
@@ -120,23 +120,6 @@ class FLResult:
                  "recall", "f1", "balanced_accuracy")}
 
 
-# Config values the port does not run yet, each with the ROADMAP item
-# that ports it.
-_LATER_SLICES = (
-    ("mesh_devices", lambda v: v > 1, "§A.16 (mesh)"),
-)
-
-
-def check_slice(fl: FLConfig) -> None:
-    """Raise NotImplementedError for any config the port cannot run."""
-    for field, outside, item in _LATER_SLICES:
-        value = getattr(fl, field)
-        if outside(value):
-            raise NotImplementedError(
-                f"FLConfig.{field}={value!r} is not ported yet: "
-                f"ROADMAP {item} brings it to repro_torch")
-
-
 # ---------------------------------------------------------------------------
 
 def _sgd_epoch(params, opt_state, data, lr_momentum, *,
@@ -175,9 +158,16 @@ class FusedContext:
     state — stacked federation dataset, per-client eval shards, client
     weights, test split — plus the static config and the run's device
     constants. `Strategy.scan_round` / `scan_bases` / `scan_aggregate`
-    receive it as their first argument."""
+    receive it as their first argument.
 
-    def __init__(self, sim, consts):
+    On the mesh (DESIGN.md §11) the round runs in every rank and every
+    client-axis tensor here is the rank's sub-stack: `mesh_axis` is the
+    rank's `launch.mesh.MeshAxis`, `local_pids` maps absolute participant
+    ids to the rank's rows (the client axis is split contiguously), and
+    `pmean` averages per-round scalars over the ranks. All three are the
+    identity when `mesh_axis` is None, so strategy code is written once."""
+
+    def __init__(self, sim, consts, *, mesh_axis=None):
         self.sim, self.fl, self.eng = sim, sim.fl, sim.vec
         self.nb = sim.vec.nb
         self.data_x = consts["data_x"]
@@ -188,6 +178,7 @@ class FusedContext:
         self.x_test = consts["x_test"]
         self.y_test = consts["y_test"]
         self.track = sim.strategy.track_curves
+        self.mesh_axis = mesh_axis
         self._consts: Dict[str, torch.Tensor] = {}
         # per-client codec state (error-feedback residuals) of the
         # current round: the driver parks the carried rows here across
@@ -204,6 +195,23 @@ class FusedContext:
             t = self._consts[key] = torch.as_tensor(make(),
                                                     device=self.sim.device)
         return t
+
+    def local_pids(self, pids):
+        """Absolute participant ids -> rows of this rank's sub-stack
+        (identity off the mesh). Valid under the full participation that
+        `_mesh_check` enforces: rank s holds ids [s*C_loc, (s+1)*C_loc)."""
+        if self.mesh_axis is None:
+            return pids
+        return pids - self.mesh_axis.index * self.data_x.shape[0]
+
+    def pmean(self, *xs):
+        """The mean over the ranks of per-rank scalars, in one all_reduce
+        (identity off the mesh; shards are equal, so the mean of shard
+        means is the federation mean). Returns a tuple."""
+        if self.mesh_axis is None:
+            return xs
+        buf = collectives.all_reduce_sum(torch.stack(xs), self.mesh_axis)
+        return tuple((buf / self.mesh_axis.size).unbind())
 
     def defense_kwargs(self, event_size=None):
         return self.sim.defense_kwargs(event_size)
@@ -308,12 +316,19 @@ class FederatedSimulation:
     `model_init` is a callable taking a CPU `torch.Generator` seeded with
     `fl.seed` and returning the parameter tree (default `init_cnn`); the
     tree is moved to `device`, so one seed gives the same initial model on
-    every device. Tests inject the reference's parameters through it."""
+    every device. Tests inject the reference's parameters through it.
+
+    `mesh_backend` (None, "gloo" or "nccl") and `mesh_world` (a running
+    `launch.mesh.World` to reuse, of the run's size) apply to the
+    mesh-sharded fused run (`run_fused`), which `FLConfig.mesh_devices`
+    selects; they are not `FLConfig` fields, so the config schema stays
+    the reference's."""
 
     def __init__(self, fl: FLConfig, dataset: Dict[str, Any],
-                 model_init=None, device="cuda"):
-        check_slice(fl)
+                 model_init=None, device="cuda", *, mesh_backend=None,
+                 mesh_world=None):
         self.device = device_mod.resolve_device(device)
+        self.mesh_backend, self.mesh_world = mesh_backend, mesh_world
         device_mod.deterministic_f32()
         self.fl = fl
         self.dataset = dataset
@@ -768,16 +783,23 @@ class FederatedSimulation:
                 else contextlib.nullcontext())
 
     def _fused_inputs(self, state0, R):
-        """The host precompute of a fused run: consume `self.rng` in the
-        per-round order — per event, the participant schedule
-        (`select_participants`, against the initial state), then one
-        batch permutation per (client, epoch) (`batch_indices`) — and
-        derive every other per-round input from the same seams the
-        per-round drivers call: attack flags and gauss noise, codec draws,
-        the fault schedule's views (also logged into `_fault_log`) and the
-        strategy's extra inputs. Returns ({name: (R, ...) device tensor,
-        or a list of them per leaf}, per-round participant arrays): one
-        host-to-device copy per array."""
+        """The host precompute of a fused run (`_fused_host_inputs`), each
+        array uploaded in one host-to-device copy. Returns ({name: (R, ...)
+        device tensor, or a list of them per leaf}, per-round participant
+        arrays)."""
+        host, pids_l = self._fused_host_inputs(state0, R)
+        return self._upload_inputs(host), pids_l
+
+    def _fused_host_inputs(self, state0, R):
+        """Consume `self.rng` in the per-round order — per event, the
+        participant schedule (`select_participants`, against the initial
+        state), then one batch permutation per (client, epoch)
+        (`batch_indices`) — and derive every other per-round input from
+        the same seams the per-round drivers call: attack flags and gauss
+        noise, codec draws, the fault schedule's views (also logged into
+        `_fault_log`) and the strategy's extra inputs. Returns ({name:
+        (R, ...) host array, or a list of them per leaf}, per-round
+        participant arrays); nothing goes to the device."""
         fl, strat = self.fl, self.strategy
         pids_l, idx_l = [], []
         for ev in range(R):
@@ -807,6 +829,10 @@ class FederatedSimulation:
                      for ev in range(R)]
             if draws[0] is not None:
                 host["ckeys"] = torch.stack(draws)
+        return host, pids_l
+
+    def _upload_inputs(self, host):
+        """Per-round host inputs -> device tensors of their scan dtypes."""
         dtypes = {"pids": torch.long, "idx": torch.long, "flags": torch.bool,
                   "fault_alive": torch.float32, "fault_qok": torch.bool,
                   "fault_gqok": torch.bool, "fault_mix": torch.float32,
@@ -816,9 +842,10 @@ class FederatedSimulation:
             if isinstance(a, list):
                 return [up(name, e) for e in a]
             return torch.as_tensor(a, dtype=dtypes.get(name)).to(self.device)
-        return {k: up(k, v) for k, v in host.items()}, pids_l
+        return {k: up(k, v) for k, v in host.items()}
 
-    def run_fused(self, graph: bool = True) -> FLResult:
+    def run_fused(self, graph: bool = True, *,
+                  ranks: Optional[int] = None) -> FLResult:
         """The whole run on the device: strategy state, optimizer state
         and the stacked federation stay there from the first round to the
         last, the per-round metrics are written into (R,) device buffers
@@ -836,6 +863,32 @@ class FederatedSimulation:
         failed capture raises: the run never falls back. On the CPU, or
         with `graph=False` (the card's eager loop, which chip_smoke.py
         holds the graph to), the same body runs eagerly round by round.
+
+        Mesh (`mesh_devices=N > 1`; DESIGN.md §11): the rounds run in the N
+        ranks of a `launch.mesh.World` (the `mesh_world` given, or one
+        started for the call and stopped after it), each on its contiguous
+        sub-stack of clients, and each aggregation event is one sum
+        all_reduce (`core/aggregation.py`'s mesh operators). The caller
+        checks the reference's preconditions and runs the host precompute
+        as above, without the upload; every rank receives the config, the
+        dataset, the partition, the initial params and the rng state,
+        redoes the same (deterministic) precompute and takes its shard of
+        the carry, the per-round inputs and the stacked data — nothing on a
+        device is pickled. Under nccl (a card a rank) the round is captured
+        as a CUDA graph and replayed as on one device; under gloo (the CPU,
+        or ranks sharing a card) the same body runs eagerly round by round.
+        The build time is rank 0's R rounds between two barriers (start-up
+        and the rendezvous stay outside, as the reference's compile does),
+        the warmup rank 0's warmup; in-round telemetry is off. The final
+        carry is gathered, untimed, onto the caller's device for the
+        classification phase; `self.mesh_report` records the backend, the
+        form (graph or eager), and each rank's collective counts, kernel
+        launches (none: the mesh path runs plain torch ops, as the
+        reference's runs plain jnp) and peak device memory. `ranks` runs
+        the mesh path on that many ranks where `mesh_devices` would not
+        (`ranks=1`: one rank under nccl, the round captured, which
+        chip_smoke.py holds to the single-device run); None follows
+        `mesh_devices`.
 
         Kernel launches: a wrapper counts its calls in Python — the
         warmup's, the capture's (one a captured call), the per-phase
@@ -855,26 +908,120 @@ class FederatedSimulation:
                 f"data-dependent schedules cannot be hoisted out of the "
                 f"rounds)")
         dev = self.device
-        use_graph = graph and dev.type == "cuda"
+        if ranks is None:
+            ranks = fl.mesh_devices if fl.mesh_devices > 1 else 0
+        elif fl.mesh_devices > 1 and ranks != fl.mesh_devices:
+            raise ValueError(f"ranks={ranks}, but FLConfig.mesh_devices="
+                             f"{fl.mesh_devices}")
+        if self.mesh_world is not None and self.mesh_world.size != ranks:
+            raise ValueError(
+                f"mesh_world has {self.mesh_world.size} ranks, the run "
+                f"{ranks or 'none'} (FLConfig.mesh_devices="
+                f"{fl.mesh_devices})")
         tel = self.telemetry
         R = strat.num_events(self)
         if R < 1:
             raise ValueError("the fused executor needs at least one round")
         state0 = strat.init_state(self)
+        rng_state = self.rng.bit_generator.state
         with tel.span("precompute", cat="run", rounds=R):
-            xs, pids_l = self._fused_inputs(state0, R)
-            consts = _fused_consts(self)
+            if ranks:
+                # the ranks redo the precompute and upload their shards
+                _, pids_l = self._fused_host_inputs(state0, R)
+            else:
+                xs, pids_l = self._fused_inputs(state0, R)
+                consts = _fused_consts(self)
         k = len(pids_l[0])
-        if 0 < fl.fused_chunk < k and k % fl.fused_chunk:
-            raise ValueError(f"fused_chunk={fl.fused_chunk} must divide "
-                             f"the participant stack ({k} clients)")
         # the carry: private buffers, written in place every round
         carry = {"strategy": tree_map(torch.clone,
                                       strat.scan_carry(self, state0))}
         if self.codec is not None and self.codec.stateful:
             carry["codec"] = self._codec_init_state()
-        fx = FusedContext(self, consts)
-        scan_tel = tel.enabled
+        bufs: Dict[Any, torch.Tensor] = {}
+        if ranks:
+            self._mesh_check(ranks, np.stack(pids_l), carry["strategy"])
+            host, carry["strategy"], warmup_timer, build_timer = \
+                self._run_mesh(R, graph, rng_state, ranks)
+        else:
+            if 0 < fl.fused_chunk < k and k % fl.fused_chunk:
+                raise ValueError(f"fused_chunk={fl.fused_chunk} must divide "
+                                 f"the participant stack ({k} clients)")
+            warmup_timer, build_timer = Timer(device=dev), Timer(device=dev)
+
+            @contextlib.contextmanager
+            def warmup():
+                with tel.span("warmup", cat="run"), warmup_timer, \
+                        tel.suppress():
+                    yield
+                    self._warmup_predicts()
+
+            @contextlib.contextmanager
+            def build():
+                # per-phase device-time proxy (obs/collectors.py): one
+                # instrumented per-round event. Skipped when chunked (the
+                # per-round path would materialize the unchunked stack).
+                if tel.enabled and not fl.fused_chunk:
+                    obs_collectors.fused_phase_proxy(self)
+                    self._reset_codec()
+                with build_timer, self._build_hook(), \
+                        tel.span("fused_scan", cat="run", rounds=R):
+                    yield
+
+            host, bufs = self._drive_rounds(
+                FusedContext(self, consts), carry, xs, R,
+                use_graph=graph and dev.type == "cuda",
+                scan_tel=tel.enabled, warmup=warmup, build=build)
+        if "codec" in carry:
+            self.codec_state = carry["codec"]
+        if self.codec is not None:
+            # analytic wire accounting, from the hoisted schedules
+            self._comm_log = [len(p) for p in pids_l]
+        for name in host:
+            if name.startswith("scan."):
+                tel.record_series(name, host[name])
+        tel.record_series("participants", [len(p) for p in pids_l])
+        if self.codec is not None:
+            bw = self.codec.bytes_on_wire(self.model_dim)
+            tel.record_series("codec.uplink_bytes",
+                              [len(p) * bw for p in pids_l])
+            tel.counter("codec.uplink_bytes",
+                        sum(len(p) * bw for p in pids_l))
+        state = strat.scan_uncarry(self, carry["strategy"])
+        curves = {"train_acc": [], "train_loss": [], "test_acc": []}
+        if strat.track_curves:
+            curves = {key: [float(v) for v in host[key]]
+                      for key in curves}
+        train_acc = float(host["train_acc"][-1])
+        serve_sess = self._make_serve_session(R)
+        if serve_sess is not None:
+            # replay the publishes the per-round engines make live: one
+            # hot-swap per round, in round order, at the same virtual
+            # times — the serving block is the same under every engine
+            template = strat.round_model(state)
+            n_leaves = len(tree_leaves(template))
+            with tel.span("serve_replay", cat="serve", rounds=R):
+                for ev in range(R):
+                    fe = self._fault_log.get(ev)
+                    if fe is not None and not fe.qok:
+                        # quorum-failed round: nothing published live
+                        # either — replay the hold (DESIGN.md §15)
+                        serve_sess.hold_round(ev + 1)
+                        continue
+                    serve_sess.publish_round(ev + 1, tree_unflatten(
+                        template, [bufs[("model", i)][ev]
+                                   for i in range(n_leaves)]))
+        return self._classify_and_result(state, curves, train_acc,
+                                         build_timer,
+                                         warmup_timer=warmup_timer)
+
+    def _drive_rounds(self, fx, carry, xs, R, *, use_graph, scan_tel,
+                      warmup, build):
+        """Run R fused rounds on `carry` (written in place): the warmup and
+        (with `use_graph`) the capture inside the `warmup()` context, the
+        R replays or eager rounds and the one transfer of the per-round
+        metrics inside `build()`. Returns ({name: (R,) numpy series},
+        {name: (R, ...) device buffer})."""
+        fl, strat, dev = self.fl, self.strategy, self.device
 
         def body(carry, t, bufs):
             """One round: read round t's inputs, train, corrupt, ship,
@@ -908,10 +1055,9 @@ class FederatedSimulation:
             t.add_(1)
 
         t = torch.zeros((1,), dtype=torch.long, device=dev)
-        warmup_timer = Timer(device=dev)
-        with tel.span("warmup", cat="run"), warmup_timer, tel.suppress():
+        with warmup():
             # first-use costs (kernel builds, allocator growth) on a
-            # throwaway copy of the carry, outside the build timer
+            # throwaway copy of the carry
             wcarry = tree_map(torch.clone, carry)
             wbufs: Dict[Any, torch.Tensor] = {}
             if use_graph:
@@ -939,17 +1085,7 @@ class FederatedSimulation:
                         f"the fused round could not be captured as a CUDA "
                         f"graph ({type(e).__name__}: {e}); the run does "
                         f"not fall back to the eager loop") from e
-            self._warmup_predicts()
-        # per-phase device-time proxy (obs/collectors.py): one
-        # instrumented per-round event. Skipped when chunked (the
-        # per-round path would materialize the unchunked stack).
-        if tel.enabled and not fl.fused_chunk:
-            obs_collectors.fused_phase_proxy(self)
-            self._reset_codec()
-
-        build_timer = Timer(device=dev)
-        with build_timer, self._build_hook(), \
-                tel.span("fused_scan", cat="run", rounds=R):
+        with build():
             if use_graph:
                 for _ in range(R):
                     g.replay()
@@ -959,48 +1095,178 @@ class FederatedSimulation:
             names = [n for n in bufs if not isinstance(n, tuple)]
             host = dict(zip(names, torch.stack(
                 [bufs[n].float() for n in names]).cpu().numpy()))
-        if "codec" in carry:
-            self.codec_state = carry["codec"]
-        if self.codec is not None:
-            # analytic wire accounting, from the hoisted schedules
-            self._comm_log = [len(p) for p in pids_l]
-        for name in names:
-            if name.startswith("scan."):
-                tel.record_series(name, host[name])
-        tel.record_series("participants", [len(p) for p in pids_l])
-        if self.codec is not None:
-            bw = self.codec.bytes_on_wire(self.model_dim)
-            tel.record_series("codec.uplink_bytes",
-                              [len(p) * bw for p in pids_l])
-            tel.counter("codec.uplink_bytes",
-                        sum(len(p) * bw for p in pids_l))
-        state = strat.scan_uncarry(self, carry["strategy"])
-        curves = {"train_acc": [], "train_loss": [], "test_acc": []}
-        if strat.track_curves:
-            curves = {key: [float(v) for v in host[key]]
-                      for key in curves}
-        train_acc = float(host["train_acc"][-1])
-        serve_sess = self._make_serve_session(R)
-        if serve_sess is not None:
-            # replay the publishes the per-round drivers make live: one
-            # hot-swap per round, in round order, at the same virtual
-            # times — the serving block is the same under every engine
-            template = strat.round_model(state)
-            n_leaves = len(tree_leaves(template))
-            with tel.span("serve_replay", cat="serve", rounds=R):
-                for ev in range(R):
-                    fe = self._fault_log.get(ev)
-                    if fe is not None and not fe.qok:
-                        # quorum-failed round: nothing published live
-                        # either — replay the hold (DESIGN.md §15)
-                        serve_sess.hold_round(ev + 1)
-                        continue
-                    serve_sess.publish_round(ev + 1, tree_unflatten(
-                        template, [bufs[("model", i)][ev]
-                                   for i in range(n_leaves)]))
-        return self._classify_and_result(state, curves, train_acc,
-                                         build_timer,
-                                         warmup_timer=warmup_timer)
+        return host, bufs
+
+    # -- the mesh-sharded fused executor (DESIGN.md §11) ---------------------
+    # per-round inputs whose dim 1 is the client axis (split over the
+    # ranks); every other input is replicated
+    _MESH_CLIENT_XS = ("pids", "idx", "flags", "noise", "fault_alive")
+    # constants whose dim 0 is the client axis; the test split is
+    # replicated
+    _MESH_CLIENT_CONSTS = ("data_x", "data_y", "eval_x", "eval_y", "weights")
+
+    def _mesh_check(self, ndev, pids, carry) -> None:
+        """The reference's mesh preconditions (`_mesh_wrap`) for `ndev`
+        ranks, each raising with its message before any rank starts; then
+        the placement (the backend, the rank slots) and the strategy's
+        carry sharding."""
+        from repro_torch.launch import mesh as mesh_mod
+        fl, strat = self.fl, self.strategy
+        C = fl.num_clients
+        if not strat.supports_mesh:
+            raise ValueError(
+                f"strategy {strat.name!r} does not support the "
+                f"mesh-sharded fused executor (Strategy.supports_mesh; "
+                f"sequential schedules cannot shard the client axis)")
+        if fl.defense != "none":
+            raise ValueError(
+                f"mesh_devices={ndev} with defense={fl.defense!r}: "
+                f"in-scan defenses rank uploads across the WHOLE "
+                f"federation and do not lower to per-shard collectives "
+                f"(run the single-device fused path instead)")
+        if fl.codec != "none" or fl.serve:
+            raise ValueError(
+                "upload codecs and serving do not compose with the "
+                "mesh-sharded fused executor (FLConfig rejects them at "
+                "mesh_devices > 1)")
+        if C % ndev:
+            raise ValueError(
+                f"mesh path needs equal shards: num_clients={C} must be "
+                f"a multiple of mesh_devices={ndev}")
+        if fl.fused_chunk and (C // ndev) % fl.fused_chunk:
+            raise ValueError(
+                f"fused_chunk={fl.fused_chunk} must divide the LOCAL "
+                f"participant stack ({C // ndev} clients per shard)")
+        strat.validate_mesh(self, ndev)
+        want = np.arange(C)
+        if pids.size and (pids.shape[1] != C
+                          or not np.array_equal(
+                              pids, np.broadcast_to(want, pids.shape))):
+            raise ValueError(
+                "mesh path needs full participation (participation=1.0): "
+                "the client axis is sharded positionally, so every round "
+                "must train clients 0..C-1 in id order")
+        if self.mesh_world is not None:
+            if self.mesh_world.device.type != self.device.type:
+                raise ValueError(
+                    f"mesh_world runs on {self.mesh_world.device.type}, the "
+                    f"simulation on {self.device.type}")
+            if self.mesh_backend not in (None, self.mesh_world.backend):
+                raise ValueError(
+                    f"mesh_backend={self.mesh_backend!r}, but mesh_world "
+                    f"runs {self.mesh_world.backend!r}")
+            backend = self.mesh_world.backend
+        else:
+            backend = mesh_mod.resolve_backend(self.mesh_backend,
+                                               self.device, ndev)
+        mesh_mod.make_client_mesh(ndev, available=mesh_mod.rank_slots(
+            self.device, backend))
+        sharding = strat.scan_carry_sharding(self)
+        if set(sharding) != set(carry):
+            raise ValueError(
+                f"scan_carry_sharding keys {sorted(sharding)} do not "
+                f"match the scan carry {sorted(carry)}")
+
+    def _run_mesh(self, R, graph, rng_state, ndev):
+        """Run the R rounds in the ranks (`_mesh_rank`) and gather their
+        results: (per-round metrics, the final strategy carry on the
+        caller's device, warmup timer, build timer)."""
+        from repro_torch.launch import mesh as mesh_mod
+        tel, sharding = self.telemetry, self.strategy.scan_carry_sharding(self)
+        world = self.mesh_world
+        params = tree_map(lambda leaf: leaf.detach().cpu(), self.init_params)
+        with tel.span("fused_scan", cat="run", rounds=R, ranks=ndev):
+            own = world is None
+            if own:
+                world = mesh_mod.World(ndev, device=self.device,
+                                       backend=self.mesh_backend)
+            try:
+                outs = world.run(_mesh_rank, self.fl, self.dataset,
+                                 self.parts, params, rng_state, graph)
+            finally:
+                if own:
+                    world.close()
+        carry = {}
+        for key, how in sharding.items():
+            if how == "client":
+                carry[key] = tree_map(lambda *ls: torch.cat(ls),
+                                      *[o["carry"][key] for o in outs])
+            else:
+                carry[key] = outs[0]["carry"][key]
+        # re-home the final carry for the classification phase (untimed)
+        carry = tree_map(lambda leaf: leaf.to(self.device), carry)
+        first = outs[0]
+        self.mesh_report = {
+            "ranks": ndev, "backend": first["backend"],
+            "form": "graph" if first["graph"] else "eager",
+            "collectives": [o["collectives"] for o in outs],
+            "kernel_launches": [o["kernel_launches"] for o in outs],
+            "peak_bytes": [o["peak_bytes"] for o in outs],
+            "build_s": [o["build_s"] for o in outs]}
+        self._warmup_predicts()
+        return (first["host"], carry, Timer(elapsed=first["warmup_s"]),
+                Timer(elapsed=first["build_s"]))
+
+    def _mesh_rank_rounds(self, rank, graph):
+        """A rank's share of a mesh run (called in the rank by
+        `_mesh_rank`): the precompute, this rank's shard of the carry, the
+        per-round inputs and the constants, then `_drive_rounds` with the
+        build window between two barriers."""
+        fl, strat, dev = self.fl, self.strategy, self.device
+        collectives.reset_collective_counts()
+        launches0 = self._kernel_launches()
+        axis = rank.axis()
+        R = strat.num_events(self)
+        state0 = strat.init_state(self)
+        host, _ = self._fused_host_inputs(state0, R)
+        c_loc = fl.num_clients // axis.size
+        lo = axis.index * c_loc
+
+        def rows(a, dim):
+            """This rank's block of `a` (numpy or torch) along `dim`."""
+            n = a.shape[dim] // axis.size
+            return a[(slice(None),) * dim
+                     + (slice(axis.index * n, (axis.index + 1) * n),)]
+
+        xs = self._upload_inputs(
+            {k: (tree_map(lambda a: rows(a, 1), v)
+                 if k in self._MESH_CLIENT_XS else v)
+             for k, v in host.items()})
+        consts = {k: (v[lo:lo + c_loc].clone()
+                      if k in self._MESH_CLIENT_CONSTS else v)
+                  for k, v in _fused_consts(self).items()}
+        sharding = strat.scan_carry_sharding(self)
+        carry = {"strategy": {
+            k: tree_map(lambda a: (rows(a, 0) if sharding[k] == "client"
+                                   else a).clone(), v)
+            for k, v in strat.scan_carry(self, state0).items()}}
+        use_graph = graph and dev.type == "cuda" and rank.backend == "nccl"
+        warmup_timer, build_timer = Timer(device=dev), Timer(device=dev)
+
+        @contextlib.contextmanager
+        def build():
+            rank.barrier()
+            with build_timer:
+                yield
+                rank.barrier()
+
+        host, _ = self._drive_rounds(
+            FusedContext(self, consts, mesh_axis=axis), carry, xs, R,
+            use_graph=use_graph, scan_tel=False,
+            warmup=lambda: warmup_timer, build=build)
+        keep = {k: tree_map(lambda a: a.cpu(), v)
+                for k, v in carry["strategy"].items()
+                if sharding[k] == "client" or rank.rank == 0}
+        return {"host": host if rank.rank == 0 else None, "carry": keep,
+                "build_s": build_timer.elapsed,
+                "warmup_s": warmup_timer.elapsed, "graph": use_graph,
+                "backend": rank.backend,
+                "collectives": collectives.collective_counts(),
+                "kernel_launches": {
+                    k: v - launches0[k]
+                    for k, v in self._kernel_launches().items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None)}
 
     def _test_head_dev(self, shard):
         """Cached device-resident head of the test split (the
@@ -1161,3 +1427,18 @@ class FederatedSimulation:
             preds = self._eval(model_for_eval)
         curves["test_acc"].append(
             float(np.mean(preds == self.dataset["test"][1])))
+
+
+def _mesh_rank(rank, fl, dataset, parts, params, rng_state, graph):
+    """One rank of a mesh-sharded fused run (`World.run` calls it in every
+    rank): the caller's simulation rebuilt from its config, dataset,
+    partition, initial params and rng state, then its share of the rounds
+    (`FederatedSimulation._mesh_rank_rounds`)."""
+    sim = FederatedSimulation(dataclasses.replace(fl, telemetry=False),
+                              dataset, model_init=lambda _gen: params,
+                              device=rank.device)
+    if len(parts) != len(sim.parts) or not all(
+            np.array_equal(a, b) for a, b in zip(parts, sim.parts)):
+        sim.set_partition(parts)
+    sim.rng.bit_generator.state = rng_state
+    return sim._mesh_rank_rounds(rank, graph)

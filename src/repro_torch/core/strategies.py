@@ -33,8 +33,17 @@ The traceable half of the protocol — `scan_round` (the default wraps the
 lifecycle pieces), `scan_bases`, `scan_aggregate`, `scan_carry` /
 `scan_uncarry`, `scan_extra_xs`, `fault_scan_kwargs`, `scan_telemetry` —
 lives on the Strategy too; `supports_fused` declares the opt-in (async
-cannot fuse: its tick batches are data-dependent). The mesh hooks belong
-to a later slice of the port (ROADMAP §A.16).
+cannot fuse: its tick batches are data-dependent).
+
+The MESH-sharded fused executor (`mesh_devices=N`, DESIGN.md §11) runs the
+same round body in every rank of a `launch.mesh.World` on the rank's
+contiguous sub-stack of clients: `supports_mesh` declares the opt-in,
+`scan_carry_sharding` which carry entries carry the client axis,
+`validate_mesh` the strategy's own preconditions, and `scan_aggregate`
+lowers its event to the mesh operators of `core/aggregation.py` when
+`fx.mesh_axis` is set (HFL: shard-local tier 1, one all_reduce at tier 2;
+AFL: one all_reduce, gossip the masked all-to-all mix; server optimizers
+step the replicated global model). CFL stays single-device.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation as agg
+from repro_torch.core import collectives
 from repro_torch.core import engine as engine_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import topology
@@ -276,6 +286,29 @@ class Strategy:
 
     supports_fused = False      # opt-in: see the contract above
 
+    # -- mesh-sharded fused executor (DESIGN.md §11) ------------------------
+    # `mesh_devices > 1` runs the fused round in every rank of a world,
+    # each on its contiguous sub-stack of clients. A strategy opts in with
+    # `supports_mesh = True` when its hooks are collective-correct:
+    # `scan_bases`, local training and corruption are per client already,
+    # so the one obligation is `scan_aggregate` lowering its event to the
+    # mesh operators when `fx.mesh_axis` is set. `scan_carry_sharding`
+    # declares, per top-level carry key, whether that subtree carries the
+    # client axis ("client": dim 0 split over the ranks) or is
+    # federation-global ("replicated"). `run_fused` validates the generic
+    # preconditions (full participation, C % ranks, defense="none") before
+    # any rank starts.
+
+    supports_mesh = False
+
+    def scan_carry_sharding(self, sim) -> Dict[str, str]:
+        """Top-level carry key -> "client" | "replicated"."""
+        raise NotImplementedError
+
+    def validate_mesh(self, sim, ndev: int) -> None:
+        """Strategy-specific mesh preconditions, raised before any rank
+        starts (HFL: group/shard alignment)."""
+
     def scan_carry(self, sim, state):
         """Strategy state -> the tree of tensors carried from round to
         round."""
@@ -315,22 +348,30 @@ class Strategy:
         evaluate the paper's local-shard training accuracy, corrupt
         attacker uploads, ship them through the codec, aggregate. Returns
         (carry, (train_acc, train_loss, test_acc)) as device scalars —
-        test_acc is NaN when curve tracking is off."""
+        test_acc is NaN when curve tracking is off.
+
+        On the mesh every per-client input (bases, batches, flags, noise,
+        eval shards) is the rank's sub-stack: `fx.local_pids` maps the
+        absolute participant ids to its rows, training and corruption run
+        unchanged, and the two per-round scalars are averaged over the
+        ranks in one all_reduce (equal shards make the mean of the shard
+        means the federation mean)."""
         fl = fx.fl
         bases = self.scan_bases(fx, carry, xs)
-        batch = engine_mod.gather_batches(fx.data_x, fx.data_y,
-                                          xs["pids"], xs["idx"])
+        pids = fx.local_pids(xs["pids"])
+        batch = engine_mod.gather_batches(fx.data_x, fx.data_y, pids,
+                                          xs["idx"])
         spec = self.local_spec(fx.sim, None, None)
         extra = bases if spec.extra == "bases" else None
         params, losses, _ = engine_mod.train_clients_chunked(
             bases, batch, stacked_loss_fn=spec.stacked_loss_fn, lr=fl.lr,
             momentum=fl.momentum, extra=extra, chunk=fl.fused_chunk)
-        accs = fx.local_accs(params, xs["pids"])
+        accs = fx.local_accs(params, pids)
         uploads = fx.corrupt(params, bases, xs)
         uploads = fx.transport(uploads, bases, xs)
         carry = self.scan_aggregate(fx, carry, xs, uploads)
-        return carry, (accs.mean(), losses[:, -fx.nb:].mean(),
-                       fx.test_acc(self.round_model(carry)))
+        acc, loss = fx.pmean(accs.mean(), losses[:, -fx.nb:].mean())
+        return carry, (acc, loss, fx.test_acc(self.round_model(carry)))
 
     def scan_telemetry(self, fx, carry, new_carry, xs) -> Dict[str, Any]:
         """Strategy-specific per-round counters (device scalars; DESIGN.md
@@ -499,6 +540,24 @@ class HFLStrategy(Strategy):
 
     # -- fused executor -----------------------------------------------------
     supports_fused = True
+    # mesh: groups align to shards (num_groups % ranks == 0), so tier 1 is
+    # the rank-local reshape with no collective; only tier 2 reduces
+    supports_mesh = True
+
+    def scan_carry_sharding(self, sim):
+        sharding = {"groups": "client", "global": "replicated",
+                    "up": "client", "start": "client"}
+        if sim.faults is not None:
+            sharding["alive"] = "client"
+        return sharding
+
+    def validate_mesh(self, sim, ndev):
+        if self.fl.num_groups % ndev:
+            raise ValueError(
+                f"HFL mesh path needs groups aligned to shards: "
+                f"num_groups={self.fl.num_groups} must be a multiple of "
+                f"mesh_devices={ndev} so tier 1 never crosses a shard "
+                f"boundary (DESIGN.md §11)")
 
     def scan_carry(self, sim, state):
         carry = {"groups": state["groups"], "global": state["global"],
@@ -540,22 +599,39 @@ class HFLStrategy(Strategy):
         fl = self.fl
         start_groups = carry["groups"]
         alive = xs.get("fault_alive")
-        groups, gw = agg.hfl_tier1_stacked(
-            uploads, fl.num_groups, fx.weights, centers=start_groups,
-            alive=alive, **fx.defense_kwargs(self.event_size()))
-        if alive is not None:
-            groups = agg.tree_where_rows(xs["fault_gqok"], groups,
-                                         start_groups)
-        # global aggregation and dissemination on the schedule flag: the
-        # tier-2 reduction over G group models runs every round and the
-        # flag selects it
-        new_global = agg.fedavg_stacked(groups, gw)
+        if fx.mesh_axis is not None:
+            # tier 1 nests in the rank's shard: local math, no collective;
+            # tier 2 is ONE all_reduce over the local group models
+            # (defense="none" on the mesh, checked before the ranks start)
+            g_loc = fx.weights.shape[0] // fl.clients_per_group
+            with collectives.collective_scope("hfl.tier1"):
+                groups, gw = agg.hfl_tier1_local(uploads, fx.weights, g_loc,
+                                                 alive=alive)
+                if alive is not None:
+                    # the rank's slice of the per-group quorum flags
+                    lo = fx.mesh_axis.index * g_loc
+                    groups = agg.tree_where_rows(
+                        xs["fault_gqok"][lo:lo + g_loc], groups, start_groups)
+            with collectives.collective_scope("hfl.tier2"):
+                new_global = agg.mesh_fedavg_stacked(groups, gw,
+                                                     axis=fx.mesh_axis)
+        else:
+            groups, gw = agg.hfl_tier1_stacked(
+                uploads, fl.num_groups, fx.weights, centers=start_groups,
+                alive=alive, **fx.defense_kwargs(self.event_size()))
+            if alive is not None:
+                groups = agg.tree_where_rows(xs["fault_gqok"], groups,
+                                             start_groups)
+            # global aggregation and dissemination on the schedule flag:
+            # the tier-2 reduction over G group models runs every round
+            # and the flag selects it
+            new_global = agg.fedavg_stacked(groups, gw)
         disseminate = xs["hfl_global"]
         global_model = agg.tree_where(disseminate, new_global,
                                       carry["global"])
         groups = agg.tree_where(
-            disseminate, engine_mod.replicate_tree(new_global,
-                                                   fl.num_groups), groups)
+            disseminate, engine_mod.replicate_tree(
+                new_global, tree_leaves(groups)[0].shape[0]), groups)
         out = {"groups": groups, "global": global_model,
                "up": uploads, "start": start_groups}
         if alive is not None:
@@ -678,6 +754,16 @@ class AFLStrategy(Strategy):
 
     # -- fused executor -----------------------------------------------------
     supports_fused = True
+    # mesh: star is one all_reduce; gossip the masked all-to-all mix
+    # (neighbour models cross shard boundaries)
+    supports_mesh = True
+
+    def scan_carry_sharding(self, sim):
+        sharding = {"global": "replicated", "up": "client", "pw": "client",
+                    "start": "replicated"}
+        if sim.faults is not None:
+            sharding["alive"] = "client"
+        return sharding
 
     def scan_carry(self, sim, state):
         k = self.event_size()
@@ -713,9 +799,28 @@ class AFLStrategy(Strategy):
     def scan_aggregate(self, fx, carry, xs, uploads):
         fl = self.fl
         k = xs["pids"].shape[0]
-        pw = fx.weights[xs["pids"]]
+        pw = fx.weights[fx.local_pids(xs["pids"])]
         start = carry["global"]
         alive = xs.get("fault_alive")
+        if fx.mesh_axis is not None:
+            # defense="none" on the mesh (checked before the ranks start);
+            # the ring spans the GLOBAL client ids, so the mix is built at
+            # federation size and applied as one collective (under faults
+            # the per-round masked mix: positions are ids under full
+            # participation)
+            if fl.afl_mode == "gossip":
+                mix = (xs["fault_mix"] if alive is not None else fx.const(
+                    "mesh_ring_mix", lambda: agg.gossip_mix_matrix(
+                        topology.ring_neighbors(fl.num_clients,
+                                                fl.gossip_neighbors))))
+                uploads = agg.mesh_gossip_stacked(uploads, mix,
+                                                  axis=fx.mesh_axis)
+            global_model = agg.mesh_fedavg_stacked(
+                uploads, pw if alive is None else pw * alive,
+                axis=fx.mesh_axis)
+            out = {"global": global_model, "up": uploads, "pw": pw,
+                   "start": start}
+            return self._fault_hold(carry, xs, out, alive)
         defkw = fx.defense_kwargs(k)
         if fl.afl_mode == "gossip":
             if alive is None:
@@ -937,6 +1042,13 @@ class ServerOptStrategy(AFLStrategy):
     # below-quorum round holds it; the Optimizer is re-attached on the way
     # out.
 
+    def scan_carry_sharding(self, sim):
+        # the server optimizer steps the replicated global model with a
+        # replicated pseudo-gradient: its state is the same on every rank
+        sharding = super().scan_carry_sharding(sim)
+        sharding["opt_state"] = "replicated"
+        return sharding
+
     def scan_carry(self, sim, state):
         carry = super().scan_carry(sim, state)
         carry["opt_state"] = state["opt_state"]
@@ -950,11 +1062,16 @@ class ServerOptStrategy(AFLStrategy):
 
     def scan_aggregate(self, fx, carry, xs, uploads):
         k = xs["pids"].shape[0]
-        pw = fx.weights[xs["pids"]]
+        pw = fx.weights[fx.local_pids(xs["pids"])]
         g = carry["global"]
         alive = xs.get("fault_alive")
-        aggregate = agg.defended_aggregate_stacked(
-            uploads, pw, center=g, alive=alive, **fx.defense_kwargs(k))
+        if fx.mesh_axis is not None:
+            aggregate = agg.mesh_fedavg_stacked(
+                uploads, pw if alive is None else pw * alive,
+                axis=fx.mesh_axis)
+        else:
+            aggregate = agg.defended_aggregate_stacked(
+                uploads, pw, center=g, alive=alive, **fx.defense_kwargs(k))
         pseudo_grad = tree_map(lambda a, b: (a - b).float(), g, aggregate)
         updates, opt_state = self.make_opt().update(
             pseudo_grad, carry["opt_state"], g)

@@ -16,7 +16,8 @@ K local steps per client, then one aggregation event.
 The reference lays the client dim over a device mesh; here one device
 holds every client and the local phase loops over them. `mesh` other than
 None raises: the sharded trainer (`fl_param_spec`, `fl_tree_shardings`,
-`state_shardings`) is ROADMAP §A.16.
+`state_shardings`) is ROADMAP §A.16b, the zoo's half of A.16 (the FL
+half, the mesh-sharded fused executor, is `FLConfig.mesh_devices`).
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ class FederatedTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "FederatedTrainer(mesh=...) is not ported yet: ROADMAP "
-                "§A.16 (mesh) brings the sharded trainer to repro_torch; "
-                "pass mesh=None to train every client on one device")
+                "§A.16b (the zoo's half of A.16) brings the sharded trainer "
+                "to repro_torch; pass mesh=None to train every client on "
+                "one device")
         self.model = model
         self.fl = fl
         self.opt = optimizer or optimizers.sgd(fl.lr, momentum=fl.momentum)

@@ -12,7 +12,8 @@ Three terms per step, in seconds, from the H100 SXM data sheet:
 MFU is model FLOPs (6 N_active D for a training step) over the step
 time and `PEAK_FLOPS`. The reference's `analyze` and
 `parse_collective_bytes` read an XLA executable and its HLO text; their
-counterpart on the mesh is ROADMAP §A.16.
+counterpart on the mesh, reading the bytes that `launch.mesh`'s
+collective helpers count on each rank, is ROADMAP §A.16b.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Serving: prefill, single-token decode steps and the token-model
 dispatch for the serving engine (port of `repro.launch.serve`, lines
 18-50; the mesh sharding rules of the decode state wait for ROADMAP
-A.16).
+A.16b, on the spec rules of `repro_torch.sharding.specs`).
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ pass and raise under autograd, as the reference's Pallas calls do.
 
 trains a reduced config on `MarkovLM` batches on the card (`--device
 cpu` on the CPU). The mesh half of the reference's module
-(`batch_shardings`, `train_state_shardings`) is ROADMAP §A.16.
+(`batch_shardings`, `train_state_shardings`) is ROADMAP §A.16b; it builds
+on the spec rules of `repro_torch.sharding.specs`.
 """
 from __future__ import annotations
 

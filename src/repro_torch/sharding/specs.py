@@ -1,0 +1,390 @@
+"""Partition-spec rules: map parameter paths and activations to mesh axes
+(port of `repro.sharding.specs`).
+
+Conventions
+-----------
+* mesh axes: ("data", "model") single-pod, ("pod", "data", "model")
+  multi-pod.
+* FSDP axis = ("pod", "data") when present, else ("data",) — a weight's
+  first shardable dim is laid over it; the tensor-parallel dim over
+  "model".
+* Activations: batch over the FSDP axis, hidden features over "model"
+  where the dimension divides.
+
+`fit_spec` drops any mesh axis that does not evenly divide its dim, which
+keeps every architecture shardable whatever its odd vocab or head-count
+sizes (e.g. seamless vocab = 256206).
+
+The module is pure shape logic. A mesh is anything with `axis_names` and
+a `shape` mapping axis name -> size (`MeshShape` here; the reference's
+`jax.sharding.Mesh` and its tests' `FakeMesh` have the same two
+attributes), and a spec is a `PartitionSpec` (`P(...)`): a tuple whose
+entries are an axis name, a tuple of axis names or None, one per leading
+dim of the array. The reference's `tree_shardings` wraps each spec in a
+`NamedSharding`; its counterpart, a DTensor-style placement of every
+leaf, comes with the zoo's sharded trainer (ROADMAP §A.16b), which
+builds on these rules.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import re
+from typing import Dict, Sequence, Tuple
+
+from repro_torch.tree import tree_map
+
+
+class PartitionSpec(tuple):
+    """An immutable spec: one entry per leading dim — an axis name, a tuple
+    of axis names (the dim is laid over their product) or None
+    (replicated). Trailing dims without an entry are replicated. Entries
+    are normalized as jax's PartitionSpec normalizes them: a one-name
+    tuple is the name, an empty one None, a list a tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_entry(e) for e in entries))
+
+    def __repr__(self):
+        return "P(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def _entry(e):
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else e[0] if len(e) == 1 else e
+    return e
+
+
+P = PartitionSpec
+
+
+class MeshShape:
+    """A mesh as the rules see it: axis names and their sizes, no
+    devices."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} does not match axis "
+                             f"names {tuple(axis_names)}")
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              (int(s) for s in shape)))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape.values():
+            n *= s
+        return n
+
+    @property
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return tuple(self.shape[a] for a in self.axis_names)
+
+    def __repr__(self):
+        return f"MeshShape({self.shape})"
+
+
+# ---------------------------------------------------------------------------
+# sharding profiles
+#   "tp" (default) — FSDP over ("pod","data") + tensor-parallel over "model".
+#   "dp"           — pure data parallel: batch over ALL mesh axes, params
+#                    replicated (small archs, e.g. xlstm-125m, where TP
+#                    makes every layer boundary a collective).
+#   "fsdp"         — flat fully-sharded data parallel: batch AND
+#                    parameters sharded over all mesh axes; no tensor
+#                    parallelism (big dense archs at long sequences).
+#   "moe"          — as fsdp, with the experts laid over "model".
+# ---------------------------------------------------------------------------
+
+_PROFILE = contextvars.ContextVar("sharding_profile", default="tp")
+_SEQ_SHARDABLE = contextvars.ContextVar("seq_shardable", default=True)
+
+
+def set_seq_shardable(flag: bool):
+    """Sequence (context-parallel) sharding is only valid for attention
+    stacks; recurrent blocks (Mamba2/xLSTM) scan sequentially over the
+    sequence, and sharding it forces a reshard per chunk."""
+    _SEQ_SHARDABLE.set(bool(flag))
+
+
+def set_profile(profile: str):
+    assert profile in ("tp", "dp", "fsdp", "moe"), profile
+    _PROFILE.set(profile)
+
+
+def get_profile() -> str:
+    return _PROFILE.get()
+
+
+@contextlib.contextmanager
+def profile_ctx(profile: str):
+    tok = _PROFILE.set(profile)
+    try:
+        yield
+    finally:
+        _PROFILE.reset(tok)
+
+
+def axis_size(mesh, axis) -> int:
+    """Size of a mesh axis, of a tuple of axes (their product), 1 for None
+    or an axis the mesh does not have."""
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        n = 1
+        for a in axis:
+            n *= axis_size(mesh, a)
+        return n
+    try:
+        return mesh.shape[axis]
+    except Exception:
+        return 1
+
+
+def fit_spec(shape: Sequence[int], spec, mesh) -> PartitionSpec:
+    """Zero out spec entries whose mesh-axis size does not divide the
+    dim; a compound entry keeps its longest prefix that divides."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, ax in zip(shape, entries):
+        if ax is None:
+            out.append(None)
+            continue
+        if dim % max(1, axis_size(mesh, ax)) == 0:
+            out.append(ax)
+        elif isinstance(ax, (tuple, list)):
+            kept = None
+            for i in range(len(ax) - 1, 0, -1):
+                sub = tuple(ax[:i])
+                if dim % max(1, axis_size(mesh, sub)) == 0:
+                    kept = sub
+                    break
+            out.append(kept)
+        else:
+            out.append(None)
+    return P(*out)
+
+
+def fsdp_axes(mesh):
+    if "pod" in mesh.axis_names:
+        return ("pod", "data")
+    return ("data",)
+
+
+def batch_axes(mesh):
+    """Mesh axes carrying the batch dim.
+
+    dp/fsdp single-pod: all axes (flat data parallelism). Multi-pod, a
+    global batch of 256 cannot divide 512 chips, so fsdp shards the batch
+    over ("pod", "data") and the SEQUENCE dim over "model" (context
+    parallel); dp shards the batch over ("data", "model") and the pod
+    axis carries only the gradient synchronization."""
+    prof = get_profile()
+    multi = "pod" in mesh.axis_names
+    if prof in ("fsdp", "moe"):
+        return ("pod", "data") if multi else ("data", "model")
+    if prof == "dp":
+        return ("data", "model")
+    return fsdp_axes(mesh)
+
+
+def seq_axis(mesh):
+    """Mesh axis for the sequence dim of (B, S, ...) activations, if any.
+    Only the multi-pod fsdp profile context-parallelizes; under moe the
+    "model" axis is reserved for experts."""
+    if (get_profile() == "fsdp" and "pod" in mesh.axis_names
+            and _SEQ_SHARDABLE.get()):
+        return "model"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# parameter rules: (regex on the param path) -> spec template; "F" is the
+# FSDP compound axis and "M" the model axis. First match wins; the result
+# is rank-adjusted and divisibility-fitted.
+# ---------------------------------------------------------------------------
+
+_RULES = [
+    # embeddings (vocab, d): vocab over "model", so tied-unembed logits
+    # come out vocab-sharded; d replicated
+    (r"embed$", ("M", None)),
+    (r"unembed/kernel$", (None, "M")),
+    # attention projections stored fused 2-D: (d, H*dh) / (H*dh, d)
+    (r"(wq|wk|wv|wq_a|wq_b|w_dkv|w_uk|w_uv|w_kpe)/kernel$", ("F", "M")),
+    (r"wo/kernel$", ("M", "F")),
+    # mlp
+    (r"(wi_gate|wi_up)$", ("F", "M")),
+    (r"wo$", ("M", "F")),
+    (r"wi/kernel$", ("F", "M")),
+    # moe experts: (E, d, f) / (E, f, d) — experts over the model axis
+    (r"experts_(gate|up)$", ("M", "F", None)),
+    (r"experts_down$", ("M", None, "F")),
+    (r"router/kernel$", ("F", None)),
+    # mamba / ssm: in_proj (d, inner*...), out_proj (inner, d)
+    (r"(in_proj|out_proj|x_proj|dt_proj|z_proj)/kernel$", ("F", "M")),
+    (r"conv1d$", (None, "M")),
+    (r"(A_log|D|dt_bias)$", ("M",)),
+    # xlstm
+    (r"(wq|wk|wv|wi|wf|wo_gate|up_proj|down_proj|w_cell)$", ("F", "M")),
+    # cnn
+    (r"conv\d/kernel$", (None, None, None, "M")),
+    # norms / scalars / biases: replicate
+    (r"(scale|bias)$", ()),
+]
+
+_EXPERT_PAT = re.compile(r"experts_(gate|up|down)$")
+
+
+def spec_for_param(path: str, shape, mesh) -> PartitionSpec:
+    """The spec of the parameter at `path` ("layers/attn/wq/kernel") with
+    `shape` under the active profile."""
+    shape = tuple(shape)
+    if get_profile() == "dp":
+        return P()
+    if get_profile() in ("fsdp", "moe"):
+        if not shape:
+            return P()
+        if re.search(r"embed$", path):
+            return fit_spec(shape, P("model", None), mesh)
+        if re.search(r"unembed/kernel$", path):
+            return fit_spec(shape, P(None, "model"), mesh)
+        if get_profile() == "moe" and _EXPERT_PAT.search(path):
+            # expert parallelism: experts stay over "model"
+            fa2 = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+            tmpl = (("model",) + (fa2 if len(fa2) > 1 else (fa2[0],))
+                    + (None,) * (len(shape) - 2))
+            return fit_spec(shape, P(*tmpl), mesh)
+        big = max(range(len(shape)), key=lambda i: shape[i])
+        entries = [None] * len(shape)
+        entries[big] = tuple(mesh.axis_names)
+        return fit_spec(shape, P(*entries), mesh)
+    fa = fsdp_axes(mesh)
+    for pat, tmpl in _RULES:
+        if re.search(pat, path):
+            entries = []
+            for t in tmpl[: len(shape)]:
+                if t == "F":
+                    entries.append(fa if len(fa) > 1 else fa[0])
+                elif t == "M":
+                    entries.append("model")
+                else:
+                    entries.append(t)
+            entries += [None] * (len(shape) - len(entries))
+            return fit_spec(shape, P(*entries), mesh)
+    # default: shard the largest dim over FSDP if it divides
+    if shape:
+        big = max(range(len(shape)), key=lambda i: shape[i])
+        entries = [None] * len(shape)
+        entries[big] = fa if len(fa) > 1 else fa[0]
+        return fit_spec(shape, P(*entries), mesh)
+    return P()
+
+
+_STACKED_RE = re.compile(r"(^|/)layers/")
+
+
+def _paths(tree, prefix=""):
+    """The tree with each leaf replaced by its (path, leaf) pair; the path
+    joins dict keys and list indices with "/", as the reference joins a
+    `tree_flatten_with_path` key path."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_paths(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    if tree is None:
+        return None
+    return (prefix[:-1], tree)
+
+
+def tree_specs(params, mesh, prefix=""):
+    """A tree of specs parallel to `params` (leaves with `.shape`).
+
+    Parameters under a `layers/` path are stacked with a leading
+    num_layers dim: the per-layer rules apply to shape[1:] and the stack
+    dim stays unsharded (sharding it would turn every layer slice into a
+    gather and misalign the expert and TP dims by one position)."""
+    def spec(pair):
+        path, leaf = pair
+        full = prefix + path
+        shape = tuple(leaf.shape)
+        if _STACKED_RE.search(full) and len(shape) >= 2:
+            inner = spec_for_param(full, shape[1:], mesh)
+            return fit_spec(shape, P(None, *inner), mesh)
+        return spec_for_param(full, shape, mesh)
+
+    # a (path, leaf) pair and a spec are tuples, which the tree walk
+    # treats as leaves
+    return tree_map(spec, _paths(params))
+
+
+# activation specs -----------------------------------------------------------
+
+def act_spec_btd(mesh) -> PartitionSpec:
+    """(batch, seq, d) activations."""
+    ba = batch_axes(mesh)
+    if get_profile() in ("dp", "fsdp"):
+        return P(ba if len(ba) > 1 else ba[0], seq_axis(mesh), None)
+    return P(ba if len(ba) > 1 else ba[0], None, "model")
+
+
+def batch_spec(mesh) -> PartitionSpec:
+    ba = batch_axes(mesh)
+    return P(ba if len(ba) > 1 else ba[0])
+
+
+# client-axis specs (the mesh-sharded fused executor, DESIGN.md §11) ---------
+# The fused executor's trees carry a LEADING CLIENT AXIS (stacked
+# federation params, dataset, per-round inputs). On the 1-D client mesh
+# (`launch.mesh.make_client_mesh`) that axis — and only that axis — is
+# laid over "data"; a client's parameters stay whole.
+
+def client_stack_specs(tree, *, axis: str = "data", lead: int = 0):
+    """Tree of specs laying dim `lead` of every leaf over `axis` (lead=0:
+    the stacked federation state (C, ...); lead=1: per-round inputs
+    (rounds, C, ...)). A leaf with no dim `lead` raises: a silent
+    replicate would hide a mis-sharded carry."""
+    def spec(leaf):
+        ndim = getattr(leaf, "ndim", None)
+        if ndim is None or ndim <= lead:
+            raise ValueError(
+                f"client_stack_specs: leaf of ndim {ndim} cannot shard "
+                f"dim {lead} over {axis!r}")
+        entries = [None] * ndim
+        entries[lead] = axis
+        return P(*entries)
+    return tree_map(spec, tree)
+
+
+def replicated_specs(tree):
+    """Tree of empty specs (fully replicated leaves)."""
+    return tree_map(lambda _: P(), tree)
+
+
+def remap_act_spec(spec, mesh) -> PartitionSpec:
+    """Translate a tp-profile activation spec to the active profile: under
+    dp/fsdp, "data" (the batch dim) -> batch_axes(mesh), "model" (a
+    feature dim) -> replicated; multi-pod fsdp also shards the sequence
+    dim (position 1 of batch-first specs) over "model"."""
+    prof = get_profile()
+    if prof not in ("dp", "fsdp", "moe"):
+        return P(*spec)
+    if prof == "moe" and len(spec) and spec[0] == "model":
+        return P(*spec)    # expert-parallel constraint (e over model): keep
+    multi = "pod" in mesh.axis_names
+    keep_model = prof == "moe" and multi   # "model" reserved for experts
+    ba = batch_axes(mesh)
+    out = []
+    for e in spec:
+        if e == "data" or (isinstance(e, (tuple, list)) and "data" in e):
+            out.append(ba)
+        elif e == "model":
+            out.append("model" if keep_model else None)
+        else:
+            out.append(e)
+    sa = seq_axis(mesh)
+    if sa and len(out) >= 2 and out[0] == ba and out[1] is None:
+        out[1] = sa
+    return P(*out)
+

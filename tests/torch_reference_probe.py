@@ -38,6 +38,13 @@ async — the async family (`async-{uniform,straggler,dropout}-vec`,
         `comm-topk-async-loop` through both packages from the reference's
         initial parameters (the reference's Gaussian noise): test accuracy,
         macro-F1 and the timeline block of each.
+chunk — the port alone: the fused AFL star of the reference's mesh-parity
+        test (tests/test_mesh_fused.py: 16 clients, 3 rounds, n_train
+        1024) on one device, trained in stacks of 1, 2 and 4 clients
+        (`fused_chunk`) at 1 and 8 intra-op threads, against the unchunked
+        run at 1 thread: the largest gap in each metric the reference's
+        mesh test gates (ROADMAP §C.4: a 1-client stack is a plain
+        convolution, whose bits on the CPU depend on the thread count).
 twin32 — the clean twin of `churn-signflip-median-mtd` (attack and
         defense off; chip_smoke.py's `churn-clean-mtd`, the run that mixes
         through `gossip_mix_agg`) through the port on the CPU from its own
@@ -51,6 +58,7 @@ twin32 — the clean twin of `churn-signflip-median-mtd` (attack and
         comm32 [--out FILE]
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_reference_probe.py \
         async [--out FILE]
+    PYTHONPATH=src python tests/torch_reference_probe.py chunk [--out FILE]
 """
 import argparse
 import dataclasses
@@ -391,16 +399,47 @@ def probe_async():
     return out
 
 
+def probe_chunk():
+    ds = mnist_like(seed=0, n_train=1024, n_test=256)
+    cfg = dict(strategy="afl", num_clients=16, rounds=3, num_groups=8,
+               local_epochs=1, local_batch_size=16, lr=0.05, seed=0,
+               participation=1.0, engine="fused")
+    keys = ("round_train_acc", "round_train_loss", "round_test_acc",
+            "test_accuracy", "train_accuracy", "f1")
+
+    def run(threads, chunk):
+        torch.set_num_threads(threads)
+        return port_sim_mod.FederatedSimulation(
+            port_types.FLConfig(**dict(cfg, fused_chunk=chunk)), ds,
+            device="cpu").run()
+
+    base = run(1, 0)
+    out = {}
+    for threads in (1, 8):
+        for chunk in (0, 1, 2, 4):
+            if (threads, chunk) == (1, 0):
+                continue
+            r = run(threads, chunk)
+            gaps = {k: float(np.max(np.abs(
+                np.asarray(getattr(r, k), np.float64)
+                - np.asarray(getattr(base, k), np.float64)))) for k in keys}
+            out[f"threads{threads}-chunk{chunk}"] = gaps
+            print(f"threads {threads}, fused_chunk {chunk} vs the unchunked "
+                  f"run at 1 thread: {gaps}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("hfl4", "acc32", "churn32", "twin32",
-                                      "comm32", "async"))
+                                      "comm32", "async", "chunk"))
     ap.add_argument("--out", help="write the readings here as JSON")
     args = ap.parse_args()
     torch.set_num_threads(2)
     doc = {"hfl4": probe_hfl4, "acc32": probe_acc32,
            "churn32": probe_churn32, "twin32": probe_twin32,
-           "comm32": probe_comm32, "async": probe_async}[args.probe]()
+           "comm32": probe_comm32, "async": probe_async,
+           "chunk": probe_chunk}[args.probe]()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=1)
