@@ -177,14 +177,16 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the same tolerances; (b) zamba2-1.2b whole (1,104,777,344 parameters,
    bfloat16 activations, float32 parameters, remat) on MarkovLM batches
    of 4 x 2048 with grad_accum = 2 and AdamW (3e-4, weight decay 0.01,
-   clip 1.0): a warm-up and 4 timed steps on fresh batches, then 6 on one
-   repeated batch; ms per step (median and range), tokens/s, MFU (6 N D
+   clip 1.0): a warm-up and 2 timed steps on fresh batches, then 4 on one
+   repeated batch (4 and 6 before phase 15); ms per step (median and
+   range), tokens/s, MFU (6 N D
    over the step and the bf16 peak, `launch/roofline.py`), peak memory
    and the device busy / idle share of the first repeated step, profiled; (c) the
    federated trainer: phi3-mini reduced (float32; 4 clients in 2 groups,
    K = 2) one round of HFL, AFL, AFL gossip and CFL on the card against
    the CPU (1e-4) with a bitwise repeat, then xlstm-125m whole with 4
-   clients, K = 2 steps of 2 x 256 tokens, 2 rounds of HFL, AFL (client 0
+   clients, K = 1 step of 2 x 256 tokens (2 before phase 15), 2 rounds of
+   HFL, AFL (client 0
    alone in the second) and CFL, with seconds per round and peak memory. Fails
    on a gate missed, a non-finite loss, grad-norm or parameter, the
    repeated batch's loss not falling, clients apart after an HFL or AFL
@@ -216,13 +218,39 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    seconds per round beside it and each rank's peak memory (the ranks
    share one card: not a speedup). Every run prints its backend and its
    form (graph or eager).
+15. the zoo's sharded steps (slice 14) — on 8 ranks sharing the card
+   (gloo), laid out (data 4, model 2), each holding the reference's shard
+   of every leaf (`launch/train.py`, `core/trainer.py`,
+   `launch/serve.py`; rank halves in tests/torch_sharded_cases.py): (a)
+   zamba2-1.2b at full width cut 38 -> 7 (float32, fsdp, B x S = 8 x
+   256) and the reference test's four (arch, profile) pairs reduced
+   (phi3-mini tp, qwen3-moe tp, zamba2 fsdp, xlstm dp; 8 x 64): 2 SGD
+   steps and 1 AdamW step of `make_sharded_train_step` against
+   `make_train_step` on the card (loss and grad-norm within 1e-5
+   relative, SGD params within 1e-6, AdamW's printed), the SGD steps
+   repeated bitwise, all-gathers issued; (b) the reference's FL-mesh
+   config (phi3-mini reduced, vocab 512, 4 clients, 2 groups, K = 2), 2
+   rounds of HFL, AFL, AFL gossip and CFL against the one-device
+   `FederatedTrainer` (loss and params 1e-5, bitwise repeat, collectives
+   in every strategy, gossip's collective-permute); (c) zamba2 cut as in
+   (a) under `attn_impl="flash"`: the kernel prefill of 8 x 2048 tokens
+   and 16 teacher-forced decode steps against the single-device ones
+   (prefill within 1e-3 of max abs(logit), decode 1e-4), B5 and B6
+   launched in every rank; (d) the dry-run on the meta device at full
+   size: the four FL strategies over phi3-mini on 16x16 and yi-9b's
+   decode shapes on 16x16 and 2x16x16 (ok, FLOPs and collectives; the
+   whole sweep runs through `python -m repro_torch.launch.dryrun`, PERF.md
+   §5). Each rank's peak memory and seconds a step print beside the
+   single-device step's; no kernel launches in (a) and (b).
 
 Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c), 12(a) and 13 set
 every kernel's launch count to 0 just before they start and read the
 counts just after; a replayed graph runs no wrapper, so 11(b) also reads the
 launches a profile counts on the device. Phase 14's ranks count their own
 launches from the start of each run and must launch none: the mesh path,
-like the reference's, runs plain torch ops and collectives.
+like the reference's, runs plain torch ops and collectives. Phase 15's
+ranks count theirs from the start of each sharded run (a fresh process
+each): none in 15(a)-(b), B5 and B6 in every rank in 15(c).
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -235,6 +263,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2710,7 +2739,7 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
 
 
 def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
-                       timed=4, repeats=6):
+                       timed=2, repeats=4):
     """13(b): zamba2-1.2b whole (38 Mamba2 layers and the shared block) at
     its published dtypes (bfloat16 activations, float32 parameters,
     remat), MarkovLM batches over its 32,000 tokens, global batch
@@ -2887,10 +2916,11 @@ def fl_train_parity_phase(device="cuda", reference="cpu"):
     return out
 
 
-def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
+def fl_train_phase(device="cuda", C=4, K=1, B=2, S=256, rounds=2):
     """13(c), second half: xlstm-125m whole (12 layers, sLSTM at 3, 7 and
-    11; published dtypes), 4 clients in 2 groups, K = 2 local steps of
-    2 x 256 tokens, 2 rounds each of HFL, AFL (all clients in the first
+    11; published dtypes), 4 clients in 2 groups, K = 1 local step of
+    2 x 256 tokens (cut from 2 so that phase 15 fits the script's time
+    limit), 2 rounds each of HFL, AFL (all clients in the first
     round, client 0 alone in the second) and CFL (alpha 0.3). Gates:
     every client's params bitwise equal after each HFL and AFL round, CFL's
     clients apart, round == 2, finite losses."""
@@ -3801,6 +3831,353 @@ def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
     return out
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+SHARDED_RANKS = 8                     # ranks sharing the card (gloo)
+SHARDED_MESH = ((4, 2), ("data", "model"))
+SHARDED_REL = 1e-5                    # loss and grad-norm, relative
+SHARDED_PARAM_ATOL = 1e-6             # params after the SGD steps
+SHARDED_FL_TOL = 1e-5                 # FL loss (relative) and params
+SHARDED_DECODE_ATOL = 1e-4            # decode rows
+SHARDED_PREFILL_REL = 1e-3            # of the prefill's max |logit| (9(c))
+# the reference test's four (arch, profile) pairs, reduced with vocab 512
+# (tests/test_sharding_and_dryrun.py:110-115)
+SHARDED_PAIRS = (("phi3-mini-3.8b", "tp"), ("qwen3-moe-30b-a3b", "tp"),
+                 ("zamba2-1.2b", "fsdp"), ("xlstm-125m", "dp"))
+
+
+def _zamba_cut_kw(**kw):
+    layers = TRAIN_CUT["num_layers"][1]
+    return dict(dtype="float32", num_layers=layers,
+                block_pattern=("mamba",) * layers, sharding_profile="fsdp",
+                **kw)
+
+
+def _np_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _mb(report):
+    b = report["peak_bytes"]
+    return None if b is None else round(b / 2**20, 1)
+
+
+def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
+                        gated_all_gather=False):
+    """One config: 2 SGD steps (lr 1e-2) and 1 AdamW step of
+    `make_sharded_train_step` on the ranks against `make_train_step` on
+    the card from one init (seed 0) and batch (seed 1)."""
+    import numpy as np
+    import torch
+    import torch_sharded_cases as cases
+    from repro_torch.device import generator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import synthetic_train_batch
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import tree_leaves
+
+    model = cases.build(arch, reduced, **kw)
+    batch = synthetic_train_batch(generator(1), model.cfg, B, S,
+                                  device="cpu")
+    bnp = {k: v.numpy() for k, v in batch.items()}
+    bdev = {k: v.to(device) for k, v in batch.items()}
+    out = {"B": B, "S": S}
+
+    def single(opt, steps):
+        p = model.init(generator(0), device)
+        s, ms, times = opt.init(p), [], []
+        step = make_train_step(model, opt)
+        for _ in range(steps):
+            (p, s, m), t = _timed(lambda: step(p, s, bdev))
+            times.append(t / 1e3)
+            ms.append({k: float(v) for k, v in m.items()})
+        return [x.cpu().numpy() for x in tree_leaves(p)], ms, times
+
+    for name, opt, kind, lr, steps in (
+            ("sgd", optimizers.sgd(1e-2), "sgd", 1e-2, 2),
+            ("adamw", optimizers.adamw(3e-4, weight_decay=0.01), "adamw",
+             3e-4, 1)):
+        want_p, want_m, single_s = single(opt, steps)
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = world.run(cases.train, arch, kw, *SHARDED_MESH, bnp,
+                             opt=kind, lr=lr, steps=steps, reduced=reduced,
+                             repeat=name == "sgd", out_dir=tmp)
+            full = cases.load(outs[0][0])
+        _, metrics, rep0 = outs[0]
+        rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                  for g, w in zip(metrics, want_m)
+                  for k in ("loss", "grad_norm"))
+        perr = max(float(np.abs(a - b).max()) for a, b in zip(full, want_p))
+        kinds = rep0["collectives"]["kinds"]
+        launches = [sum(r["launches"].values()) for *_, r in outs]
+        repeat = all(r.get("bitwise_repeat", True) for *_, r in outs)
+        agree = all(o[1] == metrics for o in outs)
+        row = {"metrics": metrics, "rel": rel, "param_max_abs_err": perr,
+               "collectives": kinds, "launches": launches,
+               "bitwise_repeat": repeat if name == "sgd" else None,
+               "ranks_agree": agree,
+               "rank_step_s": [r["step_seconds"] for *_, r in outs],
+               "single_step_s": single_s,
+               "rank_peak_mb": [_mb(r) for *_, r in outs]}
+        out[name] = row
+        print(f"  {label} {name}: loss {metrics[-1]['loss']:.6f} "
+              f"grad-norm {metrics[-1]['grad_norm']:.6f}; rel {rel:.2e}; "
+              f"params max|d| {perr:.3e}"
+              f"{'' if name == 'sgd' else ' (printed)'}; repeat "
+              f"{row['bitwise_repeat']}; s/step ranks "
+              f"{[round(t, 3) for t in rep0['step_seconds']]} single "
+              f"{[round(t, 3) for t in single_s]}; collectives {kinds}; "
+              f"rank peak MB {row['rank_peak_mb']}", flush=True)
+        bad = (rel > SHARDED_REL or not agree or any(launches)
+               or (name == "sgd" and (perr > SHARDED_PARAM_ATOL
+                                      or not repeat))
+               or not sum(kinds.values())
+               or (gated_all_gather and not kinds.get("all-gather")))
+        if bad:
+            raise SystemExit(f"15(a) {label} {name}: {row}")
+        del full, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train_phase(world, device="cuda", B=8, S=256):
+    """15(a): zamba2-1.2b at full width cut 38 -> 7 as in 13(a) (float32,
+    fsdp, B x S = 8 x 256), then the reference test's four (arch,
+    profile) pairs reduced (8 x 64): 2 SGD and 1 AdamW steps sharded over
+    the ranks against `make_train_step` on the card."""
+    from repro_torch.device import deterministic_f32
+    deterministic_f32()
+    out = {"zamba2-1.2b-cut": _sharded_train_case(
+        world, "zamba2-1.2b cut 38 -> 7 (fsdp)", ZAMBA, _zamba_cut_kw(), B,
+        S, False, device, gated_all_gather=True)}
+    for arch, profile in SHARDED_PAIRS:
+        out[f"{arch}-{profile}"] = _sharded_train_case(
+            world, f"{arch} reduced ({profile})", arch,
+            dict(dtype="float32", sharding_profile=profile, vocab_size=512),
+            8, 64, True, device)
+    return out
+
+
+def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
+    """15(b): the reference's FL-mesh test config (phi3-mini reduced,
+    vocab 512, float32; 4 clients in 2 groups, K = 2, lr 0.05), 2 rounds
+    of each strategy on the ranks (one client a "data" slice) against the
+    one-device `FederatedTrainer` on the card."""
+    import numpy as np
+    import torch
+    import torch_sharded_cases as cases
+    from repro_torch.core.fl_types import FLConfig
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.tree import tree_leaves, tree_map
+
+    deterministic_f32()
+    arch, kw = "phi3-mini-3.8b", dict(dtype="float32", vocab_size=512)
+    model = cases.build(arch, **kw)
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(rounds):
+        toks = rng.integers(0, 512, (C, K, B, S), dtype=np.int64)
+        labels = np.concatenate([toks[..., 1:],
+                                 np.full((C, K, B, 1), -1, np.int64)], -1)
+        batches.append({"tokens": toks, "labels": labels})
+    w = rng.integers(5, 50, C).astype(np.float32)
+    part = np.array([True, False, True, True])
+    out = {}
+    for case, fl_case in FL_TRAIN_CASES.items():
+        fl_kw = dict(fl_case, num_clients=C, num_groups=2, local_steps=K,
+                     lr=0.05)
+        tr = FederatedTrainer(model, FLConfig(**fl_kw))
+        state = tr.init_state(generator(0), device=device)
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            state, m = tr.fl_train_step(
+                state, {k: torch.as_tensor(v, device=device)
+                        for k, v in b.items()},
+                torch.as_tensor(w, device=device),
+                torch.as_tensor(part, device=device))
+            losses.append(float(m["loss"]))
+        single_s = (time.perf_counter() - t0) / rounds
+        outs = world.run(cases.fl, arch, kw, fl_kw, *SHARDED_MESH, batches,
+                         w, part, repeat=True)
+        err, lerr = 0.0, 0.0
+        for c, _, mine, glob, got, rep in outs:
+            lerr = max(lerr, max(abs(a - b) / abs(b)
+                                 for a, b in zip(got, losses)))
+            one = tree_map(lambda x: x[c], state["client_params"])
+            err = max([err] + [float(np.abs(a - b.cpu().numpy()).max())
+                               for a, b in zip(tree_leaves(mine),
+                                               tree_leaves(one))])
+            if glob is not None:
+                err = max([err] + [
+                    float(np.abs(a - b.cpu().numpy()).max())
+                    for a, b in zip(tree_leaves(glob),
+                                    tree_leaves(state["global_params"]))])
+        reps = [r for *_, r in outs]
+        kinds = reps[0]["collectives"]["kinds"]
+        row = {"loss": losses, "loss_rel": lerr, "param_max_abs_err": err,
+               "bitwise_repeat": all(r["bitwise_repeat"] for r in reps),
+               "collectives": [r["collectives"]["kinds"] for r in reps],
+               "launches": [sum(r["launches"].values()) for r in reps],
+               "rank_s_per_round": [r["seconds"] / rounds for r in reps],
+               "single_s_per_round": single_s,
+               "rank_peak_mb": [_mb(r) for r in reps]}
+        out[case] = row
+        print(f"  {case}: loss {losses}; rel {lerr:.2e}, params max|d| "
+              f"{err:.3e}, repeat {row['bitwise_repeat']}; collectives "
+              f"{kinds}; s/round ranks {max(row['rank_s_per_round']):.3f} "
+              f"single {single_s:.3f}; rank peak MB {row['rank_peak_mb']}",
+              flush=True)
+        if (lerr > SHARDED_FL_TOL or err > SHARDED_FL_TOL
+                or not row["bitwise_repeat"] or any(row["launches"])
+                or not all(sum(k.values()) for k in row["collectives"])
+                or (case == "afl-gossip" and not all(
+                    k.get("collective-permute") for k in row["collectives"]))):
+            raise SystemExit(f"15(b) {case}: {row}")
+    return out
+
+
+def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16):
+    """15(c): zamba2-1.2b cut 38 -> 7 (float32, fsdp, attn_impl="flash"),
+    the kernel prefill of B x S = 8 x 2048 tokens and 16 teacher-forced
+    decode steps sharded over the ranks (each rank its rows) against the
+    single-device kernel prefill and decode on the card; B5 and B6 must
+    launch in every rank, as often as in the single-device prefill."""
+    import numpy as np
+    import torch
+    import torch_sharded_cases as cases
+    from repro_torch.device import deterministic_f32, generator
+
+    deterministic_f32()
+    kw = _zamba_cut_kw(attn_impl="flash")
+    model = cases.build(ZAMBA, False, **kw)
+    params = model.init(generator(0), device)
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
+                           generator=generator(1))
+    tok = tokens.to(device)
+    with torch.no_grad():
+        before = _counts()
+        logits, prefill_ms = _timed(lambda: kernel_prefill(model, params,
+                                                           tok))
+        single_launches = _delta(before)
+        dec, decode_ms = _timed(lambda: _decode(model, params, tok, steps,
+                                                device))
+    logits = logits.float().cpu().numpy()
+    dec = dec.float().transpose(0, 1).cpu().numpy()      # (steps, B, V)
+    del params
+    torch.cuda.empty_cache()
+    scale, perr = float(np.abs(logits).max()), 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = world.run(cases.serve, ZAMBA, kw, *SHARDED_MESH,
+                         tokens.numpy(), steps, kernel=True, reduced=False,
+                         out_dir=tmp)
+        for (a, b), lg, *_ in outs:
+            perr = max(perr, float(np.abs(cases.load(lg)[0]
+                                          - logits[a:b]).max()))
+    derr = max(float(np.abs(d - dec[:, c:e]).max())
+               for _, _, (c, e), d, _ in outs)
+    reps = [o[4] for o in outs]
+    launches = [r["launches"] for r in reps]
+    out = {"B": B, "S": S, "decode_steps": steps,
+           "prefill_max_abs_err": perr, "prefill_max_abs": scale,
+           "decode_max_abs_err": derr, "launches": launches,
+           "single_launches": single_launches,
+           "single_prefill_s": prefill_ms / 1e3,
+           "single_decode_s_per_step": decode_ms / 1e3 / steps,
+           "rank_prefill_s": [r["prefill_seconds"] for r in reps],
+           "rank_decode_s_per_step": [r["decode_seconds"] / steps
+                                      for r in reps],
+           "rank_peak_mb": [_mb(r) for r in reps],
+           "collectives": reps[0]["collectives"]["kinds"]}
+    print(f"  prefill |sharded - single| {perr:.3e} (bar "
+          f"{SHARDED_PREFILL_REL} x {scale:.3f}); decode {derr:.3e}; "
+          f"launches a rank {launches[0]} (single device {single_launches});"
+          f" prefill s ranks {max(out['rank_prefill_s']):.3f} single "
+          f"{out['single_prefill_s']:.3f}; decode s/step ranks "
+          f"{max(out['rank_decode_s_per_step']):.3f} single "
+          f"{out['single_decode_s_per_step']:.4f}; rank peak MB "
+          f"{out['rank_peak_mb']}", flush=True)
+    if not (perr <= SHARDED_PREFILL_REL * scale
+            and derr <= SHARDED_DECODE_ATOL):
+        raise SystemExit(f"15(c): prefill {perr} or decode {derr} off")
+    if not (all(l["flash_attention"] > 0 and l["ssm_scan"] > 0
+                for l in launches)
+            and all(l == launches[0] for l in launches)
+            and launches[0]["flash_attention"]
+            >= single_launches["flash_attention"]
+            and launches[0]["ssm_scan"] >= single_launches["ssm_scan"]):
+        raise SystemExit(f"15(c): kernel launches {launches}, single "
+                         f"device {single_launches}")
+    return out
+
+
+DRYRUN_FL = (("hfl", "fedavg"), ("afl", "fedavg"), ("afl", "gossip"),
+             ("cfl", "fedavg"))
+# the dry-runs that fit the script's time limit; the whole sweep (every
+# config at train_4k, yi-9b at all four shapes on both meshes: ~17 min,
+# xlstm's sLSTM loop alone 603 s) runs through the CLI (PERF.md §5)
+DRYRUN_SHAPES = ("decode_32k", "long_500k")
+
+
+def dryrun_phase():
+    """15(d): the port's dry-run on the meta device (no card), at full
+    size: each FL strategy over phi3-mini on 16x16, and yi-9b's decode
+    shapes on 16x16 and 2x16x16. Each must return ok with FLOPs and
+    collectives."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+
+    jobs = ([("fl", "phi3-mini-3.8b", f, m) for f, m in DRYRUN_FL]
+            + [("std", "yi-9b", s, mp) for s in DRYRUN_SHAPES
+               for mp in (False, True)])
+    out = []
+    t0 = time.perf_counter()
+    for kind, arch, what, extra in jobs:
+        if kind == "fl":
+            r = dryrun.lower_fl(arch, what, afl_mode=extra)
+            profile = "tp"
+        else:
+            r = dryrun.lower_and_compile(arch, what, multi_pod=extra)
+            profile = get_config(arch).sharding_profile
+        roof = r["roofline"]
+        if not (r["ok"] and roof["flops_per_device"] > 0
+                and roof["collective_count"] > 0):
+            raise SystemExit(f"15(d) {arch} {what} {extra}: {r}")
+        r["profile"] = profile
+        out.append(r)
+    print(f"  {len(out)} dry-runs in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return out
+
+
+def sharded_phase(device="cuda"):
+    """15(a)-(c) on one world of SHARDED_RANKS ranks sharing the card,
+    then 15(d)."""
+    from repro_torch.launch import mesh
+    sys.path.insert(0, str(ROOT / "tests"))
+    out = {}
+    t0 = time.perf_counter()
+    with mesh.World(SHARDED_RANKS, device=device, timeout=600) as world:
+        print(f"  {SHARDED_RANKS} ranks on {device}, backend "
+              f"{world.backend}, mesh {SHARDED_MESH}, started in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for key, label, fn in (
+                ("train", "(a) the sharded train step", sharded_train_phase),
+                ("fl", "(b) the sharded federated trainer", sharded_fl_phase),
+                ("serve", "(c) the sharded kernel prefill and decode",
+                 sharded_serve_phase)):
+            print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
+                  flush=True)
+            out[key] = fn(world, device)
+    print(f"  -- (d) the dry-run on the meta device (at "
+          f"{time.perf_counter() - t0:.1f}s, the ranks stopped)", flush=True)
+    out["dryrun"] = dryrun_phase()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -3906,6 +4283,9 @@ def main():
     mesh_run = mesh_executor_phase("cuda")
     mesh_s = time.perf_counter() - t_mesh
     print(f"  phase 14 took {mesh_s:.1f}s", flush=True)
+    _phase("the zoo's sharded steps and the dry-run (slice 14)")
+    sharded = sharded_phase("cuda")
+    print(f"  phase 15 took {sharded['seconds']:.1f}s", flush=True)
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -4000,6 +4380,10 @@ def main():
         "library_ms": None, "shape": [2, 4096, 64, 64, 64],
         "dtype": "bfloat16", "shapes": [r for r in srows if "ms" in r],
         "launches_zoo_rest": zoo_rest["launches"]["ssm_scan"]}
+    for e in (flentry, sentry):
+        # each rank's launches in 15(c)'s sharded kernel prefill and decode
+        e["launches_sharded"] = [r[e["name"]]
+                                 for r in sharded["serve"]["launches"]]
     for e in (entry, tentry):
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]
@@ -4016,6 +4400,7 @@ def main():
            "train": train,
            "mesh": {"operators": mesh_ops, "executor": mesh_run,
                     "seconds": mesh_s},
+           "sharded": sharded,
            "documents": documents,
            "fused": {"parity": fused_parity, "documents": fused_docs,
                      "serving": serving, "launches": fused_launches,

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import robust, topology
-from repro_torch.core.collectives import all_reduce_sum
+from repro_torch.core.collectives import all_reduce_sum, ppermute
 from repro_torch.kernels import ops as kops
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -665,17 +665,12 @@ def mesh_afl_fedavg(params, weight, participate, *, client_axis,
 
 def mesh_afl_gossip(params, *, client_axis, steps: int = 1):
     """Ring gossip: each client averages with its +-1 ring neighbours.
-    The reference's two `ppermute`s become one all_reduce of a one-hot
-    (n, N) slot expansion (gloo has no send/recv on CUDA tensors): every
-    rank writes its model into its own slot and reads its neighbours'."""
-    n, i = client_axis.size, client_axis.index
+    The reference's two `ppermute`s are one `ppermute` of both shifts:
+    one all_reduce of an (n, N) slot expansion (gloo has no send/recv on
+    CUDA tensors), counted as two collective-permutes."""
     for _ in range(steps):
         vec = _ravel(params)
-        slots = torch.zeros((n, vec.shape[0]), dtype=vec.dtype,
-                            device=vec.device)
-        slots[i] = vec
-        all_reduce_sum(slots, client_axis)
-        left, right = slots[(i - 1) % n], slots[(i + 1) % n]
+        left, right = ppermute(vec, client_axis, (1, -1))
         params = _unravel(params, (vec + left + right) / 3.0)
     return params
 

@@ -1,5 +1,5 @@
 """The paper's aggregation strategies over the model zoo (port of
-`repro.core.trainer.FederatedTrainer`, without the mesh).
+`repro.core.trainer`).
 
 Every parameter carries a leading `num_clients` dim. Local training runs
 K optimizer steps on each client's micro-batches; an aggregation event is
@@ -13,15 +13,21 @@ each accumulated in float32 in a plain einsum (the reference's XLA
 einsum; no aggregation kernel runs here). `fl_train_step` is one round:
 K local steps per client, then one aggregation event.
 
-The reference lays the client dim over a device mesh; here one device
-holds every client and the local phase loops over them. `mesh` other than
-None raises: the sharded trainer (`fl_param_spec`, `fl_tree_shardings`,
-`state_shardings`) is ROADMAP §A.16b, the zoo's half of A.16 (the FL
-half, the mesh-sharded fused executor, is `FLConfig.mesh_devices`).
+With `mesh=None` one device holds every client and the local phase loops
+over them. With `mesh` a `launch.mesh.RankMesh` the trainer runs in each
+rank of a mesh, as the reference's SPMD program runs on each device:
+the client dim lies over "data" (and "pod"), one client a rank, and each
+of the client's leaves is sharded over "model" by `fl_param_spec`
+(`fl_tree_shardings(_opt)`, `state_shardings`). A rank gathers its
+client's leaves over "model", runs the K local steps on them, and joins
+the aggregation event through the mesh operators of `core/aggregation.py`
+(`mesh_hfl`, `mesh_afl_fedavg`, `mesh_afl_gossip`, `mesh_cfl`), the
+gossip ring as counted collective-permutes; it keeps its shards of the
+result. The ranks of one client along "model" compute the same steps.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +35,49 @@ from repro_torch.core.fl_types import FLConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import value_and_grad
 from repro_torch.optim import optimizers
+from repro_torch.sharding import specs as sh
 from repro_torch.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# FL sharding: the client axis in front, only "model" within a client
+# ---------------------------------------------------------------------------
+
+def fl_client_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def fl_param_spec(path: str, shape, mesh) -> sh.PartitionSpec:
+    """Spec of a client-stacked leaf (C, *base_shape); a stacked layer
+    leaf is (C, L, *per_layer), both leading dims skipped for the
+    per-layer rules. The client dim takes the client axes; the other dims
+    keep only "model"."""
+    shape = tuple(shape)
+    if sh._STACKED_RE.search(path) and len(shape) >= 3:
+        base = sh.P(None, *sh.spec_for_param(path, shape[2:], mesh))
+    else:
+        base = sh.spec_for_param(path, shape[1:], mesh)
+    cleaned = ["model" if e == "model" else None for e in base]
+    ca = fl_client_axes(mesh)
+    return sh.fit_spec(shape, sh.P(ca if len(ca) > 1 else ca[0], *cleaned),
+                       mesh)
+
+
+def fl_tree_shardings(client_params, mesh):
+    return tree_map(lambda pair: sh.NamedSharding(
+        mesh, fl_param_spec(pair[0], pair[1].shape, mesh)),
+        sh._paths(client_params))
+
+
+def fl_tree_shardings_opt(opt_state, mesh):
+    """Optimizer state mirrors the parameters' sharding; leaves of at most
+    one dim are replicated."""
+    def one(pair):
+        path, leaf = pair
+        if leaf.ndim <= 1:
+            return sh.NamedSharding(mesh, sh.P())
+        return sh.NamedSharding(mesh, fl_param_spec(path, leaf.shape, mesh))
+    return tree_map(one, sh._paths(opt_state))
 
 
 def _stack(trees):
@@ -41,19 +89,27 @@ def _client(tree, c):
 
 
 class FederatedTrainer:
-    """`fl_train_step` for (model, FLConfig) on one device."""
+    """`fl_train_step` for (model, FLConfig) on one device (`mesh=None`)
+    or in one rank of a `launch.mesh.RankMesh`."""
 
     def __init__(self, model, fl: FLConfig, mesh=None,
                  optimizer: Optional[optimizers.Optimizer] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FederatedTrainer(mesh=...) is not ported yet: ROADMAP "
-                "§A.16b (the zoo's half of A.16) brings the sharded trainer "
-                "to repro_torch; pass mesh=None to train every client on "
-                "one device")
         self.model = model
         self.fl = fl
+        self.mesh = mesh
         self.opt = optimizer or optimizers.sgd(fl.lr, momentum=fl.momentum)
+        if mesh is not None:
+            ca = fl_client_axes(mesh.shape)
+            n = sh.axis_size(mesh.shape, ca)
+            if fl.num_clients != n:
+                raise ValueError(
+                    f"the mesh's client axes {ca} hold {n} clients, one a "
+                    f"rank; FLConfig.num_clients is {fl.num_clients}")
+            if fl.strategy == "hfl" and n % fl.num_groups:
+                raise ValueError(f"{n} clients do not split into "
+                                 f"{fl.num_groups} HFL groups")
+            self._clients = mesh.axis(ca)
+            self._shardings = None
 
     # -- state ---------------------------------------------------------------
 
@@ -65,6 +121,12 @@ class FederatedTrainer:
         client inits, then CFL's global init) unless given: `client_params`
         stacked, `global_params` for CFL (e.g. the reference's init through
         `convert.params_from_jax`)."""
+        if self.mesh is not None:
+            state = FederatedTrainer(self.model, self.fl, None,
+                                     self.opt).init_state(
+                generator, client_params=client_params,
+                global_params=global_params, device=device)
+            return self.shard_state(state)
         dev = resolve_device(device)
         C = self.fl.num_clients
         if client_params is None:
@@ -81,6 +143,106 @@ class FederatedTrainer:
             state["global_params"] = tree_map(lambda x: x.to(dev),
                                               global_params)
         return state
+
+    # -- the mesh ------------------------------------------------------------
+
+    def state_shardings(self, state):
+        """The shardings of a (global) state tree on the mesh."""
+        mesh = self.mesh.shape
+        out = {"client_params": fl_tree_shardings(state["client_params"],
+                                                  mesh),
+               "opt": fl_tree_shardings_opt(state["opt"], mesh),
+               "round": sh.NamedSharding(mesh, sh.P())}
+        if "global_params" in state:
+            out["global_params"] = sh.tree_shardings(state["global_params"],
+                                                     mesh)
+        return out
+
+    def state_specs(self) -> Dict[str, Any]:
+        """The global state tree on the meta device (the reference's
+        `jax.eval_shape(trainer.init_state, key)`)."""
+        p = self.model.param_specs()
+        C = self.fl.num_clients
+        state = {"client_params": _stack([p] * C),
+                 "opt": _stack([self.opt.init(p)] * C),
+                 "round": torch.zeros((), dtype=torch.int64, device="meta")}
+        if self.fl.strategy == "cfl":
+            state["global_params"] = p
+        return state
+
+    def _mesh_shardings(self):
+        if self._shardings is None:
+            self._shardings = self.state_shardings(self.state_specs())
+        return self._shardings
+
+    def shard_state(self, state):
+        """This rank's shards of a global state."""
+        from repro_torch.launch.mesh import shard_tree
+        return shard_tree(state, self._mesh_shardings(), self.mesh)
+
+    def _client_view(self, tree, shardings):
+        """This rank's client's whole leaves: gathered over "model"; a
+        replicated client-stacked leaf gives its row."""
+        from repro_torch.launch.mesh import gather
+        ca = fl_client_axes(self.mesh.shape)
+        c = self._clients.index
+
+        def one(x, s):
+            x = gather(x, s, self.mesh, keep=ca)
+            return x[0] if len(s.spec) and s.spec[0] is not None else x[c]
+        return tree_map(one, tree, shardings)
+
+    def _to_shards(self, tree, shardings):
+        """This client's whole leaves -> the rank's shards of the global
+        (C, ...) leaves; a replicated leaf is gathered over the clients."""
+        from repro_torch.launch.mesh import all_gather
+        C = self.fl.num_clients
+
+        def one(x, s):
+            if len(s.spec) and s.spec[0] is not None:
+                index = s.index((C,) + tuple(x.shape), self.mesh.coords)
+                return x[None][(slice(None),) + index[1:]].clone(
+                    memory_format=torch.contiguous_format)
+            return all_gather(x[None], self._clients, dim=0)
+        return tree_map(one, tree, shardings)
+
+    def _mesh_step(self, state, batch, weights, participate):
+        from repro_torch.core import aggregation as agg
+        from repro_torch.core.collectives import all_reduce_sum
+        from repro_torch.launch.mesh import gather_tree, shard_tree
+        fl, axis = self.fl, self._clients
+        shardings = self._mesh_shardings()
+        c = axis.index
+        params = self._client_view(state["client_params"],
+                                   shardings["client_params"])
+        opt_state = self._client_view(state["opt"], shardings["opt"])
+        params, opt_state, loss = self._local_steps(
+            params, opt_state, tree_map(lambda x: x[0], batch))
+        w = weights[c].float()
+        new_global = None
+        if fl.strategy == "hfl":
+            params = agg.mesh_hfl(params, w, client_axis=axis,
+                                  num_groups=fl.num_groups)
+        elif fl.strategy == "afl" and fl.afl_mode == "gossip":
+            params = agg.mesh_afl_gossip(params, client_axis=axis)
+        elif fl.strategy == "afl":
+            params = agg.mesh_afl_fedavg(params, w, participate[c],
+                                         client_axis=axis)
+        else:
+            g_sh = shardings["global_params"]
+            glob = gather_tree(state["global_params"], g_sh, self.mesh)
+            params, glob = agg.mesh_cfl(params, glob, w, fl.merge_alpha,
+                                        client_axis=axis)
+            new_global = shard_tree(glob, g_sh, self.mesh)
+        new_state = dict(state)
+        new_state["client_params"] = self._to_shards(
+            params, shardings["client_params"])
+        new_state["opt"] = self._to_shards(opt_state, shardings["opt"])
+        new_state["round"] = state["round"] + 1
+        if new_global is not None:
+            new_state["global_params"] = new_global
+        loss = all_reduce_sum(loss.reshape(1).float(), axis)[0] / axis.size
+        return new_state, {"loss": loss}
 
     # -- local phase ---------------------------------------------------------
 
@@ -158,7 +320,11 @@ class FederatedTrainer:
         """One federated round. batch leaves: (C, K, B_local, ...) per-client
         micro-batches; weights: (C,) sample counts; participate: (C,) bool
         (AFL). Returns (new state, {"loss": mean of the clients' mean
-        local losses})."""
+        local losses}). On a mesh, `state` and `batch` are the rank's
+        shards (its client's (1, ...) rows) and the new state is too;
+        `weights` and `participate` are whole."""
+        if self.mesh is not None:
+            return self._mesh_step(state, batch, weights, participate)
         C = self.fl.num_clients
         outs = [self._local_steps(_client(state["client_params"], c),
                                   _client(state["opt"], c),
@@ -188,7 +354,20 @@ class FederatedTrainer:
 
     def served_model(self, state):
         """The consensus model for evaluation and serving: the mean of the
-        client models, or CFL's continual global model."""
+        client models, or CFL's continual global model (whole, on every
+        rank of a mesh)."""
+        if self.mesh is not None:
+            from repro_torch.core.collectives import all_reduce_sum
+            from repro_torch.launch.mesh import gather_tree
+            shardings = self._mesh_shardings()
+            if self.fl.strategy == "cfl":
+                return gather_tree(state["global_params"],
+                                   shardings["global_params"], self.mesh)
+            mine = self._client_view(state["client_params"],
+                                     shardings["client_params"])
+            return tree_map(lambda x: (all_reduce_sum(
+                x.float().clone(), self._clients)
+                / self.fl.num_clients).to(x.dtype), mine)
         if self.fl.strategy == "cfl":
             return state["global_params"]
         return tree_map(lambda x: x.float().mean(0).to(x.dtype),

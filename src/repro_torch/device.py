@@ -11,13 +11,14 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """`device` (str or torch.device) -> torch.device, raising
-    RuntimeError when CUDA is requested but absent."""
+    RuntimeError when CUDA is requested but absent. "meta" (shapes, no
+    storage) is the dry-run's device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise RuntimeError(f"unsupported device {str(dev)!r}")
     return dev
 

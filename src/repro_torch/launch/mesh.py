@@ -6,8 +6,8 @@ Shape-only meshes (`MeshShape`, from `sharding/specs.py`):
 * `make_host_mesh(data, model, devices=...)` — a ("data", "model") mesh
   over the devices there are, each axis clamped to a divisor;
 * `make_production_mesh` / `make_fl_mesh` — the 16x16 and 2x16x16 meshes
-  of the reference's dry run, as shapes (the zoo's sharded half,
-  ROADMAP §A.16b, lowers onto them);
+  of the reference's dry run, as shapes (`launch/dryrun.py` runs rank 0
+  of them on the meta device);
 * `make_client_mesh(devices)` — the 1-D ("data",) mesh of the fused
   executor: the stacked CLIENT axis is laid over `devices` ranks.
 
@@ -31,14 +31,18 @@ The port runs one process per rank on `torch.distributed` instead:
   `rank.mesh(shape)` lays a multi-axis `MeshShape` over the world's
   ranks (row-major); a `MeshAxis` carries the rank's index on the axis,
   its size and the process group of its members.
-* Every collective of the port goes through `all_reduce_sum` /
-  `barrier` (`core/collectives.py`, re-exported here), which count their
-  calls and bytes by name on each rank (`collective_counts`), under the
-  active `collective_scope`: so a test reads that a scope (HFL's tier 1)
-  issued no collective at all.
+* Every collective of the port goes through `core/collectives.py`
+  (re-exported here), which counts its calls and bytes on each rank
+  (`collective_counts`), under the active `collective_scope`: so a test
+  reads that a scope (HFL's tier 1) issued no collective at all.
+* The zoo's sharded steps keep each leaf as the rank's shard of it, cut
+  by a `specs.NamedSharding`: `shard_tree` cuts a tree's leaves (no
+  collective), `gather_tree` joins them back with one `all_gather` a
+  sharded dim. `dry_run_mesh(shape)` is rank 0 of a mesh that has no
+  processes, for the count-only dry-run.
 
 Gloo runs only `all_reduce` and `broadcast` on CUDA tensors, so every
-collective of the mesh path is a sum `all_reduce` (`core/aggregation.py`).
+collective is a sum `all_reduce` on the wire (`core/collectives.py`).
 
 The reference's `axis_types_kw`, `activate_mesh` and `shard_map_compat`
 are shims between jax versions for installing a mesh and tracing a
@@ -63,10 +67,12 @@ import torch
 # the counted collectives live in the core layer, which the mesh operators
 # call; re-exported here beside the world that runs them
 from repro_torch import device as device_mod
+from repro_torch.core import collectives
 from repro_torch.core.collectives import (  # noqa: F401
-    all_reduce_sum, barrier, collective_counts, collective_scope,
-    reset_collective_counts)
-from repro_torch.sharding.specs import MeshShape
+    all_gather, all_reduce_sum, barrier, collective_counts,
+    collective_scope, ppermute, reduce_scatter, reset_collective_counts)
+from repro_torch.sharding.specs import MeshShape, entry_axes
+from repro_torch.tree import tree_map
 
 # ranks that may share one card under gloo (8 ranks take 10 GB each of an
 # 80 GB card at most)
@@ -181,8 +187,11 @@ _GROUPS: Dict[tuple, Any] = {}
 
 def _new_group(ranks: Sequence[int]):
     """A process group of `ranks`, made once per process. Every rank must
-    ask for the same groups in the same order (SPMD code does)."""
+    ask for the same groups in the same order (SPMD code does). A
+    dry-run makes none."""
     import torch.distributed as dist
+    if collectives.in_dry_run():
+        return None
     key = tuple(ranks)
     if key not in _GROUPS:
         _GROUPS[key] = (None if len(key) == dist.get_world_size()
@@ -243,6 +252,12 @@ class RankMesh:
     def _rank_of(self, coords) -> int:
         return sum(c * s for c, s in zip(coords, self._strides))
 
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's index on each mesh axis."""
+        return {n: (self.rank // st) % size for n, st, size in
+                zip(self.names, self._strides, self.shape.axis_sizes)}
+
     def axis(self, names) -> MeshAxis:
         """The axis over `names` (a name or a tuple of names, their
         product in the given order)."""
@@ -270,6 +285,62 @@ class RankMesh:
         index = mine.index(self.rank)
         return MeshAxis(names if len(names) > 1 else names[0], index,
                         len(mine), group, instances, self.rank, self)
+
+
+def dry_run_mesh(shape: MeshShape, rank: int = 0) -> RankMesh:
+    """Rank `rank` of `shape` with no processes behind it: its axes have
+    no process group, so use it inside `collectives.dry_run()`, where no
+    collective issues a call."""
+    if not collectives.in_dry_run():
+        raise RuntimeError("dry_run_mesh is for collectives.dry_run(): "
+                           "its axes have no process group")
+    return RankMesh(shape, rank, shape.size)
+
+
+# ---------------------------------------------------------------------------
+# leaves stored as shards
+# ---------------------------------------------------------------------------
+
+def shard(x: torch.Tensor, sharding, rank_mesh: RankMesh) -> torch.Tensor:
+    """This rank's shard of the global tensor `x` (a copy); a leaf that is
+    not a tensor (the decode state's int "index") is whole on every
+    rank."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x[sharding.index(x.shape, rank_mesh.coords)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather(x: torch.Tensor, sharding, rank_mesh: RankMesh,
+           keep: Sequence[str] = ()) -> torch.Tensor:
+    """The global tensor of which `x` is this rank's shard: one
+    `all_gather` for each sharded dim, over the dim's axes. Axes in
+    `keep` stay sharded (the batch axes of a data-parallel step); they
+    must lead their dim's entry, so the kept block is contiguous."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    for d, e in enumerate(sharding.spec):
+        axes = entry_axes(e)
+        rest = tuple(a for a in axes if a not in keep)
+        if not rest:
+            continue
+        if axes[len(axes) - len(rest):] != rest:
+            raise ValueError(f"kept axes {tuple(keep)} do not lead the "
+                             f"entry {e!r} of {sharding.spec}")
+        x = all_gather(x, rank_mesh.axis(rest), dim=d)
+    return x
+
+
+def shard_tree(tree, shardings, rank_mesh: RankMesh):
+    """`shard` over a tree and its tree of shardings."""
+    return tree_map(lambda x, s: shard(x, s, rank_mesh), tree, shardings)
+
+
+def gather_tree(tree, shardings, rank_mesh: RankMesh,
+                keep: Sequence[str] = ()):
+    """`gather` over a tree of shards and its tree of shardings."""
+    return tree_map(lambda x, s: gather(x, s, rank_mesh, keep), tree,
+                    shardings)
 
 
 class Rank:

@@ -10,19 +10,41 @@ Three terms per step, in seconds, from the H100 SXM data sheet:
                                         450 GB/s each way)
 
 MFU is model FLOPs (6 N_active D for a training step) over the step
-time and `PEAK_FLOPS`. The reference's `analyze` and
-`parse_collective_bytes` read an XLA executable and its HLO text; their
-counterpart on the mesh, reading the bytes that `launch.mesh`'s
-collective helpers count on each rank, is ROADMAP §A.16b.
+time and `PEAK_FLOPS`.
+
+The reference's `analyze` and `parse_collective_bytes` read an XLA
+executable's cost analysis and its HLO text. Here `collective_bytes`
+reads the collectives that `core/collectives.py` counted on a rank (by
+the reference's op kinds, with their result bytes) and weighs them as
+the reference's parser does (an all-reduce twice: a ring moves about
+twice the payload), and `analyze` takes the FLOPs, bytes and peak memory
+that the dry-run measured (`launch/dryrun.py`). `LINK_BW` is applied to
+every mesh axis alike, as the reference applies its one `ICI_BW`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 PEAK_FLOPS = 989e12          # dense bf16 / card (H100 SXM data sheet)
 HBM_BW = 3.35e12             # bytes/s / card, HBM3 (H100 SXM data sheet)
 LINK_BW = 450e9              # bytes/s / card each way, NVLink 4
+
+
+_WEIGHT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+           "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def collective_bytes(counts) -> Dict[str, float]:
+    """Per-kind link bytes (per device) from a rank's
+    `collectives.collective_counts()`, with the keys of the reference's
+    `parse_collective_bytes`: each kind, "count" and "total"."""
+    out: Dict[str, float] = {
+        k: counts.get("kind_bytes", {}).get(k, 0) * w
+        for k, w in _WEIGHT.items()}
+    out["count"] = sum(counts.get("kinds", {}).get(k, 0) for k in _WEIGHT)
+    out["total"] = sum(out[k] for k in _WEIGHT)
+    return out
 
 
 @dataclasses.dataclass
@@ -65,6 +87,18 @@ class Roofline:
             "collective_s": self.collective_s,
             "dominant": self.dominant,
         }
+
+
+def analyze(flops: float, nbytes: float, counts, chips: int,
+            peak_memory: Optional[float] = None) -> Roofline:
+    """The roofline of one device's program: its FLOPs, bytes and peak
+    memory as measured, its collectives from the rank's counts."""
+    coll = collective_bytes(counts)
+    return Roofline(flops_per_device=float(flops),
+                    bytes_per_device=float(nbytes),
+                    collective_bytes_per_device=coll["total"],
+                    collective_count=int(coll["count"]), chips=chips,
+                    peak_memory_per_device=peak_memory)
 
 
 def model_flops_per_step(cfg, tokens: int, active_params: int) -> float:

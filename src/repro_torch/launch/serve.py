@@ -1,12 +1,23 @@
-"""Serving: prefill, single-token decode steps and the token-model
-dispatch for the serving engine (port of `repro.launch.serve`, lines
-18-50; the mesh sharding rules of the decode state wait for ROADMAP
-A.16b, on the spec rules of `repro_torch.sharding.specs`).
+"""Serving: prefill, single-token decode steps, the token-model dispatch
+for the serving engine, and the decode state's sharding rules (port of
+`repro.launch.serve`).
+
+On a mesh (`make_sharded_prefill_step`, `make_sharded_serve_step`) each
+rank keeps its shards of the parameters (`specs.tree_shardings`), of the
+batch (`train.batch_shardings`) and of the decode state
+(`decode_state_shardings`, `token_shardings`). A step gathers the
+parameters, and the state over its non-batch axes, runs the
+single-device step on the rank's batch rows, and keeps its shards of the
+new state. With `attn_impl="flash"` or the kernel prefill, the flash and
+scan kernels launch in every rank, on its rows.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import specs as sh
+from repro_torch.tree import tree_map
 
 
 def make_prefill_step(model):
@@ -41,3 +52,140 @@ def make_decode_dispatch(cfg, prompts, next_tokens):
         return out[:, -1].cpu().numpy() == next_tokens[ei]
 
     return dispatch
+
+
+def decode_state_shardings(state_shape, mesh, cfg):
+    """Sharding rules for decode-state leaves (the reference's).
+
+    (B, cap, Hk, dh) per-layer KV caches: batch over the FSDP axis when
+    divisible; heads over "model" when divisible, else the cache
+    sequence over "model" when it is longer than 1024. (L, B, cap, Hk,
+    dh) layer-stacked caches: the same rule shifted by one, the layer dim
+    whole. Recurrent states: batch over FSDP, channels over "model" when
+    divisible. Meshes without a "model" axis shard the batch dim only. A
+    scalar (or the port's int "index") is replicated."""
+    fa = sh.fsdp_axes(mesh)
+    ba = fa if len(fa) > 1 else fa[0]
+    msize = dict(mesh.shape).get("model", 0)
+    bsize = sh.axis_size(mesh, ba)
+
+    def kv_spec(shape, b, seq, heads):
+        spec = [None] * len(shape)
+        if shape[b] % bsize == 0:
+            spec[b] = ba
+        if msize and shape[heads] % msize == 0:
+            spec[heads] = "model"
+        elif msize and shape[seq] % msize == 0 and shape[seq] > 1024:
+            spec[seq] = "model"
+        return spec
+
+    def rule(leaf):
+        ndim = leaf.ndim if isinstance(leaf, torch.Tensor) else 0
+        if ndim == 0:
+            return sh.NamedSharding(mesh, sh.P())
+        shape = tuple(leaf.shape)
+        if ndim == 5:
+            spec = kv_spec(shape, 1, 2, 3)
+        elif ndim == 4:
+            spec = kv_spec(shape, 0, 1, 2)
+        elif ndim == 3:
+            spec = [None] * 3
+            if shape[0] % bsize == 0:
+                spec[0] = ba
+            if msize and shape[2] % msize == 0:
+                spec[2] = "model"
+        else:
+            spec = [None] * ndim
+            if shape[0] % bsize == 0:
+                spec[0] = ba
+        return sh.NamedSharding(mesh, sh.fit_spec(shape, sh.P(*spec), mesh))
+
+    return tree_map(rule, state_shape)
+
+
+def token_shardings(token_spec, mesh):
+    fa = sh.fsdp_axes(mesh)
+    ba = fa if len(fa) > 1 else fa[0]
+    return sh.NamedSharding(mesh, sh.fit_spec(token_spec.shape, sh.P(ba),
+                                              mesh))
+
+
+def _lead_axes(sharding):
+    return sh.entry_axes(sharding.spec[0] if len(sharding.spec) else None)
+
+
+def make_sharded_prefill_step(model, rank_mesh, batch_specs):
+    """`make_prefill_step` on a rank of `rank_mesh`: (param shards, batch
+    shards) -> the logits of the rank's batch rows. The shards are cut by
+    `specs.tree_shardings` and `train.batch_shardings` of the global
+    shapes (`batch_specs`, e.g. `model.train_batch_specs(B, S)` without
+    "labels") under the config's rules; `.shardings` holds both."""
+    from repro_torch.launch.mesh import gather_tree
+    from repro_torch.launch.train import batch_shardings
+    mesh = rank_mesh.shape
+    with sh.config_rules(model.cfg):
+        p_sh = sh.tree_shardings(model.param_specs(), mesh)
+        b_sh = batch_shardings(batch_specs, mesh)
+    keep = _lead_axes(b_sh["tokens"])
+    body = make_prefill_step(model)
+
+    def prefill(params, batch):
+        return body(gather_tree(params, p_sh, rank_mesh),
+                    gather_tree(batch, b_sh, rank_mesh, keep=keep))
+
+    prefill.shardings = (p_sh, b_sh)
+    return prefill
+
+
+def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
+    """`make_serve_step` on a rank of `rank_mesh`: (param shards, state
+    shards, token shards) -> (the logits of the rank's rows, its new
+    state shards). The shards are cut by `specs.tree_shardings`,
+    `decode_state_shardings` and `token_shardings` of the global shapes
+    (`state_specs`, e.g. `model.decode_state_specs(B, cap)`, and
+    `token_spec`); `.shardings` holds the three. The state is gathered
+    over its non-batch axes for the step and cut again after it."""
+    from repro_torch.launch.mesh import gather_tree, shard_tree
+    mesh = rank_mesh.shape
+    with sh.config_rules(model.cfg):
+        p_sh = sh.tree_shardings(model.param_specs(), mesh)
+    st_sh = decode_state_shardings(state_specs, mesh, model.cfg)
+    t_sh = token_shardings(token_spec, mesh)
+    keep = _lead_axes(t_sh)
+    body = make_serve_step(model)
+
+    def local(sharding):
+        # the rank's rows: the batch axes cut, every other axis whole
+        spec = [e if sh.entry_axes(e) and set(sh.entry_axes(e)) <= set(keep)
+                else None for e in sharding.spec]
+        return sh.NamedSharding(mesh, sh.P(*spec))
+
+    rows_sh = tree_map(local, st_sh)
+
+    def serve_step(params, state, tokens):
+        full = gather_tree(params, p_sh, rank_mesh)
+        rows = gather_tree(state, st_sh, rank_mesh, keep=keep)
+        logits, new = body(full, rows, tokens)
+        return logits, _reshard(new, rows_sh, st_sh, rank_mesh)
+
+    serve_step.shardings = (p_sh, st_sh, t_sh)
+    return serve_step
+
+
+def _reshard(rows, rows_sh, st_sh, rank_mesh):
+    """The rank's rows of the state (batch axes cut) -> its shards."""
+    def one(x, r, s):
+        if not isinstance(x, torch.Tensor) or r.spec == s.spec:
+            return x
+        index = s.index(_global_shape(x.shape, r), rank_mesh.coords)
+        mine = r.index(_global_shape(x.shape, r), rank_mesh.coords)
+        rel = tuple(slice(i.start - m.start, i.stop - m.start)
+                    for i, m in zip(index, mine))
+        return x[rel].clone(memory_format=torch.contiguous_format)
+    return tree_map(one, rows, rows_sh, st_sh)
+
+
+def _global_shape(shape, sharding):
+    return tuple(d * sh.axis_size(sharding.mesh, e) for d, e in
+                 zip(shape, list(sharding.spec)
+                     + [None] * (len(shape) - len(sharding.spec))))

@@ -12,13 +12,28 @@ pass and raise under autograd, as the reference's Pallas calls do.
     python -m repro_torch.launch.train --arch xlstm-125m --steps 30
 
 trains a reduced config on `MarkovLM` batches on the card (`--device
-cpu` on the CPU). The mesh half of the reference's module
-(`batch_shardings`, `train_state_shardings`) is ROADMAP §A.16b; it builds
-on the spec rules of `repro_torch.sharding.specs`.
+cpu` on the CPU).
+
+The mesh half: `batch_shardings` and `train_state_shardings` are the
+reference's rules, and `make_sharded_train_step` runs the step on the
+ranks of a `launch.mesh.World` laid out as a mesh. Each rank keeps only
+its shard of every parameter, optimizer-state and batch leaf, cut by
+those rules, so its memory for them is the reference's. A step gathers
+every parameter (one `all_gather` a sharded dim), runs the single-device
+loss and gradient on the rank's batch rows, sums the gradients over the
+batch axes and keeps its own shard of the sum (a `reduce_scatter` for a
+leaf sharded over them, else an `all_reduce`), clips by the global norm
+and updates its shards. Ranks along an
+axis that carries no batch rows (under "tp", "model") compute the same
+thing: the port gathers weights where GSPMD would split the matmuls
+(ROADMAP §A.19).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import math
+import re
 import time
 
 import numpy as np
@@ -27,6 +42,7 @@ import torch
 from repro_torch.data.pipeline import MarkovLM
 from repro_torch.device import generator, resolve_device
 from repro_torch.optim import optimizers
+from repro_torch.sharding import specs as sh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -83,6 +99,168 @@ def make_train_step(model, opt, clip_norm: float = 1.0):
         params = optimizers.apply_updates(params, updates)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, **aux}
     return train_step
+
+
+def batch_shardings(batch_specs, mesh):
+    """Rows over the batch axes and, on the multi-pod fsdp mesh, the
+    sequence over "model" (the reference's rule)."""
+    ba = sh.batch_axes(mesh)
+    ba = ba if len(ba) > 1 else ba[0]
+    sa = sh.seq_axis(mesh)
+
+    def one(s):
+        spec = sh.P(ba, sa) if len(s.shape) >= 2 else sh.P(ba)
+        return sh.NamedSharding(mesh, sh.fit_spec(s.shape, spec, mesh))
+    return tree_map(one, batch_specs)
+
+
+def train_state_shardings(params_shape, opt_shape, mesh):
+    """(parameter shardings, optimizer-state shardings): the moments under
+    m/, v/ and mu/ mirror their parameter's spec, scalars are
+    replicated."""
+    p_sh = sh.tree_shardings(params_shape, mesh)
+
+    def one(pair):
+        path, leaf = pair
+        if leaf.ndim == 0:
+            return sh.NamedSharding(mesh, sh.P())
+        clean = re.sub(r"^(m|v|mu)/", "", path)
+        if sh._STACKED_RE.search(clean) and leaf.ndim >= 2:
+            inner = sh.spec_for_param(clean, leaf.shape[1:], mesh)
+            spec = sh.fit_spec(leaf.shape, sh.P(None, *inner), mesh)
+        else:
+            spec = sh.spec_for_param(clean, leaf.shape, mesh)
+        return sh.NamedSharding(mesh, spec)
+    return p_sh, tree_map(one, sh._paths(opt_shape))
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over the batch axis of a per-rank token mean. Its
+    backward is the local share (grad / size), not a collective: each
+    rank differentiates only through its own tokens, and the step's sum
+    of the ranks' gradients adds the shares up."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from repro_torch.core.collectives import all_reduce_sum
+        ctx.size = axis.size
+        return all_reduce_sum(x.detach().clone(), axis) / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
+                            clip_norm: float = 1.0):
+    """`make_train_step` on a rank of `rank_mesh` (a `launch.mesh.RankMesh`):
+    (param shards, opt-state shards, batch shards) -> (param shards,
+    opt-state shards, metrics), every shard cut by `train_state_shardings`
+    / `batch_shardings` of the global shapes (`batch_specs`: the global
+    batch's, e.g. `model.train_batch_specs(B, S)`) under the config's
+    rules (`specs.config_rules`); `.shardings` holds the three. The
+    metrics are the global batch's and equal on every rank.
+
+    Each rank weighs its rows' loss by its share n_r / N of the valid
+    labels, so the sum of the ranks' gradients is the global mean's in
+    exact arithmetic; MoE's aux loss takes its token means over the whole
+    batch (`moe.global_token_mean`). cfg.grad_accum > 1 cuts the rank's
+    own rows into micro-batches, which group rows otherwise than the
+    single-device step's cut of the global batch: equal in arithmetic
+    when every micro-batch holds as many valid labels (MarkovLM's and
+    `synthetic_train_batch`'s do), but not MoE's aux loss, whose token
+    means then run over other tokens.
+
+    MoE routes groups of `moe_group_size` consecutive tokens with a
+    capacity from the group size: a rank's B_loc x S tokens must be a
+    multiple of it for the drops to be the single-device step's. Every
+    MoE config meets this at train_4k on 16x16 (1 x 4096 tokens a rank,
+    groups of 512) and the reduced ones at B_loc x S >= 64."""
+    from repro_torch.launch.mesh import gather_tree, reduce_scatter
+    from repro_torch.models import moe
+    from repro_torch.core.collectives import all_reduce_sum
+    mesh = rank_mesh.shape
+    cfg = model.cfg
+    accum = getattr(cfg, "grad_accum", 1)
+    p_specs = model.param_specs()
+    with sh.config_rules(cfg):
+        p_sh, o_sh = train_state_shardings(p_specs, opt.init(p_specs), mesh)
+        b_sh = batch_shardings(batch_specs, mesh)
+    batch_names = sh.entry_axes(b_sh["labels"].spec[0]
+                                if len(b_sh["labels"].spec) else None)
+    baxis = rank_mesh.axis(batch_names) if batch_names else None
+    world = rank_mesh.axis(mesh.axis_names)
+    coords = rank_mesh.coords
+    p_flat = tree_leaves(p_sh)
+    shapes = [tuple(p.shape) for p in tree_leaves(p_specs)]
+    # ranks holding the same block of a leaf: its squared norm is summed
+    # once a block over the world
+    reps = [mesh.size // math.prod(mesh.shape[a] for a in s.axes())
+            for s in p_flat]
+    w_aux = cfg.aux_loss_weight
+
+    def mean_over_batch(x):
+        return _BatchMean.apply(x, baxis)
+
+    def step(params, opt_state, batch):
+        full = gather_tree(params, p_sh, rank_mesh)
+        rows = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
+        B = rows["labels"].shape[0]
+        if B % accum:
+            raise ValueError(f"{B} rows a rank do not split into "
+                             f"grad_accum={accum} micro-batches")
+        gsum, shares, auxs = None, [], []
+        for i in range(accum):
+            mb = {k: v.reshape((accum, B // accum) + tuple(v.shape[1:]))[i]
+                  for k, v in rows.items()}
+            n = (mb["labels"] >= 0).sum().float()
+            N = n.clone() if baxis is None else all_reduce_sum(n.clone(),
+                                                               baxis)
+            frac = n / torch.clamp(N, min=1.0)
+
+            def objective(p, b):
+                _, aux = model.loss(p, b)
+                return frac * aux["nll"] + w_aux * aux["aux"], aux
+
+            with (contextlib.nullcontext() if baxis is None
+                  else moe.global_token_mean(mean_over_batch)):
+                (_, aux), g = value_and_grad(objective, full, mb)
+            if accum > 1:
+                g = tree_map(lambda x: x.float(), g)
+            gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+            shares.append(frac * aux["nll"])
+            auxs.append(aux["aux"])
+        grads = tree_leaves(gsum)
+        if accum > 1:
+            grads = [g / accum for g in grads]
+        nll = torch.stack(shares)
+        if baxis is not None:
+            nll = all_reduce_sum(nll, baxis)
+        nll, aux = nll.mean(), torch.stack(auxs).mean()
+        out = []
+        for g, s, shape in zip(grads, p_flat, shapes):
+            index = s.index(shape, coords)
+            if baxis is None:
+                out.append(g[index].clone())
+            elif set(s.axes()) & set(batch_names):
+                out.append(reduce_scatter(g, baxis, index))
+            else:
+                out.append(all_reduce_sum(g, baxis)[index].clone())
+        sq = sum(torch.sum(torch.square(g.float())) / r
+                 for g, r in zip(out, reps))
+        gnorm = torch.sqrt(all_reduce_sum(sq.reshape(1), world)[0])
+        if clip_norm:
+            scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+            out = [g * scale for g in out]
+        grads = tree_unflatten(params, out)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optimizers.apply_updates(params, updates)
+        return params, opt_state, {"loss": nll + w_aux * aux,
+                                   "grad_norm": gnorm, "nll": nll,
+                                   "aux": aux}
+
+    step.shardings = (p_sh, o_sh, b_sh)
+    return step
 
 
 def device_batch(batch, device):

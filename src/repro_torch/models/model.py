@@ -52,6 +52,13 @@ class Model:
 
     # -- dry-run input specs (no allocation) ---------------------------------
 
+    def param_specs(self) -> Dict[str, Any]:
+        """The parameter tree on the meta device: shapes and dtypes of
+        `init`, no storage and no draw (the reference's
+        `jax.eval_shape(model.init, key)`)."""
+        with _META:
+            return transformer.init_transformer(torch.Generator(), self.cfg)
+
     def train_batch_specs(self, global_batch, seq_len) -> Dict[str, Any]:
         cfg = self.cfg
         specs = {"tokens": _spec((global_batch, seq_len), torch.int64),

@@ -14,9 +14,16 @@ by scattering each kept assignment's gate into its (expert, slot): the
 values of the reference's three-operand einsum, whose other terms are
 exact zeros, without its (G, S, K, C) one-hot intermediate. The
 reference's `shard_activation` calls have no counterpart on one card.
+
+The aux loss's token means (f_e, p_e) are over the whole batch. A
+data-parallel step whose rank holds a slice of the batch's rows
+(`launch.train.make_sharded_train_step`) supplies the mean over every
+rank's rows through `global_token_mean`, so its aux loss is the global
+batch's, as GSPMD's is.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -80,11 +87,36 @@ def dispatch_combine_masks(top_vals, top_idx, num_experts, capacity):
     return combine.reshape(G, S, num_experts, capacity)
 
 
+# the whole batch's token mean, set by `global_token_mean`: a process-wide
+# hook, not a context variable, because the autograd engine recomputes a
+# checkpointed layer (cfg.remat) on its own thread for CUDA tensors, which
+# does not see the caller's context
+_TOKEN_MEAN = [None]
+
+
+@contextlib.contextmanager
+def global_token_mean(fn):
+    """Inside (and in the backward pass run inside), each token mean of the
+    aux loss is `fn(local mean)`: `fn` turns the mean over this rank's
+    tokens into the mean over the whole batch's."""
+    prev, _TOKEN_MEAN[0] = _TOKEN_MEAN[0], fn
+    try:
+        yield
+    finally:
+        _TOKEN_MEAN[0] = prev
+
+
+def _token_mean(x):
+    m = x.mean(dim=(0, 1))
+    fn = _TOKEN_MEAN[0]
+    return m if fn is None else fn(m)
+
+
 def load_balance_loss(gates, top_idx, num_experts):
     """Switch/GShard aux loss: E * sum_e f_e * p_e."""
     oh = F.one_hot(top_idx[..., 0], num_experts).float()
-    f_e = oh.mean(dim=(0, 1))           # fraction routed (primary)
-    p_e = gates.mean(dim=(0, 1))        # mean router prob
+    f_e = _token_mean(oh)               # fraction routed (primary)
+    p_e = _token_mean(gates)            # mean router prob
     return num_experts * torch.sum(f_e * p_e)
 
 

@@ -20,15 +20,18 @@ a `shape` mapping axis name -> size (`MeshShape` here; the reference's
 `jax.sharding.Mesh` and its tests' `FakeMesh` have the same two
 attributes), and a spec is a `PartitionSpec` (`P(...)`): a tuple whose
 entries are an axis name, a tuple of axis names or None, one per leading
-dim of the array. The reference's `tree_shardings` wraps each spec in a
-`NamedSharding`; its counterpart, a DTensor-style placement of every
-leaf, comes with the zoo's sharded trainer (ROADMAP §A.16b), which
-builds on these rules.
+dim of the array. `NamedSharding(mesh, spec)` is the reference's
+`jax.sharding.NamedSharding` as shape logic: the shape of one shard, and
+which slice of the global array the rank at given mesh coordinates
+holds. `tree_shardings` wraps every spec of `tree_specs` in one, as the
+reference's does; `launch.mesh.shard_tree` / `gather_tree` cut and join
+the leaves of the zoo's sharded steps by them.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import re
 from typing import Dict, Sequence, Tuple
 
@@ -57,6 +60,13 @@ def _entry(e):
 
 
 P = PartitionSpec
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 class MeshShape:
@@ -125,6 +135,25 @@ def profile_ctx(profile: str):
         yield
     finally:
         _PROFILE.reset(tok)
+
+
+@contextlib.contextmanager
+def seq_shardable_ctx(flag: bool):
+    tok = _SEQ_SHARDABLE.set(bool(flag))
+    try:
+        yield
+    finally:
+        _SEQ_SHARDABLE.reset(tok)
+
+
+@contextlib.contextmanager
+def config_rules(cfg):
+    """The rules a model config shards by: its profile, and sequence
+    sharding only for an attention-only stack (the reference's dry-run
+    sets both so)."""
+    with profile_ctx(cfg.sharding_profile), \
+            seq_shardable_ctx(set(cfg.layer_kinds()) == {"attn"}):
+        yield
 
 
 def axis_size(mesh, axis) -> int:
@@ -317,6 +346,71 @@ def tree_specs(params, mesh, prefix=""):
     # a (path, leaf) pair and a spec are tuples, which the tree walk
     # treats as leaves
     return tree_map(spec, _paths(params))
+
+
+class NamedSharding:
+    """A spec laid over a mesh (the reference's `NamedSharding`, without
+    devices). A dim whose entry names axes (a1, a2, ...) is cut into
+    size(a1) * size(a2) * ... equal blocks, the first axis major; the
+    rank at mesh coordinates `coords` holds the block its coordinates on
+    those axes number, and every rank that differs only on axes the spec
+    does not name holds the same block."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = P(*spec)
+
+    def _entries(self, ndim):
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"array's {ndim} dims")
+        return list(self.spec) + [None] * (ndim - len(self.spec))
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the spec names, in dim order."""
+        return tuple(a for e in self.spec for a in entry_axes(e))
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """The shape of one shard of a global array of `shape`."""
+        out = []
+        for dim, e in zip(shape, self._entries(len(shape))):
+            n = axis_size(self.mesh, e)
+            if dim % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"divide over {e!r} ({n}) in {self.spec}")
+            out.append(dim // n)
+        return tuple(out)
+
+    def index(self, shape, coords) -> Tuple[slice, ...]:
+        """The slice of a global array of `shape` held at mesh
+        coordinates `coords` (axis name -> index)."""
+        out = []
+        for dim, size, e in zip(shape, self.shard_shape(shape),
+                                self._entries(len(shape))):
+            block = 0
+            for a in entry_axes(e):
+                block = block * self.mesh.shape[a] + coords[a]
+            out.append(slice(block * size, (block + 1) * size))
+        return tuple(out)
+
+    def indices_map(self, shape) -> Dict[int, Tuple[slice, ...]]:
+        """Rank -> its slice, the ranks laid over the mesh row-major (the
+        reference's `addressable_devices_indices_map` with device i at
+        the i-th coordinate of a row-major mesh)."""
+        names, sizes = self.mesh.axis_names, self.mesh.axis_sizes
+        out = {}
+        for r, c in enumerate(itertools.product(*(range(n) for n in sizes))):
+            out[r] = self.index(shape, dict(zip(names, c)))
+        return out
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def tree_shardings(params, mesh, prefix=""):
+    """`tree_specs` with every spec laid over `mesh`."""
+    return tree_map(lambda s: NamedSharding(mesh, s),
+                    tree_specs(params, mesh, prefix))
 
 
 # activation specs -----------------------------------------------------------

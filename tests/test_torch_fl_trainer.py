@@ -2,8 +2,8 @@
 six tests of tests/test_fl_trainer.py on the port's own init, then one
 `fl_train_step` per strategy (HFL, AFL with partial participation, AFL
 gossip, CFL) against the reference's from the reference's init, in
-float32 with distinct client data and unequal weights; and `mesh=`
-other than None raising, naming ROADMAP §A.16.
+float32 with distinct client data and unequal weights; and a mesh that
+does not hold one client a "data" slice raising.
 
 Tolerance of the parity cases: every client's parameters (and CFL's
 global model) within 1e-5, the round's loss within 1e-5 relative: two
@@ -120,10 +120,18 @@ def test_mesh_hfl_equals_host_hfl():
 
 
 def test_mesh_other_than_none_raises():
+    """A mesh runs the sharded trainer (tests/test_torch_fl_trainer_mesh.py)
+    with one client on each "data" slice; a mesh whose client axes do not
+    hold num_clients raises."""
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import dry_run_mesh
+    from repro_torch.sharding.specs import MeshShape
     fl = FLConfig(strategy="hfl", num_clients=4, num_groups=2)
-    with pytest.raises(NotImplementedError, match="A.16"):
-        FederatedTrainer(build_model(get_config(ARCH).reduced()), fl,
-                         mesh=object())
+    with collectives.dry_run():
+        rm = dry_run_mesh(MeshShape((2, 2), ("data", "model")))
+        with pytest.raises(ValueError, match="one a rank"):
+            FederatedTrainer(build_model(get_config(ARCH).reduced()), fl,
+                             mesh=rm)
 
 
 def test_batch_specs_and_meta():

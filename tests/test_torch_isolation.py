@@ -3,7 +3,8 @@ package `repro`, so it runs where jax is absent. A subprocess with both
 blocked in `sys.modules` imports every module of the port and runs a
 1-round CPU simulation, then slice 4's codec and async runs, secure
 aggregation and the dequantize-aggregate path, then one reduced zoo
-train step (slice 12); a source scan covers chip_smoke.py too."""
+train step (slice 12) and one count-only dry-run of it on a 4x2 mesh
+(slice 14); a source scan covers chip_smoke.py too."""
 import os
 import re
 import subprocess
@@ -18,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 _CHILD = r"""
-import sys
+import os, sys
+xla_flags = os.environ.get("XLA_FLAGS")
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 import importlib, pkgutil
@@ -70,6 +72,12 @@ batch = next(MarkovLM(cfg.vocab_size).batches(2, 16, 1))
 params, _, m = make_train_step(model, opt)(params, opt.init(params),
                                            device_batch(batch, "cpu"))
 assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+# slice 14: one count-only dry-run of a reduced config on a 4x2 mesh
+from repro_torch.launch import dryrun
+from repro_torch.sharding.specs import MeshShape
+d = dryrun.run_step(cfg, "train", 8, 16, MeshShape((4, 2), ("data", "model")))
+assert d["flops"] > 0 and d["counts"]["kinds"]["all-gather"] > 0
+assert os.environ.get("XLA_FLAGS") == xla_flags
 assert "repro_torch.api" in sys.modules and "repro_torch.core.trainer" in names
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
