@@ -177,16 +177,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the same tolerances; (b) zamba2-1.2b whole (1,104,777,344 parameters,
    bfloat16 activations, float32 parameters, remat) on MarkovLM batches
    of 4 x 2048 with grad_accum = 2 and AdamW (3e-4, weight decay 0.01,
-   clip 1.0): a warm-up and 2 timed steps on fresh batches, then 4 on one
-   repeated batch (4 and 6 before phase 15); ms per step (median and
-   range), tokens/s, MFU (6 N D
+   clip 1.0): a warm-up and 4 timed steps on fresh batches, then 6 on one
+   repeated batch; ms per step (median and range), tokens/s, MFU (6 N D
    over the step and the bf16 peak, `launch/roofline.py`), peak memory
    and the device busy / idle share of the first repeated step, profiled; (c) the
    federated trainer: phi3-mini reduced (float32; 4 clients in 2 groups,
    K = 2) one round of HFL, AFL, AFL gossip and CFL on the card against
    the CPU (1e-4) with a bitwise repeat, then xlstm-125m whole with 4
-   clients, K = 1 step of 2 x 256 tokens (2 before phase 15), 2 rounds of
-   HFL, AFL (client 0
+   clients, K = 2 steps of 2 x 256 tokens, 2 rounds of HFL, AFL (client 0
    alone in the second) and CFL, with seconds per round and peak memory. Fails
    on a gate missed, a non-finite loss, grad-norm or parameter, the
    repeated batch's loss not falling, clients apart after an HFL or AFL
@@ -2739,7 +2737,7 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
 
 
 def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
-                       timed=2, repeats=4):
+                       timed=4, repeats=6):
     """13(b): zamba2-1.2b whole (38 Mamba2 layers and the shared block) at
     its published dtypes (bfloat16 activations, float32 parameters,
     remat), MarkovLM batches over its 32,000 tokens, global batch
@@ -2916,11 +2914,10 @@ def fl_train_parity_phase(device="cuda", reference="cpu"):
     return out
 
 
-def fl_train_phase(device="cuda", C=4, K=1, B=2, S=256, rounds=2):
+def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
     """13(c), second half: xlstm-125m whole (12 layers, sLSTM at 3, 7 and
-    11; published dtypes), 4 clients in 2 groups, K = 1 local step of
-    2 x 256 tokens (cut from 2 so that phase 15 fits the script's time
-    limit), 2 rounds each of HFL, AFL (all clients in the first
+    11; published dtypes), 4 clients in 2 groups, K = 2 local steps of
+    2 x 256 tokens, 2 rounds each of HFL, AFL (all clients in the first
     round, client 0 alone in the second) and CFL (alpha 0.3). Gates:
     every client's params bitwise equal after each HFL and AFL round, CFL's
     clients apart, round == 2, finite losses."""
@@ -3962,7 +3959,7 @@ def sharded_train_phase(world, device="cuda", B=8, S=256):
 def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
     """15(b): the reference's FL-mesh test config (phi3-mini reduced,
     vocab 512, float32; 4 clients in 2 groups, K = 2, lr 0.05), 2 rounds
-    of each strategy on the ranks (one client a "data" slice) against the
+    of each strategy on the ranks (one client a "data" rank) against the
     one-device `FederatedTrainer` on the card."""
     import numpy as np
     import torch
@@ -4003,10 +4000,10 @@ def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
         outs = world.run(cases.fl, arch, kw, fl_kw, *SHARDED_MESH, batches,
                          w, part, repeat=True)
         err, lerr = 0.0, 0.0
-        for c, _, mine, glob, got, rep in outs:
+        for (lo, hi), _, mine, glob, got, rep in outs:
             lerr = max(lerr, max(abs(a - b) / abs(b)
                                  for a, b in zip(got, losses)))
-            one = tree_map(lambda x: x[c], state["client_params"])
+            one = tree_map(lambda x: x[lo:hi], state["client_params"])
             err = max([err] + [float(np.abs(a - b.cpu().numpy()).max())
                                for a, b in zip(tree_leaves(mine),
                                                tree_leaves(one))])

@@ -16,14 +16,18 @@ K local steps per client, then one aggregation event.
 With `mesh=None` one device holds every client and the local phase loops
 over them. With `mesh` a `launch.mesh.RankMesh` the trainer runs in each
 rank of a mesh, as the reference's SPMD program runs on each device:
-the client dim lies over "data" (and "pod"), one client a rank, and each
-of the client's leaves is sharded over "model" by `fl_param_spec`
+the client dim lies over "data" (and "pod") as `fit_spec` lays it, so a
+rank holds C / size(client axes) consecutive clients, and each client's
+leaves are sharded over "model" by `fl_param_spec`
 (`fl_tree_shardings(_opt)`, `state_shardings`). A rank gathers its
-client's leaves over "model", runs the K local steps on them, and joins
+clients' leaves over "model", runs the K local steps on each, and joins
 the aggregation event through the mesh operators of `core/aggregation.py`
-(`mesh_hfl`, `mesh_afl_fedavg`, `mesh_afl_gossip`, `mesh_cfl`), the
-gossip ring as counted collective-permutes; it keeps its shards of the
-result. The ranks of one client along "model" compute the same steps.
+(`mesh_hfl`, `mesh_afl_fedavg`, `mesh_cfl`) with the weighted mean of its
+clients, or gossip's ring of clients across ranks (`mesh_afl_gossip`'s
+ring with several clients a rank: the rank's end clients as counted
+collective-permutes); it keeps its shards of the result. The ranks of one client along "model" compute the same steps;
+where C does not divide over the client axes, every rank holds every
+client, as GSPMD replicates the dim, and aggregates them itself.
 """
 from __future__ import annotations
 
@@ -80,6 +84,21 @@ def fl_tree_shardings_opt(opt_state, mesh):
     return tree_map(one, sh._paths(opt_state))
 
 
+def _ring_mix(stacked, axis):
+    """Gossip over the ring of all clients, this rank's (C_local, ...)
+    clients consecutive on it: each client averages with its +-1
+    neighbours; the rank's end clients meet the neighbouring ranks' through
+    one `ppermute` of both ends (two collective-permutes)."""
+    from repro_torch.core.collectives import ppermute
+    from repro_torch.kernels import ops as kops
+    mat = kops.stacked_ravel(stacked)
+    ends = mat[:1] if len(mat) == 1 else mat[[0, -1]]
+    before, after = ppermute(ends, axis, (1, -1))
+    left = torch.cat([before[-1][None], mat[:-1]])
+    right = torch.cat([mat[1:], after[0][None]])
+    return kops.stacked_unravel(stacked, (mat + left + right) / 3.0)
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
@@ -99,16 +118,21 @@ class FederatedTrainer:
         self.mesh = mesh
         self.opt = optimizer or optimizers.sgd(fl.lr, momentum=fl.momentum)
         if mesh is not None:
+            C = fl.num_clients
             ca = fl_client_axes(mesh.shape)
-            n = sh.axis_size(mesh.shape, ca)
-            if fl.num_clients != n:
+            ca = sh.entry_axes(sh.fit_spec(
+                (C,), sh.P(ca if len(ca) > 1 else ca[0]), mesh.shape)[0])
+            # the client axes the client dim lies over (none: replicated)
+            self._clients = mesh.axis(ca) if ca else None
+            n = self._clients.size if ca else 1
+            self._local = C // n
+            self._first = (self._clients.index if ca else 0) * self._local
+            per = C // fl.num_groups
+            if fl.strategy == "hfl" and (C % fl.num_groups or (
+                    per % self._local and self._local % per)):
                 raise ValueError(
-                    f"the mesh's client axes {ca} hold {n} clients, one a "
-                    f"rank; FLConfig.num_clients is {fl.num_clients}")
-            if fl.strategy == "hfl" and n % fl.num_groups:
-                raise ValueError(f"{n} clients do not split into "
-                                 f"{fl.num_groups} HFL groups")
-            self._clients = mesh.axis(ca)
+                    f"{C} clients in {fl.num_groups} HFL groups do not lay "
+                    f"over {n} ranks of {self._local} clients")
             self._shardings = None
 
     # -- state ---------------------------------------------------------------
@@ -121,13 +145,10 @@ class FederatedTrainer:
         client inits, then CFL's global init) unless given: `client_params`
         stacked, `global_params` for CFL (e.g. the reference's init through
         `convert.params_from_jax`)."""
-        if self.mesh is not None:
-            state = FederatedTrainer(self.model, self.fl, None,
-                                     self.opt).init_state(
-                generator, client_params=client_params,
-                global_params=global_params, device=device)
-            return self.shard_state(state)
         dev = resolve_device(device)
+        if self.mesh is not None:
+            return self._init_shards(generator, client_params,
+                                     global_params, dev)
         C = self.fl.num_clients
         if client_params is None:
             client_params = _stack([self.model.init(generator, dev)
@@ -180,69 +201,143 @@ class FederatedTrainer:
         from repro_torch.launch.mesh import shard_tree
         return shard_tree(state, self._mesh_shardings(), self.mesh)
 
+    @property
+    def local_clients(self) -> range:
+        """The clients this rank holds (all of them off a mesh)."""
+        if self.mesh is None:
+            return range(self.fl.num_clients)
+        return range(self._first, self._first + self._local)
+
+    def _init_shards(self, generator, client_params, global_params, dev):
+        """`init_state` on a rank: the C client inits are drawn in order
+        (each on the CPU, one at a time) and only this rank's clients are
+        kept, so no rank holds the stacked state; then its shards."""
+        from repro_torch.launch.mesh import shard_tree
+        shardings = self._mesh_shardings()
+        mine = self.local_clients
+        if client_params is None:
+            local = []
+            for c in range(self.fl.num_clients):
+                p = self.model.init(generator, "cpu")
+                if c in mine:
+                    local.append(tree_map(lambda x: x.to(dev), p))
+            local = _stack(local)
+        else:
+            local = tree_map(lambda x: x[mine.start:mine.stop].to(dev),
+                             client_params)
+        opt = _stack([self.opt.init(_client(local, i))
+                      for i in range(len(mine))])
+        state = {"client_params": self._to_shards(
+                     local, shardings["client_params"]),
+                 "opt": self._to_shards(opt, shardings["opt"]),
+                 "round": torch.zeros((), dtype=torch.int64, device=dev)}
+        if self.fl.strategy == "cfl":
+            if global_params is None:
+                global_params = self.model.init(generator, dev)
+            state["global_params"] = shard_tree(
+                tree_map(lambda x: x.to(dev), global_params),
+                shardings["global_params"], self.mesh)
+        return state
+
     def _client_view(self, tree, shardings):
-        """This rank's client's whole leaves: gathered over "model"; a
-        replicated client-stacked leaf gives its row."""
+        """This rank's clients' whole leaves, stacked (C_local, ...):
+        gathered over "model"; a replicated client-stacked leaf gives its
+        rows."""
         from repro_torch.launch.mesh import gather
         ca = fl_client_axes(self.mesh.shape)
-        c = self._clients.index
+        mine = self.local_clients
 
         def one(x, s):
             x = gather(x, s, self.mesh, keep=ca)
-            return x[0] if len(s.spec) and s.spec[0] is not None else x[c]
+            if len(s.spec) and s.spec[0] is not None:
+                return x
+            return x[mine.start:mine.stop]
         return tree_map(one, tree, shardings)
 
     def _to_shards(self, tree, shardings):
-        """This client's whole leaves -> the rank's shards of the global
-        (C, ...) leaves; a replicated leaf is gathered over the clients."""
+        """This rank's clients' whole leaves (C_local, ...) -> the rank's
+        shards of the global (C, ...) leaves; a leaf whose client dim is
+        replicated is gathered over the clients first."""
         from repro_torch.launch.mesh import all_gather
         C = self.fl.num_clients
 
         def one(x, s):
-            if len(s.spec) and s.spec[0] is not None:
-                index = s.index((C,) + tuple(x.shape), self.mesh.coords)
-                return x[None][(slice(None),) + index[1:]].clone(
-                    memory_format=torch.contiguous_format)
-            return all_gather(x[None], self._clients, dim=0)
+            if not (len(s.spec) and s.spec[0] is not None):
+                if self._clients is not None:
+                    x = all_gather(x, self._clients, dim=0)
+            index = s.index((C,) + tuple(x.shape[1:]), self.mesh.coords)
+            return x[(slice(None),) + index[1:]].clone(
+                memory_format=torch.contiguous_format)
         return tree_map(one, tree, shardings)
 
-    def _mesh_step(self, state, batch, weights, participate):
+    def _mesh_aggregate(self, stacked, weights, participate, glob):
+        """The aggregation event over the client axes for this rank's
+        stacked clients -> (stacked clients, CFL's new global). The mesh
+        operators take the rank's clients as their weighted mean (float32)
+        and its weight, which they weigh as they weigh one client (HFL's
+        groups hold whole ranks, or a rank whole groups: tier 1 then runs
+        in the rank); gossip runs the ring of clients across ranks."""
         from repro_torch.core import aggregation as agg
+        fl, axis = self.fl, self._clients
+        if fl.strategy == "afl" and fl.afl_mode == "gossip":
+            return _ring_mix(stacked, axis), None
+        w = participate.float() * weights if fl.strategy == "afl" else weights
+        tot = w.sum()
+        wn = w / torch.where(tot > 0, tot, torch.ones_like(tot))
+        mean = tree_map(lambda x: torch.einsum("c,c...->...", wn, x.float()),
+                        stacked)
+        if fl.strategy == "cfl":
+            _, glob = agg.mesh_cfl(mean, glob, tot, fl.merge_alpha,
+                                   client_axis=axis)
+            a = fl.merge_alpha
+            return tree_map(lambda c, g: ((1 - a) * c.float()
+                                          + a * g.float()[None]).to(c.dtype),
+                            stacked, glob), glob
+        if (fl.strategy == "hfl" and len(self.local_clients)
+                <= fl.num_clients // fl.num_groups):
+            out = agg.mesh_hfl(mean, tot, client_axis=axis,
+                               num_groups=fl.num_groups)
+        else:
+            # AFL's masked mean; HFL with whole groups in the rank
+            out = agg.mesh_afl_fedavg(mean, tot, 1.0, client_axis=axis)
+        return tree_map(lambda m, x: m.to(x.dtype)[None].expand(
+            x.shape).contiguous(), out, stacked), None
+
+    def _mesh_step(self, state, batch, weights, participate):
         from repro_torch.core.collectives import all_reduce_sum
         from repro_torch.launch.mesh import gather_tree, shard_tree
         fl, axis = self.fl, self._clients
         shardings = self._mesh_shardings()
-        c = axis.index
+        mine = self.local_clients
         params = self._client_view(state["client_params"],
                                    shardings["client_params"])
         opt_state = self._client_view(state["opt"], shardings["opt"])
-        params, opt_state, loss = self._local_steps(
-            params, opt_state, tree_map(lambda x: x[0], batch))
-        w = weights[c].float()
-        new_global = None
-        if fl.strategy == "hfl":
-            params = agg.mesh_hfl(params, w, client_axis=axis,
-                                  num_groups=fl.num_groups)
-        elif fl.strategy == "afl" and fl.afl_mode == "gossip":
-            params = agg.mesh_afl_gossip(params, client_axis=axis)
-        elif fl.strategy == "afl":
-            params = agg.mesh_afl_fedavg(params, w, participate[c],
-                                         client_axis=axis)
-        else:
+        outs = [self._local_steps(_client(params, i), _client(opt_state, i),
+                                  _client(batch, i))
+                for i in range(len(mine))]
+        params = _stack([o[0] for o in outs])
+        opt_state = _stack([o[1] for o in outs])
+        loss = torch.stack([o[2] for o in outs]).float().sum()
+        glob = None
+        if fl.strategy == "cfl":
             g_sh = shardings["global_params"]
             glob = gather_tree(state["global_params"], g_sh, self.mesh)
-            params, glob = agg.mesh_cfl(params, glob, w, fl.merge_alpha,
-                                        client_axis=axis)
-            new_global = shard_tree(glob, g_sh, self.mesh)
+        if axis is None:
+            params, glob = self._aggregate(params, weights, participate,
+                                           glob)
+        else:
+            params, glob = self._mesh_aggregate(
+                params, weights[mine.start:mine.stop].float(),
+                participate[mine.start:mine.stop], glob)
+            loss = all_reduce_sum(loss.reshape(1), axis)[0]
         new_state = dict(state)
         new_state["client_params"] = self._to_shards(
             params, shardings["client_params"])
         new_state["opt"] = self._to_shards(opt_state, shardings["opt"])
         new_state["round"] = state["round"] + 1
-        if new_global is not None:
-            new_state["global_params"] = new_global
-        loss = all_reduce_sum(loss.reshape(1).float(), axis)[0] / axis.size
-        return new_state, {"loss": loss}
+        if glob is not None:
+            new_state["global_params"] = shard_tree(glob, g_sh, self.mesh)
+        return new_state, {"loss": loss / fl.num_clients}
 
     # -- local phase ---------------------------------------------------------
 
@@ -321,8 +416,8 @@ class FederatedTrainer:
         micro-batches; weights: (C,) sample counts; participate: (C,) bool
         (AFL). Returns (new state, {"loss": mean of the clients' mean
         local losses}). On a mesh, `state` and `batch` are the rank's
-        shards (its client's (1, ...) rows) and the new state is too;
-        `weights` and `participate` are whole."""
+        shards (its clients' (C_local, ...) rows) and the new state is
+        too; `weights` and `participate` are whole."""
         if self.mesh is not None:
             return self._mesh_step(state, batch, weights, participate)
         C = self.fl.num_clients
@@ -365,9 +460,13 @@ class FederatedTrainer:
                                    shardings["global_params"], self.mesh)
             mine = self._client_view(state["client_params"],
                                      shardings["client_params"])
-            return tree_map(lambda x: (all_reduce_sum(
-                x.float().clone(), self._clients)
-                / self.fl.num_clients).to(x.dtype), mine)
+
+            def mean(x):
+                tot = x.float().sum(0)
+                if self._clients is not None:
+                    tot = all_reduce_sum(tot, self._clients)
+                return (tot / self.fl.num_clients).to(x.dtype)
+            return tree_map(mean, mine)
         if self.fl.strategy == "cfl":
             return state["global_params"]
         return tree_map(lambda x: x.float().mean(0).to(x.dtype),

@@ -185,12 +185,12 @@ def resolve_backend(backend: Optional[str], device, world: int) -> str:
 _GROUPS: Dict[tuple, Any] = {}
 
 
-def _new_group(ranks: Sequence[int]):
+def _new_group(ranks: Sequence[int], dry: bool = False):
     """A process group of `ranks`, made once per process. Every rank must
-    ask for the same groups in the same order (SPMD code does). A
-    dry-run makes none."""
+    ask for the same groups in the same order (SPMD code does). A mesh
+    with no processes (`dry`) makes none."""
     import torch.distributed as dist
-    if collectives.in_dry_run():
+    if dry:
         return None
     key = tuple(ranks)
     if key not in _GROUPS:
@@ -222,7 +222,8 @@ class MeshAxis:
             for part in parts:
                 ranks = [inst[i] for i in part]
                 instances.append(ranks)
-                g = _new_group(ranks)
+                g = _new_group(ranks, self.mesh is not None
+                               and self.mesh.dry)
                 if self.rank in ranks:
                     mine = MeshAxis(self.name, ranks.index(self.rank),
                                     len(ranks), g, [], self.rank, self.mesh)
@@ -236,13 +237,15 @@ class MeshAxis:
 
 class RankMesh:
     """A `MeshShape` laid over the world's ranks, row-major (the last axis
-    varies fastest with the rank)."""
+    varies fastest with the rank). A `dry` mesh has no processes behind
+    it (`dry_run_mesh`)."""
 
-    def __init__(self, shape: MeshShape, rank: int, world: int):
+    def __init__(self, shape: MeshShape, rank: int, world: int,
+                 dry: bool = False):
         if shape.size != world:
             raise ValueError(f"mesh {shape} needs {shape.size} ranks, the "
                              f"world has {world}")
-        self.shape, self.rank = shape, rank
+        self.shape, self.rank, self.dry = shape, rank, dry
         self.names = shape.axis_names
         sizes = shape.axis_sizes
         self._strides = [1] * len(sizes)
@@ -279,7 +282,7 @@ class RankMesh:
             instances.append(members)
         group = None
         for members in instances:
-            g = _new_group(members)
+            g = _new_group(members, self.dry)
             if self.rank in members:
                 group, mine = g, members
         index = mine.index(self.rank)
@@ -294,7 +297,7 @@ def dry_run_mesh(shape: MeshShape, rank: int = 0) -> RankMesh:
     if not collectives.in_dry_run():
         raise RuntimeError("dry_run_mesh is for collectives.dry_run(): "
                            "its axes have no process group")
-    return RankMesh(shape, rank, shape.size)
+    return RankMesh(shape, rank, shape.size, dry=True)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ thing: the port gathers weights where GSPMD would split the matmuls
 from __future__ import annotations
 
 import argparse
-import contextlib
+import functools
 import math
 import re
 import time
@@ -134,21 +134,44 @@ def train_state_shardings(params_shape, opt_shape, mesh):
     return p_sh, tree_map(one, sh._paths(opt_shape))
 
 
-class _BatchMean(torch.autograd.Function):
-    """The mean over the batch axis of a per-rank token mean. Its
-    backward is the local share (grad / size), not a collective: each
-    rank differentiates only through its own tokens, and the step's sum
-    of the ranks' gradients adds the shares up."""
+class _MicroBatchMean(torch.autograd.Function):
+    """The mean over micro-batch `j` of the global batch (of `slots`
+    micro-batches) of a token mean taken over this rank's piece of it,
+    which is `share` of the micro-batch's rows: one sum all_reduce of an
+    (slots, E) slot expansion. Its backward is the local share (grad x
+    share), not a collective: each rank differentiates only through its
+    own tokens, and the step's sum of the ranks' gradients adds the
+    shares up."""
 
     @staticmethod
-    def forward(ctx, x, axis):
+    def forward(ctx, x, share, j, slots, axis):
         from repro_torch.core.collectives import all_reduce_sum
-        ctx.size = axis.size
-        return all_reduce_sum(x.detach().clone(), axis) / axis.size
+        ctx.share = share
+        buf = x.new_zeros((slots,) + tuple(x.shape))
+        buf[j] = x.detach() * share
+        return all_reduce_sum(buf, axis)[j].clone()
 
     @staticmethod
     def backward(ctx, g):
-        return g / ctx.size, None
+        return g * ctx.share, None, None, None, None
+
+
+def _pieces(row0, rows, accum, global_rows):
+    """This rank's rows [row0, row0 + rows) cut at the boundaries of the
+    single-device step's micro-batches (rows j*m to (j+1)*m, m =
+    global_rows / accum): [(start, stop, j), ...] in local rows. Every
+    rank gets as many pieces (they issue the same collectives): the rank
+    holds whole micro-batches, or one piece of one."""
+    if global_rows % accum:
+        raise ValueError(f"{global_rows} rows do not split into "
+                         f"grad_accum={accum} micro-batches")
+    m = global_rows // accum
+    if rows % m and m % rows:
+        raise ValueError(
+            f"{rows} rows a rank and micro-batches of {m} rows "
+            f"(grad_accum={accum}) do not nest: one must divide the other")
+    step = min(rows, m)
+    return [(a, a + step, (row0 + a) // m) for a in range(0, rows, step)]
 
 
 def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
@@ -161,23 +184,24 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     rules (`specs.config_rules`); `.shardings` holds the three. The
     metrics are the global batch's and equal on every rank.
 
-    Each rank weighs its rows' loss by its share n_r / N of the valid
-    labels, so the sum of the ranks' gradients is the global mean's in
-    exact arithmetic; MoE's aux loss takes its token means over the whole
-    batch (`moe.global_token_mean`). cfg.grad_accum > 1 cuts the rank's
-    own rows into micro-batches, which group rows otherwise than the
-    single-device step's cut of the global batch: equal in arithmetic
-    when every micro-batch holds as many valid labels (MarkovLM's and
-    `synthetic_train_batch`'s do), but not MoE's aux loss, whose token
-    means then run over other tokens.
+    The objective is the single-device step's: the mean over its
+    grad_accum micro-batches (rows j*B/accum to (j+1)*B/accum of the
+    global batch) of each micro-batch's loss. A rank runs its rows piece
+    by piece, each piece within one micro-batch j (`_pieces`), and weighs
+    a piece's mean nll by its share n / N_j of micro-batch j's valid
+    labels (N_j summed over the ranks), so the sum of the ranks'
+    gradients is the single-device step's in exact arithmetic, padded
+    labels included; MoE's aux loss takes its token means over
+    micro-batch j's tokens on every rank (`_MicroBatchMean`, passed to
+    `model.loss` as its `token_mean`).
 
     MoE routes groups of `moe_group_size` consecutive tokens with a
-    capacity from the group size: a rank's B_loc x S tokens must be a
-    multiple of it for the drops to be the single-device step's. Every
-    MoE config meets this at train_4k on 16x16 (1 x 4096 tokens a rank,
-    groups of 512) and the reduced ones at B_loc x S >= 64."""
+    capacity from the group size: a piece's tokens and a micro-batch's
+    must both be a multiple of it for the drops to be the single-device
+    step's. Every MoE config meets this at train_4k on 16x16 (1 x 4096
+    tokens a rank, groups of 512) and the reduced ones at pieces of
+    B x S >= 64."""
     from repro_torch.launch.mesh import gather_tree, reduce_scatter
-    from repro_torch.models import moe
     from repro_torch.core.collectives import all_reduce_sum
     mesh = rank_mesh.shape
     cfg = model.cfg
@@ -191,6 +215,11 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     baxis = rank_mesh.axis(batch_names) if batch_names else None
     world = rank_mesh.axis(mesh.axis_names)
     coords = rank_mesh.coords
+    label_shape = tuple(batch_specs["labels"].shape)
+    rows = b_sh["labels"].index(label_shape, coords)[0]
+    pieces = _pieces(rows.start, rows.stop - rows.start, accum,
+                     label_shape[0])
+    micro_rows = label_shape[0] // accum
     p_flat = tree_leaves(p_sh)
     shapes = [tuple(p.shape) for p in tree_leaves(p_specs)]
     # ranks holding the same block of a leaf: its squared norm is summed
@@ -199,44 +228,42 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
             for s in p_flat]
     w_aux = cfg.aux_loss_weight
 
-    def mean_over_batch(x):
-        return _BatchMean.apply(x, baxis)
+    def summed(x):
+        return x if baxis is None else all_reduce_sum(x, baxis)
 
     def step(params, opt_state, batch):
         full = gather_tree(params, p_sh, rank_mesh)
-        rows = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
-        B = rows["labels"].shape[0]
-        if B % accum:
-            raise ValueError(f"{B} rows a rank do not split into "
-                             f"grad_accum={accum} micro-batches")
-        gsum, shares, auxs = None, [], []
-        for i in range(accum):
-            mb = {k: v.reshape((accum, B // accum) + tuple(v.shape[1:]))[i]
-                  for k, v in rows.items()}
-            n = (mb["labels"] >= 0).sum().float()
-            N = n.clone() if baxis is None else all_reduce_sum(n.clone(),
-                                                               baxis)
-            frac = n / torch.clamp(N, min=1.0)
+        local = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
+        dev = local["labels"].device
+        counts = torch.zeros(accum, dtype=torch.float32, device=dev)
+        for a, b, j in pieces:
+            counts[j] += (local["labels"][a:b] >= 0).sum()
+        counts = torch.clamp(summed(counts), min=1.0)
+        # per micro-batch: its nll and its aux loss, each rank adding its
+        # share
+        sums = torch.zeros((accum, 2), dtype=torch.float32, device=dev)
+        gsum = None
+        for a, b, j in pieces:
+            mb = {k: v[a:b] for k, v in local.items()}
+            frac = (mb["labels"] >= 0).sum().float() / counts[j]
+            share = (b - a) / micro_rows
+            mean = None if baxis is None else functools.partial(
+                _token_mean, share=share, j=j, slots=accum, axis=baxis)
 
-            def objective(p, b):
-                _, aux = model.loss(p, b)
+            def objective(p, mb):
+                _, aux = model.loss(p, mb, token_mean=mean)
                 return frac * aux["nll"] + w_aux * aux["aux"], aux
 
-            with (contextlib.nullcontext() if baxis is None
-                  else moe.global_token_mean(mean_over_batch)):
-                (_, aux), g = value_and_grad(objective, full, mb)
+            (_, aux), g = value_and_grad(objective, full, mb)
             if accum > 1:
                 g = tree_map(lambda x: x.float(), g)
             gsum = g if gsum is None else tree_map(torch.add, gsum, g)
-            shares.append(frac * aux["nll"])
-            auxs.append(aux["aux"])
+            sums[j, 0] += frac * aux["nll"]
+            sums[j, 1] += share * aux["aux"]
         grads = tree_leaves(gsum)
         if accum > 1:
             grads = [g / accum for g in grads]
-        nll = torch.stack(shares)
-        if baxis is not None:
-            nll = all_reduce_sum(nll, baxis)
-        nll, aux = nll.mean(), torch.stack(auxs).mean()
+        nll, aux = summed(sums).mean(0).unbind()
         out = []
         for g, s, shape in zip(grads, p_flat, shapes):
             index = s.index(shape, coords)
@@ -261,6 +288,12 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
 
     step.shardings = (p_sh, o_sh, b_sh)
     return step
+
+
+def _token_mean(x, *, share, j, slots, axis):
+    """`moe.load_balance_loss`'s token mean over micro-batch `j` of the
+    global batch, from this rank's (G, S, E) tokens of it."""
+    return _MicroBatchMean.apply(x.mean(dim=(0, 1)), share, j, slots, axis)
 
 
 def device_batch(batch, device):

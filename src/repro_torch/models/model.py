@@ -35,8 +35,8 @@ class Model:
     def apply(self, params, batch):
         return transformer.forward(params, self.cfg, batch)
 
-    def loss(self, params, batch):
-        return transformer.loss_fn(params, self.cfg, batch)
+    def loss(self, params, batch, token_mean=None):
+        return transformer.loss_fn(params, self.cfg, batch, token_mean)
 
     def init_decode_state(self, batch, capacity, prefill_len=0,
                           device="cuda"):

@@ -15,15 +15,16 @@ values of the reference's three-operand einsum, whose other terms are
 exact zeros, without its (G, S, K, C) one-hot intermediate. The
 reference's `shard_activation` calls have no counterpart on one card.
 
-The aux loss's token means (f_e, p_e) are over the whole batch. A
-data-parallel step whose rank holds a slice of the batch's rows
-(`launch.train.make_sharded_train_step`) supplies the mean over every
-rank's rows through `global_token_mean`, so its aux loss is the global
-batch's, as GSPMD's is.
+The aux loss's token means (f_e, p_e) are over the tokens of the call.
+`moe_ffn(..., token_mean=fn)` takes them through `fn` instead, which maps
+the (G, S, E) per-token values to their (E,) mean: a data-parallel step
+whose rank holds a slice of the batch's rows
+(`launch.train.make_sharded_train_step`) passes one that returns the mean
+over every rank's rows, so its aux loss is the global batch's, as
+GSPMD's is.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -87,41 +88,23 @@ def dispatch_combine_masks(top_vals, top_idx, num_experts, capacity):
     return combine.reshape(G, S, num_experts, capacity)
 
 
-# the whole batch's token mean, set by `global_token_mean`: a process-wide
-# hook, not a context variable, because the autograd engine recomputes a
-# checkpointed layer (cfg.remat) on its own thread for CUDA tensors, which
-# does not see the caller's context
-_TOKEN_MEAN = [None]
-
-
-@contextlib.contextmanager
-def global_token_mean(fn):
-    """Inside (and in the backward pass run inside), each token mean of the
-    aux loss is `fn(local mean)`: `fn` turns the mean over this rank's
-    tokens into the mean over the whole batch's."""
-    prev, _TOKEN_MEAN[0] = _TOKEN_MEAN[0], fn
-    try:
-        yield
-    finally:
-        _TOKEN_MEAN[0] = prev
-
-
 def _token_mean(x):
-    m = x.mean(dim=(0, 1))
-    fn = _TOKEN_MEAN[0]
-    return m if fn is None else fn(m)
+    return x.mean(dim=(0, 1))
 
 
-def load_balance_loss(gates, top_idx, num_experts):
-    """Switch/GShard aux loss: E * sum_e f_e * p_e."""
+def load_balance_loss(gates, top_idx, num_experts, token_mean=None):
+    """Switch/GShard aux loss: E * sum_e f_e * p_e, the token means taken
+    by `token_mean` ((G, S, E) -> (E,); None: over these tokens)."""
+    mean = token_mean or _token_mean
     oh = F.one_hot(top_idx[..., 0], num_experts).float()
-    f_e = _token_mean(oh)               # fraction routed (primary)
-    p_e = _token_mean(gates)            # mean router prob
+    f_e = mean(oh)                      # fraction routed (primary)
+    p_e = mean(gates)                   # mean router prob
     return num_experts * torch.sum(f_e * p_e)
 
 
-def moe_ffn(params, cfg, x):
-    """x: (B, S, D) -> (out, aux_loss)."""
+def moe_ffn(params, cfg, x, token_mean=None):
+    """x: (B, S, D) -> (out, aux_loss); `token_mean` as in
+    `load_balance_loss`."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     tokens = B * S
@@ -150,5 +133,5 @@ def moe_ffn(params, cfg, x):
     if cfg.num_shared_experts:
         out = out + layers.swiglu_mlp(params["shared"], x)
 
-    aux = load_balance_loss(gates, top_idx, E)
+    aux = load_balance_loss(gates, top_idx, E, token_mean)
     return out, aux

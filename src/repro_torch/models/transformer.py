@@ -138,8 +138,9 @@ def _layer_window(cfg, layer_idx):
 
 
 def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
-                      window=0):
-    """One attention layer -> (x, MoE aux loss or 0)."""
+                      window=0, token_mean=None):
+    """One attention layer -> (x, MoE aux loss or 0); `token_mean` as in
+    `moe.load_balance_loss`."""
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
         a = mla.mla_attention(lp["attn"], cfg, h, positions=positions,
@@ -162,7 +163,7 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
     if "mlp" in lp:
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
-            y, aux = moe.moe_ffn(lp["mlp"], cfg, h)
+            y, aux = moe.moe_ffn(lp["mlp"], cfg, h, token_mean)
         elif cfg.norm_type == "layernorm":
             y = layers.gelu_mlp(lp["mlp"], h)
         else:
@@ -172,10 +173,11 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
 
 
 def _apply_kind(lp, cfg, kind, x, *, positions, mask, enc_out=None,
-                window=0):
+                window=0, token_mean=None):
     if kind == "attn":
         return _apply_attn_layer(lp, cfg, x, positions=positions, mask=mask,
-                                 enc_out=enc_out, window=window)
+                                 enc_out=enc_out, window=window,
+                                 token_mean=token_mean)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -240,10 +242,12 @@ def _call(remat, fn, *args):
     return fn(*args)
 
 
-def forward(params, cfg, batch):
+def forward(params, cfg, batch, token_mean=None):
     """batch: {"tokens": (B,S) integer, ["vision_embeds" (B, P, d) |
     "audio_frames" (B, F, d)]}. Returns (logits (B, S_total, V) float32,
-    aux_loss scalar), S_total = P + S under the vision frontend. Mamba
+    aux_loss scalar), S_total = P + S under the vision frontend; the MoE
+    aux loss takes its token means through `token_mean` (None: over the
+    batch's tokens; `moe.load_balance_loss`). Mamba
     layers run the reference's prefill (`ssd_chunked`); the scan kernel is
     reached, as in the reference, through
     `ssm.mamba2_forward(..., use_kernel=True)`."""
@@ -287,9 +291,11 @@ def forward(params, cfg, batch):
             # it runs) and the layer
             if shared is not None:
                 x, _ = _apply_attn_layer(shared, cfg, x, positions=positions,
-                                         mask=masks["default"])
+                                         mask=masks["default"],
+                                         token_mean=token_mean)
             return _apply_kind(lp, cfg, kind, x, positions=positions,
-                               mask=mask, enc_out=enc_out, window=window)
+                               mask=mask, enc_out=enc_out, window=window,
+                               token_mean=token_mean)
 
         for i in range(cfg.num_layers):
             lp = layer_params(params, i)
@@ -310,13 +316,15 @@ def forward(params, cfg, batch):
     else:
         def one_block(lp, x, kind, mask, window):
             return _apply_kind(lp, cfg, kind, x, positions=positions,
-                               mask=mask, enc_out=enc_out, window=window)
+                               mask=mask, enc_out=enc_out, window=window,
+                               token_mean=token_mean)
 
         for i, (lp, kind) in enumerate(zip(params["blocks"], kinds)):
             if uses_shared(cfg, i):
                 x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
                                          positions=positions,
-                                         mask=masks["default"])
+                                         mask=masks["default"],
+                                         token_mean=token_mean)
             w = _layer_window(cfg, i)
             mask = (masks["local"] if (w and masks.get("local") is not None)
                     else masks["default"])
@@ -333,10 +341,11 @@ def forward(params, cfg, batch):
     return logits, aux_total
 
 
-def loss_fn(params, cfg, batch):
-    """Causal LM loss plus `aux_loss_weight` x the MoE aux loss. labels:
-    (B, S) with -1 = ignore. Returns (loss, {"nll", "aux"})."""
-    logits, aux = forward(params, cfg, batch)
+def loss_fn(params, cfg, batch, token_mean=None):
+    """Causal LM loss plus `aux_loss_weight` x the MoE aux loss (its token
+    means through `token_mean`, as in `forward`). labels: (B, S) with -1 =
+    ignore. Returns (loss, {"nll", "aux"})."""
+    logits, aux = forward(params, cfg, batch, token_mean)
     labels = batch["labels"]
     # logits for token positions only (the vision prefix predicts nothing)
     logits = logits[:, -labels.shape[1]:, :]

@@ -2,8 +2,9 @@
 six tests of tests/test_fl_trainer.py on the port's own init, then one
 `fl_train_step` per strategy (HFL, AFL with partial participation, AFL
 gossip, CFL) against the reference's from the reference's init, in
-float32 with distinct client data and unequal weights; and a mesh that
-does not hold one client a "data" slice raising.
+float32 with distinct client data and unequal weights; and a mesh
+laying C clients over its "data" axis, where HFL groups that do not
+nest with a rank's clients raise.
 
 Tolerance of the parity cases: every client's parameters (and CFL's
 global model) within 1e-5, the round's loss within 1e-5 relative: two
@@ -121,17 +122,21 @@ def test_mesh_hfl_equals_host_hfl():
 
 def test_mesh_other_than_none_raises():
     """A mesh runs the sharded trainer (tests/test_torch_fl_trainer_mesh.py)
-    with one client on each "data" slice; a mesh whose client axes do not
-    hold num_clients raises."""
+    with C / size("data") clients a rank; HFL groups that neither hold
+    whole ranks nor lie whole in one raise."""
     from repro_torch.core import collectives
     from repro_torch.launch.mesh import dry_run_mesh
     from repro_torch.sharding.specs import MeshShape
-    fl = FLConfig(strategy="hfl", num_clients=4, num_groups=2)
+    model = build_model(get_config(ARCH).reduced())
     with collectives.dry_run():
-        rm = dry_run_mesh(MeshShape((2, 2), ("data", "model")))
-        with pytest.raises(ValueError, match="one a rank"):
-            FederatedTrainer(build_model(get_config(ARCH).reduced()), fl,
-                             mesh=rm)
+        rm = dry_run_mesh(MeshShape((4, 2), ("data", "model")), rank=2)
+        tr = FederatedTrainer(model, FLConfig(strategy="hfl", num_clients=8,
+                                              num_groups=2), mesh=rm)
+        assert tr.local_clients == range(2, 4)
+        # 12 clients, 3 a rank, in 3 groups of 4
+        with pytest.raises(ValueError, match="do not lay"):
+            FederatedTrainer(model, FLConfig(strategy="hfl", num_clients=12,
+                                             num_groups=3), mesh=rm)
 
 
 def test_batch_specs_and_meta():

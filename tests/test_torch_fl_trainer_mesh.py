@@ -8,9 +8,13 @@ half) on the CPU.
   device's slice (the reference's in a subprocess with 8 fake devices).
 * The four strategies of tests/test_fl_mesh_dryrun.py:71-83 (HFL, AFL,
   AFL gossip, CFL) run 2 rounds on 8 gloo ranks laid out (data 4, model
-  2), one client a "data" slice, from the reference's init: every
+  2), one client a "data" slice, and with 8 clients (2 a rank; HFL's
+  groups over 2 ranks, or 2 whole groups a rank) and 6 (not dividing:
+  every rank holds all 6). From the reference's init (from the port's
+  own for 6 and 8 clients, each rank drawing only its clients): every
   client's params and CFL's global model within 1e-5 of the one-device
-  port trainer's and of the reference's `fl_train_step`'s, the loss
+  port trainer's and (one client a rank) of the reference's
+  `fl_train_step`'s, the loss
   within 1e-5 relative, in float32 with distinct client data, unequal
   weights and partial participation; the served model too. Every
   strategy issues collectives;
@@ -41,6 +45,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import trainer as port_trainer  # noqa: E402
 from repro_torch.core.fl_types import FLConfig  # noqa: E402
+from repro_torch.device import generator  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.sharding import specs as sh  # noqa: E402
@@ -161,7 +166,7 @@ def world():
         yield w
 
 
-def _rounds(vocab):
+def _rounds(vocab, C=C):
     rng = np.random.default_rng(5)
     out = []
     for _ in range(ROUNDS):
@@ -172,62 +177,109 @@ def _rounds(vocab):
     return out
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_mesh_trainer_matches_one_device_and_reference(world, case):
-    fl_kw = dict(CASES[case], num_clients=C, num_groups=2, local_steps=K,
+def _run_and_check(world, fl_case, C, groups, part, reference=True):
+    """2 rounds of `fl_case` with C clients in `groups` HFL groups on the 8
+    ranks, against the one-device port trainer and, with `reference`, the
+    reference's `fl_train_step`, both from the reference's init; without
+    it from the port's own init (seed 0), which each rank draws keeping
+    only its clients. Returns the ranks' client ranges and model
+    indices."""
+    fl_kw = dict(fl_case, num_clients=C, num_groups=groups, local_steps=K,
                  lr=0.05)
     kw = dict(dtype="float32")
-    rtr = RefTrainer(ref_build(ref_get_config(ARCH).reduced(**kw)),
-                     RefFLConfig(**fl_kw))
     ptr = port_trainer.FederatedTrainer(
         build_model(get_config(ARCH).reduced(**kw)), FLConfig(**fl_kw))
-    rstate = rtr.init_state(jax.random.PRNGKey(0))
-    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    cp = to_np(rstate["client_params"])
-    gp = to_np(rstate["global_params"]) if "global_params" in rstate else None
-    pstate = ptr.init_state(client_params=params_from_jax(cp),
-                            global_params=(None if gp is None
-                                           else params_from_jax(gp)),
-                            device="cpu")
-    batches = _rounds(ptr.model.cfg.vocab_size)
+    if reference:
+        rtr = RefTrainer(ref_build(ref_get_config(ARCH).reduced(**kw)),
+                         RefFLConfig(**fl_kw))
+        rstate = rtr.init_state(jax.random.PRNGKey(0))
+        to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+        cp = to_np(rstate["client_params"])
+        gp = (to_np(rstate["global_params"]) if "global_params" in rstate
+              else None)
+        pstate = ptr.init_state(client_params=params_from_jax(cp),
+                                global_params=(None if gp is None
+                                               else params_from_jax(gp)),
+                                device="cpu")
+        rstep = jax.jit(rtr.fl_train_step)
+    else:
+        cp = gp = None
+        pstate = ptr.init_state(generator(0), device="cpu")
+    batches = _rounds(ptr.model.cfg.vocab_size, C)
     w = np.random.default_rng(6).integers(5, 50, C).astype(np.float32)
-    part = np.array([True, False, True, True])
-    rstep = jax.jit(rtr.fl_train_step)
     r_losses, p_losses = [], []
     for b in batches:
-        rstate, rm = rstep(rstate, {k: jnp.asarray(v.astype(np.int32))
-                                    for k, v in b.items()},
-                           jnp.asarray(w), jnp.asarray(part))
+        if reference:
+            rstate, rm = rstep(rstate, {k: jnp.asarray(v.astype(np.int32))
+                                        for k, v in b.items()},
+                               jnp.asarray(w), jnp.asarray(part))
+            r_losses.append(float(rm["loss"]))
         pstate, pm = ptr.fl_train_step(
             pstate, {k: torch.as_tensor(v) for k, v in b.items()},
             torch.as_tensor(w), torch.as_tensor(part))
-        r_losses.append(float(rm["loss"]))
         p_losses.append(float(pm["loss"]))
     outs = world.run(cases.fl, ARCH, kw, fl_kw, *MESH, batches, w, part,
                      client_params=cp, global_params=gp)
-    for c, m, mine, glob, losses, report in outs:
+    for (lo, hi), m, mine, glob, losses, report in outs:
         np.testing.assert_allclose(losses, p_losses, rtol=TOL)
-        np.testing.assert_allclose(losses, r_losses, rtol=TOL)
-        one = tree_map(lambda x: x[c], pstate["client_params"])
-        ref = jax.tree.map(lambda x: np.asarray(x[c]),
-                           rstate["client_params"])
-        for a, p_, r_ in zip(tree_leaves(mine), tree_leaves(one),
-                             jax.tree.leaves(ref)):
+        one = tree_map(lambda x: x[lo:hi], pstate["client_params"])
+        for a, p_ in zip(tree_leaves(mine), tree_leaves(one)):
             np.testing.assert_allclose(a, p_.numpy(), rtol=0, atol=TOL)
-            np.testing.assert_allclose(a, r_, rtol=0, atol=TOL)
-        if case == "cfl":
-            for a, p_, r_ in zip(tree_leaves(glob),
-                                 tree_leaves(pstate["global_params"]),
-                                 jax.tree.leaves(rstate["global_params"])):
+        if fl_case["strategy"] == "cfl":
+            for a, p_ in zip(tree_leaves(glob),
+                             tree_leaves(pstate["global_params"])):
                 np.testing.assert_allclose(a, p_.numpy(), rtol=0, atol=TOL)
-                np.testing.assert_allclose(a, np.asarray(r_), rtol=0,
-                                           atol=TOL)
+        if reference:
+            np.testing.assert_allclose(losses, r_losses, rtol=TOL)
+            ref = jax.tree.map(lambda x: np.asarray(x[lo:hi]),
+                               rstate["client_params"])
+            for a, r_ in zip(tree_leaves(mine), jax.tree.leaves(ref)):
+                np.testing.assert_allclose(a, r_, rtol=0, atol=TOL)
+            if fl_case["strategy"] == "cfl":
+                for a, r_ in zip(tree_leaves(glob),
+                                 jax.tree.leaves(rstate["global_params"])):
+                    np.testing.assert_allclose(a, np.asarray(r_), rtol=0,
+                                               atol=TOL)
         for a, b in zip(report["served"],
                         tree_leaves(ptr.served_model(pstate))):
             np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=TOL)
         kinds = report["collectives"]["kinds"]
         assert sum(kinds.values()) > 0, kinds
-        if case == "afl-gossip":
+        if fl_case.get("afl_mode") == "gossip":
             assert kinds.get("collective-permute", 0) == 2 * ROUNDS, kinds
-    assert sorted((c, m) for c, m, *_ in outs) == [
-        (c, m) for c in range(C) for m in range(2)]
+    return [(c, m) for c, m, *_ in outs]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mesh_trainer_matches_one_device_and_reference(world, case):
+    part = np.array([True, False, True, True])
+    got = _run_and_check(world, CASES[case], C, 2, part)
+    assert sorted(got) == [((c, c + 1), m) for c in range(C)
+                           for m in range(2)]
+
+
+# (strategy, clients, HFL groups): 8 clients lie 2 a rank over "data" 4;
+# 6 do not divide over it and every rank holds all 6, as GSPMD replicates
+# the dim
+MANY = {
+    "hfl-8": (CASES["hfl"], 8, 2),          # a group over 2 ranks
+    "hfl-8-groups-8": (CASES["hfl"], 8, 8),  # 2 whole groups a rank
+    "afl-8": (CASES["afl"], 8, 2),
+    "afl-gossip-8": (CASES["afl-gossip"], 8, 2),
+    "cfl-8": (CASES["cfl"], 8, 2),
+    "hfl-6": (CASES["hfl"], 6, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MANY))
+def test_mesh_trainer_with_many_clients_a_rank(world, case):
+    fl_case, n, groups = MANY[case]
+    # ranks 0 and 3's clients sit out AFL (client 1 of rank 0 and both of
+    # rank 3 under 8 clients): a rank with no participant sends weight 0
+    part = np.ones(n, bool)
+    part[[1, 6, 7] if n == 8 else [1]] = False
+    got = _run_and_check(world, fl_case, n, groups, part, reference=False)
+    per = n // 4 if n % 4 == 0 else n
+    assert sorted(got) == sorted(
+        ((i * per, i * per + per) if per < n else (0, n), m)
+        for i in range(4) for m in range(2))

@@ -14,7 +14,10 @@ steps (`repro_torch.launch.serve`'s mesh half) on the CPU.
   decode within 1e-5 (zamba2 under "fsdp", its rows over both axes; yi-9b
   under "tp" with 2 KV heads, the caches' heads over "model"; reduced,
   float32, plain attention: the flash and scan kernels run only on the
-  card).
+  card); and, from the reference's init, the reference's prefill and
+  decode run under its `NamedSharding`s on 8 fake devices (params by
+  `tree_shardings`, tokens by `batch_shardings` / `token_shardings`, the
+  state by `decode_state_shardings`), row for row within 1e-5.
 
 One `launch.mesh.World` of 8 CPU ranks serves the module; the ranks run
 `torch_sharded_cases.serve`."""
@@ -37,7 +40,7 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.sharding import specs as sh  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: E402
 
 import torch_sharded_cases as cases  # noqa: E402
 
@@ -197,3 +200,92 @@ def test_sharded_prefill_and_decode_match_single_device(world, arch):
         assert not any(report["launches"].values())
     # fsdp lays zamba2's prefill rows over both axes; tp over "data" only
     assert len(rows) == (8 if arch == "zamba2-1.2b" else 4)
+
+
+# -- against the reference's sharded prefill and decode ----------------------
+
+SERVE_STEPS = 6
+
+_REFERENCE_SERVE = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import sys
+    sys.path.insert(0, {src!r})
+    import jax
+    import numpy as np
+    from repro.configs.registry import get_config
+    from repro.launch import mesh as mesh_mod
+    from repro.launch.serve import (decode_state_shardings,
+                                    make_prefill_step, make_serve_step,
+                                    token_shardings)
+    from repro.launch.train import batch_shardings
+    from repro.models.model import build_model
+    from repro.sharding import specs as sh
+
+    mesh = jax.make_mesh((4, 2), ("data", "model"),
+                         **mesh_mod.axis_types_kw(2))
+    out = {{}}
+    for arch, kw in {cases!r}.items():
+        cfg = get_config(arch).reduced(**kw)
+        model = build_model(cfg)
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, ({B}, 64)).astype(np.int32)
+        params = model.init(jax.random.PRNGKey(7))
+        with sh.profile_ctx(cfg.sharding_profile):
+            params = jax.device_put(params, sh.tree_shardings(params, mesh))
+            batch = {{"tokens": tokens}}
+            batch = jax.device_put(batch, batch_shardings(batch, mesh))
+            logits = jax.jit(make_prefill_step(model))(params, batch)
+            state = model.init_decode_state({B}, {steps})
+            state = jax.device_put(state, decode_state_shardings(
+                state, mesh, cfg))
+            step = jax.jit(make_serve_step(model))
+            dec = []
+            for i in range({steps}):
+                tok = jax.device_put(tokens[:, i:i + 1], token_shardings(
+                    jax.ShapeDtypeStruct(({B}, 1), np.int32), mesh))
+                lg, state = step(params, state, tok)
+                dec.append(np.asarray(lg[:, 0]))
+        flat = jax.tree.leaves(jax.tree.map(np.asarray, params))
+        np.savez(os.path.join({out!r}, arch + ".npz"),
+                 tokens=tokens, logits=np.asarray(logits),
+                 decode=np.stack(dec),
+                 **{{f"p{{i}}": x for i, x in enumerate(flat)}})
+""")
+
+
+@pytest.fixture(scope="module")
+def reference_serve(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("reference_serve"))
+    code = _REFERENCE_SERVE.format(src=SRC, B=B, steps=SERVE_STEPS, out=out,
+                                   cases=STEP_CASES)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(STEP_CASES))
+def test_sharded_prefill_and_decode_match_the_reference(world,
+                                                        reference_serve,
+                                                        arch):
+    kw = STEP_CASES[arch]
+    with np.load(os.path.join(reference_serve, arch + ".npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    model = cases.build(arch, **kw)
+    # the reference's params in its tree order, as `params_from_jax` takes
+    # them: the port's tree of the same leaves
+    names = sorted((k for k in ref if k.startswith("p")),
+                   key=lambda k: int(k[1:]))
+    spec = model.param_specs()
+    leaves = [ref[k] for k in names]
+    assert [tuple(x.shape) for x in leaves] == [
+        tuple(x.shape) for x in tree_leaves(spec)]
+    params = tree_unflatten(spec, leaves)
+    outs = world.run(cases.serve, arch, kw, *MESHES["4x2"], ref["tokens"],
+                     SERVE_STEPS, params=params)
+    for (a, b), lg, (c, d), dec, _ in outs:
+        np.testing.assert_allclose(cases.load(lg)[0], ref["logits"][a:b],
+                                   rtol=0, atol=TOL)
+        np.testing.assert_allclose(dec, ref["decode"][:, c:d], rtol=0,
+                                   atol=TOL)

@@ -13,8 +13,10 @@ on the CPU.
   and grad-norm within 1e-5 relative, params after one SGD step within
   1e-6 absolute, for phi3-mini under "tp" and zamba2 under "fsdp"
   (reduced, float32); qwen3-moe's aux loss is the global batch's; and
-  grad_accum = 2 cuts each rank's rows. Each issues all-gathers and
-  reduce-scatters.
+  under grad_accum each rank's rows weigh as the single-device step's
+  micro-batches do, with labels padded unevenly, with micro-batches
+  smaller than a rank's rows, and with MoE's aux loss. Each issues
+  all-gathers and reduce-scatters.
 
 The reference's Mamba2 gradient is NaN where a chunk's decay overflows
 (tests/test_torch_train.py); zamba2 is held to it with that module's
@@ -256,10 +258,10 @@ def test_moe_aux_loss_is_the_global_batch(world):
 
 
 def test_grad_accum_cuts_each_ranks_rows(world):
-    """phi3-mini under "tp" with grad_accum = 2: each rank cuts its 2 rows
-    into 2 micro-batches of 1, and the AdamW step's loss and grad-norm
-    equal the single-device step's with grad_accum = 2 (every micro-batch
-    holds as many valid labels)."""
+    """phi3-mini under "tp" with grad_accum = 2: each rank's 2 rows lie in
+    one of the single-device step's 2 micro-batches of 4 rows, and the
+    AdamW step's loss and grad-norm equal the single-device step's with
+    grad_accum = 2."""
     arch = "phi3-mini-3.8b"
     kw = dict(dtype="float32", sharding_profile="tp", grad_accum=2)
     model = build_model(get_config(arch).reduced(**kw))
@@ -271,3 +273,37 @@ def test_grad_accum_cuts_each_ranks_rows(world):
                       optimizers.adamw(3e-4, weight_decay=0.01))
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - want[1][k]) <= REL * abs(want[1][k])
+
+
+ACCUM_CASES = {
+    # micro-batches of 4 rows, 2 rows a rank: one piece a rank
+    "phi3-mini-3.8b-accum2": ("phi3-mini-3.8b", 2),
+    # micro-batches of 1 row, 2 rows a rank: two pieces a rank
+    "phi3-mini-3.8b-accum8": ("phi3-mini-3.8b", 8),
+    # the aux loss's token means over each micro-batch's 4 x 64 tokens
+    "qwen3-moe-30b-a3b-accum2": ("qwen3-moe-30b-a3b", 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACCUM_CASES))
+def test_grad_accum_weighs_rows_as_the_single_device_micro_batches(world,
+                                                                   case):
+    """Labels padded unevenly over the rows (a micro-batch's valid labels
+    differ from another's and from a rank's share of them): the sharded
+    SGD step under grad_accum equals the single-device step's loss,
+    grad-norm, aux loss and params."""
+    arch, accum = ACCUM_CASES[case]
+    kw = dict(dtype="float32", sharding_profile="tp", grad_accum=accum)
+    model = build_model(get_config(arch).reduced(**kw))
+    params_np = params_to_numpy(model.init(generator(0), "cpu"))
+    batch = _batch(model.cfg, seed=5)
+    rng = np.random.default_rng(6)
+    for r in range(B):
+        # row r keeps a random number of its leading labels
+        batch["labels"][r, int(rng.integers(1, S)):] = -1
+    full, metrics, _ = world.run(cases.train, arch, kw, *MESH, batch,
+                                 params=params_np)[0]
+    want = _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2))
+    _check((cases.load(full), metrics[0]), want, "single device")
+    assert abs(metrics[0]["aux"] - want[1]["aux"]) <= REL * max(
+        want[1]["aux"], 1e-30)

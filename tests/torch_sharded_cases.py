@@ -144,11 +144,12 @@ def fl(rank, arch, cfg_kw, fl_kw, mesh_shape, names, batches, weights,
        participate, *, client_params=None, global_params=None, seed=0,
        reduced=True, repeat=False):
     """One sharded `fl_train_step` per batch of `batches` (numpy (C, K, B,
-    S) trees). Returns (client index, model index, this client's whole
-    params as numpy, CFL's whole global params as numpy or None, the
-    losses, the report); the report holds the served model's leaves
-    ("served"); `repeat` runs the rounds again from the same state and
-    reports whether they repeat bit for bit."""
+    S) trees). Returns ((first, stop) of the rank's clients, its model
+    index, those clients' whole params stacked as numpy, CFL's whole
+    global params as numpy or None, the losses, the report); the report
+    holds the served model's leaves ("served"); `repeat` runs the rounds
+    again from the same state and reports whether they repeat bit for
+    bit."""
     from repro_torch.core.fl_types import FLConfig
     from repro_torch.core.trainer import FederatedTrainer, fl_client_axes
     from repro_torch.sharding import specs as sh
@@ -201,7 +202,8 @@ def fl(rank, arch, cfg_kw, fl_kw, mesh_shape, names, batches, weights,
                              shardings["global_params"], rm)
             if "global_params" in state else None)
     coords = rm.coords
-    return (tr._clients.index, coords.get("model", 0), _np(mine),
+    clients = tr.local_clients
+    return ((clients.start, clients.stop), coords.get("model", 0), _np(mine),
             None if glob is None else _np(glob), losses, report)
 
 
