@@ -239,16 +239,42 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    decode shapes on 16x16 and 2x16x16 (ok, FLOPs and collectives; the
    whole sweep runs through `python -m repro_torch.launch.dryrun`, PERF.md
    §5). Each rank's peak memory and seconds a step print beside the
-   single-device step's; no kernel launches in (a) and (b).
+   single-device step's; no kernel launches in (a) and (b). The sharded
+   steps' weight gathers are gloo all_gathers of host copies (each rank
+   sends its shard once);
+16. the examples' twins and the graphed decode (slice 15) — (a)
+   zamba2-1.2b whole as 9(c) (float32, random weights from seed 0, B =
+   2): `launch.serve.make_graphed_serve_step` captures `decode_step` as
+   one CUDA graph and replays it; its logits over 64 teacher-forced
+   steps equal the eager step's bit for bit (and the state after them),
+   stay within 5e-2 of the 64-token prefill, and repeat bitwise in a
+   second graphed run; ms a step of the graph and the eager step (median
+   of 3 runs of 16 steps), the idle share of one profiled run of each,
+   the peak memory; (b) one reduced config per other kind of decode
+   state (gemma3 with an 8-slot window ring wrapping over 16 steps,
+   deepseek-v2-lite's MLA, qwen3-moe drop-free, xlstm-125m's mLSTM and
+   sLSTM): graph == eager bit for bit, logits and state; (c) the twins
+   of the reference's examples in-process through `main(argv)` with the
+   reference test's arguments: the quickstart on xlstm-125m (the loss
+   falls, the checkpoint restores bitwise), the FL twin three ways (afl
+   with --curves, fedadam vectorized, afl --gossip --non-iid) and a
+   fourth with gossip under `--fault-profile churn` (B1 launched in each;
+   B3 in the fourth: it mixes masked gossip, while the static ring mixes
+   by one plain matmul, as in the reference) and serve_decode on gemma3-4b reduced
+   (its tokens equal an eager `greedy_generate`'s). The multipod demo's
+   twin runs on the meta device, as 15(d) does, so it is not run here.
 
-Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10, 11(b)-(c), 12(a) and 13 set
+Every phase prints its seconds when it closes (`PHASE_SECONDS` in
+chip_smoke.json). Phases 5, 6, 7(c), 8(a), 8(c), 9(c), 9(d), 10,
+11(b)-(c), 12(a), 13 and 16 set
 every kernel's launch count to 0 just before they start and read the
 counts just after; a replayed graph runs no wrapper, so 11(b) also reads the
 launches a profile counts on the device. Phase 14's ranks count their own
 launches from the start of each run and must launch none: the mesh path,
 like the reference's, runs plain torch ops and collectives. Phase 15's
 ranks count theirs from the start of each sharded run (a fresh process
-each): none in 15(a)-(b), B5 and B6 in every rank in 15(c).
+each): none in 15(a)-(b), B5 and B6 in every rank in 15(c). 16(c) reads
+each FL twin run's launches from `FederatedSimulation._kernel_launches()`.
 
 The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
@@ -258,6 +284,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -271,8 +298,23 @@ H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
 
 
-def _phase(name):
-    print(f"\n== {name}", flush=True)
+PHASE_SECONDS = {}        # phase -> seconds, as `_phase` closes each
+
+
+def _phase(name=None):
+    """Close the running phase, printing its seconds, and open `name`
+    (None: close only)."""
+    now = time.perf_counter()
+    if _OPEN:
+        prev, t0 = _OPEN.pop()
+        PHASE_SECONDS[prev] = now - t0
+        print(f"  [phase {prev!r} took {now - t0:.1f}s]", flush=True)
+    if name is not None:
+        _OPEN.append((name, now))
+        print(f"\n== {name}", flush=True)
+
+
+_OPEN = []
 
 
 def _card_line():
@@ -4175,6 +4217,303 @@ def sharded_phase(device="cuda"):
     return out
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+GRAPH_STEPS = 16          # steps a timed or profiled run of 16(a)
+GRAPH_KINDS = {           # 16(b): kind -> (arch, reduced-config updates)
+    "window ring": ("gemma3-4b", dict(num_layers=3, sliding_window=8,
+                                      global_every=3)),
+    "mla": (MLA, {}),
+    "moe": (MOE, dict(capacity_factor=4.0)),      # drop-free: 4 experts
+    "mlstm + slstm": (XLSTM, dict(block_pattern=("mlstm", "slstm"))),
+}
+
+
+def _graph_and_eager(model, params, tokens, device):
+    """Teacher-forced decode of every column of `tokens` through the
+    graphed serve step and through the eager `decode_step`, each from its
+    own new state -> (graph logits, eager logits, graph state, eager
+    state); the logits are (B, n, V)."""
+    import torch
+    from repro_torch.launch.serve import make_graphed_serve_step
+    B, n = tokens.shape
+    gstate = model.init_decode_state(B, n, device=device)
+    estate = model.init_decode_state(B, n, device=device)
+    step = make_graphed_serve_step(model, params, gstate, tokens[:, :1])
+    glog, elog = [], []
+    for t in range(n):
+        lg, _ = step(params, gstate, tokens[:, t:t + 1])
+        glog.append(lg.clone())
+        lg, estate = model.decode_step(params, estate, tokens[:, t:t + 1])
+        elog.append(lg)
+    return torch.cat(glog, 1), torch.cat(elog, 1), gstate, estate
+
+
+def _states_equal(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def decode_graph_zamba2_phase(device="cuda", seed=0, B=2):
+    """16(a): zamba2-1.2b whole (as 9(c): float32, random weights from a
+    seed, B = 2): the graphed serve step's logits over DECODE_STEPS
+    teacher-forced steps equal the eager `decode_step`'s bit for bit and
+    stay within DECODE_TOL of the prefill; two graphed runs repeat
+    bitwise; ms a step of the graph and of the eager step (median of 3
+    runs of GRAPH_STEPS steps), the idle share of one profiled run of
+    each, and the peak memory."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.launch.serve import (make_graphed_serve_step,
+                                          make_prefill_step)
+    from repro_torch.models.model import build_model, synthetic_train_batch
+
+    deterministic_f32()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ZAMBA).with_updates(dtype="float32",
+                                         attn_impl="einsum")
+    model = build_model(cfg)
+    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    n_params = model.param_count(params)
+    tokens = synthetic_train_batch(generator(seed + 1), cfg, B, DECODE_STEPS,
+                                   device=device)["tokens"]
+    out = {"config": "zamba2-1.2b, dtype float32, nothing cut",
+           "params": n_params, "init_ms": init_ms, "B": B,
+           "steps": DECODE_STEPS}
+    print(f"  {n_params} parameters, init {init_ms:.0f} ms", flush=True)
+    head = make_prefill_step(model)(params, {"tokens": tokens})
+    graph, eager, gstate, estate = _graph_and_eager(model, params, tokens,
+                                                    device)
+    graph2, _, gstate2, _ = _graph_and_eager(model, params, tokens, device)
+    err = float((graph - head).abs().max())
+    out.update(graph_equals_eager=bool(torch.equal(graph, eager)),
+               states_equal=_states_equal(gstate, estate),
+               graph_repeat_bitwise=bool(torch.equal(graph, graph2)
+                                         and _states_equal(gstate, gstate2)),
+               graph_vs_prefill_max_abs_err=err,
+               eager_vs_prefill_max_abs_err=float((eager - head).abs().max()),
+               index=int(gstate["index"]))
+    print(f"  graph vs eager over {DECODE_STEPS} steps: logits bitwise "
+          f"{out['graph_equals_eager']}, state bitwise "
+          f"{out['states_equal']}; graph vs the prefill {err:.3e} (bar "
+          f"{DECODE_TOL}); two graphed runs bitwise "
+          f"{out['graph_repeat_bitwise']}; index {out['index']}", flush=True)
+    if not (out["graph_equals_eager"] and out["states_equal"]
+            and out["graph_repeat_bitwise"] and err <= DECODE_TOL
+            and out["index"] == DECODE_STEPS
+            and bool(torch.isfinite(graph).all())):
+        raise SystemExit("16(a): the graphed decode differs from eager, "
+                         "from its repeat or from the prefill")
+    del graph, eager, graph2, head, gstate, estate, gstate2
+
+    # steady times: 3 timed runs and 1 profiled run of GRAPH_STEPS steps
+    # on one state of each kind (capacity for all four runs)
+    cap = 4 * GRAPH_STEPS
+    toks = tokens[:, :1]
+    gstate = model.init_decode_state(B, cap, device=device)
+    step = make_graphed_serve_step(model, params, gstate, toks)
+    estate = [model.init_decode_state(B, cap, device=device)]
+
+    def graph_run():
+        for _ in range(GRAPH_STEPS):
+            step(params, gstate, toks)
+
+    def eager_run():
+        for _ in range(GRAPH_STEPS):
+            estate[0] = model.decode_step(params, estate[0], toks)[1]
+
+    for name, fn in (("graph", graph_run), ("eager", eager_run)):
+        runs = [_timed(fn)[1] / GRAPH_STEPS for _ in range(3)]
+        out[f"{name}_ms_per_step_runs"] = runs
+        out[f"{name}_ms_per_step"] = statistics.median(runs)
+        print(f"  {name} decode at B = {B}: "
+              f"{out[f'{name}_ms_per_step']:.3f} ms/step (3 runs of "
+              f"{GRAPH_STEPS} steps: {', '.join(f'{r:.3f}' for r in runs)})",
+              flush=True)
+        prof = _profile(fn) if on_card else None
+        out[f"profile {name} x{GRAPH_STEPS}"] = prof
+        if prof is None:
+            print(f"  profile {name}: no device time recorded (not "
+                  f"measured)", flush=True)
+            continue
+        print(f"  profile {name} x{GRAPH_STEPS}: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle share <= "
+              f"{prof['idle_share']:.3f}", flush=True)
+        for kname, ms, n, share in prof["kernels"]:
+            print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
+                  flush=True)
+    out["speedup"] = out["eager_ms_per_step"] / out["graph_ms_per_step"]
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                if on_card else None)
+    print(f"  graph {out['speedup']:.2f}x the eager step; peak memory "
+          f"{(out['peak_memory_bytes'] or 0) / 2**30:.2f} GiB", flush=True)
+    if on_card:
+        out["card"] = _card_line()
+        print(f"  on {out['card']}", flush=True)
+    del params, step, gstate, estate
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_graph_kinds_phase(device="cuda", B=2, steps=GRAPH_STEPS):
+    """16(b): one reduced config per other kind of decode state (float32,
+    random weights): the graph against the eager step bit for bit, logits
+    and state, over `steps` teacher-forced steps (past the window ring's
+    8 slots)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import deterministic_f32, generator
+    from repro_torch.models.model import build_model
+
+    deterministic_f32()
+    out = {}
+    for kind, (arch, kw) in GRAPH_KINDS.items():
+        cfg = get_config(arch).reduced(dtype="float32", **kw)
+        model = build_model(cfg)
+        params = model.init(generator(0), device)
+        tokens = torch.randint(0, cfg.vocab_size, (B, steps),
+                               generator=generator(1)).to(device)
+        graph, eager, gstate, estate = _graph_and_eager(model, params,
+                                                        tokens, device)
+        row = {"arch": arch, "logits_bitwise": bool(torch.equal(graph, eager)),
+               "state_bitwise": _states_equal(gstate, estate),
+               "finite": bool(torch.isfinite(graph).all()),
+               "index": int(gstate["index"])}
+        out[kind] = row
+        print(f"  {kind} ({arch} reduced): graph vs eager over {steps} "
+              f"steps, logits bitwise {row['logits_bitwise']}, state "
+              f"bitwise {row['state_bitwise']}", flush=True)
+        if not (row["logits_bitwise"] and row["state_bitwise"]
+                and row["finite"] and row["index"] == steps):
+            raise SystemExit(f"16(b) {kind}: the graphed decode differs "
+                             f"from eager")
+    return out
+
+
+def examples_phase(device="cuda"):
+    """16(c): the examples' twins in-process through `main(argv)` on the
+    card, with the reference test's arguments: the quickstart (the loss
+    falls, the checkpoint restores bit for bit), the FL twin three ways
+    and once more with gossip under a fault profile (B1 launched in each,
+    B3 in the masked gossip of the last, as
+    `FederatedSimulation._kernel_launches()` counts them) and
+    serve_decode (its tokens equal an eager `greedy_generate`). The
+    launch gates are the card's only."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.core.simulation import FederatedSimulation
+    from repro_torch.examples import federated_image_classification as fic
+    from repro_torch.examples import quickstart, serve_decode
+    from repro_torch.models.decode import greedy_generate
+    from repro_torch.tree import tree_leaves
+
+    def call(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = main(argv + ["--device", device])
+        return res, buf.getvalue(), time.perf_counter() - t0
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        qs, text, s = call(quickstart.main, [
+            "--arch", "xlstm-125m", "--steps", "8", "--batch", "2",
+            "--seq-len", "64", "--ckpt-dir", tmp])
+        restored = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(qs["params"]), tree_leaves(qs["restored"])))
+        hist = qs["history"]
+        out["quickstart"] = {"loss": [hist[0][1], hist[-1][1]],
+                             "restored_bitwise": restored,
+                             "generated": qs["generated"][0].tolist(),
+                             "seconds": s}
+        print(f"  quickstart xlstm-125m: loss {hist[0][1]:.3f} -> "
+              f"{hist[-1][1]:.3f}, checkpoint restored bitwise {restored}, "
+              f"{s:.1f}s", flush=True)
+        if not (hist[-1][1] < hist[0][1] and restored
+                and "checkpointed -> " in text):
+            raise SystemExit("16(c) quickstart: the loss did not fall or the "
+                             "checkpoint did not restore")
+        fl_runs = (
+            ("afl --curves", ["--strategy", "afl", "--dataset", "mnist",
+                              "--rounds", "2", "--clients", "4",
+                              "--n-train", "400", "--curves", "--outdir",
+                              tmp], ("fedavg_agg",)),
+            ("fedadam vectorized", ["--strategy", "fedadam", "--rounds", "2",
+                                    "--clients", "4", "--n-train", "400",
+                                    "--engine", "vectorized",
+                                    "--server-lr", "0.1"], ("fedavg_agg",)),
+            ("afl --gossip --non-iid", ["--strategy", "afl", "--gossip",
+                                        "--non-iid", "--rounds", "2",
+                                        "--clients", "4", "--n-train",
+                                        "400"], ("fedavg_agg",)),
+            # B3 mixes the masked gossip of a fault schedule; the static
+            # ring mixes by one plain matmul, as the reference's does
+            ("afl --gossip --fault-profile churn",
+             ["--strategy", "afl", "--gossip", "--fault-profile", "churn",
+              "--rounds", "2", "--clients", "4", "--n-train", "400"],
+             ("fedavg_agg", "gossip_mix_agg")))
+        for label, argv, needed in fl_runs:
+            _reset_launches()
+            r, text, s = call(fic.main, argv)
+            launches = FederatedSimulation._kernel_launches()
+            out[label] = {"test_accuracy": r.test_accuracy,
+                          "launches": launches, "seconds": s}
+            print(f"  FL twin {label}: test acc {r.test_accuracy:.3f}, "
+                  f"launches {launches}, {s:.1f}s", flush=True)
+            launched = device != "cuda" or all(launches[k] > 0
+                                                for k in needed)
+            if not ("testing acc:" in text and launched):
+                raise SystemExit(f"16(c) FL twin {label}: no metrics or "
+                                 f"{needed} not launched: {launches}")
+            if label == "afl --curves" and not os.path.exists(os.path.join(
+                    tmp, "curves", "curves_afl_mnist.csv")):
+                raise SystemExit("16(c) FL twin: no curves written")
+    sd, text, s = call(serve_decode.main, [
+        "--arch", "gemma3-4b", "--batch", "2", "--prompt-len", "4",
+        "--gen-len", "8"])
+    want = greedy_generate(sd["params"], sd["cfg"], sd["prompt"], 8)
+    same = bool(torch.equal(sd["tokens"], want))
+    out["serve_decode"] = {"tokens_equal_greedy": same, "index": sd["index"],
+                           "decode_s": sd["decode_s"], "seconds": s,
+                           "lines": text.splitlines()}
+    print(f"  serve_decode gemma3-4b reduced, B = 2, 4 + 8 tokens: tokens "
+          f"equal greedy_generate {same}, cache index {sd['index']}, "
+          f"{s:.1f}s", flush=True)
+    for line in text.splitlines():
+        print("    | " + line, flush=True)
+    if not (same and sd["index"] == 12):
+        raise SystemExit("16(c) serve_decode: its tokens differ from "
+                         "greedy_generate")
+    return out
+
+
+def decode_graph_phase(device="cuda"):
+    """Phase 16: (a), (b), (c) in turn."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, label, fn in (
+            ("zamba2", "(a) zamba2-1.2b whole: graph vs eager",
+             decode_graph_zamba2_phase),
+            ("kinds", "(b) the other decode state kinds, reduced",
+             decode_graph_kinds_phase),
+            ("examples", "(c) the examples' twins", examples_phase)):
+        print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
+              flush=True)
+        out[key] = fn(device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # -- driver ------------------------------------------------------------------
 
 def main():
@@ -4283,6 +4622,11 @@ def main():
     _phase("the zoo's sharded steps and the dry-run (slice 14)")
     sharded = sharded_phase("cuda")
     print(f"  phase 15 took {sharded['seconds']:.1f}s", flush=True)
+    _phase("the examples' twins and the graphed decode (slice 15)")
+    _reset_launches()                    # the main path's count starts here
+    decode_graph = decode_graph_phase("cuda")
+    print(f"  phase 16 took {decode_graph['seconds']:.1f}s", flush=True)
+    _phase()
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)
@@ -4387,6 +4731,12 @@ def main():
     entry["launches_documents"] = documents["fedavg_agg_launches"]
     for e in (entry, tentry, gentry, dentry):
         e["launches_fused"] = fused_launches[e["name"]]
+    for e in (entry, gentry):
+        # each FL twin run's launches in 16(c)
+        e["launches_examples"] = {
+            label: run["launches"][e["name"]]
+            for label, run in decode_graph["examples"].items()
+            if "launches" in run}
     doc = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "build_s": build_s,
            "kernels": kernels, "parity": parity, "study": study,
@@ -4397,7 +4747,8 @@ def main():
            "train": train,
            "mesh": {"operators": mesh_ops, "executor": mesh_run,
                     "seconds": mesh_s},
-           "sharded": sharded,
+           "sharded": sharded, "decode_graph": decode_graph,
+           "phase_seconds": PHASE_SECONDS,
            "documents": documents,
            "fused": {"parity": fused_parity, "documents": fused_docs,
                      "serving": serving, "launches": fused_launches,

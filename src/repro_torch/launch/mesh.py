@@ -38,11 +38,16 @@ The port runs one process per rank on `torch.distributed` instead:
 * The zoo's sharded steps keep each leaf as the rank's shard of it, cut
   by a `specs.NamedSharding`: `shard_tree` cuts a tree's leaves (no
   collective), `gather_tree` joins them back with one `all_gather` a
-  sharded dim. `dry_run_mesh(shape)` is rank 0 of a mesh that has no
-  processes, for the count-only dry-run.
+  sharded dim, or, on ranks that share a card, all of the tree's at once
+  card to card (`card_plan`, `collectives.card_gather`).
+  `dry_run_mesh(shape)` is rank 0 of a mesh that has no processes, for
+  the count-only dry-run.
 
 Gloo runs only `all_reduce` and `broadcast` on CUDA tensors, so every
-collective is a sum `all_reduce` on the wire (`core/collectives.py`).
+other collective is a sum `all_reduce` on the wire, a gather a gloo
+`all_gather` of host copies (`core/collectives.py`). A rank on the card
+empties its cache after each task: the ranks share the card with each
+other and with the caller.
 
 The reference's `axis_types_kw`, `activate_mesh` and `shard_map_compat`
 are shims between jax versions for installing a mesh and tracing a
@@ -72,7 +77,7 @@ from repro_torch.core.collectives import (  # noqa: F401
     all_gather, all_reduce_sum, barrier, collective_counts,
     collective_scope, ppermute, reduce_scatter, reset_collective_counts)
 from repro_torch.sharding.specs import MeshShape, entry_axes
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # ranks that may share one card under gloo (8 ranks take 10 GB each of an
 # 80 GB card at most)
@@ -212,6 +217,11 @@ class MeshAxis:
         self.group, self.instances, self.rank = group, instances, rank
         self.mesh = mesh
 
+    @property
+    def members(self) -> List[int]:
+        """The global ranks of this rank's instance, in axis order."""
+        return next(m for m in self.instances if self.rank in m)
+
     def split(self, parts: List[List[int]]) -> "MeshAxis":
         """The axis of this rank's part, where `parts` splits the axis's
         indices into groups (`topology.mesh_axis_groups`); every rank
@@ -255,11 +265,15 @@ class RankMesh:
     def _rank_of(self, coords) -> int:
         return sum(c * s for c, s in zip(coords, self._strides))
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """`rank`'s index on each mesh axis."""
+        return {n: (rank // st) % size for n, st, size in
+                zip(self.names, self._strides, self.shape.axis_sizes)}
+
     @property
     def coords(self) -> Dict[str, int]:
         """This rank's index on each mesh axis."""
-        return {n: (self.rank // st) % size for n, st, size in
-                zip(self.names, self._strides, self.shape.axis_sizes)}
+        return self.coords_of(self.rank)
 
     def axis(self, names) -> MeshAxis:
         """The axis over `names` (a name or a tuple of names, their
@@ -305,23 +319,20 @@ def dry_run_mesh(shape: MeshShape, rank: int = 0) -> RankMesh:
 # ---------------------------------------------------------------------------
 
 def shard(x: torch.Tensor, sharding, rank_mesh: RankMesh) -> torch.Tensor:
-    """This rank's shard of the global tensor `x` (a copy); a leaf that is
-    not a tensor (the decode state's int "index") is whole on every
-    rank."""
+    """This rank's shard of the global tensor `x` (a copy); a 0-d leaf (the
+    decode state's "index") and a leaf that is not a tensor are whole on
+    every rank."""
     if not isinstance(x, torch.Tensor):
         return x
     return x[sharding.index(x.shape, rank_mesh.coords)].clone(
         memory_format=torch.contiguous_format)
 
 
-def gather(x: torch.Tensor, sharding, rank_mesh: RankMesh,
-           keep: Sequence[str] = ()) -> torch.Tensor:
-    """The global tensor of which `x` is this rank's shard: one
-    `all_gather` for each sharded dim, over the dim's axes. Axes in
-    `keep` stay sharded (the batch axes of a data-parallel step); they
-    must lead their dim's entry, so the kept block is contiguous."""
-    if not isinstance(x, torch.Tensor):
-        return x
+def _gathered_dims(sharding, keep):
+    """[(dim, the axes it is gathered over)] of a sharding, axes in
+    `keep` left sharded; they must lead their dim's entry, so the kept
+    block is contiguous."""
+    dims = []
     for d, e in enumerate(sharding.spec):
         axes = entry_axes(e)
         rest = tuple(a for a in axes if a not in keep)
@@ -330,8 +341,59 @@ def gather(x: torch.Tensor, sharding, rank_mesh: RankMesh,
         if axes[len(axes) - len(rest):] != rest:
             raise ValueError(f"kept axes {tuple(keep)} do not lead the "
                              f"entry {e!r} of {sharding.spec}")
+        dims.append((d, rest))
+    return dims
+
+
+def gather(x: torch.Tensor, sharding, rank_mesh: RankMesh,
+           keep: Sequence[str] = ()) -> torch.Tensor:
+    """The global tensor of which `x` is this rank's shard: one
+    `all_gather` for each sharded dim, over the dim's axes. Axes in
+    `keep` stay sharded (the batch axes of a data-parallel step)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    for d, rest in _gathered_dims(sharding, keep):
         x = all_gather(x, rank_mesh.axis(rest), dim=d)
     return x
+
+
+def card_plan(x: torch.Tensor, sharding, rank_mesh: RankMesh,
+              keep: Sequence[str] = ()):
+    """What `gather` of `x` makes, as `collectives.card_gather` takes it:
+    (x, the result's shape, [(rank, the slices of the result that rank's
+    shard fills)], [the result bytes of each of gather's all-gathers]),
+    or None when nothing is gathered. The ranks are those that differ
+    from this one only on the gathered axes; along each gathered dim a
+    rank's block sits at its row-major index over the dim's axes, as
+    `all_gather` over `rank_mesh.axis(rest)` lays it."""
+    dims = _gathered_dims(sharding, keep)
+    if not isinstance(x, torch.Tensor) or not dims:
+        return None
+    sizes = rank_mesh.shape.shape
+    shape, nbytes, kind_bytes = list(x.shape), x.numel() * x.element_size(), []
+    for d, rest in dims:
+        n = 1
+        for a in rest:
+            n *= sizes[a]
+        shape[d] *= n
+        nbytes *= n
+        kind_bytes.append(nbytes)
+    gathered = {a for _, rest in dims for a in rest}
+    mine = rank_mesh.coords
+    places = []
+    for j in range(rank_mesh.shape.size):
+        cj = rank_mesh.coords_of(j)
+        if any(cj[a] != mine[a] for a in rank_mesh.names
+               if a not in gathered):
+            continue
+        where = [slice(None)] * x.dim()
+        for d, rest in dims:
+            block = 0
+            for a in rest:
+                block = block * sizes[a] + cj[a]
+            where[d] = slice(block * x.shape[d], (block + 1) * x.shape[d])
+        places.append((j, tuple(where)))
+    return x, tuple(shape), places, kind_bytes
 
 
 def shard_tree(tree, shardings, rank_mesh: RankMesh):
@@ -341,9 +403,19 @@ def shard_tree(tree, shardings, rank_mesh: RankMesh):
 
 def gather_tree(tree, shardings, rank_mesh: RankMesh,
                 keep: Sequence[str] = ()):
-    """`gather` over a tree of shards and its tree of shardings."""
-    return tree_map(lambda x, s: gather(x, s, rank_mesh, keep), tree,
-                    shardings)
+    """`gather` over a tree of shards and its tree of shardings. Ranks
+    that share a card under gloo make every leaf's gathers at once, card
+    to card (`collectives.card_gather`: the same results and counts, with
+    no copy through the host); elsewhere each leaf is gathered in turn."""
+    leaves = tree_leaves(tree)
+    if not any(collectives.on_shared_card(x) for x in leaves):
+        return tree_map(lambda x, s: gather(x, s, rank_mesh, keep), tree,
+                        shardings)
+    plans = [card_plan(x, s, rank_mesh, keep)
+             for x, s in zip(leaves, tree_leaves(shardings))]
+    done = iter(collectives.card_gather([p for p in plans if p]))
+    return tree_unflatten(tree, [x if p is None else next(done)
+                                 for x, p in zip(leaves, plans)])
 
 
 class Rank:
@@ -405,6 +477,12 @@ def _rank_main(rank, size, backend, device, init_method, timeout_s, conn):
             except BaseException:
                 conn.send(("error", traceback.format_exc()))
                 break        # the group may be mid-collective: leave it
+            if dev.type == "cuda":
+                # ranks share the card with each other and the caller:
+                # give back what the task left cached, its blocks shared
+                # with the other ranks included
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
             conn.send(("ok", out))
     except BaseException:
         try:

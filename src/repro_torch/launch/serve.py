@@ -1,6 +1,6 @@
-"""Serving: prefill, single-token decode steps, the token-model dispatch
-for the serving engine, and the decode state's sharding rules (port of
-`repro.launch.serve`).
+"""Serving: prefill, single-token decode steps (eager, and captured as
+one CUDA graph), the token-model dispatch for the serving engine, and
+the decode state's sharding rules (port of `repro.launch.serve`).
 
 On a mesh (`make_sharded_prefill_step`, `make_sharded_serve_step`) each
 rank keeps its shards of the parameters (`specs.tree_shardings`), of the
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.sharding import specs as sh
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def make_prefill_step(model):
@@ -31,6 +31,87 @@ def make_serve_step(model):
     def serve_step(params, state, tokens):
         return model.decode_step(params, state, tokens)
     return serve_step
+
+
+def _write_back(state, new) -> None:
+    """Make `state` the state after the step that returned `new`, in its
+    own buffers: the caches `decode_step` wrote in place are already
+    there, every other leaf (Mamba2 conv / ssm, mLSTM and sLSTM states)
+    is copied back, and the index advances by one."""
+    for key, sub in state.items():
+        if key == "index":
+            sub.add_(1)
+            continue
+        for old, now in zip(tree_leaves(sub), tree_leaves(new[key])):
+            if now is not old:
+                old.copy_(now)
+
+
+def make_graphed_serve_step(model, params, state, tokens):
+    """The serve step bound to `params` and `state` and, on the card,
+    captured as one CUDA graph: the port's form of the reference's
+    `jax.jit(model.decode_step)` with its state donated.
+
+    `tokens` is a (B, 1) example of the step's input. Returns
+    `step(params, state, tokens) -> (logits, state)`, which copies
+    `tokens` into the graph's static token buffer, replays the captured
+    `decode_step` and its write-back (`_write_back`), and returns the
+    graph's static (B, 1, V) logits (overwritten by the next call: clone
+    them to keep them) and `state`, advanced in place. It accepts only
+    the `params` and `state` it was made with.
+
+    The capture follows the fused executor's (`core/simulation.py`): two
+    warm-up steps on a side stream on a throwaway clone of the state,
+    then one captured step; capturing runs nothing, so `state` is as it
+    was given. A capture that fails raises RuntimeError: there is no
+    eager fallback on the card. On a CPU state the same in-place body
+    runs eagerly."""
+    tok = tokens.clone()
+
+    def body(st):
+        logits, new = model.decode_step(params, st, tok)
+        _write_back(st, new)
+        return logits
+
+    def check(p, st):
+        if p is not params or st is not state:
+            raise ValueError("a graphed serve step runs only on the params "
+                             "and the state it was made with")
+
+    dev = tok.device
+    if dev.type != "cuda":
+        def step(p, st, tokens):
+            check(p, st)
+            tok.copy_(tokens)
+            return body(state), state
+        return step
+
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        scratch = tree_map(torch.clone, state)
+        for _ in range(2):
+            body(scratch)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    del scratch
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            logits = body(state)
+    except Exception as e:
+        raise RuntimeError(
+            f"the decode step could not be captured as a CUDA graph "
+            f"({type(e).__name__}: {e}); the serve step does not fall "
+            f"back to eager decode") from e
+
+    def step(p, st, tokens):
+        check(p, st)
+        tok.copy_(tokens)
+        graph.replay()
+        return logits, state
+
+    return step
 
 
 def make_decode_dispatch(cfg, prompts, next_tokens):
@@ -63,7 +144,7 @@ def decode_state_shardings(state_shape, mesh, cfg):
     dh) layer-stacked caches: the same rule shifted by one, the layer dim
     whole. Recurrent states: batch over FSDP, channels over "model" when
     divisible. Meshes without a "model" axis shard the batch dim only. A
-    scalar (or the port's int "index") is replicated."""
+    scalar (the 0-d int32 "index") is replicated."""
     fa = sh.fsdp_axes(mesh)
     ba = fa if len(fa) > 1 else fa[0]
     msize = dict(mesh.shape).get("model", 0)

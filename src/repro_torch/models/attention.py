@@ -144,7 +144,9 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
 
     Train/prefill: cache_kv=None, x: (B,S,D).
     Decode: x: (B,1,D), cache_kv=(ck, cv) with ck: (B,cap,Hk,dh),
-            cache_index = number of tokens already in the cache (an int).
+            cache_index = number of tokens already in the cache (the
+            decode state's 0-d int32 "index" tensor; the mask and the
+            write position are computed from it on the device).
             Returns (out, (new_ck, new_cv)).
     Cross-attention: kv_override=(k, v) precomputed from encoder output.
     """

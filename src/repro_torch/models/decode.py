@@ -6,7 +6,9 @@ differ: full KV, sliding-window ring KV, the MLA latent cache, Mamba2
 recurrent state or xLSTM (C, n, m) / (c, n, h, m), plus zamba2's
 shared-block caches under "shared" and seamless' cross-attention K/V
 under "cross". The state is a dict of lists of dicts of tensors; its
-"index" (tokens so far) is a Python int.
+"index" (tokens so far) is the reference's 0-d int32 tensor, on the
+state's device, so a step reads nothing back to the host and can be
+captured as one CUDA graph (`launch.serve.make_graphed_serve_step`).
 
 As in the reference, nothing fills "cross" from the encoder (it stays
 zeros), and `decode_step` takes tokens only (no vision prefix).
@@ -68,7 +70,8 @@ def init_decode_state(cfg, batch, capacity, prefill_len=0,
     """The empty (or stand-in) decode state on `device`."""
     dtype = cfg.activation_dtype
     state: Dict[str, Any] = {
-        "index": int(prefill_len),
+        "index": torch.tensor(prefill_len, dtype=torch.int32,
+                              device=device),
         "layers": [_layer_state(cfg, kind, batch, capacity,
                                 _decode_window(cfg, i), dtype, device)
                    for i, kind in enumerate(cfg.layer_kinds())],
@@ -90,8 +93,7 @@ def init_decode_state(cfg, batch, capacity, prefill_len=0,
 
 
 def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None):
-    positions = torch.full((x.shape[0], 1), index, dtype=torch.int32,
-                           device=x.device)
+    positions = index.reshape(1, 1).expand(x.shape[0], 1)
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
         a, ckv, kpe = mla.mla_decode(lp["attn"], cfg, h, positions=positions,
@@ -126,7 +128,9 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None):
 def decode_step(params, cfg, state, tokens):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, new_state). The step
     writes the new token's keys and values (MLA: its latent and rotary
-    key) into the caches of `state` in place (`kvcache.update_layer`)."""
+    key) into the caches of `state` in place (`kvcache.update_layer`);
+    the new state's "index" is a new tensor, `index + 1`, as the
+    reference's."""
     adt = cfg.activation_dtype
     index = state["index"]
     x = embed(params["embed"], tokens, adt)

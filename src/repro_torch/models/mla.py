@@ -87,7 +87,9 @@ def mla_attention(params, cfg, x, *, positions, mask=None):
 def mla_decode(params, cfg, x, *, positions, c_kv_cache, k_pe_cache,
                cache_index):
     """Absorbed decode. x: (B,1,D); caches: (B,cap,1,r)/(B,cap,1,rope),
-    written in place (`kvcache.update_layer`); cache_index an int.
+    written in place (`kvcache.update_layer`); cache_index is the decode
+    state's 0-d int32 "index" tensor (tokens already cached), read on the
+    device.
 
     Returns (out, c_kv_cache, k_pe_cache)."""
     B = x.shape[0]

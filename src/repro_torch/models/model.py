@@ -74,7 +74,8 @@ class Model:
     def decode_state_specs(self, batch, capacity) -> Any:
         """The decode state as `init_decode_state` builds it with
         `prefill_len = capacity - 1`, its tensors on the meta device (its
-        "index" is the port's Python int)."""
+        "index" a 0-d int32 tensor there, as the reference's is a scalar
+        int32 spec)."""
         return decode_mod.init_decode_state(
             self.cfg, batch, capacity, prefill_len=capacity - 1,
             device=_META)
