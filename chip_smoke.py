@@ -174,17 +174,25 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (loss and grad-norm within 1e-5 relative; SGD's parameters within
    1e-6, AdamW's printed), the SGD step repeated bitwise on the card,
    and on the card grad_accum = 2 against 1 and remat off against on at
-   the same tolerances; (b) zamba2-1.2b whole (1,104,777,344 parameters,
+   the same tolerances; then the train step captured as one CUDA graph
+   (`launch.train.make_graphed_train_step`) against the eager step, bit
+   for bit (params, optimizer state, metrics) after each of two steps
+   from successive states, with SGD, AdamW, grad_accum 2, remat off and
+   bfloat16 activations; (b) zamba2-1.2b whole (1,104,777,344 parameters,
    bfloat16 activations, float32 parameters, remat) on MarkovLM batches
    of 4 x 2048 with grad_accum = 2 and AdamW (3e-4, weight decay 0.01,
-   clip 1.0): a warm-up and 4 timed steps on fresh batches, then 6 on one
-   repeated batch; ms per step (median and range), tokens/s, MFU (6 N D
-   over the step and the bf16 peak, `launch/roofline.py`), peak memory
-   and the device busy / idle share of the first repeated step, profiled; (c) the
+   clip 1.0): eager, a warm-up, 2 timed steps and one profiled; then the
+   graphed step from their state: the capture timed, 4 timed replays on
+   fresh batches, then 6 on one repeated batch (the first profiled), whose
+   loss must fall; each side's ms per step (median and range), tokens/s,
+   MFU (6 N D over the step and the bf16 peak, `launch/roofline.py`),
+   device busy / idle share and peak memory; the graph is deleted and
+   the cache emptied before (c); (c) the
    federated trainer: phi3-mini reduced (float32; 4 clients in 2 groups,
    K = 2) one round of HFL, AFL, AFL gossip and CFL on the card against
-   the CPU (1e-4) with a bitwise repeat, then xlstm-125m whole with 4
-   clients, K = 2 steps of 2 x 256 tokens, 2 rounds of HFL, AFL (client 0
+   the CPU (1e-4) with a bitwise repeat, then xlstm-125m at its
+   published widths cut 12 -> 4 layers (printed; the sLSTM at its
+   published position 3) with 4 clients, K = 2 steps of 2 x 256 tokens, 2 rounds of HFL, AFL (client 0
    alone in the second) and CFL, with seconds per round and peak memory. Fails
    on a gate missed, a non-finite loss, grad-norm or parameter, the
    repeated batch's loss not falling, clients apart after an HFL or AFL
@@ -226,9 +234,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    steps and 1 AdamW step of `make_sharded_train_step` against
    `make_train_step` on the card (loss and grad-norm within 1e-5
    relative, SGD params within 1e-6, AdamW's printed), the SGD steps
-   repeated bitwise, all-gathers issued; (b) the reference's FL-mesh
+   repeated bitwise, all-gathers issued; then phi3-mini reduced with 12
+   rows (3 a rank) under grad_accum 3, a rank's rows straddling two
+   micro-batches, at the same gates; (b) the reference's FL-mesh
    config (phi3-mini reduced, vocab 512, 4 clients, 2 groups, K = 2), 2
-   rounds of HFL, AFL, AFL gossip and CFL against the one-device
+   rounds of HFL, AFL, AFL gossip and CFL, then HFL with 12 clients (3 a
+   rank) in 3 groups of 4 that straddle ranks, against the one-device
    `FederatedTrainer` (loss and params 1e-5, bitwise repeat, collectives
    in every strategy, gossip's collective-permute); (c) zamba2 cut as in
    (a) under `attn_impl="flash"`: the kernel prefill of 8 x 2048 tokens
@@ -299,6 +310,10 @@ L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
 
 
 PHASE_SECONDS = {}        # phase -> seconds, as `_phase` closes each
+# the script's last chip run before its train step was graphed (an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's: phase 13 and the
+# phases' sum, in seconds
+EAGER_TRAIN_SECONDS = {"training": 384.7, "all phases": 966.8}
 
 
 def _phase(name=None):
@@ -2201,7 +2216,7 @@ def zamba2_phase(device="cuda", seed=0, B=2, S=4096):
     cfg = get_config(ZAMBA).with_updates(dtype="float32", attn_impl="flash")
     plain = cfg.with_updates(attn_impl="einsum")
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    params, init_ms = _timed(lambda: _init_once(model, seed, device))
     n_params = model.param_count(params)
     tokens = synthetic_train_batch(generator(seed + 1), cfg, B, S,
                                    device=device)["tokens"]
@@ -2673,12 +2688,28 @@ def _kernel_counts():
             "flash_attention": fl.launches, "ssm_scan": ss.launches}
 
 
+_INITS = {}        # (seed, parameter shapes and dtypes) -> a CPU draw
+
+
+def _init_once(model, seed, device):
+    """`model.init(generator(seed), device)`, drawn on the CPU once a run
+    for each seed and parameter shapes (zamba2-1.2b whole in 9(c), 13(b)
+    and 16(a): ~11 s a draw) and copied to `device` for each caller."""
+    from repro_torch.device import generator
+    from repro_torch.tree import tree_leaves, tree_map
+    key = (seed, tuple((tuple(p.shape), p.dtype)
+                       for p in tree_leaves(model.param_specs())))
+    if key not in _INITS:
+        _INITS[key] = model.init(generator(seed), "cpu")
+    return tree_map(lambda a: a.to(device, copy=True), _INITS[key])
+
+
 def _train_cut_cfg(**kw):
     from repro_torch.configs.registry import get_config
     layers = TRAIN_CUT["num_layers"][1]
-    return get_config(ZAMBA).with_updates(
-        dtype="float32", num_layers=layers,
-        block_pattern=("mamba",) * layers, **kw)
+    return get_config(ZAMBA).with_updates(**dict(
+        dict(dtype="float32", num_layers=layers,
+             block_pattern=("mamba",) * layers), **kw))
 
 
 def _step_once(cfg, params, batch, opt, device):
@@ -2694,6 +2725,46 @@ def _step_once(cfg, params, batch, opt, device):
     if device != "cpu":
         torch.cuda.synchronize()
     return p, {k: float(v) for k, v in m.items()}
+
+
+# 13(a): the graphed train step against the eager one, bit for bit, in
+# variants of the cut config: (label, config updates, optimizer)
+GRAPH_TRAIN_VARIANTS = (
+    ("sgd", {}, "sgd"),
+    ("adamw", {}, "adamw"),
+    ("grad_accum 2", {"grad_accum": 2}, "sgd"),
+    ("remat off", {"remat": False}, "sgd"),
+    # the published dtypes: bfloat16 activations, float32 parameters
+    ("bf16 activations, remat on", {"dtype": "bfloat16", "remat": True},
+     "adamw"),
+)
+
+
+def _graph_vs_eager(cfg, params, batch, opt, device, steps=2):
+    """`steps` replays of `make_graphed_train_step` against as many
+    `make_train_step` steps, each from the state the last one left, from
+    one init (`params`) on one batch -> ([params, optimizer state and
+    metrics bitwise equal after each step], capture ms)."""
+    import torch
+    from repro_torch.launch.train import (make_graphed_train_step,
+                                          make_train_step)
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(cfg)
+    b = {k: v.to(device) for k, v in batch.items()}
+    p = tree_map(lambda a: a.to(device, copy=True), params)
+    gp = tree_map(lambda a: a.to(device, copy=True), params)
+    s, gs = opt.init(p), opt.init(gp)
+    eager = make_train_step(model, opt)
+    graphed, capture_ms = _timed(
+        lambda: make_graphed_train_step(model, opt, gp, gs, b))
+    same = []
+    for _ in range(steps):
+        p, s, m = eager(p, s, b)
+        _, _, gm = graphed(gp, gs, b)
+        same.append(_leaves_equal(p, gp) and _leaves_equal(s, gs)
+                    and _leaves_equal(m, gm))
+    return same, capture_ms
 
 
 def _leaves_err(a, b):
@@ -2715,7 +2786,9 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
     B = 2, S = 256: one SGD step (lr 1e-2) and one AdamW step on the card
     against the CPU from one init; the SGD step repeated bitwise on the
     card; then on the card grad_accum = 2 against 1 over the same global
-    batch, and remat on against off."""
+    batch, and remat on against off; then the graphed step
+    (`make_graphed_train_step`) against the eager one, bit for bit over
+    two successive steps, in each of GRAPH_TRAIN_VARIANTS."""
     from repro_torch.device import deterministic_f32, generator
     from repro_torch.models.model import build_model, synthetic_train_batch
     from repro_torch.optim import optimizers
@@ -2771,6 +2844,19 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
                       ("remat off vs on (card)", {"remat": False})):
         gate(label, _step_once(_train_cut_cfg(**kw), params, batch, sgd,
                                device), card_sgd)
+    del card_sgd
+    # the graphed step (make_graphed_train_step) against the eager one
+    out["graph"] = {}
+    for label, kw, opt_name in GRAPH_TRAIN_VARIANTS:
+        same, capture_ms = _graph_vs_eager(
+            _train_cut_cfg(**kw), params, batch,
+            sgd if opt_name == "sgd" else adamw, device)
+        out["graph"][label] = {"bitwise": same, "capture_ms": capture_ms}
+        print(f"  graph vs eager, {label} ({opt_name}): bitwise after each "
+              f"of {len(same)} steps {same}; capture {capture_ms:.0f} ms",
+              flush=True)
+        if not all(same):
+            raise SystemExit(f"13(a) graph vs eager, {label}: {same}")
     delta = {k: v - before[k] for k, v in _kernel_counts().items()}
     out["launches"] = delta
     if any(delta.values()):
@@ -2779,30 +2865,43 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
 
 
 def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
-                       timed=4, repeats=6):
+                       timed=4, repeats=6, eager_timed=2):
     """13(b): zamba2-1.2b whole (38 Mamba2 layers and the shared block) at
     its published dtypes (bfloat16 activations, float32 parameters,
     remat), MarkovLM batches over its 32,000 tokens, global batch
-    B x S with grad_accum, AdamW (3e-4, weight decay 0.01, clip 1.0): a
-    warm-up step and `timed` steps on fresh batches, then `repeats` steps
-    on one repeated batch, the first of them profiled."""
+    B x S with grad_accum, AdamW (3e-4, weight decay 0.01, clip 1.0).
+    Eager (`make_train_step`): a warm-up step, `eager_timed` steps on
+    fresh batches and one profiled step. Then the step captured as one
+    CUDA graph (`make_graphed_train_step`, from the eager steps' state):
+    the capture timed, `timed` replays on fresh batches, then `repeats`
+    on one repeated batch, the first of them profiled, whose loss must
+    fall. Each side's ms a step, tokens/s, MFU, idle share and peak
+    memory are printed beside the other's."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import MarkovLM
-    from repro_torch.device import generator
     from repro_torch.launch import roofline
-    from repro_torch.launch.train import device_batch, make_train_step
+    from repro_torch.launch.train import (device_batch,
+                                          make_graphed_train_step,
+                                          make_train_step)
     from repro_torch.models.model import build_model
     from repro_torch.optim import optimizers
     from repro_torch.tree import tree_leaves
 
     on_card = device == "cuda"
-    if on_card:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+
+    def fresh_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    fresh_peak()
     cfg = get_config(ZAMBA).with_updates(grad_accum=accum)
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    params, init_ms = _timed(lambda: _init_once(model, seed, device))
     n_params = model.param_count(params)
     active = roofline.active_param_count(cfg, n_params)
     lm = MarkovLM(cfg.vocab_size, seed=seed)
@@ -2818,10 +2917,14 @@ def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
     opt_state = opt.init(params)
     step = make_train_step(model, opt, clip_norm=1.0)
     losses, norms = [], []
+    tokens = B * S
+    flops = roofline.model_flops_per_step(cfg, tokens, active)
+    out = {"config": "zamba2-1.2b (configs/zamba2_1_2b.py), nothing cut",
+           "params": n_params, "active_params": active, "B": B, "S": S,
+           "grad_accum": accum, "init_ms": init_ms,
+           "model_flops_per_step": flops}
 
-    def run(b):
-        nonlocal params, opt_state
-        params, opt_state, m = step(params, opt_state, b)
+    def record(m):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         losses.append(loss)
         norms.append(gnorm)
@@ -2829,68 +2932,104 @@ def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
             raise SystemExit(f"13(b) step {len(losses)}: loss {loss}, "
                              f"grad-norm {gnorm}")
 
-    before = _kernel_counts()
-    _, warm_ms = _timed(lambda: run(batches[0]))
-    times = [_timed(lambda: run(b))[1] for b in batches[1:timed + 1]]
-    step_ms = statistics.median(times)
-    tokens = B * S
-    flops = roofline.model_flops_per_step(cfg, tokens, active)
-    out = {"config": "zamba2-1.2b (configs/zamba2_1_2b.py), nothing cut",
-           "params": n_params, "active_params": active, "B": B, "S": S,
-           "grad_accum": accum, "init_ms": init_ms, "warmup_ms": warm_ms,
-           "step_ms_runs": times, "step_ms": step_ms,
-           "tokens_per_s": tokens / (step_ms / 1e3),
-           "model_flops_per_step": flops,
-           "mfu": roofline.mfu(step_ms / 1e3, flops)}
-    print(f"  train step: {step_ms:.1f} ms median of {timed} (range "
-          f"{min(times):.1f}-{max(times):.1f}; warm-up {warm_ms:.0f}), "
-          f"{out['tokens_per_s']:.0f} tokens/s, MFU {out['mfu']:.4f} "
-          f"(6 N D = {flops:.3e} FLOPs over {roofline.PEAK_FLOPS:.3g} "
-          f"FLOP/s)", flush=True)
-    rep = []
-    if on_card:              # the first step on the repeated batch, profiled
-        prof = _profile(lambda: run(batches[0]))
-        rep.append(losses[-1])
-        out["profile"] = prof
-        if prof is None:
-            print("  profile: no device time recorded (not measured)",
-                  flush=True)
-        else:
-            print(f"  profile of one step: wall {prof['wall_ms']:.1f} ms, "
-                  f"device busy {prof['device_busy_ms']:.1f} ms, idle "
-                  f"share <= {prof['idle_share']:.3f}", flush=True)
-            for kname, ms, n, share in prof["kernels"]:
-                print(f"    {ms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
+    def run_eager(b):
+        nonlocal params, opt_state
+        params, opt_state, m = step(params, opt_state, b)
+        record(m)
+
+    def summary(label, times, prof, peak_bytes):
+        ms = statistics.median(times)
+        row = {"step_ms_runs": times, "step_ms": ms,
+               "tokens_per_s": tokens / (ms / 1e3),
+               "mfu": roofline.mfu(ms / 1e3, flops), "profile": prof,
+               "idle_share": None if prof is None else prof["idle_share"],
+               "peak_memory_bytes": peak_bytes}
+        idle = ("not measured" if prof is None
+                else f"<= {prof['idle_share']:.3f}")
+        print(f"  {label} step: {ms:.1f} ms median of {len(times)} (range "
+              f"{min(times):.1f}-{max(times):.1f}), "
+              f"{row['tokens_per_s']:.0f} tokens/s, MFU {row['mfu']:.4f}, "
+              f"idle share {idle}, peak "
+              f"{(peak_bytes or 0) / 2**30:.2f} GiB", flush=True)
+        if prof is not None:
+            print(f"    profile of one step: wall {prof['wall_ms']:.1f} ms, "
+                  f"device busy {prof['device_busy_ms']:.1f} ms", flush=True)
+            for kname, kms, n, share in prof["kernels"]:
+                print(f"    {kms:9.2f} ms {n:6d}x {share:6.1%}  {kname}",
                       flush=True)
-    while len(rep) < repeats:
-        run(batches[0])
+        return row
+
+    before = _kernel_counts()
+    _, warm_ms = _timed(lambda: run_eager(batches[0]))
+    times = [_timed(lambda: run_eager(b))[1]
+             for b in batches[1:eager_timed + 1]]
+    prof = _profile(lambda: run_eager(batches[0])) if on_card else None
+    out["eager"] = summary("eager", times, prof, peak())
+    out["eager"]["warmup_ms"] = warm_ms
+    del step
+
+    # the graph: captured from the eager steps' params and state, which
+    # it then updates in place
+    fresh_peak()
+    graphed, capture_ms = _timed(lambda: make_graphed_train_step(
+        model, opt, params, opt_state, batches[0], clip_norm=1.0))
+    capture_peak = peak()
+    print(f"  capture: {capture_ms:.0f} ms (two warm-up steps on a clone of "
+          f"the params and optimizer state, then the capture); peak "
+          f"{(capture_peak or 0) / 2**30:.2f} GiB", flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def run_graph(b):
+        _, _, m = graphed(params, opt_state, b)
+        record(m)
+
+    times = [_timed(lambda: run_graph(b))[1] for b in batches[1:timed + 1]]
+    rep = []
+    prof = None
+    if on_card:              # the first step on the repeated batch, profiled
+        prof = _profile(lambda: run_graph(batches[0]))
         rep.append(losses[-1])
+    while len(rep) < repeats:
+        run_graph(batches[0])
+        rep.append(losses[-1])
+    out["graph"] = summary("graph", times, prof, peak())
+    out["graph"].update(
+        capture_ms=capture_ms, capture_peak_bytes=capture_peak,
+        reserved_bytes=torch.cuda.memory_reserved() if on_card else None)
+    out["speedup"] = out["eager"]["step_ms"] / out["graph"]["step_ms"]
+    print(f"  the eager step takes {out['speedup']:.2f}x the graph's; the "
+          f"graph's peak above counts no tensor of its pool, which the "
+          f"reserved {(out['graph']['reserved_bytes'] or 0) / 2**30:.2f} "
+          f"GiB holds", flush=True)
     out["repeated_batch_losses"] = rep
     out["losses"], out["grad_norms"] = losses, norms
-    print(f"  {repeats} steps on one batch: losses "
+    print(f"  {repeats} graph steps on one batch: losses "
           f"{', '.join(f'{x:.4f}' for x in rep)}", flush=True)
     if not rep[-1] < rep[0]:
         raise SystemExit(f"13(b): the repeated batch's loss did not fall "
-                         f"({rep})")
+                         f"on the graph ({rep})")
     if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)):
         raise SystemExit("13(b): non-finite parameters after training")
     delta = {k: v - before[k] for k, v in _kernel_counts().items()}
     out["launches"] = delta
     if any(delta.values()):
         raise SystemExit(f"13(b): kernels launched {delta}")
-    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
-                                if on_card else None)
-    print(f"  peak memory {(out['peak_memory_bytes'] or 0) / 2**30:.2f} "
-          f"GiB; launches {delta}", flush=True)
+    print(f"  launches {delta}", flush=True)
     if on_card:
         out["card"] = _card_line()
         print(f"  on {out['card']}", flush=True)
-    del params, opt_state, batches
+    # the graph's pool holds the step's activations while it lives
+    del graphed, params, opt_state, batches
     if on_card:
         torch.cuda.empty_cache()
     return out
 
 
+# 13(c)'s xlstm-125m: the sLSTM's step loop makes each local step
+# host-bound; the cut keeps one sLSTM at its published position and the
+# phase within the script's time
+FL_TRAIN_CUT = {"num_layers": (12, 4)}
 FL_TRAIN_CASES = {
     "hfl": dict(strategy="hfl"),
     "afl": dict(strategy="afl"),
@@ -2957,8 +3096,9 @@ def fl_train_parity_phase(device="cuda", reference="cpu"):
 
 
 def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
-    """13(c), second half: xlstm-125m whole (12 layers, sLSTM at 3, 7 and
-    11; published dtypes), 4 clients in 2 groups, K = 2 local steps of
+    """13(c), second half: xlstm-125m at its published widths and dtypes,
+    depth cut 12 -> 4 (FL_TRAIN_CUT: three mLSTMs and the sLSTM at its
+    published position 3), 4 clients in 2 groups, K = 2 local steps of
     2 x 256 tokens, 2 rounds each of HFL, AFL (all clients in the first
     round, client 0 alone in the second) and CFL (alpha 0.3). Gates:
     every client's params bitwise equal after each HFL and AFL round, CFL's
@@ -2968,7 +3108,12 @@ def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
     from repro_torch.tree import tree_leaves
 
     on_card = device == "cuda"
-    cfg = get_config(XLSTM)
+    full = get_config(XLSTM)
+    layers = FL_TRAIN_CUT["num_layers"][1]
+    cfg = full.with_updates(num_layers=layers,
+                            block_pattern=full.block_pattern[:layers])
+    print(f"  xlstm-125m cut {FL_TRAIN_CUT}: {cfg.block_pattern}",
+          flush=True)
     out = {}
     before = _kernel_counts()
     for case in ("hfl", "afl", "cfl"):
@@ -3983,8 +4128,10 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
 def sharded_train_phase(world, device="cuda", B=8, S=256):
     """15(a): zamba2-1.2b at full width cut 38 -> 7 as in 13(a) (float32,
     fsdp, B x S = 8 x 256), then the reference test's four (arch,
-    profile) pairs reduced (8 x 64): 2 SGD and 1 AdamW steps sharded over
-    the ranks against `make_train_step` on the card."""
+    profile) pairs reduced (8 x 64), then phi3-mini reduced with a rank's
+    rows straddling grad_accum's micro-batches (12 x 64, grad_accum 3):
+    2 SGD and 1 AdamW steps sharded over the ranks against
+    `make_train_step` on the card."""
     from repro_torch.device import deterministic_f32
     deterministic_f32()
     out = {"zamba2-1.2b-cut": _sharded_train_case(
@@ -3995,14 +4142,33 @@ def sharded_train_phase(world, device="cuda", B=8, S=256):
             world, f"{arch} reduced ({profile})", arch,
             dict(dtype="float32", sharding_profile=profile, vocab_size=512),
             8, 64, True, device)
+    # 12 rows, 3 a "data" rank, in grad_accum 3 micro-batches of 4: ranks 1
+    # and 2 straddle two micro-batches
+    out["phi3-mini-3.8b-tp-accum3-straddling"] = _sharded_train_case(
+        world, "phi3-mini-3.8b reduced (tp), 12 rows, grad_accum 3",
+        "phi3-mini-3.8b", dict(dtype="float32", sharding_profile="tp",
+                               vocab_size=512, grad_accum=3),
+        12, 64, True, device)
+    return out
+
+
+def _fl_rounds(rng, C, K, B, S, rounds):
+    import numpy as np
+    out = []
+    for _ in range(rounds):
+        toks = rng.integers(0, 512, (C, K, B, S), dtype=np.int64)
+        labels = np.concatenate([toks[..., 1:],
+                                 np.full((C, K, B, 1), -1, np.int64)], -1)
+        out.append({"tokens": toks, "labels": labels})
     return out
 
 
 def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
     """15(b): the reference's FL-mesh test config (phi3-mini reduced,
     vocab 512, float32; 4 clients in 2 groups, K = 2, lr 0.05), 2 rounds
-    of each strategy on the ranks (one client a "data" rank) against the
-    one-device `FederatedTrainer` on the card."""
+    of each strategy on the ranks (one client a "data" rank), then HFL
+    with 12 clients (3 a rank) in 3 groups of 4 that straddle ranks,
+    against the one-device `FederatedTrainer` on the card."""
     import numpy as np
     import torch
     import torch_sharded_cases as cases
@@ -4015,18 +4181,20 @@ def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
     arch, kw = "phi3-mini-3.8b", dict(dtype="float32", vocab_size=512)
     model = cases.build(arch, **kw)
     rng = np.random.default_rng(5)
-    batches = []
-    for _ in range(rounds):
-        toks = rng.integers(0, 512, (C, K, B, S), dtype=np.int64)
-        labels = np.concatenate([toks[..., 1:],
-                                 np.full((C, K, B, 1), -1, np.int64)], -1)
-        batches.append({"tokens": toks, "labels": labels})
+    batches = _fl_rounds(rng, C, K, B, S, rounds)
     w = rng.integers(5, 50, C).astype(np.float32)
     part = np.array([True, False, True, True])
+    layouts = [(case, fl_case, C, 2, batches, w, part)
+               for case, fl_case in FL_TRAIN_CASES.items()]
+    rng = np.random.default_rng(7)
+    layouts.append(("hfl-12-groups-3", FL_TRAIN_CASES["hfl"], 12, 3,
+                    _fl_rounds(rng, 12, K, B, S, rounds),
+                    rng.integers(5, 50, 12).astype(np.float32),
+                    np.ones(12, bool)))
     out = {}
-    for case, fl_case in FL_TRAIN_CASES.items():
-        fl_kw = dict(fl_case, num_clients=C, num_groups=2, local_steps=K,
-                     lr=0.05)
+    for case, fl_case, n, groups, batches, w, part in layouts:
+        fl_kw = dict(fl_case, num_clients=n, num_groups=groups,
+                     local_steps=K, lr=0.05)
         tr = FederatedTrainer(model, FLConfig(**fl_kw))
         state = tr.init_state(generator(0), device=device)
         t0 = time.perf_counter()
@@ -4279,7 +4447,7 @@ def decode_graph_zamba2_phase(device="cuda", seed=0, B=2):
     cfg = get_config(ZAMBA).with_updates(dtype="float32",
                                          attn_impl="einsum")
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    params, init_ms = _timed(lambda: _init_once(model, seed, device))
     n_params = model.param_count(params)
     tokens = synthetic_train_batch(generator(seed + 1), cfg, B, DECODE_STEPS,
                                    device=device)["tokens"]
@@ -4627,6 +4795,11 @@ def main():
     decode_graph = decode_graph_phase("cuda")
     print(f"  phase 16 took {decode_graph['seconds']:.1f}s", flush=True)
     _phase()
+    print(f"phase 13 (training) took "
+          f"{PHASE_SECONDS['training (slice 12)']:.1f}s "
+          f"({EAGER_TRAIN_SECONDS['training']} s with the eager train step); "
+          f"the phases sum to {sum(PHASE_SECONDS.values()):.1f}s "
+          f"({EAGER_TRAIN_SECONDS['all phases']} s)", flush=True)
 
     rows = kernels["fedavg_agg"]
     rep = next(r for r in rows if (r["C"], r["N"]) == (4, 7900) and "ms" in r)

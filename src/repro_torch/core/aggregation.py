@@ -581,6 +581,34 @@ def mesh_hfl_stacked(stacked: Params, weights, num_groups: int, *, axis,
     return kops.tree_unravel(stacked, top[:-1] / top[-1])
 
 
+def mesh_hfl_by_group(stacked: Params, weights, num_groups: int,
+                      first: int, *, axis) -> Params:
+    """Two-tier HFL over a SHARDED client stack whose groups may straddle
+    ranks: this rank holds clients first .. first + C_loc - 1 of C =
+    C_loc x axis.size, group g holding clients g*C/G to (g+1)*C/G - 1.
+    Each rank writes its clients' weighted sums and weights into a (G,
+    N+1) buffer by group, zeros elsewhere (`mesh_hfl_stacked`'s one-hot
+    form, one group a client); one all_reduce gives every group's sum,
+    and tier 1 (each group's weighted mean) and tier 2 (the group models
+    weighted by their totals) run in every rank. Returns the global model
+    (a single tree), as host `hfl_aggregate` on the gathered stack."""
+    mat = kops.stacked_ravel(stacked)
+    w = _as_f32(weights, mat.device)
+    C = w.shape[0] * axis.size
+    if C % num_groups:
+        raise ValueError(f"{C} clients not divisible into {num_groups} "
+                         f"groups")
+    group = (torch.arange(w.shape[0], device=mat.device) + first) // (
+        C // num_groups)
+    wg = (torch.arange(num_groups, device=mat.device)[:, None]
+          == group[None, :]).float() * w[None, :]           # (G, C_loc)
+    buf = torch.cat([wg @ mat, wg.sum(dim=1, keepdim=True)], dim=1)
+    all_reduce_sum(buf, axis)
+    gmodel = buf[:, :-1] / buf[:, -1:]                        # tier 1
+    gw = buf[:, -1] / buf[:, -1].sum()
+    return kops.tree_unravel(stacked, gw @ gmodel)           # tier 2
+
+
 def mesh_gossip_stacked(stacked: Params, mix, *, axis) -> Params:
     """Synchronous gossip on a SHARDED client stack as a masked
     all-to-all: `mix` is the (C, C) row-stochastic mixing matrix of

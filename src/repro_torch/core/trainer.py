@@ -23,9 +23,11 @@ leaves are sharded over "model" by `fl_param_spec`
 clients' leaves over "model", runs the K local steps on each, and joins
 the aggregation event through the mesh operators of `core/aggregation.py`
 (`mesh_hfl`, `mesh_afl_fedavg`, `mesh_cfl`) with the weighted mean of its
-clients, or gossip's ring of clients across ranks (`mesh_afl_gossip`'s
-ring with several clients a rank: the rank's end clients as counted
-collective-permutes); it keeps its shards of the result. The ranks of one client along "model" compute the same steps;
+clients, HFL groups that straddle ranks through their sums by group
+(`mesh_hfl_by_group`), or gossip's ring of clients across ranks
+(`mesh_afl_gossip`'s ring with several clients a rank: the rank's end
+clients as counted collective-permutes); it keeps its shards of the
+result. The ranks of one client along "model" compute the same steps;
 where C does not divide over the client axes, every rank holds every
 client, as GSPMD replicates the dim, and aggregates them itself.
 """
@@ -127,12 +129,6 @@ class FederatedTrainer:
             n = self._clients.size if ca else 1
             self._local = C // n
             self._first = (self._clients.index if ca else 0) * self._local
-            per = C // fl.num_groups
-            if fl.strategy == "hfl" and (C % fl.num_groups or (
-                    per % self._local and self._local % per)):
-                raise ValueError(
-                    f"{C} clients in {fl.num_groups} HFL groups do not lay "
-                    f"over {n} ranks of {self._local} clients")
             self._shardings = None
 
     # -- state ---------------------------------------------------------------
@@ -276,11 +272,23 @@ class FederatedTrainer:
         operators take the rank's clients as their weighted mean (float32)
         and its weight, which they weigh as they weigh one client (HFL's
         groups hold whole ranks, or a rank whole groups: tier 1 then runs
-        in the rank); gossip runs the ring of clients across ranks."""
+        in the rank); HFL groups that straddle ranks sum by group in one
+        all_reduce (`mesh_hfl_by_group`); gossip runs the ring of clients
+        across ranks."""
         from repro_torch.core import aggregation as agg
         fl, axis = self.fl, self._clients
+
+        def broadcast(out):
+            return tree_map(lambda m, x: m.to(x.dtype)[None].expand(
+                x.shape).contiguous(), out, stacked)
+
         if fl.strategy == "afl" and fl.afl_mode == "gossip":
             return _ring_mix(stacked, axis), None
+        per, local = fl.num_clients // fl.num_groups, len(self.local_clients)
+        if fl.strategy == "hfl" and per % local and local % per:
+            return broadcast(agg.mesh_hfl_by_group(
+                stacked, weights, fl.num_groups, self._first,
+                axis=axis)), None
         w = participate.float() * weights if fl.strategy == "afl" else weights
         tot = w.sum()
         wn = w / torch.where(tot > 0, tot, torch.ones_like(tot))
@@ -293,15 +301,13 @@ class FederatedTrainer:
             return tree_map(lambda c, g: ((1 - a) * c.float()
                                           + a * g.float()[None]).to(c.dtype),
                             stacked, glob), glob
-        if (fl.strategy == "hfl" and len(self.local_clients)
-                <= fl.num_clients // fl.num_groups):
+        if fl.strategy == "hfl" and local <= per:
             out = agg.mesh_hfl(mean, tot, client_axis=axis,
                                num_groups=fl.num_groups)
         else:
             # AFL's masked mean; HFL with whole groups in the rank
             out = agg.mesh_afl_fedavg(mean, tot, 1.0, client_axis=axis)
-        return tree_map(lambda m, x: m.to(x.dtype)[None].expand(
-            x.shape).contiguous(), out, stacked), None
+        return broadcast(out), None
 
     def _mesh_step(self, state, batch, weights, participate):
         from repro_torch.core.collectives import all_reduce_sum

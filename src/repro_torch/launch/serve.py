@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.launch.graph import capture
 from repro_torch.sharding import specs as sh
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -60,12 +61,11 @@ def make_graphed_serve_step(model, params, state, tokens):
     them to keep them) and `state`, advanced in place. It accepts only
     the `params` and `state` it was made with.
 
-    The capture follows the fused executor's (`core/simulation.py`): two
-    warm-up steps on a side stream on a throwaway clone of the state,
-    then one captured step; capturing runs nothing, so `state` is as it
-    was given. A capture that fails raises RuntimeError: there is no
-    eager fallback on the card. On a CPU state the same in-place body
-    runs eagerly."""
+    The capture is `launch.graph.capture`'s: two warm-up steps on a side
+    stream on a throwaway clone of the state, then one captured step;
+    capturing runs nothing, so `state` is as it was given. A capture that
+    fails raises RuntimeError: there is no eager fallback on the card. On
+    a CPU state the same in-place body runs eagerly."""
     tok = tokens.clone()
 
     def body(st):
@@ -86,24 +86,7 @@ def make_graphed_serve_step(model, params, state, tokens):
             return body(state), state
         return step
 
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        scratch = tree_map(torch.clone, state)
-        for _ in range(2):
-            body(scratch)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    torch.cuda.synchronize(dev)
-    del scratch
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            logits = body(state)
-    except Exception as e:
-        raise RuntimeError(
-            f"the decode step could not be captured as a CUDA graph "
-            f"({type(e).__name__}: {e}); the serve step does not fall "
-            f"back to eager decode") from e
+    graph, logits = capture(body, state, "the decode step")
 
     def step(p, st, tokens):
         check(p, st)

@@ -12,7 +12,8 @@ pass and raise under autograd, as the reference's Pallas calls do.
     python -m repro_torch.launch.train --arch xlstm-125m --steps 30
 
 trains a reduced config on `MarkovLM` batches on the card (`--device
-cpu` on the CPU).
+cpu` on the CPU), its step captured as one CUDA graph
+(`make_graphed_train_step`) as the reference jits it.
 
 The mesh half: `batch_shardings` and `train_state_shardings` are the
 reference's rules, and `make_sharded_train_step` runs the step on the
@@ -41,6 +42,7 @@ import torch
 
 from repro_torch.data.pipeline import MarkovLM
 from repro_torch.device import generator, resolve_device
+from repro_torch.launch.graph import capture
 from repro_torch.optim import optimizers
 from repro_torch.sharding import specs as sh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -101,6 +103,85 @@ def make_train_step(model, opt, clip_norm: float = 1.0):
     return train_step
 
 
+def _batch_key(batch):
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(
+        batch.items()))
+
+
+def make_graphed_train_step(model, opt, params, opt_state, batch,
+                            clip_norm: float = 1.0):
+    """`make_train_step` bound to `params` and `opt_state` and, on the
+    card, captured as one CUDA graph: the port's form of the reference's
+    `jax.jit(make_train_step(...))` with its state donated.
+
+    `batch` is an example of the step's input. Returns `step(params,
+    opt_state, batch) -> (params, opt_state, metrics)`, which copies
+    `batch` into the graph's static batch buffers, replays the captured
+    step (the eager step's micro-batch loop, gradients, float32
+    accumulation, clip and optimizer update, its results copied into the
+    `params` and `opt_state` buffers, AdamW's step count included) and
+    returns `params` and `opt_state`, updated in place, and the graph's
+    static metric tensors (overwritten by the next call: clone them to
+    keep them). It accepts only the `params` and `opt_state` it was made
+    with.
+
+    As `jax.jit` retraces for a new input shape, a batch whose shapes or
+    dtypes differ from every earlier one is captured as a graph of its
+    own, in the first graph's memory pool. Each capture is
+    `launch.graph.capture`'s: two warm-up steps on a side stream on a
+    throwaway clone of the params and optimizer state, then one captured
+    step, which runs nothing. A capture that fails raises RuntimeError:
+    there is no eager fallback on the card. On CPU params the same
+    in-place body runs eagerly."""
+    eager = make_train_step(model, opt, clip_norm)
+    state = {"params": params, "opt": opt_state}
+
+    def body(st, b):
+        p, s, metrics = eager(st["params"], st["opt"], b)
+        for old, new in zip(tree_leaves(st), tree_leaves(
+                {"params": p, "opt": s})):
+            if new is not old:
+                old.copy_(new)
+        return metrics
+
+    def check(p, s):
+        if p is not params or s is not opt_state:
+            raise ValueError("a graphed train step runs only on the params "
+                             "and the optimizer state it was made with")
+
+    dev = tree_leaves(params)[0].device
+    if dev.type != "cuda":
+        def step(p, s, b):
+            check(p, s)
+            return params, opt_state, body(state, b)
+        return step
+
+    graphs = {}         # batch shapes and dtypes -> (buffers, graph, metrics)
+
+    def graph_for(b):
+        key = _batch_key(b)
+        if key not in graphs:
+            buf = {k: v.to(dev, copy=True) for k, v in b.items()}
+            pool = next(iter(graphs.values()))[1].pool() if graphs else None
+            graph, metrics = capture(lambda st: body(st, buf), state,
+                                     "the train step", pool=pool)
+            graphs[key] = (buf, graph, metrics)
+        return graphs[key]
+
+    graph_for(batch)
+
+    def step(p, s, b):
+        check(p, s)
+        buf, graph, metrics = graph_for(b)
+        for k, v in b.items():
+            buf[k].copy_(v)
+        graph.replay()
+        return params, opt_state, metrics
+
+    step.graphs = graphs
+    return step
+
+
 def batch_shardings(batch_specs, mesh):
     """Rows over the batch axes and, on the multi-pod fsdp mesh, the
     sequence over "model" (the reference's rule)."""
@@ -156,22 +237,33 @@ class _MicroBatchMean(torch.autograd.Function):
         return g * ctx.share, None, None, None, None
 
 
-def _pieces(row0, rows, accum, global_rows):
-    """This rank's rows [row0, row0 + rows) cut at the boundaries of the
-    single-device step's micro-batches (rows j*m to (j+1)*m, m =
-    global_rows / accum): [(start, stop, j), ...] in local rows. Every
-    rank gets as many pieces (they issue the same collectives): the rank
-    holds whole micro-batches, or one piece of one."""
+def _rounds(block, rows, accum, global_rows):
+    """This rank's rows, block `block` of `rows` rows of the global batch,
+    cut at the boundaries of the single-device step's micro-batches (rows
+    j*m to (j+1)*m, m = global_rows / accum): one piece (start, stop, j)
+    in local rows, or None, a round. Every rank runs as many rounds. The
+    pieces of a micro-batch that several ranks hold share one round, so
+    the token means taken over its ranks (`_MicroBatchMean`) meet in one
+    collective; a rank's whole micro-batches take its rounds in order.
+    Where rows and micro-batches nest (one divides the other) no round is
+    None; where a rank's rows straddle micro-batches, a rank holding no
+    row of a round's micro-batch gets None there."""
     if global_rows % accum:
         raise ValueError(f"{global_rows} rows do not split into "
                          f"grad_accum={accum} micro-batches")
     m = global_rows // accum
-    if rows % m and m % rows:
-        raise ValueError(
-            f"{rows} rows a rank and micro-batches of {m} rows "
-            f"(grad_accum={accum}) do not nest: one must divide the other")
-    step = min(rows, m)
-    return [(a, a + step, (row0 + a) // m) for a in range(0, rows, step)]
+    free = [0] * (global_rows // rows)       # each block's next round
+    mine = {}
+    for j in range(accum):
+        holders = range(j * m // rows, ((j + 1) * m - 1) // rows + 1)
+        r = max(free[h] for h in holders)
+        for h in holders:
+            free[h] = r + 1
+        if block in holders:
+            lo = block * rows
+            mine[r] = (max(j * m, lo) - lo, min((j + 1) * m, lo + rows) - lo,
+                       j)
+    return [mine.get(r) for r in range(max(free))]
 
 
 def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
@@ -187,13 +279,18 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     The objective is the single-device step's: the mean over its
     grad_accum micro-batches (rows j*B/accum to (j+1)*B/accum of the
     global batch) of each micro-batch's loss. A rank runs its rows piece
-    by piece, each piece within one micro-batch j (`_pieces`), and weighs
-    a piece's mean nll by its share n / N_j of micro-batch j's valid
-    labels (N_j summed over the ranks), so the sum of the ranks'
-    gradients is the single-device step's in exact arithmetic, padded
-    labels included; MoE's aux loss takes its token means over
-    micro-batch j's tokens on every rank (`_MicroBatchMean`, passed to
-    `model.loss` as its `token_mean`).
+    by piece, each piece within one micro-batch j, in rounds that every
+    rank runs alike (`_rounds`), and weighs a piece's mean nll by its
+    share n / N_j of micro-batch j's valid labels (N_j summed over the
+    ranks), so the sum of the ranks' gradients is the single-device
+    step's in exact arithmetic, padded labels included; MoE's aux loss
+    takes its token means over micro-batch j's tokens on every rank
+    (`_MicroBatchMean`, passed to `model.loss` as its `token_mean`). Any
+    layout GSPMD runs is taken: a rank's rows may straddle micro-batches
+    (12 rows on 4 ranks under grad_accum 3), and in a round whose
+    micro-batch holds none of its rows an MoE rank issues the piece's
+    collectives with zeros, its objective run on the meta device, on no
+    data.
 
     MoE routes groups of `moe_group_size` consecutive tokens with a
     capacity from the group size: a piece's tokens and a micro-batch's
@@ -217,8 +314,8 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     coords = rank_mesh.coords
     label_shape = tuple(batch_specs["labels"].shape)
     rows = b_sh["labels"].index(label_shape, coords)[0]
-    pieces = _pieces(rows.start, rows.stop - rows.start, accum,
-                     label_shape[0])
+    n = rows.stop - rows.start
+    rounds = _rounds(rows.start // n, n, accum, label_shape[0])
     micro_rows = label_shape[0] // accum
     p_flat = tree_leaves(p_sh)
     shapes = [tuple(p.shape) for p in tree_leaves(p_specs)]
@@ -231,19 +328,38 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     def summed(x):
         return x if baxis is None else all_reduce_sum(x, baxis)
 
+    def pad(dev):
+        """A round that holds none of this rank's rows: the collectives of
+        a piece's token means (the forward pass's, then remat's recompute's)
+        with zeros, the objective run on the meta device."""
+        def mean(x):
+            m = x.mean(dim=(0, 1))
+            all_reduce_sum(torch.zeros((accum,) + tuple(m.shape),
+                                       dtype=m.dtype, device=dev), baxis)
+            return m
+        mb = {k: torch.empty((1,) + tuple(v.shape[1:]), dtype=v.dtype,
+                             device="meta") for k, v in batch_specs.items()}
+        value_and_grad(lambda p, b: model.loss(p, b, token_mean=mean),
+                       p_specs, mb)
+
     def step(params, opt_state, batch):
         full = gather_tree(params, p_sh, rank_mesh)
         local = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
         dev = local["labels"].device
         counts = torch.zeros(accum, dtype=torch.float32, device=dev)
-        for a, b, j in pieces:
+        for a, b, j in filter(None, rounds):
             counts[j] += (local["labels"][a:b] >= 0).sum()
         counts = torch.clamp(summed(counts), min=1.0)
         # per micro-batch: its nll and its aux loss, each rank adding its
         # share
         sums = torch.zeros((accum, 2), dtype=torch.float32, device=dev)
         gsum = None
-        for a, b, j in pieces:
+        for piece in rounds:
+            if piece is None:
+                if cfg.moe:
+                    pad(dev)
+                continue
+            a, b, j = piece
             mb = {k: v[a:b] for k, v in local.items()}
             frac = (mb["labels"] >= 0).sum().float() / counts[j]
             share = (b - a) / micro_rows
@@ -312,25 +428,31 @@ def train_loop(model, steps=50, batch=8, seq_len=128, lr=3e-3, seed=0,
     """AdamW (weight decay 0.01) on `MarkovLM` batches (or the batches of
     `data`), logging the loss every `log_every` steps and at the last.
     `params` (a tree, e.g. the reference's init through
-    `convert.params_from_jax`) replaces the init drawn from `seed`.
-    Returns (params, history: [(step, loss), ...])."""
+    `convert.params_from_jax`) replaces the init drawn from `seed`. The
+    step is `make_graphed_train_step`'s (one CUDA graph on the card, as
+    the reference jits its step), made at the first batch. Returns
+    (params, history: [(step, loss), ...])."""
     dev = resolve_device(device)
     cfg = model.cfg
     opt = optimizers.adamw(lr, weight_decay=0.01)
     if params is None:
         params = model.init(generator(seed), dev)
     else:
-        params = tree_map(lambda p: p.to(dev), params)
+        # copied: the step updates its params in place
+        params = tree_map(lambda p: p.to(dev, copy=True), params)
     opt_state = opt.init(params)
-    step_fn = make_train_step(model, opt)
+    step_fn = None
 
     lm = MarkovLM(cfg.vocab_size, seed=seed)
     it = data or lm.batches(batch, seq_len, steps, seed=seed)
     history = []
     t0 = time.perf_counter()
     for i, b in enumerate(it):
-        params, opt_state, m = step_fn(params, opt_state,
-                                       device_batch(b, dev))
+        b = device_batch(b, dev)
+        if step_fn is None:
+            step_fn = make_graphed_train_step(model, opt, params, opt_state,
+                                              b)
+        params, opt_state, m = step_fn(params, opt_state, b)
         if i % log_every == 0 or i == steps - 1:
             loss = float(m["loss"])
             history.append((i, loss))

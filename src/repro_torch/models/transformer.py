@@ -236,9 +236,13 @@ def _remat(cfg, params):
 def _call(remat, fn, *args):
     """fn(*args), checkpointed when `remat`: its activations are dropped
     after the forward pass and recomputed in the backward pass. The values
-    are the same."""
+    are the same. The zoo's layers draw no random numbers, so the
+    recompute needs no saved RNG state (`preserve_rng_state=False`): the
+    CUDA RNG state is not read, a read that the capture of a step as a
+    CUDA graph (`launch.train.make_graphed_train_step`) may refuse."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
 
 

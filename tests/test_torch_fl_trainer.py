@@ -122,8 +122,8 @@ def test_mesh_hfl_equals_host_hfl():
 
 def test_mesh_other_than_none_raises():
     """A mesh runs the sharded trainer (tests/test_torch_fl_trainer_mesh.py)
-    with C / size("data") clients a rank; HFL groups that neither hold
-    whole ranks nor lie whole in one raise."""
+    with C / size("data") clients a rank; HFL groups that straddle ranks
+    build, as the reference's trainer reshapes any C into its groups."""
     from repro_torch.core import collectives
     from repro_torch.launch.mesh import dry_run_mesh
     from repro_torch.sharding.specs import MeshShape
@@ -134,9 +134,9 @@ def test_mesh_other_than_none_raises():
                                               num_groups=2), mesh=rm)
         assert tr.local_clients == range(2, 4)
         # 12 clients, 3 a rank, in 3 groups of 4
-        with pytest.raises(ValueError, match="do not lay"):
-            FederatedTrainer(model, FLConfig(strategy="hfl", num_clients=12,
-                                             num_groups=3), mesh=rm)
+        tr = FederatedTrainer(model, FLConfig(strategy="hfl", num_clients=12,
+                                              num_groups=3), mesh=rm)
+        assert tr.local_clients == range(3, 6)
 
 
 def test_batch_specs_and_meta():

@@ -10,8 +10,10 @@ half) on the CPU.
   AFL gossip, CFL) run 2 rounds on 8 gloo ranks laid out (data 4, model
   2), one client a "data" slice, and with 8 clients (2 a rank; HFL's
   groups over 2 ranks, or 2 whole groups a rank) and 6 (not dividing:
-  every rank holds all 6). From the reference's init (from the port's
-  own for 6 and 8 clients, each rank drawing only its clients): every
+  every rank holds all 6); and HFL with 12 clients, 3 a rank, in 3
+  groups of 4 that straddle ranks. From the reference's init (from the
+  port's own for 6 and 8 clients, each rank drawing only its clients):
+  every
   client's params and CFL's global model within 1e-5 of the one-device
   port trainer's and (one client a rank) of the reference's
   `fl_train_step`'s, the loss
@@ -283,3 +285,13 @@ def test_mesh_trainer_with_many_clients_a_rank(world, case):
     assert sorted(got) == sorted(
         ((i * per, i * per + per) if per < n else (0, n), m)
         for i in range(4) for m in range(2))
+
+
+def test_mesh_trainer_hfl_groups_straddling_ranks(world):
+    """12 clients, 3 a rank, in 3 HFL groups of 4: group 1 is rank 1's
+    last 2 clients and rank 2's first 2, groups 0 and 2 span a rank and
+    one client of the next; held to the one-device trainer and the
+    reference from the reference's init."""
+    got = _run_and_check(world, CASES["hfl"], 12, 3, np.ones(12, bool))
+    assert sorted(got) == sorted(((3 * i, 3 * i + 3), m) for i in range(4)
+                                 for m in range(2))

@@ -15,8 +15,9 @@ on the CPU.
   (reduced, float32); qwen3-moe's aux loss is the global batch's; and
   under grad_accum each rank's rows weigh as the single-device step's
   micro-batches do, with labels padded unevenly, with micro-batches
-  smaller than a rank's rows, and with MoE's aux loss. Each issues
-  all-gathers and reduce-scatters.
+  smaller than a rank's rows, with a rank's rows straddling two
+  micro-batches (12 rows under grad_accum 3), and with MoE's aux loss.
+  Each issues all-gathers and reduce-scatters.
 
 The reference's Mamba2 gradient is NaN where a chunk's decay overflows
 (tests/test_torch_train.py); zamba2 is held to it with that module's
@@ -176,10 +177,11 @@ def world():
         yield w
 
 
-def _batch(cfg, seed=3):
+def _batch(cfg, seed=3, rows=B):
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int64)
-    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int64)], 1)
+    toks = rng.integers(0, cfg.vocab_size, (rows, S), dtype=np.int64)
+    labels = np.concatenate([toks[:, 1:], np.full((rows, 1), -1, np.int64)],
+                            1)
     return {"tokens": toks, "labels": labels}
 
 
@@ -275,13 +277,19 @@ def test_grad_accum_cuts_each_ranks_rows(world):
         assert abs(metrics[0][k] - want[1][k]) <= REL * abs(want[1][k])
 
 
-ACCUM_CASES = {
+ACCUM_CASES = {     # (arch, grad_accum, global rows)
     # micro-batches of 4 rows, 2 rows a rank: one piece a rank
-    "phi3-mini-3.8b-accum2": ("phi3-mini-3.8b", 2),
+    "phi3-mini-3.8b-accum2": ("phi3-mini-3.8b", 2, B),
     # micro-batches of 1 row, 2 rows a rank: two pieces a rank
-    "phi3-mini-3.8b-accum8": ("phi3-mini-3.8b", 8),
+    "phi3-mini-3.8b-accum8": ("phi3-mini-3.8b", 8, B),
     # the aux loss's token means over each micro-batch's 4 x 64 tokens
-    "qwen3-moe-30b-a3b-accum2": ("qwen3-moe-30b-a3b", 2),
+    "qwen3-moe-30b-a3b-accum2": ("qwen3-moe-30b-a3b", 2, B),
+    # micro-batches of 4 rows, 3 rows a rank: ranks 1 and 2 straddle two
+    # micro-batches, and each micro-batch is held by two ranks
+    "phi3-mini-3.8b-accum3-straddling": ("phi3-mini-3.8b", 3, 12),
+    # the same with token means: a rank holding no row of a round's
+    # micro-batch issues its collectives with zeros
+    "qwen3-moe-30b-a3b-accum3-straddling": ("qwen3-moe-30b-a3b", 3, 12),
 }
 
 
@@ -292,13 +300,13 @@ def test_grad_accum_weighs_rows_as_the_single_device_micro_batches(world,
     differ from another's and from a rank's share of them): the sharded
     SGD step under grad_accum equals the single-device step's loss,
     grad-norm, aux loss and params."""
-    arch, accum = ACCUM_CASES[case]
+    arch, accum, rows = ACCUM_CASES[case]
     kw = dict(dtype="float32", sharding_profile="tp", grad_accum=accum)
     model = build_model(get_config(arch).reduced(**kw))
     params_np = params_to_numpy(model.init(generator(0), "cpu"))
-    batch = _batch(model.cfg, seed=5)
+    batch = _batch(model.cfg, seed=5, rows=rows)
     rng = np.random.default_rng(6)
-    for r in range(B):
+    for r in range(rows):
         # row r keeps a random number of its leading labels
         batch["labels"][r, int(rng.integers(1, S)):] = -1
     full, metrics, _ = world.run(cases.train, arch, kw, *MESH, batch,
