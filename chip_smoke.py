@@ -144,15 +144,16 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
 12. model zoo, rest (slice 11) — (a) the five configs slice 11 ports, at
    their published widths with random weights from a seed, each freed
-   before the next: qwen3-moe-30b-a3b (4 of 48 layers; B = 1, S = 2048;
-   MoE with 128 experts, top 8), deepseek-v2-lite-16b (4 of 27; MLA and
-   MoE with 2 shared experts), xlstm-125m (all 12 layers, sLSTM at 3, 7,
-   11; B = 2, S = 2048), seamless-m4t-large-v2 (24 encoder + 24 decoder
-   layers; 1024 frames, S = 1024) and phi-3-vision-4.2b (8 of 32 layers;
-   576 patches + 1472 tokens). Each runs the plain (einsum) prefill in
-   float32 and the bfloat16 prefill (printed against it); qwen3-moe and
-   phi-3-vision also the float32 flash prefill, gated against einsum at
-   1e-3 of max |logits| with `flash_attention` launched once a layer;
+   before the next: qwen3-moe-30b-a3b (2 of 48 layers; B = 1, S = 2048;
+   MoE with 128 experts, top 8), deepseek-v2-lite-16b (2 of 27; MLA and
+   MoE with 2 shared experts), xlstm-125m (4 of 12 layers, its sLSTM at
+   3; B = 2, S = 2048), seamless-m4t-large-v2 (12 of 24 encoder + 12 of
+   24 decoder layers; 1024 frames, S = 1024) and phi-3-vision-4.2b (4 of
+   32 layers; 576 patches + 1472 tokens). Each runs the plain (einsum)
+   prefill in float32 and the bfloat16 prefill (printed against it);
+   qwen3-moe and phi-3-vision also the float32 flash prefill, gated
+   against einsum at 1e-3 of max |logits| with `flash_attention`
+   launched once a layer;
    64 teacher-forced decode steps gated at 5e-2 against a 64-token
    prefill (MoE drop-free, capacity_factor = num_experts) for qwen3-moe,
    deepseek and xlstm, timed for seamless (zero cross-attention K/V) and
@@ -224,12 +225,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    seconds per round beside it and each rank's peak memory (the ranks
    share one card: not a speedup). Every run prints its backend and its
    form (graph or eager).
-15. the zoo's sharded steps (slice 14) — on 8 ranks sharing the card
-   (gloo), laid out (data 4, model 2), each holding the reference's shard
-   of every leaf (`launch/train.py`, `core/trainer.py`,
-   `launch/serve.py`; rank halves in tests/torch_sharded_cases.py): (a)
-   zamba2-1.2b at full width cut 38 -> 7 (float32, fsdp, B x S = 8 x
-   256) and the reference test's four (arch, profile) pairs reduced
+15. the zoo's sharded steps (slices 14, 17) — on 8 ranks sharing the
+   card (gloo), laid out (data 4, model 2), each holding the reference's
+   shard of every leaf and gathering a layer's leaves when it runs, under
+   tp computing its "model" shard of each layer (`models/parallel.py`,
+   `launch/train.py`, `core/trainer.py`, `launch/serve.py`; rank halves in
+   tests/torch_sharded_cases.py); first one card exchange of 64 MB a rank
+   between memory snapshots (again after (a)): (a) zamba2-1.2b at full
+   width cut 38 -> 7 (float32, fsdp, B x S = 8 x 256), phi3-mini-3.8b at
+   full width cut 32 -> 4 (float32, tp, 8 x 256; attention, MLP and
+   vocabulary cut over "model") and the reference test's four (arch,
+   profile) pairs reduced
    (phi3-mini tp, qwen3-moe tp, zamba2 fsdp, xlstm dp; 8 x 64): 2 SGD
    steps and 1 AdamW step of `make_sharded_train_step` against
    `make_train_step` on the card (loss and grad-norm within 1e-5
@@ -242,17 +248,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    rank) in 3 groups of 4 that straddle ranks, against the one-device
    `FederatedTrainer` (loss and params 1e-5, bitwise repeat, collectives
    in every strategy, gossip's collective-permute); (c) zamba2 cut as in
-   (a) under `attn_impl="flash"`: the kernel prefill of 8 x 2048 tokens
-   and 16 teacher-forced decode steps against the single-device ones
-   (prefill within 1e-3 of max abs(logit), decode 1e-4), B5 and B6
-   launched in every rank; (d) the dry-run on the meta device at full
-   size: the four FL strategies over phi3-mini on 16x16 and yi-9b's
-   decode shapes on 16x16 and 2x16x16 (ok, FLOPs and collectives; the
-   whole sweep runs through `python -m repro_torch.launch.dryrun`, PERF.md
-   §5). Each rank's peak memory and seconds a step print beside the
-   single-device step's; no kernel launches in (a) and (b). The sharded
-   steps' weight gathers are gloo all_gathers of host copies (each rank
-   sends its shard once);
+   (a) under `attn_impl="flash"`, under fsdp and under tp: the kernel
+   prefill of 8 x 2048 tokens and 16 teacher-forced decode steps against
+   the single-device ones (prefill within 1e-3 of max abs(logit), decode
+   1e-4), B5 and B6 launched in every rank, under tp at the rank's 16
+   attention and 32 Mamba2 heads, each held to its plain version at
+   those shapes and timed; (d) the dry-run on the meta device at full
+   size: the four FL strategies over phi3-mini on 16x16, yi-9b's decode
+   shapes on 16x16 and 2x16x16 (ok, FLOPs and collectives) and yi-9b's
+   train_4k on 16x16 under fsdp and tp (tp FLOPs a device at most 1.15x
+   fsdp's; peaks below the whole model's f32 params, 35.3 GB, and 45 GB;
+   the whole sweep runs through `python -m repro_torch.launch.dryrun`,
+   PERF.md §5). Each rank's peak memory and seconds a step print beside
+   the single-device step's; no kernel launches in (a) and (b). Ranks
+   sharing the card gather a layer's leaves and sum its gradients card
+   to card (CUDA IPC), and sum tp's activations through gloo;
 16. the examples' twins and the graphed decode (slice 15) — (a)
    zamba2-1.2b whole as 9(c) (float32, random weights from seed 0, B =
    2): `launch.serve.make_graphed_serve_step` captures `decode_step` as
@@ -2424,12 +2434,18 @@ DECODE_STEPS = 64
 # prefill gated against einsum, decode gated against the prefill). The
 # widths are the published ones; the cuts keep float32 weights within the
 # card (qwen3-moe whole is ~30.5 B parameters, 122 GB in float32).
+# depth cut to make room for phase 15's tensor-parallel cases in the
+# script's time (PERF.md section 4): qwen3-moe 48 -> 2 and
+# deepseek-v2-lite 27 -> 2 (4 each before), xlstm-125m 12 -> 4 (its sLSTM
+# kept at its published position 3), seamless 24 + 24 -> 12 + 12 and
+# phi-3-vision 32 -> 4 (whole, whole and 8 before)
 ZOO_REST = {
-    MOE: ({"num_layers": (48, 4)}, 1, 2048, True, True),
-    MLA: ({"num_layers": (27, 4)}, 1, 2048, False, True),
-    XLSTM: ({}, 2, 2048, False, True),
-    SEAMLESS: ({}, 1, 1024, False, False),
-    VISION: ({"num_layers": (32, 8)}, 1, 2048 - 576, True, False),
+    MOE: ({"num_layers": (48, 2)}, 1, 2048, True, True),
+    MLA: ({"num_layers": (27, 2)}, 1, 2048, False, True),
+    XLSTM: ({"num_layers": (12, 4)}, 2, 2048, False, True),
+    SEAMLESS: ({"num_layers": (24, 12), "encoder_layers": (24, 12)}, 1,
+               1024, False, False),
+    VISION: ({"num_layers": (32, 4)}, 1, 2048 - 576, True, False),
 }
 
 
@@ -2524,6 +2540,9 @@ def zoo_rest_phase(arch, device="cuda", seed=0):
     cfg = get_config(arch).with_updates(
         dtype="float32", attn_impl=impl,
         **{k: run for k, (_, run) in cuts.items()})
+    if cfg.block_pattern:
+        cfg = cfg.with_updates(block_pattern=cfg.block_pattern[
+            :cfg.num_layers])
     n_flash = cfg.num_layers if flash else 0
     start, t0 = _counts(), time.perf_counter()
     model = build_model(cfg)
@@ -4028,12 +4047,29 @@ SHARDED_PREFILL_REL = 1e-3            # of the prefill's max |logit| (9(c))
 # (tests/test_sharding_and_dryrun.py:110-115)
 SHARDED_PAIRS = (("phi3-mini-3.8b", "tp"), ("qwen3-moe-30b-a3b", "tp"),
                  ("zamba2-1.2b", "fsdp"), ("xlstm-125m", "dp"))
+# the rank peaks when a step gathered the whole tree at once (PERF.md
+# section 6): printed beside this run's, not a gate
+WHOLE_TREE_RANK_PEAK_MB = "808-954 (reduced pairs, inside the script)"
+# phi3-mini-3.8b at full width cut 32 -> 4 layers (15(a), tensor-parallel)
+PHI3_CUT = 4
+# yi-9b's full-size dry-run gates (15(d)): per device, tp FLOPs at most
+# 1.15x fsdp's; the peak under fsdp below the whole model's f32 params
+# (8,829,407,232 x 4 B), under tp below 45 GB (remat's bf16 layer inputs,
+# whole over "model" as in the reference, are 25.8 GB of it)
+DRYRUN_TP_FLOPS_RATIO = 1.15
+DRYRUN_FSDP_PEAK = 8_829_407_232 * 4
+DRYRUN_TP_PEAK = 45e9
 
 
 def _zamba_cut_kw(**kw):
     layers = TRAIN_CUT["num_layers"][1]
-    return dict(dtype="float32", num_layers=layers,
-                block_pattern=("mamba",) * layers, sharding_profile="fsdp",
+    return dict(dict(dtype="float32", num_layers=layers,
+                     block_pattern=("mamba",) * layers,
+                     sharding_profile="fsdp"), **kw)
+
+
+def _phi3_cut_kw(**kw):
+    return dict(dtype="float32", sharding_profile="tp", num_layers=PHI3_CUT,
                 **kw)
 
 
@@ -4048,7 +4084,7 @@ def _mb(report):
 
 
 def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
-                        gated_all_gather=False):
+                        gated_all_gather=False, tp=False):
     """One config: 2 SGD steps (lr 1e-2) and 1 AdamW step of
     `make_sharded_train_step` on the ranks against `make_train_step` on
     the card from one init (seed 0) and batch (seed 1)."""
@@ -4103,7 +4139,8 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
                "ranks_agree": agree,
                "rank_step_s": [r["step_seconds"] for *_, r in outs],
                "single_step_s": single_s,
-               "rank_peak_mb": [_mb(r) for *_, r in outs]}
+               "rank_peak_mb": [_mb(r) for *_, r in outs],
+               "cut": rep0["cut"]}
         out[name] = row
         print(f"  {label} {name}: loss {metrics[-1]['loss']:.6f} "
               f"grad-norm {metrics[-1]['grad_norm']:.6f}; rel {rel:.2e}; "
@@ -4112,12 +4149,15 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
               f"{row['bitwise_repeat']}; s/step ranks "
               f"{[round(t, 3) for t in rep0['step_seconds']]} single "
               f"{[round(t, 3) for t in single_s]}; collectives {kinds}; "
-              f"rank peak MB {row['rank_peak_mb']}", flush=True)
+              f"cut over model {row['cut']}; rank peak MB "
+              f"{row['rank_peak_mb']} (whole-tree gathers "
+              f"{WHOLE_TREE_RANK_PEAK_MB})", flush=True)
         bad = (rel > SHARDED_REL or not agree or any(launches)
                or (name == "sgd" and (perr > SHARDED_PARAM_ATOL
                                       or not repeat))
                or not sum(kinds.values())
-               or (gated_all_gather and not kinds.get("all-gather")))
+               or (gated_all_gather and not kinds.get("all-gather"))
+               or (tp and not {"attn", "mlp", "vocab"} <= set(row["cut"])))
         if bad:
             raise SystemExit(f"15(a) {label} {name}: {row}")
         del full, outs
@@ -4127,16 +4167,20 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
 
 def sharded_train_phase(world, device="cuda", B=8, S=256):
     """15(a): zamba2-1.2b at full width cut 38 -> 7 as in 13(a) (float32,
-    fsdp, B x S = 8 x 256), then the reference test's four (arch,
-    profile) pairs reduced (8 x 64), then phi3-mini reduced with a rank's
-    rows straddling grad_accum's micro-batches (12 x 64, grad_accum 3):
-    2 SGD and 1 AdamW steps sharded over the ranks against
-    `make_train_step` on the card."""
+    fsdp, B x S = 8 x 256), phi3-mini-3.8b at full width cut 32 -> 4
+    (float32, tp: each rank computes its "model" half of every layer),
+    then the reference test's four (arch, profile) pairs reduced (8 x
+    64), then phi3-mini reduced with a rank's rows straddling grad_accum's
+    micro-batches (12 x 64, grad_accum 3): 2 SGD and 1 AdamW steps
+    sharded over the ranks against `make_train_step` on the card."""
     from repro_torch.device import deterministic_f32
     deterministic_f32()
     out = {"zamba2-1.2b-cut": _sharded_train_case(
         world, "zamba2-1.2b cut 38 -> 7 (fsdp)", ZAMBA, _zamba_cut_kw(), B,
         S, False, device, gated_all_gather=True)}
+    out["phi3-mini-3.8b-cut-tp"] = _sharded_train_case(
+        world, f"phi3-mini-3.8b cut 32 -> {PHI3_CUT} (tp)", "phi3-mini-3.8b",
+        _phi3_cut_kw(), B, S, False, device, gated_all_gather=True, tp=True)
     for arch, profile in SHARDED_PAIRS:
         out[f"{arch}-{profile}"] = _sharded_train_case(
             world, f"{arch} reduced ({profile})", arch,
@@ -4246,12 +4290,17 @@ def sharded_fl_phase(world, device="cuda", C=4, K=2, B=2, S=64, rounds=2):
     return out
 
 
-def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16):
-    """15(c): zamba2-1.2b cut 38 -> 7 (float32, fsdp, attn_impl="flash"),
-    the kernel prefill of B x S = 8 x 2048 tokens and 16 teacher-forced
-    decode steps sharded over the ranks (each rank its rows) against the
+def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16,
+                        profiles=("fsdp", "tp")):
+    """15(c): zamba2-1.2b cut 38 -> 7 (float32, attn_impl="flash"), the
+    kernel prefill of B x S = 8 x 2048 tokens and 16 teacher-forced
+    decode steps sharded over the ranks under each of `profiles` (each
+    rank its rows; under "tp" its "model" half of the heads) against one
     single-device kernel prefill and decode on the card; B5 and B6 must
-    launch in every rank, as often as in the single-device prefill."""
+    launch in every rank, as often as in the single-device prefill, and
+    under "tp" at the rank's head counts, where each is held to its plain
+    version at the shapes the ranks launched it at. Returns a row a
+    profile."""
     import numpy as np
     import torch
     import torch_sharded_cases as cases
@@ -4275,48 +4324,101 @@ def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16):
     dec = dec.float().transpose(0, 1).cpu().numpy()      # (steps, B, V)
     del params
     torch.cuda.empty_cache()
-    scale, perr = float(np.abs(logits).max()), 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = world.run(cases.serve, ZAMBA, kw, *SHARDED_MESH,
-                         tokens.numpy(), steps, kernel=True, reduced=False,
-                         out_dir=tmp)
-        for (a, b), lg, *_ in outs:
-            perr = max(perr, float(np.abs(cases.load(lg)[0]
-                                          - logits[a:b]).max()))
-    derr = max(float(np.abs(d - dec[:, c:e]).max())
-               for _, _, (c, e), d, _ in outs)
-    reps = [o[4] for o in outs]
-    launches = [r["launches"] for r in reps]
-    out = {"B": B, "S": S, "decode_steps": steps,
-           "prefill_max_abs_err": perr, "prefill_max_abs": scale,
-           "decode_max_abs_err": derr, "launches": launches,
-           "single_launches": single_launches,
-           "single_prefill_s": prefill_ms / 1e3,
-           "single_decode_s_per_step": decode_ms / 1e3 / steps,
-           "rank_prefill_s": [r["prefill_seconds"] for r in reps],
-           "rank_decode_s_per_step": [r["decode_seconds"] / steps
-                                      for r in reps],
-           "rank_peak_mb": [_mb(r) for r in reps],
-           "collectives": reps[0]["collectives"]["kinds"]}
-    print(f"  prefill |sharded - single| {perr:.3e} (bar "
-          f"{SHARDED_PREFILL_REL} x {scale:.3f}); decode {derr:.3e}; "
-          f"launches a rank {launches[0]} (single device {single_launches});"
-          f" prefill s ranks {max(out['rank_prefill_s']):.3f} single "
-          f"{out['single_prefill_s']:.3f}; decode s/step ranks "
-          f"{max(out['rank_decode_s_per_step']):.3f} single "
-          f"{out['single_decode_s_per_step']:.4f}; rank peak MB "
-          f"{out['rank_peak_mb']}", flush=True)
-    if not (perr <= SHARDED_PREFILL_REL * scale
-            and derr <= SHARDED_DECODE_ATOL):
-        raise SystemExit(f"15(c): prefill {perr} or decode {derr} off")
-    if not (all(l["flash_attention"] > 0 and l["ssm_scan"] > 0
-                for l in launches)
-            and all(l == launches[0] for l in launches)
-            and launches[0]["flash_attention"]
-            >= single_launches["flash_attention"]
-            and launches[0]["ssm_scan"] >= single_launches["ssm_scan"]):
-        raise SystemExit(f"15(c): kernel launches {launches}, single "
-                         f"device {single_launches}")
+    scale = float(np.abs(logits).max())
+    rows = {}
+    for profile in profiles:
+        perr = 0.0
+        pkw = dict(kw, sharding_profile=profile)
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = world.run(cases.serve, ZAMBA, pkw, *SHARDED_MESH,
+                             tokens.numpy(), steps, kernel=True,
+                             reduced=False, out_dir=tmp)
+            for (a, b), lg, *_ in outs:
+                perr = max(perr, float(np.abs(cases.load(lg)[0]
+                                              - logits[a:b]).max()))
+        derr = max(float(np.abs(d - dec[:, c:e]).max())
+                   for _, _, (c, e), d, _ in outs)
+        reps = [o[4] for o in outs]
+        launches = [r["launches"] for r in reps]
+        out = {"B": B, "S": S, "decode_steps": steps, "profile": profile,
+               "prefill_max_abs_err": perr, "prefill_max_abs": scale,
+               "decode_max_abs_err": derr, "launches": launches,
+               "single_launches": single_launches,
+               "single_prefill_s": prefill_ms / 1e3,
+               "single_decode_s_per_step": decode_ms / 1e3 / steps,
+               "rank_prefill_s": [r["prefill_seconds"] for r in reps],
+               "rank_decode_s_per_step": [r["decode_seconds"] / steps
+                                          for r in reps],
+               "rank_peak_mb": [_mb(r) for r in reps],
+               "collectives": reps[0]["collectives"]["kinds"],
+               "cut": reps[0]["cut"],
+               "kernel_shapes": reps[0]["kernel_shapes"]}
+        print(f"  {profile}: prefill |sharded - single| {perr:.3e} (bar "
+              f"{SHARDED_PREFILL_REL} x {scale:.3f}); decode {derr:.3e}; "
+              f"launches a rank {launches[0]} (single device "
+              f"{single_launches}); prefill s ranks "
+              f"{max(out['rank_prefill_s']):.3f} single "
+              f"{out['single_prefill_s']:.3f}; decode s/step ranks "
+              f"{max(out['rank_decode_s_per_step']):.3f} single "
+              f"{out['single_decode_s_per_step']:.4f}; cut over model "
+              f"{out['cut']}; rank peak MB {out['rank_peak_mb']} (whole-tree "
+              f"gathers {WHOLE_TREE_RANK_PEAK_MB})", flush=True)
+        if not (perr <= SHARDED_PREFILL_REL * scale
+                and derr <= SHARDED_DECODE_ATOL):
+            raise SystemExit(f"15(c) {profile}: prefill {perr} or decode "
+                             f"{derr} off")
+        if not (all(l["flash_attention"] > 0 and l["ssm_scan"] > 0
+                    for l in launches)
+                and all(l == launches[0] for l in launches)
+                and launches[0]["flash_attention"]
+                >= single_launches["flash_attention"]
+                and launches[0]["ssm_scan"] >= single_launches["ssm_scan"]):
+            raise SystemExit(f"15(c) {profile}: kernel launches "
+                             f"{launches}, single device {single_launches}")
+        if profile == "tp":
+            out["kernel_rows"] = _sharded_kernel_rows(
+                model.cfg.with_updates(sharding_profile=profile), reps)
+        rows[profile] = out
+    return rows
+
+
+def _sharded_kernel_rows(cfg, reports):
+    """Under "tp": every rank launched B5 at its H/M heads and B6 at its
+    H/M Mamba2 heads; each shape held to its plain version (and timed)."""
+    import torch
+    from repro_torch.models.ssm import ssm_heads
+    M = SHARDED_MESH[0][1]
+    rows_b = SHARDED_MESH[0][0]
+    want_attn = cfg.num_heads // M
+    want_ssm = ssm_heads(cfg) // M
+    shapes = {"flash_attention": set(), "ssm_scan": set()}
+    for r in reports:
+        for q, k, dt in r["kernel_shapes"]["flash_attention"]:
+            shapes["flash_attention"].add((tuple(q), tuple(k), dt))
+        for x, b, dt in r["kernel_shapes"]["ssm_scan"]:
+            shapes["ssm_scan"].add((tuple(x), tuple(b), dt))
+    if not (shapes["flash_attention"] and shapes["ssm_scan"]
+            and all(q[2] == want_attn for q, _, _ in
+                    shapes["flash_attention"])
+            and all(x[2] == want_ssm for x, _, _ in shapes["ssm_scan"])):
+        raise SystemExit(f"15(c) tp: kernels not at the rank's heads "
+                         f"({want_attn} attention, {want_ssm} Mamba2): "
+                         f"{shapes}")
+    gen = torch.Generator().manual_seed(13)
+    out = {"flash_attention": [], "ssm_scan": []}
+    for q, k, dt in sorted(shapes["flash_attention"]):
+        case = (f"zamba2-1.2b tp rank (B {q[0]} of {q[0] * rows_b})",
+                q[0], q[1], k[1], q[2], k[2], q[3], True, 0)
+        row = flash_row(case, getattr(torch, dt.split(".")[-1]), True, gen)
+        print("  flash_attention", json.dumps(row), flush=True)
+        out["flash_attention"].append(row)
+    for x, b, dt in sorted(shapes["ssm_scan"]):
+        case = (f"zamba2-1.2b tp rank (B {x[0]} of {x[0] * rows_b})",
+                x[0], x[1], x[2], x[3], b[2])
+        row = ssm_row(case, getattr(torch, dt.split(".")[-1]), True, gen)
+        print("  ssm_scan", json.dumps(row), flush=True)
+        out["ssm_scan"].append(row)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4330,21 +4432,35 @@ DRYRUN_SHAPES = ("decode_32k", "long_500k")
 
 def dryrun_phase():
     """15(d): the port's dry-run on the meta device (no card), at full
-    size: each FL strategy over phi3-mini on 16x16, and yi-9b's decode
-    shapes on 16x16 and 2x16x16. Each must return ok with FLOPs and
-    collectives."""
+    size: each FL strategy over phi3-mini on 16x16, yi-9b's decode shapes
+    on 16x16 and 2x16x16, and yi-9b's train_4k on 16x16 under fsdp and
+    tp. Each must return ok with FLOPs and collectives; train_4k's
+    per-device FLOPs under tp at most DRYRUN_TP_FLOPS_RATIO x fsdp's, its
+    peak under fsdp below the whole model's f32 parameters and under tp
+    below DRYRUN_TP_PEAK."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
 
     jobs = ([("fl", "phi3-mini-3.8b", f, m) for f, m in DRYRUN_FL]
             + [("std", "yi-9b", s, mp) for s in DRYRUN_SHAPES
-               for mp in (False, True)])
+               for mp in (False, True)]
+            + [("train", "yi-9b", "train_4k", p) for p in ("fsdp", "tp")])
     out = []
     t0 = time.perf_counter()
     for kind, arch, what, extra in jobs:
+        t1 = time.perf_counter()
         if kind == "fl":
             r = dryrun.lower_fl(arch, what, afl_mode=extra)
             profile = "tp"
+        elif kind == "train":
+            r = dryrun.lower_and_compile(arch, what,
+                                         opts=f"sharding_profile={extra}")
+            profile = extra
+            print(f"  yi-9b train_4k 16x16 {extra}: FLOPs a device "
+                  f"{r['roofline']['flops_per_device'] / 1e12:.1f} T, peak "
+                  f"{r['memory']['peak_bytes'] / 1e9:.2f} GB, collectives "
+                  f"{r['roofline']['collective_count']} "
+                  f"({time.perf_counter() - t1:.1f}s)", flush=True)
         else:
             r = dryrun.lower_and_compile(arch, what, multi_pod=extra)
             profile = get_config(arch).sharding_profile
@@ -4354,9 +4470,41 @@ def dryrun_phase():
             raise SystemExit(f"15(d) {arch} {what} {extra}: {r}")
         r["profile"] = profile
         out.append(r)
-    print(f"  {len(out)} dry-runs in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    train = {r["profile"]: r for r in out if r.get("shape") == "train_4k"}
+    fs, tp = train["fsdp"], train["tp"]
+    ratio = (tp["roofline"]["flops_per_device"]
+             / fs["roofline"]["flops_per_device"])
+    if not (ratio <= DRYRUN_TP_FLOPS_RATIO
+            and fs["memory"]["peak_bytes"] < DRYRUN_FSDP_PEAK
+            and tp["memory"]["peak_bytes"] < DRYRUN_TP_PEAK):
+        raise SystemExit(f"15(d) yi-9b train_4k: tp / fsdp FLOPs {ratio}, "
+                         f"peaks {fs['memory']['peak_bytes']} (fsdp, bar "
+                         f"{DRYRUN_FSDP_PEAK}) {tp['memory']['peak_bytes']} "
+                         f"(tp, bar {DRYRUN_TP_PEAK})")
+    print(f"  {len(out)} dry-runs in {time.perf_counter() - t0:.1f}s; "
+          f"yi-9b train_4k tp / fsdp FLOPs {ratio:.3f}", flush=True)
     return out
+
+
+def _exchange_snapshot(world, when):
+    """ROADMAP C.5: each rank's allocator by block state around one card
+    exchange of 64 MB a rank (`torch_sharded_cases.exchange_snapshot`)."""
+    import torch_sharded_cases as cases
+    snaps = world.run(cases.exchange_snapshot)
+    mb = 2.0 ** -20
+
+    def row(key, state="allocated"):
+        return [round(sn[key].get(state, 0) * mb, 1) for sn in snaps]
+    print(f"  memory around one exchange ({when}), MB a rank: allocated "
+          f"before {row('before')}, with the result {row('with_result')}, "
+          f"freed {row('freed')}, collected {row('collected')}; peak "
+          f"{[round(sn['peak_allocated'] * mb, 1) for sn in snaps]}; "
+          f"pending-free blocks with the result "
+          f"{row('with_result', 'active_pending_free')}", flush=True)
+    if not all(sn["ok"] for sn in snaps):
+        raise SystemExit(f"15: a card exchange gathered wrong blocks "
+                         f"({when})")
+    return snaps
 
 
 def sharded_phase(device="cuda"):
@@ -4370,16 +4518,23 @@ def sharded_phase(device="cuda"):
         print(f"  {SHARDED_RANKS} ranks on {device}, backend "
               f"{world.backend}, mesh {SHARDED_MESH}, started in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        if device == "cuda":
+            out["snapshot_fresh"] = _exchange_snapshot(world, "fresh ranks")
         for key, label, fn in (
                 ("train", "(a) the sharded train step", sharded_train_phase),
                 ("fl", "(b) the sharded federated trainer", sharded_fl_phase),
-                ("serve", "(c) the sharded kernel prefill and decode",
-                 sharded_serve_phase)):
+                ("serve", "(c) the sharded kernel prefill and decode, fsdp "
+                 "and tensor-parallel", sharded_serve_phase)):
             print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
                   flush=True)
             out[key] = fn(world, device)
+            if key == "train" and device == "cuda":
+                out["snapshot_after_train"] = _exchange_snapshot(
+                    world, "after 15(a)")
     print(f"  -- (d) the dry-run on the meta device (at "
           f"{time.perf_counter() - t0:.1f}s, the ranks stopped)", flush=True)
+    out["serve_tp"] = out["serve"]["tp"]
+    out["serve"] = out["serve"]["fsdp"]
     out["dryrun"] = dryrun_phase()
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -4895,9 +5050,14 @@ def main():
         "dtype": "bfloat16", "shapes": [r for r in srows if "ms" in r],
         "launches_zoo_rest": zoo_rest["launches"]["ssm_scan"]}
     for e in (flentry, sentry):
-        # each rank's launches in 15(c)'s sharded kernel prefill and decode
+        # each rank's launches in 15(c)'s sharded kernel prefill and decode,
+        # and under "tp" at the rank's heads, with those shapes' rows
         e["launches_sharded"] = [r[e["name"]]
                                  for r in sharded["serve"]["launches"]]
+        e["launches_sharded_tp"] = [r[e["name"]]
+                                    for r in sharded["serve_tp"]["launches"]]
+        e["shapes_sharded_tp"] = sharded["serve_tp"]["kernel_rows"][
+            e["name"]]
     for e in (entry, tentry):
         e["launches_churn"] = churn["launches"][e["name"]]
     entry["launches_transport"] = transport["launches"]["fedavg_agg"]

@@ -20,12 +20,14 @@ no collective at all. Two tallies are kept:
   (`launch.roofline.collective_bytes` weighs them as it does).
 
 `all_reduce_sum` sums in place; `all_gather` sends each rank's block
-once; `card_gather` makes many gathers at once between ranks that share
-a card, reading the blocks card to card (the zoo's sharded steps gather
-every weight a step, which through the host bounded them);
-`reduce_scatter`
-is a sum and then the caller's slice; `ppermute` is a slot expansion
-read at the senders' slots. Inside `dry_run()` no collective touches a
+once; `card_gather` and `card_reduce` make many gathers and sums at once
+between ranks that share a card, reading the blocks card to card (the
+zoo's sharded steps gather every layer's weights and sum its gradients
+a step, which through the host bounded them); `ppermute` is a slot
+expansion read at the senders' slots. The tensor-parallel steps'
+autograd operations (`copy_to`, `reduce_from`, `sum_over`, and
+`gather_leaves`, an all-gather whose backward reduce-scatters the
+gradient) sit at the end. Inside `dry_run()` no collective touches a
 process group: each counts its kind and bytes and returns a tensor of its
 result's shape (on the meta device when its input is there), as if every
 rank held the same data. The dry-run (`launch/dryrun.py`) runs rank 0's
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 from typing import Dict, List, Sequence
 
 import torch
@@ -182,7 +185,14 @@ def card_gather(items) -> List[torch.Tensor]:
     results on its own stream, waits for its copies and meets the others
     at a barrier, after which no rank reads another's block. Each item is
     counted by kind as the all-gathers it stands for, as `all_gather`
-    counts them."""
+    counts them.
+
+    A rank packs its blocks in one buffer a dtype and shares it once for
+    each rank that reads it (the ranks it reads from, by the symmetry of a
+    gather); each reader opens its own share, once a peer: PyTorch's CUDA
+    IPC counts one release a share (a block whose one share seven readers
+    released stayed allocated for good in its sender, ROADMAP C.5), and
+    opening a share costs far more than reading it."""
     import torch.distributed as dist
     from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
                                                   reduce_tensor)
@@ -190,34 +200,89 @@ def card_gather(items) -> List[torch.Tensor]:
     # a block shared by an earlier call and freed since waits for this
     # before the allocator reuses it
     torch.cuda.ipc_collect()
-    blocks = [x.contiguous() for x, *_ in items]     # alive to the barrier
+    # the blocks packed in one buffer a dtype (alive to the barrier): a
+    # reader opens one share a peer, whatever the number of items
+    packs: Dict = {}
+    where = []
+    for x, *_ in items:
+        at = sum(b.numel() for b in packs.get(x.dtype, []))
+        packs.setdefault(x.dtype, []).append(x.detach().reshape(-1))
+        where.append((x.dtype, at))
+    flat = {dt: torch.cat(bs) for dt, bs in packs.items()}
+    readers: Dict = {}
+    for x, _, places, _ in items:
+        readers.setdefault(x.dtype, set()).update(
+            j for j, _ in places if j != me)
     _count("card_exchange", 0)
     handles: List = [None] * dist.get_world_size()
-    dist.all_gather_object(handles, [reduce_tensor(b)[1] for b in blocks])
-    outs, opened = [], []
-    for k, (x, shape, places, kind_bytes) in enumerate(items):
+    dist.all_gather_object(handles, {
+        dt: {j: reduce_tensor(b)[1] for j in sorted(readers[dt])}
+        for dt, b in flat.items()})
+    peers: Dict = {}
+    outs = []
+    for (x, shape, places, kind_bytes), (dt, at) in zip(items, where):
         for nbytes in kind_bytes:
             _count_kind("all-gather", 1, nbytes)
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
-        for j, where in places:
-            if j != me:
-                opened.append(rebuild_cuda_tensor(*handles[j][k]))
-            out[where].copy_(blocks[k] if j == me else opened[-1])
+        n = x.numel()
+        for j, w in places:
+            if j == me:
+                src = flat[dt]
+            else:
+                if (j, dt) not in peers:
+                    peers[j, dt] = rebuild_cuda_tensor(*handles[j][dt][me])
+                src = peers[j, dt]
+            out[w].copy_(src[at:at + n].view(x.shape))
         outs.append(out)
     if items:
         torch.cuda.current_stream(items[0][0].device).synchronize()
-    opened.clear()                        # let go of every peer's block
+    peers.clear()                         # let go of every peer's block
     dist.barrier()
-    blocks.clear()
+    flat.clear()
     torch.cuda.ipc_collect()
     return outs
 
 
-def reduce_scatter(x: torch.Tensor, axis, index) -> torch.Tensor:
-    """The sum of `x` over `axis`, of which this rank keeps `x[index]`
-    (its block): one sum all_reduce, then the slice."""
-    _sum(x, axis, "reduce-scatter", 1, _nbytes(x[index]))
-    return x[index].clone()
+def card_reduce(items) -> List[torch.Tensor]:
+    """Many sums at once between ranks that share a card, each read card
+    to card through CUDA IPC: `items` lists (flat buffer, members: the
+    global ranks of the sum's axis in axis order, [(offset, shape,
+    index)]: the buffer's pieces, each a tensor of `shape` at `offset`
+    of which this rank keeps `index`); every rank passes its own buffer
+    for the same items in the same order. Each rank adds the members'
+    pieces at its own index, in axis order, so ranks that keep the same
+    block get the same bits. Shares and exchanges as `card_gather`
+    (counted as one "card_exchange" call); the caller counts the kinds."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
+                                                  reduce_tensor)
+    me = dist.get_rank()
+    torch.cuda.ipc_collect()
+    bufs = [b.detach().contiguous() for b, *_ in items]
+    _count("card_exchange", 0)
+    handles: List = [None] * dist.get_world_size()
+    dist.all_gather_object(handles, [
+        {j: reduce_tensor(b)[1] for j in members if j != me}
+        for b, (_, members, _) in zip(bufs, items)])
+    outs, opened = [], []
+    for k, (_, members, pieces) in enumerate(items):
+        peers = [bufs[k] if j == me else rebuild_cuda_tensor(
+            *handles[j][k][me]) for j in members]
+        opened.extend(peers)
+        for at, shape, index in pieces:
+            n = math.prod(shape)
+            acc = None
+            for b in peers:
+                part = b[at:at + n].view(shape)[index]
+                acc = part.clone() if acc is None else acc.add_(part)
+            outs.append(acc)
+    if items:
+        torch.cuda.current_stream(bufs[0].device).synchronize()
+    opened.clear()
+    dist.barrier()
+    bufs.clear()
+    torch.cuda.ipc_collect()
+    return outs
 
 
 def ppermute(x: torch.Tensor, axis, shifts: Sequence[int]):
@@ -250,3 +315,179 @@ def barrier(device=None) -> None:
         dist.barrier(device_ids=[dev.index])
     else:
         dist.barrier()
+
+
+# -- tensor parallelism: autograd operations over a mesh axis -----------------
+# Megatron's pair for a tensor-parallel block whose input and output are
+# whole on every rank of `axis`: `copy_to` at its entry (identity forward,
+# the gradient summed backward: each rank's branch adds its part of the
+# input's gradient), `reduce_from` after its row-parallel product (the
+# partial outputs summed forward; every rank then computes the same
+# downstream, so the gradient passes through). Both are counted as the
+# reference's "all-reduce". `sum_over` is the two at once, for a sum whose
+# result feeds rank-specific work (the gated norm's sum of squares).
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g.contiguous().clone(), ctx.axis, "all-reduce"), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _sum(x.contiguous().clone(), axis, "all-reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's f over `axis`: `x`, its gradient summed over the axis."""
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's g over `axis`: the sum of the ranks' `x`, its gradient
+    passed through."""
+    return _ReduceFrom.apply(x, axis)
+
+
+def sum_over(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of the ranks' `x`, its gradient summed too."""
+    return copy_to(reduce_from(x, axis), axis)
+
+
+def max_over(x: torch.Tensor, axis) -> torch.Tensor:
+    """The elementwise max of the ranks' `x` (no gradient): one sum
+    all_reduce of an (axis.size, *x.shape) slot expansion, counted as the
+    reference's one "all-reduce" (a max there)."""
+    x = x.detach()
+    slots = x.new_zeros((axis.size,) + tuple(x.shape))
+    slots[axis.index] = x
+    _sum(slots, axis, "all-reduce", 1, _nbytes(x))
+    return slots.amax(0)
+
+
+class LeafPlan(tuple):
+    """How `gather_leaves` makes one leaf's compute slice from the rank's
+    stored shard, and how its gradient goes back (`launch.mesh.leaf_plan`
+    builds it): `dims` [(dim, axis)] gathered in turn by `all_gather`;
+    `card` the `card_gather` item of the same gathers less its first
+    entry, the shard (None: nothing to gather); `select` (dim, ((lo,
+    hi), ...)) cut from the gathered tensor (None: all of it); `shape` the
+    gathered tensor's shape; `sum_axis` the axis the gradient is summed
+    over (None: no sum); `index` the rank's stored block within the
+    gathered tensor; `kind` the reference's op the gradient's sum stands
+    for ("reduce-scatter" where the stored shard is cut over a summed
+    axis, else "all-reduce")."""
+
+    def __new__(cls, dims, card, select, shape, sum_axis, index, kind):
+        return super().__new__(cls, (dims, card, select, tuple(shape),
+                                     sum_axis, index, kind))
+
+    dims = property(lambda s: s[0])
+    card = property(lambda s: s[1])
+    select = property(lambda s: s[2])
+    shape = property(lambda s: s[3])
+    sum_axis = property(lambda s: s[4])
+    index = property(lambda s: s[5])
+    kind = property(lambda s: s[6])
+
+
+def _select(x, select):
+    """The compute slice of a gathered tensor: a copy, so that nothing
+    keeps the gathered tensor alive."""
+    if select is None:
+        return x
+    d, ranges = select
+    return torch.cat([x.narrow(d, lo, hi - lo) for lo, hi in ranges], d)
+
+
+def _unselect(g, select, shape):
+    if select is None:
+        return g
+    d, ranges = select
+    out = g.new_zeros(shape)
+    at = 0
+    for lo, hi in ranges:
+        out.narrow(d, lo, hi - lo).copy_(g.narrow(d, at, hi - lo))
+        at += hi - lo
+    return out
+
+
+class _GatherLeaves(torch.autograd.Function):
+    """Forward: each stored shard gathered (all of them in one card
+    exchange on ranks sharing a card) and its compute slice cut.
+    Backward: each slice's gradient placed in the gathered shape, summed
+    over its axis (one sum all_reduce a summed axis and dtype for all the
+    leaves) and cut to the rank's stored block: the all-gather's
+    transpose, a reduce-scatter where the shard is cut over the summed
+    axes."""
+
+    @staticmethod
+    def forward(ctx, plans, *shards):
+        ctx.plans = plans
+        full = list(shards)
+        cards = [(i, p.card) for i, p in enumerate(plans) if p.card]
+        if cards and on_shared_card(shards[0]):
+            for (i, _), x in zip(cards, card_gather(
+                    [(shards[i],) + c for i, c in cards])):
+                full[i] = x
+        else:
+            for i, p in enumerate(plans):
+                for d, axis in p.dims:
+                    full[i] = all_gather(full[i], axis, dim=d)
+        return tuple(_select(x, p.select) for x, p in zip(full, plans))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plans = ctx.plans
+        padded = [_unselect(g, p.select, p.shape)
+                  for g, p in zip(grads, plans)]
+        groups: Dict = {}
+        for i, p in enumerate(plans):
+            if p.sum_axis is not None:
+                groups.setdefault((p.sum_axis.name, padded[i].dtype),
+                                  []).append(i)
+        out = [x[p.index] for x, p in zip(padded, plans)]
+        card = grads and on_shared_card(grads[0])
+        items, where = [], []
+        for members in groups.values():
+            axis = plans[members[0]].sum_axis
+            buf = torch.cat([padded[i].reshape(-1) for i in members])
+            pieces, at = [], 0
+            for i in members:
+                n = padded[i].numel()
+                pieces.append((at, tuple(padded[i].shape), plans[i].index))
+                if not card:
+                    out[i] = buf[at:at + n].view(padded[i].shape)[
+                        plans[i].index]
+                at += n
+                _count_kind(plans[i].kind, 1, _nbytes(
+                    out[i] if plans[i].kind == "reduce-scatter"
+                    else padded[i]))
+            if card:
+                # ranks sharing a card read each other's pieces card to card
+                items.append((buf, axis.members, pieces))
+                where.extend(members)
+            else:
+                _sum(buf, axis, "")
+        if items:
+            for i, x in zip(where, card_reduce(items)):
+                out[i] = x
+        return (None,) + tuple(x.clone(memory_format=torch.contiguous_format)
+                               for x in out)
+
+
+def gather_leaves(plans, shards) -> List[torch.Tensor]:
+    """The compute slices of `shards` by their `LeafPlan`s, through an
+    autograd function whose backward sums each slice's gradient over its
+    axis and keeps the rank's stored block (`_GatherLeaves`)."""
+    return list(_GatherLeaves.apply(tuple(plans), *shards))

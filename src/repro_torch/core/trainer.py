@@ -19,16 +19,20 @@ rank of a mesh, as the reference's SPMD program runs on each device:
 the client dim lies over "data" (and "pod") as `fit_spec` lays it, so a
 rank holds C / size(client axes) consecutive clients, and each client's
 leaves are sharded over "model" by `fl_param_spec`
-(`fl_tree_shardings(_opt)`, `state_shardings`). A rank gathers its
-clients' leaves over "model", runs the K local steps on each, and joins
+(`fl_tree_shardings(_opt)`, `state_shardings`). A rank runs the K local
+steps of each of its clients on the client's shards: under the tp
+profile, where "model" is tensor-parallel within a client (the
+reference's FL mesh), each rank computes its "model" shard of each layer
+(`models.parallel`), gathering a layer's leaves when it runs; elsewhere
+the layers are computed whole, their leaves gathered a layer at a time.
+It joins
 the aggregation event through the mesh operators of `core/aggregation.py`
 (`mesh_hfl`, `mesh_afl_fedavg`, `mesh_cfl`) with the weighted mean of its
 clients, HFL groups that straddle ranks through their sums by group
 (`mesh_hfl_by_group`), or gossip's ring of clients across ranks
 (`mesh_afl_gossip`'s ring with several clients a rank: the rank's end
 clients as counted collective-permutes); it keeps its shards of the
-result. The ranks of one client along "model" compute the same steps;
-where C does not divide over the client axes, every rank holds every
+result. Where C does not divide over the client axes, every rank holds every
 client, as GSPMD replicates the dim, and aggregates them itself.
 """
 from __future__ import annotations
@@ -130,6 +134,7 @@ class FederatedTrainer:
             self._local = C // n
             self._first = (self._clients.index if ca else 0) * self._local
             self._shardings = None
+            self._parallel = None
 
     # -- state ---------------------------------------------------------------
 
@@ -192,6 +197,20 @@ class FederatedTrainer:
             self._shardings = self.state_shardings(self.state_specs())
         return self._shardings
 
+    def _view(self):
+        """The rank's `models.parallel.Parallel` for one client's local
+        steps: its leaves stored as its client's slice of the stacked
+        shards, no batch axis (a client's rows are its own)."""
+        if self._parallel is None:
+            from repro_torch.models.parallel import Parallel
+            mesh = self.mesh.shape
+            client = tree_map(lambda s: sh.NamedSharding(
+                mesh, sh.P(*s.spec[1:])),
+                self._mesh_shardings()["client_params"])
+            self._parallel = Parallel(self.model.cfg, self.mesh, client,
+                                      self.model.param_specs())
+        return self._parallel
+
     def shard_state(self, state):
         """This rank's shards of a global state."""
         from repro_torch.launch.mesh import shard_tree
@@ -235,35 +254,35 @@ class FederatedTrainer:
                 shardings["global_params"], self.mesh)
         return state
 
-    def _client_view(self, tree, shardings):
-        """This rank's clients' whole leaves, stacked (C_local, ...):
-        gathered over "model"; a replicated client-stacked leaf gives its
-        rows."""
+    def _client_view(self, tree, shardings, keep=()):
+        """This rank's clients' leaves, stacked (C_local, ...): gathered
+        over "model" but the axes in `keep`; a replicated client-stacked
+        leaf gives its rows."""
         from repro_torch.launch.mesh import gather
         ca = fl_client_axes(self.mesh.shape)
         mine = self.local_clients
 
         def one(x, s):
-            x = gather(x, s, self.mesh, keep=ca)
+            x = gather(x, s, self.mesh, keep=ca + tuple(keep))
             if len(s.spec) and s.spec[0] is not None:
                 return x
             return x[mine.start:mine.stop]
         return tree_map(one, tree, shardings)
 
-    def _to_shards(self, tree, shardings):
-        """This rank's clients' whole leaves (C_local, ...) -> the rank's
-        shards of the global (C, ...) leaves; a leaf whose client dim is
-        replicated is gathered over the clients first."""
-        from repro_torch.launch.mesh import all_gather
-        C = self.fl.num_clients
+    def _to_shards(self, tree, shardings, keep=()):
+        """This rank's clients' leaves (C_local, ...), whole but over the
+        axes in `keep` -> the rank's shards of the global (C, ...) leaves;
+        a leaf whose client dim is replicated is gathered over the clients
+        first."""
+        from repro_torch.launch.mesh import all_gather, cut_from
+        ca = fl_client_axes(self.mesh.shape)
 
         def one(x, s):
-            if not (len(s.spec) and s.spec[0] is not None):
-                if self._clients is not None:
-                    x = all_gather(x, self._clients, dim=0)
-            index = s.index((C,) + tuple(x.shape[1:]), self.mesh.coords)
-            return x[(slice(None),) + index[1:]].clone(
-                memory_format=torch.contiguous_format)
+            lead = len(s.spec) and s.spec[0] is not None
+            if not lead and self._clients is not None:
+                x = all_gather(x, self._clients, dim=0)
+            return cut_from(x, s, self.mesh,
+                            tuple(keep) + (ca if lead else ()))
         return tree_map(one, tree, shardings)
 
     def _mesh_aggregate(self, stacked, weights, participate, glob):
@@ -311,23 +330,34 @@ class FederatedTrainer:
 
     def _mesh_step(self, state, batch, weights, participate):
         from repro_torch.core.collectives import all_reduce_sum
-        from repro_torch.launch.mesh import gather_tree, shard_tree
+        from repro_torch.launch.mesh import cut_from, gather_tree
+        from repro_torch.models import parallel
         fl, axis = self.fl, self._clients
         shardings = self._mesh_shardings()
         mine = self.local_clients
+        view = self._view()
+        # the clients' shards as stored over "model", each client's local
+        # steps on them (its layers cut over "model" under tp)
+        keep = ("model",) if "model" in self.mesh.names else ()
         params = self._client_view(state["client_params"],
-                                   shardings["client_params"])
-        opt_state = self._client_view(state["opt"], shardings["opt"])
-        outs = [self._local_steps(_client(params, i), _client(opt_state, i),
-                                  _client(batch, i))
-                for i in range(len(mine))]
+                                   shardings["client_params"], keep)
+        opt_state = self._client_view(state["opt"], shardings["opt"], keep)
+        with parallel.use(view):
+            outs = [self._local_steps(_client(params, i),
+                                      _client(opt_state, i),
+                                      _client(batch, i))
+                    for i in range(len(mine))]
         params = _stack([o[0] for o in outs])
         opt_state = _stack([o[1] for o in outs])
         loss = torch.stack([o[2] for o in outs]).float().sum()
         glob = None
         if fl.strategy == "cfl":
             g_sh = shardings["global_params"]
-            glob = gather_tree(state["global_params"], g_sh, self.mesh)
+            # kept over "model" where the clients' leaves are
+            gkeep = tree_map(lambda s: keep if set(keep) & set(s.axes())
+                             else (), shardings["client_params"])
+            glob = gather_tree(state["global_params"], g_sh, self.mesh,
+                               keep=gkeep)
         if axis is None:
             params, glob = self._aggregate(params, weights, participate,
                                            glob)
@@ -338,11 +368,13 @@ class FederatedTrainer:
             loss = all_reduce_sum(loss.reshape(1), axis)[0]
         new_state = dict(state)
         new_state["client_params"] = self._to_shards(
-            params, shardings["client_params"])
-        new_state["opt"] = self._to_shards(opt_state, shardings["opt"])
+            params, shardings["client_params"], keep)
+        new_state["opt"] = self._to_shards(opt_state, shardings["opt"], keep)
         new_state["round"] = state["round"] + 1
         if glob is not None:
-            new_state["global_params"] = shard_tree(glob, g_sh, self.mesh)
+            new_state["global_params"] = tree_map(
+                lambda x, s, k: cut_from(x, s, self.mesh, k), glob, g_sh,
+                gkeep)
         return new_state, {"loss": loss / fl.num_clients}
 
     # -- local phase ---------------------------------------------------------

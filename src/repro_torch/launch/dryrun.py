@@ -26,12 +26,14 @@ process group and no `XLA_FLAGS` are needed. What the run measures:
   once of the tensors the step made, each aten op's new outputs counted
   from creation until Python frees them (no allocator rounding); peak =
   argument + temp, as the reference's.
-* collectives: from the rank's counts (`launch.roofline.collective_bytes`).
-  The port's sharded steps gather weights where GSPMD would split the
-  matmuls over "model": the collective bytes are weight all-gathers and
-  gradient reductions, not activation all-reduces, and the FLOPs are the
-  whole model's on the rank's rows, not a 1/"model" share (ROADMAP
-  §A.19).
+* collectives: from the rank's counts (`launch.roofline.collective_bytes`):
+  each layer's weight all-gathers and gradient reduce-scatters and, under
+  the tp profile, the activation all-reduces over "model" of Megatron's
+  layout, as each rank computes its "model" shard of each layer
+  (`models.parallel`). The single-pod moe profile's expert all-to-all,
+  and the layers computed whole (MLA, xLSTM, the encoder,
+  cross-attention, the vision projection), are ROADMAP A.19b; the
+  multi-pod fsdp profile's context parallelism A.19c.
 
 `scan_cost_corrected` is always false and the reference's
 `_extrapolate_costs` has no counterpart: it corrects XLA's cost analysis
@@ -103,9 +105,16 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _storage(t):
+    return t.untyped_storage()._cdata
+
+
 class _Traffic(TorchDispatchMode):
     """Operand + result bytes of every aten op that makes a tensor, and
-    the most bytes alive at once of the tensors made."""
+    the most bytes alive at once of the tensors made. An output that
+    shares an input's storage (a view, `detach`) makes nothing: it is
+    neither traffic nor a second copy alive (remat's recompute and the
+    autograd engine detach what they keep)."""
 
     def __init__(self):
         super().__init__()
@@ -123,8 +132,9 @@ class _Traffic(TorchDispatchMode):
                if isinstance(t, torch.Tensor)]
         outs = [t for t in (out if isinstance(out, (tuple, list))
                             else (out,)) if isinstance(t, torch.Tensor)]
+        shared = {_storage(t) for t in ins}
         made = [t for t in outs if t._base is None
-                and not any(t is i for i in ins)]
+                and _storage(t) not in shared]
         if made:
             self.bytes += _nbytes(ins) + _nbytes(outs)
             for t in made:

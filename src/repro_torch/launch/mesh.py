@@ -75,8 +75,9 @@ from repro_torch import device as device_mod
 from repro_torch.core import collectives
 from repro_torch.core.collectives import (  # noqa: F401
     all_gather, all_reduce_sum, barrier, collective_counts,
-    collective_scope, ppermute, reduce_scatter, reset_collective_counts)
-from repro_torch.sharding.specs import MeshShape, entry_axes
+    collective_scope, ppermute, reset_collective_counts)
+from repro_torch.sharding.specs import (P, MeshShape, NamedSharding,
+                                        axis_size, entry_axes)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # ranks that may share one card under gloo (8 ranks take 10 GB each of an
@@ -406,13 +407,18 @@ def gather_tree(tree, shardings, rank_mesh: RankMesh,
     """`gather` over a tree of shards and its tree of shardings. Ranks
     that share a card under gloo make every leaf's gathers at once, card
     to card (`collectives.card_gather`: the same results and counts, with
-    no copy through the host); elsewhere each leaf is gathered in turn."""
+    no copy through the host); elsewhere each leaf is gathered in turn.
+    `keep` is one sequence of axes for every leaf, or a tree of them
+    parallel to `tree` (tuples)."""
     leaves = tree_leaves(tree)
+    keeps = (tree_leaves(keep) if isinstance(keep, (dict, list))
+             else [keep] * len(leaves))
+    flat = tree_leaves(shardings)
     if not any(collectives.on_shared_card(x) for x in leaves):
-        return tree_map(lambda x, s: gather(x, s, rank_mesh, keep), tree,
-                        shardings)
-    plans = [card_plan(x, s, rank_mesh, keep)
-             for x, s in zip(leaves, tree_leaves(shardings))]
+        return tree_unflatten(tree, [gather(x, s, rank_mesh, k) for x, s, k
+                                     in zip(leaves, flat, keeps)])
+    plans = [card_plan(x, s, rank_mesh, k) if isinstance(x, torch.Tensor)
+             else None for x, s, k in zip(leaves, flat, keeps)]
     done = iter(collectives.card_gather([p for p in plans if p]))
     return tree_unflatten(tree, [x if p is None else next(done)
                                  for x, p in zip(leaves, plans)])
@@ -613,3 +619,80 @@ class World:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+# ---------------------------------------------------------------------------
+# one layer at a time: a rank's compute slices of its stored shards
+# ---------------------------------------------------------------------------
+
+def global_shape(shape, sharding) -> tuple:
+    """The global shape of which `shape` is one shard under `sharding`."""
+    spec = list(sharding.spec) + [None] * (len(shape) - len(sharding.spec))
+    return tuple(d * axis_size(sharding.mesh, e) for d, e in zip(shape, spec))
+
+
+def leaf_plan(shard_shape, sharding, layout, rank_mesh: RankMesh,
+              sum_axes: Sequence[str] = (), tp: Optional[str] = None):
+    """The `collectives.LeafPlan` of one stored shard (its `shard_shape`,
+    `sharding`) for its compute `layout` (`specs.Layout`): the shard is
+    gathered over its axes, but for `tp` ("model") where its stored
+    block along the layout's dim is the rank's compute slice; the slice is
+    then cut from the gathered tensor. The gradient is summed over
+    `sum_axes` (the step's batch axes) and, where the layout is partial
+    and the slice not kept, over `tp` too."""
+    glob = global_shape(shard_shape, sharding)
+    spec = list(sharding.spec) + [None] * (len(glob) - len(sharding.spec))
+    keep = ()
+    select = None
+    if layout.dim is not None:
+        d = layout.dim
+        n = glob[d] // axis_size(rank_mesh.shape, tp)
+        i = rank_mesh.coords[tp]
+        if spec[d] == tp and layout.ranges == ((i * n, (i + 1) * n),):
+            keep = (tp,)
+        else:
+            select = (d, layout.ranges)
+    kept = NamedSharding(rank_mesh.shape, P(*[e if e in keep else None
+                                              for e in spec]))
+    shape = kept.shard_shape(glob)
+    dims = [(d, rank_mesh.axis(rest))
+            for d, rest in _gathered_dims(sharding, keep)]
+    card = None
+    if dims:
+        card = card_plan(torch.empty(shard_shape, device="meta"), sharding,
+                         rank_mesh, keep)[1:]
+    names = set(sum_axes)
+    if tp and layout.partial and not keep:
+        names.add(tp)
+    names = tuple(a for a in rank_mesh.names if a in names)
+    index = _within(glob, sharding, kept, rank_mesh)
+    kind = ("reduce-scatter" if set(sharding.axes()) & set(names)
+            else "all-reduce")
+    return collectives.LeafPlan(dims, card, select, shape,
+                                rank_mesh.axis(names) if names else None,
+                                index, kind)
+
+
+def _within(glob, sharding, kept, rank_mesh):
+    """The rank's block under `sharding` within its block under `kept`
+    (a sharding over a subset of its axes), of a global shape `glob`."""
+    mine = sharding.index(glob, rank_mesh.coords)
+    base = kept.index(glob, rank_mesh.coords)
+    return tuple(slice(m.start - b.start, m.stop - b.start)
+                 for m, b in zip(mine, base))
+
+
+def cut_from(x: torch.Tensor, sharding, rank_mesh: RankMesh,
+             keep: Sequence[str]) -> torch.Tensor:
+    """This rank's shard under `sharding` of the global tensor of which
+    `x` is its block under `sharding`'s `keep` axes alone (a copy): the
+    inverse of `gather(..., keep=keep)`."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    spec = list(sharding.spec) + [None] * (x.dim() - len(sharding.spec))
+    kept = NamedSharding(rank_mesh.shape, P(*[
+        e if entry_axes(e) and set(entry_axes(e)) <= set(keep) else None
+        for e in spec]))
+    glob = global_shape(tuple(x.shape), kept)
+    return x[_within(glob, sharding, kept, rank_mesh)].clone(
+        memory_format=torch.contiguous_format)

@@ -5,13 +5,20 @@ the decode state's sharding rules (port of `repro.launch.serve`).
 On a mesh (`make_sharded_prefill_step`, `make_sharded_serve_step`) each
 rank keeps its shards of the parameters (`specs.tree_shardings`), of the
 batch (`train.batch_shardings`) and of the decode state
-(`decode_state_shardings`, `token_shardings`). A step gathers the
-parameters, and the state over its non-batch axes, runs the
-single-device step on the rank's batch rows, and keeps its shards of the
-new state. With `attn_impl="flash"` or the kernel prefill, the flash and
-scan kernels launch in every rank, on its rows.
+(`decode_state_shardings`, `token_shardings`). A step runs the model on
+the rank's batch rows and its stored shards (`models.parallel`): each
+layer takes its compute slices when it runs, and under the tp profile a
+rank computes its "model" shard of each layer, so its logits are its
+vocabulary columns (`gather_logits` joins them). The decode state's KV
+caches cut by heads over "model" stay cut (they hold the rank's kv
+heads); the rest of the state is gathered over its non-batch axes for
+the step and cut again after it. With `attn_impl="flash"` or the kernel
+prefill, the flash and scan kernels launch in every rank, on its rows
+and its heads.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -180,76 +187,101 @@ def _lead_axes(sharding):
 
 def make_sharded_prefill_step(model, rank_mesh, batch_specs):
     """`make_prefill_step` on a rank of `rank_mesh`: (param shards, batch
-    shards) -> the logits of the rank's batch rows. The shards are cut by
-    `specs.tree_shardings` and `train.batch_shardings` of the global
-    shapes (`batch_specs`, e.g. `model.train_batch_specs(B, S)` without
-    "labels") under the config's rules; `.shardings` holds both."""
+    shards) -> the logits of the rank's batch rows (its vocabulary columns
+    where the vocabulary is cut over "model": `gather_logits`). The shards
+    are cut by `specs.tree_shardings` and `train.batch_shardings` of the
+    global shapes (`batch_specs`, e.g. `model.train_batch_specs(B, S)`
+    without "labels") under the config's rules; `.shardings` holds both,
+    `.parallel` the rank's `models.parallel.Parallel`."""
     from repro_torch.launch.mesh import gather_tree
     from repro_torch.launch.train import batch_shardings
+    from repro_torch.models import parallel
     mesh = rank_mesh.shape
     with sh.config_rules(model.cfg):
-        p_sh = sh.tree_shardings(model.param_specs(), mesh)
+        p_specs = model.param_specs()
+        p_sh = sh.tree_shardings(p_specs, mesh)
         b_sh = batch_shardings(batch_specs, mesh)
+        view = parallel.Parallel(model.cfg, rank_mesh, p_sh, p_specs)
     keep = _lead_axes(b_sh["tokens"])
     body = make_prefill_step(model)
 
     def prefill(params, batch):
-        return body(gather_tree(params, p_sh, rank_mesh),
-                    gather_tree(batch, b_sh, rank_mesh, keep=keep))
+        with parallel.use(view):
+            return body(params, gather_tree(batch, b_sh, rank_mesh,
+                                            keep=keep))
 
     prefill.shardings = (p_sh, b_sh)
+    prefill.parallel = view
     return prefill
+
+
+def gather_logits(logits, view):
+    """The whole vocabulary of a sharded step's logits (the rank's rows):
+    one all-gather over "model" where `view` (the step's `.parallel`)
+    cuts the vocabulary."""
+    if not view.cut["vocab"]:
+        return logits
+    from repro_torch.launch.mesh import all_gather
+    return all_gather(logits.contiguous(), view.axis, dim=-1)
+
+
+_KV_LEAF = re.compile(r"^(layers|shared)/\d+/(k|v)$")
 
 
 def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
     """`make_serve_step` on a rank of `rank_mesh`: (param shards, state
-    shards, token shards) -> (the logits of the rank's rows, its new
+    shards, token shards) -> (the logits of the rank's rows, its
+    vocabulary columns where the vocabulary is cut over "model"; its new
     state shards). The shards are cut by `specs.tree_shardings`,
     `decode_state_shardings` and `token_shardings` of the global shapes
     (`state_specs`, e.g. `model.decode_state_specs(B, cap)`, and
-    `token_spec`); `.shardings` holds the three. The state is gathered
-    over its non-batch axes for the step and cut again after it."""
-    from repro_torch.launch.mesh import gather_tree, shard_tree
+    `token_spec`); `.shardings` holds the three, `.parallel` the rank's
+    view. Under a cut attention a KV cache cut by heads over "model" is
+    the rank's kv heads and stays so; every other state leaf is gathered
+    over its non-batch axes for the step and cut again after it, and its
+    block (a cache cut by sequence or not at all, Mamba2's state) is
+    computed whole: every kv head's new entry, the whole Mamba2 layer."""
+    from repro_torch.launch.mesh import cut_from, gather_tree
+    from repro_torch.models import parallel
     mesh = rank_mesh.shape
-    with sh.config_rules(model.cfg):
-        p_sh = sh.tree_shardings(model.param_specs(), mesh)
-    st_sh = decode_state_shardings(state_specs, mesh, model.cfg)
+    cfg = model.cfg
+    with sh.config_rules(cfg):
+        p_specs = model.param_specs()
+        p_sh = sh.tree_shardings(p_specs, mesh)
+        name = sh.tp_axis(mesh)
+        M = sh.axis_size(mesh, name) if name else 1
+        heads_cut = sh.cut_kinds(cfg, M)["attn"] and (
+            cfg.num_kv_heads % M == 0)
+        view = parallel.Parallel(
+            cfg, rank_mesh, p_sh, p_specs,
+            whole=("mamba",) + (() if heads_cut else ("kv",)))
+    st_sh = decode_state_shardings(state_specs, mesh, cfg)
     t_sh = token_shardings(token_spec, mesh)
     keep = _lead_axes(t_sh)
     body = make_serve_step(model)
 
-    def local(sharding):
-        # the rank's rows: the batch axes cut, every other axis whole
-        spec = [e if sh.entry_axes(e) and set(sh.entry_axes(e)) <= set(keep)
-                else None for e in sharding.spec]
-        return sh.NamedSharding(mesh, sh.P(*spec))
+    def kept(pair, sharding):
+        # a cache whose heads lie over "model" as the rank computes them
+        spec = list(sharding.spec)
+        return bool(heads_cut and _KV_LEAF.match(pair[0]) and len(spec) > 2
+                    and spec[2] == name)
 
-    rows_sh = tree_map(local, st_sh)
+    # per leaf, the axes the step keeps cut: the batch axes (the rank's
+    # rows), and "model" for a kept cache; every other axis is gathered
+    keeps = tree_map(lambda pair, s: tuple(keep) + (
+        (name,) if kept(pair, s) else ()), sh._paths(state_specs), st_sh)
+
+    def cut(x, s, k):
+        if not isinstance(x, torch.Tensor) or set(s.axes()) <= set(k):
+            return x
+        return cut_from(x, s, rank_mesh, k)
 
     def serve_step(params, state, tokens):
-        full = gather_tree(params, p_sh, rank_mesh)
-        rows = gather_tree(state, st_sh, rank_mesh, keep=keep)
-        logits, new = body(full, rows, tokens)
-        return logits, _reshard(new, rows_sh, st_sh, rank_mesh)
+        rows = gather_tree(state, st_sh, rank_mesh, keep=keeps)
+        with parallel.use(view):
+            logits, new = body(params, rows, tokens)
+        return logits, tree_map(cut, new, st_sh, keeps)
 
     serve_step.shardings = (p_sh, st_sh, t_sh)
+    serve_step.parallel = view
     return serve_step
-
-
-def _reshard(rows, rows_sh, st_sh, rank_mesh):
-    """The rank's rows of the state (batch axes cut) -> its shards."""
-    def one(x, r, s):
-        if not isinstance(x, torch.Tensor) or r.spec == s.spec:
-            return x
-        index = s.index(_global_shape(x.shape, r), rank_mesh.coords)
-        mine = r.index(_global_shape(x.shape, r), rank_mesh.coords)
-        rel = tuple(slice(i.start - m.start, i.stop - m.start)
-                    for i, m in zip(index, mine))
-        return x[rel].clone(memory_format=torch.contiguous_format)
-    return tree_map(one, rows, rows_sh, st_sh)
-
-
-def _global_shape(shape, sharding):
-    return tuple(d * sh.axis_size(sharding.mesh, e) for d, e in
-                 zip(shape, list(sharding.spec)
-                     + [None] * (len(shape) - len(sharding.spec))))

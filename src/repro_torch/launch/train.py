@@ -19,15 +19,14 @@ The mesh half: `batch_shardings` and `train_state_shardings` are the
 reference's rules, and `make_sharded_train_step` runs the step on the
 ranks of a `launch.mesh.World` laid out as a mesh. Each rank keeps only
 its shard of every parameter, optimizer-state and batch leaf, cut by
-those rules, so its memory for them is the reference's. A step gathers
-every parameter (one `all_gather` a sharded dim), runs the single-device
-loss and gradient on the rank's batch rows, sums the gradients over the
-batch axes and keeps its own shard of the sum (a `reduce_scatter` for a
-leaf sharded over them, else an `all_reduce`), clips by the global norm
-and updates its shards. Ranks along an
-axis that carries no batch rows (under "tp", "model") compute the same
-thing: the port gathers weights where GSPMD would split the matmuls
-(ROADMAP §A.19).
+those rules, so its memory for them is the reference's. A step runs the
+loss on the rank's batch rows and its stored shards (`models.parallel`):
+each layer gathers its leaves when it runs (and again in remat's
+recompute), and under the tp profile a rank computes its "model" shard of
+each layer, as GSPMD splits the reference's matmuls. The backward pass
+hands each leaf's gradient back summed over the batch axes and cut to the
+rank's shard (a reduce-scatter a layer); the step clips by the global
+norm and updates its shards.
 """
 from __future__ import annotations
 
@@ -288,9 +287,9 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     (`_MicroBatchMean`, passed to `model.loss` as its `token_mean`). Any
     layout GSPMD runs is taken: a rank's rows may straddle micro-batches
     (12 rows on 4 ranks under grad_accum 3), and in a round whose
-    micro-batch holds none of its rows an MoE rank issues the piece's
-    collectives with zeros, its objective run on the meta device, on no
-    data.
+    micro-batch holds none of its rows a rank runs its first row weighted
+    0, so that it joins the round's gathers, gradient sums and token
+    means (with zeros), and adds the round's summed gradient.
 
     MoE routes groups of `moe_group_size` consecutive tokens with a
     capacity from the group size: a piece's tokens and a micro-batch's
@@ -298,8 +297,9 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     step's. Every MoE config meets this at train_4k on 16x16 (1 x 4096
     tokens a rank, groups of 512) and the reduced ones at pieces of
     B x S >= 64."""
-    from repro_torch.launch.mesh import gather_tree, reduce_scatter
     from repro_torch.core.collectives import all_reduce_sum
+    from repro_torch.launch.mesh import gather_tree
+    from repro_torch.models import parallel
     mesh = rank_mesh.shape
     cfg = model.cfg
     accum = getattr(cfg, "grad_accum", 1)
@@ -307,8 +307,10 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     with sh.config_rules(cfg):
         p_sh, o_sh = train_state_shardings(p_specs, opt.init(p_specs), mesh)
         b_sh = batch_shardings(batch_specs, mesh)
-    batch_names = sh.entry_axes(b_sh["labels"].spec[0]
-                                if len(b_sh["labels"].spec) else None)
+        batch_names = sh.entry_axes(b_sh["labels"].spec[0]
+                                    if len(b_sh["labels"].spec) else None)
+        view = parallel.Parallel(cfg, rank_mesh, p_sh, p_specs,
+                                 batch_axes=batch_names)
     baxis = rank_mesh.axis(batch_names) if batch_names else None
     world = rank_mesh.axis(mesh.axis_names)
     coords = rank_mesh.coords
@@ -317,33 +319,24 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     n = rows.stop - rows.start
     rounds = _rounds(rows.start // n, n, accum, label_shape[0])
     micro_rows = label_shape[0] // accum
-    p_flat = tree_leaves(p_sh)
-    shapes = [tuple(p.shape) for p in tree_leaves(p_specs)]
     # ranks holding the same block of a leaf: its squared norm is summed
     # once a block over the world
     reps = [mesh.size // math.prod(mesh.shape[a] for a in s.axes())
-            for s in p_flat]
+            for s in tree_leaves(p_sh)]
     w_aux = cfg.aux_loss_weight
 
     def summed(x):
         return x if baxis is None else all_reduce_sum(x, baxis)
 
-    def pad(dev):
-        """A round that holds none of this rank's rows: the collectives of
-        a piece's token means (the forward pass's, then remat's recompute's)
-        with zeros, the objective run on the meta device."""
-        def mean(x):
-            m = x.mean(dim=(0, 1))
-            all_reduce_sum(torch.zeros((accum,) + tuple(m.shape),
-                                       dtype=m.dtype, device=dev), baxis)
-            return m
-        mb = {k: torch.empty((1,) + tuple(v.shape[1:]), dtype=v.dtype,
-                             device="meta") for k, v in batch_specs.items()}
-        value_and_grad(lambda p, b: model.loss(p, b, token_mean=mean),
-                       p_specs, mb)
+    def pad_mean(x):
+        """A round that holds none of this rank's rows: the token means'
+        collective with zeros."""
+        m = x.mean(dim=(0, 1))
+        all_reduce_sum(torch.zeros((accum,) + tuple(m.shape), dtype=m.dtype,
+                                   device=m.device), baxis)
+        return m
 
     def step(params, opt_state, batch):
-        full = gather_tree(params, p_sh, rank_mesh)
         local = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
         dev = local["labels"].device
         counts = torch.zeros(accum, dtype=torch.float32, device=dev)
@@ -356,39 +349,40 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
         gsum = None
         for piece in rounds:
             if piece is None:
-                if cfg.moe:
-                    pad(dev)
-                continue
-            a, b, j = piece
-            mb = {k: v[a:b] for k, v in local.items()}
-            frac = (mb["labels"] >= 0).sum().float() / counts[j]
-            share = (b - a) / micro_rows
-            mean = None if baxis is None else functools.partial(
-                _token_mean, share=share, j=j, slots=accum, axis=baxis)
+                # none of this rank's rows: the round's collectives (the
+                # layers' gathers and gradient sums, the token means) on
+                # one row weighted 0
+                mb = {k: v[:1] for k, v in local.items()}
+                frac = aux_w = 0.0
+                mean = pad_mean if cfg.moe else None
+            else:
+                a, b, j = piece
+                mb = {k: v[a:b] for k, v in local.items()}
+                frac = (mb["labels"] >= 0).sum().float() / counts[j]
+                share = (b - a) / micro_rows
+                aux_w = w_aux
+                mean = None if baxis is None else functools.partial(
+                    _token_mean, share=share, j=j, slots=accum, axis=baxis)
 
             def objective(p, mb):
                 _, aux = model.loss(p, mb, token_mean=mean)
-                return frac * aux["nll"] + w_aux * aux["aux"], aux
+                return frac * aux["nll"] + aux_w * aux["aux"], aux
 
-            (_, aux), g = value_and_grad(objective, full, mb)
+            # the gradients come back as this rank's shards of the round's
+            # sums over the batch axes (`models.parallel`), a round this
+            # rank holds no row of included
+            with parallel.use(view):
+                (_, aux), g = value_and_grad(objective, params, mb)
             if accum > 1:
                 g = tree_map(lambda x: x.float(), g)
             gsum = g if gsum is None else tree_map(torch.add, gsum, g)
-            sums[j, 0] += frac * aux["nll"]
-            sums[j, 1] += share * aux["aux"]
-        grads = tree_leaves(gsum)
+            if piece is not None:
+                sums[j, 0] += frac * aux["nll"]
+                sums[j, 1] += share * aux["aux"]
+        out = tree_leaves(gsum)
         if accum > 1:
-            grads = [g / accum for g in grads]
+            out = [g / accum for g in out]
         nll, aux = summed(sums).mean(0).unbind()
-        out = []
-        for g, s, shape in zip(grads, p_flat, shapes):
-            index = s.index(shape, coords)
-            if baxis is None:
-                out.append(g[index].clone())
-            elif set(s.axes()) & set(batch_names):
-                out.append(reduce_scatter(g, baxis, index))
-            else:
-                out.append(all_reduce_sum(g, baxis)[index].clone())
         sq = sum(torch.sum(torch.square(g.float())) / r
                  for g, r in zip(out, reps))
         gnorm = torch.sqrt(all_reduce_sum(sq.reshape(1), world)[0])
@@ -402,6 +396,7 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
                                    "grad_norm": gnorm, "nll": nll,
                                    "aux": aux}
 
+    step.parallel = view
     step.shardings = (p_sh, o_sh, b_sh)
     return step
 

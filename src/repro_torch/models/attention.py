@@ -9,6 +9,11 @@ Three execution paths, chosen by `cfg.attn_impl` as in the reference:
 * "chunked" — online softmax over key chunks (`chunked_attention`);
 * "flash"   — the flash kernel (`kernels.ops.flash_attention`) when the
   shapes tile (`_maybe_flash`), the einsum path otherwise.
+
+Under `tp` (a `models.parallel.Parallel` cutting heads over "model") the
+block runs on the rank's H/M query heads and the kv heads they read
+(`specs.attn_heads`): the head counts come from the shapes of the rank's
+`wq` / `wk` slices, and `wo` is row-parallel.
 """
 from __future__ import annotations
 
@@ -137,9 +142,32 @@ def _maybe_flash(cfg, q, k, v, *, causal, window, q_offset):
                                 v.contiguous(), causal=causal, window=window)
 
 
+def _rank_kv(cfg, tp, q_heads, k, v):
+    """The rank's kv heads for its `q_heads` query heads, laid out for
+    `gqa_attention` (query head i reads kv head i // (q_heads / kv
+    heads)): `k` / `v` hold the rank's kv heads, or all of them (a decode
+    cache not cut by heads), which are cut; kv heads that straddle the
+    rank's groups are repeated, one a query head."""
+    q0, hl, k0, kl = _heads(cfg, tp)
+    if k.shape[2] != kl:
+        k, v = k[:, :, k0:k0 + kl], v[:, :, k0:k0 + kl]
+    G = cfg.num_heads // cfg.num_kv_heads
+    want = [(q0 + i) // G - k0 for i in range(q_heads)]
+    if q_heads % kl == 0 and want == [i // (q_heads // kl)
+                                      for i in range(q_heads)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _heads(cfg, tp):
+    from repro_torch.sharding.specs import attn_heads
+    return attn_heads(cfg, tp.size, tp.index)
+
+
 def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
               cache_index=None, window=0, causal=True, rope_theta=None,
-              kv_override=None):
+              kv_override=None, tp=None):
     """Full attention block (projections + SDPA + output projection).
 
     Train/prefill: cache_kv=None, x: (B,S,D).
@@ -149,12 +177,18 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
             write position are computed from it on the device).
             Returns (out, (new_ck, new_cv)).
     Cross-attention: kv_override=(k, v) precomputed from encoder output.
+    `tp`: the rank's heads (module docstring); never with kv_override.
     """
-    H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if tp is not None:
+        x = tp.f(x)
+    # the head counts of the rank's slices (all of them off a mesh)
+    H = params["wq"]["kernel"].shape[1] // dh
 
     q = _split_heads(dense(params["wq"], x), H, dh)
     if kv_override is None:
+        Hk = params["wk"]["kernel"].shape[1] // dh
         k = _split_heads(dense(params["wk"], x), Hk, dh)
         v = _split_heads(dense(params["wv"], x), Hk, dh)
     else:
@@ -170,6 +204,8 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
         k = apply_rope(k, positions, theta)
 
     new_cache = None
+    if tp is not None and cache_kv is None:
+        k, v = _rank_kv(cfg, tp, H, k, v)
     if cache_kv is not None:
         from repro_torch.models import kvcache as kvc
         ck, cv = cache_kv
@@ -182,6 +218,8 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
                             torch.zeros((), device=x.device),
                             torch.full((), NEG_INF, device=x.device))
         amask = amask[None, None].expand(x.shape[0], 1, q.shape[1], cap)
+        if tp is not None:
+            ck, cv = _rank_kv(cfg, tp, H, ck, cv)
         out = gqa_attention(q, ck, cv, amask)
     elif kv_override is not None:
         if cfg.attn_impl == "chunked":
@@ -204,5 +242,5 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
                                            device=x.device)
             out = gqa_attention(q, k, v, mask)
 
-    out = dense(params["wo"], _merge_heads(out))
+    out = layers.row(params["wo"], _merge_heads(out), tp)
     return (out, new_cache) if cache_kv is not None else out

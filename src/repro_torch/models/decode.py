@@ -12,6 +12,13 @@ captured as one CUDA graph (`launch.serve.make_graphed_serve_step`).
 
 As in the reference, nothing fills "cross" from the encoder (it stays
 zeros), and `decode_step` takes tokens only (no vision prefix).
+
+On a mesh (`models.parallel.current()`) the step takes each layer's
+compute slices as `transformer.forward` does: attention runs on the
+rank's query heads (its kv heads' caches, or the whole caches where they
+are not cut by heads: then it writes every kv head), the MLP and MoE on
+the rank's columns and experts, Mamba2 whole (its state is not cut by
+heads), and the logits are the rank's vocabulary columns.
 """
 from __future__ import annotations
 
@@ -20,9 +27,10 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, mla, moe, ssm, xlstm
-from repro_torch.models.layers import apply_norm, dense, embed, unembed
-from repro_torch.models.transformer import layer_params, uses_shared
+from repro_torch.models import layers, mla, moe, parallel, ssm, xlstm
+from repro_torch.models.layers import apply_norm, embed
+from repro_torch.models.transformer import (_layers, _logits, _taker, _tp,
+                                            uses_shared)
 
 
 def _kv_state(batch, cap, Hk, dh, dtype, device):
@@ -92,7 +100,7 @@ def init_decode_state(cfg, batch, capacity, prefill_len=0,
     return state
 
 
-def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None):
+def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None):
     positions = index.reshape(1, 1).expand(x.shape[0], 1)
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
@@ -103,7 +111,8 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None):
     else:
         a, (ck, cv) = attn_mod.attention(
             lp["attn"], cfg, h, positions=positions,
-            cache_kv=(st["k"], st["v"]), cache_index=index, window=window)
+            cache_kv=(st["k"], st["v"]), cache_index=index, window=window,
+            tp=_tp(par, "attn"))
         st = {"k": ck, "v": cv}
     x = x + a
     if cross_kv is not None:
@@ -116,11 +125,11 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None):
     if "mlp" in lp:
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
-            y, _ = moe.moe_ffn(lp["mlp"], cfg, h)
+            y, _ = moe.moe_ffn(lp["mlp"], cfg, h, tp=_tp(par, "moe"))
         elif cfg.norm_type == "layernorm":
-            y = layers.gelu_mlp(lp["mlp"], h)
+            y = layers.gelu_mlp(lp["mlp"], h, _tp(par, "mlp"))
         else:
-            y = layers.swiglu_mlp(lp["mlp"], h)
+            y = layers.swiglu_mlp(lp["mlp"], h, _tp(par, "mlp"))
         x = x + y
     return x, st
 
@@ -131,25 +140,30 @@ def decode_step(params, cfg, state, tokens):
     key) into the caches of `state` in place (`kvcache.update_layer`);
     the new state's "index" is a new tensor, `index + 1`, as the
     reference's."""
+    par = parallel.current()
+    take = _taker(par)
     adt = cfg.activation_dtype
     index = state["index"]
-    x = embed(params["embed"], tokens, adt)
+    x = embed(take(params["embed"], "embed"), tokens, adt, _tp(par, "vocab"))
     new_layer_states: List[Any] = []
     new_shared = list(state.get("shared", []))
     shared_i = 0
+    stacked = params.get("blocks") is None
+    stack = _layers(params, par) if stacked else None
 
     for i, kind in enumerate(cfg.layer_kinds()):
-        lp = layer_params(params, i)
+        lp = (take(stack(i), "layers") if stacked
+              else take(params["blocks"][i], "blocks", i))
         st = state["layers"][i]
         if uses_shared(cfg, i):
             x, new_shared[shared_i] = _attn_decode(
-                params["shared_attn"], cfg, x, state["shared"][shared_i],
-                index, 0)
+                take(params["shared_attn"], "shared_attn"), cfg, x,
+                state["shared"][shared_i], index, 0, par=par)
             shared_i += 1
         if kind == "attn":
             cross_kv = state["cross"][i] if cfg.encoder_layers else None
             x, st = _attn_decode(lp, cfg, x, st, index,
-                                 _decode_window(cfg, i), cross_kv)
+                                 _decode_window(cfg, i), cross_kv, par)
         else:
             h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
             if kind == "mamba":
@@ -165,11 +179,7 @@ def decode_step(params, cfg, state, tokens):
             x = x + y
         new_layer_states.append(st)
 
-    x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = unembed(params["embed"], x)
-    else:
-        logits = dense(params["unembed"], x).float()
+    logits = _logits(params, cfg, x, par, softcap=False)
 
     new_state = dict(state)
     new_state["index"] = index + 1

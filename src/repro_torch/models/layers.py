@@ -8,8 +8,12 @@ Parameters keep the reference's keys and layouts (a dense kernel is
 (in, out); an embedding table (vocab, d)), so the reference's parameters
 carry across leaf for leaf (`repro_torch.convert.params_from_jax`).
 Initializers draw from a CPU `torch.Generator`; the draws are not
-`jax.random`'s. The reference's `shard_activation` has no counterpart on
-one card.
+`jax.random`'s. On a mesh the reference's `shard_activation` lets GSPMD
+cut a layer over "model"; here a layer given `tp` (a
+`models.parallel.Parallel`) computes Megatron's cut on its slices of the
+weights: `embed` and `unembed` over the vocabulary, `column` / `row`
+products and `swiglu_mlp` / `gelu_mlp` over their hidden columns. With
+`tp=None` every layer runs as on one device.
 """
 from __future__ import annotations
 
@@ -77,15 +81,75 @@ def init_embedding(generator, vocab, d, dtype=torch.float32):
                                  stddev=1.0 / math.sqrt(d), dtype=dtype)}
 
 
-def embed(params, tokens, dtype=torch.bfloat16):
+def embed(params, tokens, dtype=torch.bfloat16, tp=None):
     """Gather then cast: the same values as the reference's cast of the
-    whole table then gather, without copying the table."""
-    return params["embed"][tokens].to(dtype)
+    whole table then gather, without copying the table. Under `tp` the
+    table is the rank's rows of the vocabulary: a token outside them
+    looks up zeros, and one sum over "model" (the reference's one-hot
+    psum) gives every rank the whole embedding."""
+    table = params["embed"]
+    if tp is None:
+        return table[tokens].to(dtype)
+    n = table.shape[0]
+    local = tokens - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    rows = torch.where(inside[..., None], rows.to(dtype),
+                       torch.zeros((), dtype=dtype, device=rows.device))
+    return tp.g(rows)
 
 
-def unembed(params, x):
-    """Logits in float32 for a stable softmax cross-entropy."""
+def unembed(params, x, tp=None):
+    """Logits in float32 for a stable softmax cross-entropy; under `tp`
+    the rank's vocabulary columns of them."""
+    if tp is not None:
+        x = tp.f(x)
     return x.float() @ params["embed"].float().t()
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's nll from the rank's vocabulary columns of its logits,
+    `x @ w` (float32), without a second copy of them: the logits' max,
+    then one sum over "model" of the exponentials' sums and the label's
+    logit; the logits buffer becomes the softmax in place, the one tensor
+    of the vocabulary's size kept for the backward pass (Megatron's
+    vocabulary-parallel cross-entropy, its product fused in)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, tp):
+        logits = x.float() @ w.float()
+        n = logits.shape[-1]
+        m = tp.max(logits.amax(dim=-1))
+        local = labels - tp.index * n
+        inside = (local >= 0) & (local < n)
+        safe = torch.where(inside, local, torch.zeros_like(local))
+        mine = torch.gather(logits, -1, safe[..., None])[..., 0]
+        logits.sub_(m[..., None]).exp_()
+        parts = torch.stack([logits.sum(-1), torch.where(
+            inside, mine, torch.zeros_like(mine))], -1)
+        sums, label_logit = tp.g(parts).unbind(-1)
+        logits.div_(sums[..., None])
+        ctx.save_for_backward(x, w, logits, safe, inside)
+        return m + torch.log(sums) - label_logit
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, p, safe, inside = ctx.saved_tensors
+        # d nll / d logits = softmax - one-hot of the label (where it is one
+        # of the rank's columns), in the saved buffer
+        p.scatter_add_(-1, safe[..., None], -inside[..., None].float())
+        p.mul_(g[..., None])
+        dx = (p @ w.float().t()).to(x.dtype)
+        dw = (x.float().reshape(-1, x.shape[-1]).t()
+              @ p.reshape(-1, p.shape[-1])).to(w.dtype)
+        return dx, dw, None, None
+
+
+def vocab_parallel_nll(x, w, labels, tp):
+    """x: (..., d) entering through `tp.f`; w: (d, V / M), the rank's
+    vocabulary columns; labels: (...) token ids (>= 0) -> each token's nll
+    (float32)."""
+    return _VocabParallelNLL.apply(tp.f(x), w, labels, tp)
 
 
 # -- RoPE --------------------------------------------------------------------------
@@ -124,6 +188,23 @@ def dense(params, x):
     return y
 
 
+def column(params, x, tp=None):
+    """`dense` on the rank's output columns under `tp`: its input enters
+    through Megatron's f."""
+    return dense(params, x if tp is None else tp.f(x))
+
+
+def row(params, x, tp=None):
+    """`dense` on the rank's input rows under `tp`: the partial products
+    summed over "model" (Megatron's g), the bias added after the sum."""
+    if tp is None:
+        return dense(params, x)
+    y = tp.g(x @ params["kernel"].to(x.dtype))
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
 def init_swiglu_mlp(generator, d, d_ff, dtype=torch.float32):
     return {
         "wi_gate": lecun_init(generator, (d, d_ff), dtype=dtype),
@@ -132,10 +213,15 @@ def init_swiglu_mlp(generator, d, d_ff, dtype=torch.float32):
     }
 
 
-def swiglu_mlp(params, x):
+def swiglu_mlp(params, x, tp=None):
+    """Under `tp`, column-parallel `wi_gate` / `wi_up` and row-parallel
+    `wo` over the rank's hidden columns."""
+    if tp is not None:
+        x = tp.f(x)
     g = x @ params["wi_gate"].to(x.dtype)
     u = x @ params["wi_up"].to(x.dtype)
-    return (F.silu(g) * u) @ params["wo"].to(x.dtype)
+    y = (F.silu(g) * u) @ params["wo"].to(x.dtype)
+    return y if tp is None else tp.g(y)
 
 
 def init_gelu_mlp(generator, d, d_ff, dtype=torch.float32):
@@ -145,7 +231,8 @@ def init_gelu_mlp(generator, d, d_ff, dtype=torch.float32):
     }
 
 
-def gelu_mlp(params, x):
-    """`jax.nn.gelu`'s default is the tanh approximation."""
-    return dense(params["wo"], F.gelu(dense(params["wi"], x),
-                                      approximate="tanh"))
+def gelu_mlp(params, x, tp=None):
+    """`jax.nn.gelu`'s default is the tanh approximation. Under `tp`,
+    `wi` column- and `wo` row-parallel."""
+    return row(params["wo"], F.gelu(column(params["wi"], x, tp),
+                                    approximate="tanh"), tp)

@@ -12,8 +12,14 @@ The dispatch and combine products stay dense one-hot einsums, as in the
 reference (where XLA runs them). The (G, S, E, C) combine tensor is built
 by scattering each kept assignment's gate into its (expert, slot): the
 values of the reference's three-operand einsum, whose other terms are
-exact zeros, without its (G, S, K, C) one-hot intermediate. The
-reference's `shard_activation` calls have no counterpart on one card.
+exact zeros, without its (G, S, K, C) one-hot intermediate.
+
+Under `tp` (a `models.parallel.Parallel` cutting experts over "model":
+the tp profile and the multi-pod moe profile) the router, its capacity
+and drops and the aux loss stay whole on every rank; the rank's E/M
+experts run on its tokens, the combine takes their slots, the shared
+experts run on the rank's columns, and one sum over "model" follows, the
+row-parallel form of the reference's expert-parallel dispatch.
 
 The aux loss's token means (f_e, p_e) are over the tokens of the call.
 `moe_ffn(..., token_mean=fn)` takes them through `fn` instead, which maps
@@ -102,9 +108,10 @@ def load_balance_loss(gates, top_idx, num_experts, token_mean=None):
     return num_experts * torch.sum(f_e * p_e)
 
 
-def moe_ffn(params, cfg, x, token_mean=None):
+def moe_ffn(params, cfg, x, token_mean=None, tp=None):
     """x: (B, S, D) -> (out, aux_loss); `token_mean` as in
-    `load_balance_loss`."""
+    `load_balance_loss`; `tp` runs the rank's experts (module
+    docstring)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     tokens = B * S
@@ -116,10 +123,17 @@ def moe_ffn(params, cfg, x, token_mean=None):
 
     top_vals, top_idx, gates = route(params["router"], xg, E, K)
     C = _capacity(gsz, K, E, cfg.capacity_factor)
+    xin = xg
+    if tp is not None:
+        # the router's path stays whole; the experts' enters through f
+        top_vals, xin = tp.f(top_vals), tp.f(xg)
     combine = dispatch_combine_masks(top_vals, top_idx, E, C)
+    if tp is not None:
+        n = params["experts_gate"].shape[0]
+        combine = combine[:, :, tp.index * n:(tp.index + 1) * n]
     dispatch = (combine > 0).to(x.dtype)
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    xe = torch.einsum("gsec,gsd->egcd", dispatch, xin)
     g = torch.einsum("egcd,edf->egcf", xe,
                      params["experts_gate"].to(x.dtype))
     u = torch.einsum("egcd,edf->egcf", xe, params["experts_up"].to(x.dtype))
@@ -130,8 +144,18 @@ def moe_ffn(params, cfg, x, token_mean=None):
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), ye)
     out = out.reshape(B, S, D)
 
-    if cfg.num_shared_experts:
-        out = out + layers.swiglu_mlp(params["shared"], x)
+    # the shared experts on the rank's columns (all of them off a mesh,
+    # or when their width does not divide over "model": after the sum)
+    shared = params.get("shared")
+    cut = shared is not None and (
+        tp is None or shared["wo"].shape[0] < cfg.num_shared_experts
+        * cfg.d_ff)
+    if cut:
+        out = out + layers.swiglu_mlp(shared, xin.reshape(B, S, D))
+    if tp is not None:
+        out = tp.g(out)
+    if shared is not None and not cut:
+        out = out + layers.swiglu_mlp(shared, x)
 
     aux = load_balance_loss(gates, top_idx, E, token_mean)
     return out, aux

@@ -1,0 +1,220 @@
+"""A rank's tensor-parallel view of one sharded step: the port's form of the
+reference's `shard_activation` (`repro.models.layers`), which has GSPMD
+split a layer's compute over "model" where the activations keep "model"
+on their features.
+
+The sharded steps (`launch.train.make_sharded_train_step`, the sharded
+prefill and decode of `launch.serve`, `FederatedTrainer(mesh=)`) run the
+model on the rank's stored shards inside `use(Parallel(...))`. The model
+then takes each block's leaves through `Parallel.take`, one layer at a
+time, inside the layer's checkpoint, so remat gathers them again in its
+recompute and no rank ever holds the whole tree:
+
+* `take` makes the rank's compute slices of a layer's stored shards
+  (`specs.compute_layout`: attention heads and MLP columns, MoE experts,
+  Mamba2 heads, the vocabulary, or the whole leaf) by their
+  `launch.mesh.leaf_plan`s, in one card exchange on ranks sharing a card
+  (`collectives.gather_leaves`); in the backward pass their gradients come
+  back summed over the step's batch axes (and over "model" where several
+  ranks read a leaf in part) and cut to the stored shards.
+* `tp(kind)` is the view itself where blocks of that kind are cut over
+  "model" (`specs.cut_kinds`), else None; a cut block enters through `f`
+  and leaves through `g` after its row-parallel product, Megatron's pair
+  (`core.collectives.copy_to` / `reduce_from`).
+* Without remat (`cfg.remat` off) a backward pass would keep every
+  gathered weight that autograd saves until it runs, the whole model at
+  the end of the forward pass; inside `regathering()` such a weight (or
+  its cast) is saved as how to gather it again, and the backward pass
+  gathers each layer again, once, when it first needs it.
+
+Off a mesh `current()` is None and every layer runs as on one device.
+"""
+from __future__ import annotations
+
+import contextlib
+import weakref
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.core import collectives
+from repro_torch.sharding import specs as sh
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+# process-wide, as the dry-run's mode: the layers read it when the forward
+# pass starts; a layer recomputed on the autograd engine's thread holds the
+# view through its closure
+_ACTIVE: list = [None]
+
+
+def current() -> Optional["Parallel"]:
+    """The active view, or None off a mesh."""
+    return _ACTIVE[0]
+
+
+@contextlib.contextmanager
+def use(par: Optional["Parallel"]):
+    """Run the model under `par` (None: as on one device)."""
+    prev, _ACTIVE[0] = _ACTIVE[0], par
+    try:
+        yield par
+    finally:
+        _ACTIVE[0] = prev
+
+
+def _at(tree, key):
+    for k in key:
+        tree = tree[k]
+    return tree
+
+
+class Parallel:
+    """One rank's view: its `rank_mesh`, the model config's compute
+    layouts for the rank's index on "model", and the stored shardings of
+    the parameter tree (`shardings`, of the global `param_specs`). Build it
+    under the rules the shardings were made by (`specs.config_rules`).
+    `batch_axes` are the axes whose ranks hold other rows: the gradients
+    are summed over them. `whole` names blocks a decode step computes whole
+    ("kv", "mamba"; `specs.compute_layout`)."""
+
+    def __init__(self, cfg, rank_mesh, shardings, param_specs, *,
+                 batch_axes: Sequence[str] = (), whole: Sequence[str] = ()):
+        mesh = rank_mesh.shape
+        self.name = sh.tp_axis(mesh)
+        self.axis = rank_mesh.axis(self.name) if self.name else None
+        self.size = self.axis.size if self.axis else 1
+        self.index = self.axis.index if self.axis else 0
+        self.cut: Dict[str, bool] = sh.cut_kinds(cfg, self.size)
+        if "mamba" in whole:
+            self.cut["mamba"] = False
+        self.layouts = sh.compute_layouts(cfg, mesh, param_specs,
+                                          self.index, whole)
+        self.shardings = shardings
+        self.rank_mesh = rank_mesh
+        self.batch_axes = tuple(batch_axes)
+        self.ran = set()         # the block kinds that ran cut
+        self._plans: Dict[tuple, list] = {}
+        self._made = None        # inside `regathering()`: what take made
+
+    # -- the tensor-parallel handle of a block --------------------------------
+
+    def tp(self, kind: str) -> Optional["Parallel"]:
+        """This view where blocks of `kind` are cut over "model", else
+        None (the block computes whole on every rank)."""
+        if self.cut.get(kind):
+            self.ran.add(kind)
+            return self
+        return None
+
+    def f(self, x):
+        return collectives.copy_to(x, self.axis)
+
+    def g(self, x):
+        return collectives.reduce_from(x, self.axis)
+
+    def sum(self, x):
+        return collectives.sum_over(x, self.axis)
+
+    def max(self, x):
+        return collectives.max_over(x, self.axis)
+
+    # -- the stored shards, one layer at a time ------------------------------
+
+    @staticmethod
+    def unstack(layers):
+        """A stacked "layers" subtree as per-layer views: leaf -> tuple of
+        L views (one `unbind` a leaf, whose backward stacks the layers'
+        gradients once)."""
+        return tree_map(lambda a: a.unbind(0), layers)
+
+    @staticmethod
+    def layer(unstacked, i):
+        return tree_map(lambda t: t[i], unstacked)
+
+    def take(self, stored, *key):
+        """The compute slices of the stored subtree `stored`, which sits at
+        `key` in the parameter tree (("layers",) for any layer of the
+        stack, ("blocks", i), ("embed",), ...)."""
+        leaves = tree_leaves(stored)
+        plans = self._plans.get(key)
+        if plans is None:
+            from repro_torch.launch import mesh as mesh_mod
+            mesh = self.rank_mesh.shape
+            stacked = "layers" in key
+            plans = []
+            for x, s, lay in zip(leaves, tree_leaves(_at(self.shardings,
+                                                         key)),
+                                 tree_leaves(_at(self.layouts, key))):
+                if stacked:
+                    s = sh.NamedSharding(mesh, sh.P(*s.spec[1:]))
+                plans.append(mesh_mod.leaf_plan(
+                    tuple(x.shape), s, lay, self.rank_mesh,
+                    self.batch_axes, self.name))
+            self._plans[key] = plans
+        out = collectives.gather_leaves(plans, leaves)
+        if self._made is not None:
+            self._remember(leaves, plans, out)
+        return tree_unflatten(stored, out)
+
+    # -- without remat: gathered weights saved as how to gather them --------
+
+    @contextlib.contextmanager
+    def regathering(self):
+        """Autograd saves each gathered weight (or its cast) that the
+        backward pass needs as how to gather it again (module
+        docstring)."""
+        self._made = {}
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                yield
+        finally:
+            self._made = None
+
+    def _remember(self, leaves, plans, out):
+        """Note each of one gather's outputs, and its autograd node, as
+        made by that gather; the backward pass's copy of the layer is
+        dropped when the node runs (every use of the layer is then done)."""
+        record = {"leaves": leaves, "plans": plans, "again": None}
+        node = next((t.grad_fn for t in out if t.grad_fn is not None), None)
+        for i, t in enumerate(out):
+            self._made[id(t)] = (weakref.ref(t), record, i)
+        if node is not None:
+            self._made[id(node)] = (weakref.ref(node), record, None)
+
+            def drop(grads):
+                record["again"] = None
+            node.register_prehook(drop)
+
+    def _find(self, t):
+        entry = self._made.get(id(t))
+        if entry is not None and entry[0]() is t:
+            return entry
+        return None
+
+    def _pack(self, t):
+        made = self._find(t._base if t._base is not None else t)
+        cast = None
+        if made is None and t.grad_fn is not None and type(
+                t.grad_fn).__name__ == "ToCopyBackward0":
+            node, index = t.grad_fn.next_functions[0]
+            found = None if node is None else self._find(node)
+            if found is not None:
+                made, cast = (found[0], found[1], index), t.dtype
+        if made is None:
+            return t
+        return (made[1], made[2], cast, t.shape, t.stride(),
+                t.storage_offset())
+
+    def _unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        record, i, cast, shape, stride, offset = packed
+        if record["again"] is None:
+            with torch.no_grad():
+                record["again"] = collectives.gather_leaves(
+                    record["plans"], [x.detach() for x in record["leaves"]])
+        w = record["again"][i]
+        if cast is not None:
+            w = w.to(cast)
+        return w.as_strided(shape, stride, offset)

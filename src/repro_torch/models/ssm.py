@@ -11,6 +11,12 @@ reference offers it.
 
 Decode keeps a recurrent state (B, H, dh, N) and a (W-1)-deep conv
 window — O(1) memory per generated token.
+
+Under `tp` (a `models.parallel.Parallel` cutting heads over "model") the
+prefill runs on the rank's H/M heads: its slices of `in_proj` and
+`conv1d` hold its heads' z, x and dt columns and all of B and C
+(`specs.compute_layout`), the gated RMSNorm over d_inner sums its squares
+over "model", and `out_proj` is row-parallel.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (dense, init_dense, init_rmsnorm,
+                                       rmsnorm, row)
 
 
 def d_inner(cfg):
@@ -69,8 +76,10 @@ def _causal_depthwise_conv(x, w):
     return out.to(x.dtype)
 
 
-def _split_proj(cfg, proj):
-    di, N = d_inner(cfg), cfg.ssm_state
+def _split_proj(cfg, proj, di=None):
+    """z, x, B, C, dt of an `in_proj` product (`di`: the x width, the
+    rank's under tp)."""
+    di, N = di or d_inner(cfg), cfg.ssm_state
     z = proj[..., :di]
     xs = proj[..., di:2 * di]
     Bm = proj[..., 2 * di:2 * di + N]
@@ -125,16 +134,29 @@ def ssd_chunked(xh, a_log, dt, Bm, Cm, chunk=128, h0=None):
     return y.to(xh.dtype), h
 
 
-def mamba2_forward(params, cfg, x, *, use_kernel=False):
+def _rmsnorm_cut(params, x, eps, width, tp):
+    """`rmsnorm` over a feature dim of `width` cut over "model": the sum
+    of squares summed over the ranks."""
+    dt = x.dtype
+    x = x.float()
+    var = tp.sum(torch.sum(torch.square(x), dim=-1, keepdim=True)) / width
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+def mamba2_forward(params, cfg, x, *, use_kernel=False, tp=None):
     """Prefill. x: (B,S,D) -> (B,S,D). `use_kernel` runs the chunked
     scan kernel (chunk 128, as the reference calls it) in place of
-    `ssd_chunked`."""
+    `ssd_chunked`; `tp` runs the rank's heads (module docstring)."""
     B, S, D = x.shape
-    di, N, H = d_inner(cfg), cfg.ssm_state, ssm_heads(cfg)
-    dh = cfg.ssm_head_dim
+    N, dh = cfg.ssm_state, cfg.ssm_head_dim
+    H = params["A_log"].shape[0]            # the rank's heads under tp
+    di = H * dh
 
+    if tp is not None:
+        x = tp.f(x)
     proj = dense(params["in_proj"], x)
-    z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
+    z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj, di)
     xbc = _causal_depthwise_conv(torch.cat([xs, Bm, Cm], -1),
                                  params["conv1d"])
     xbc = F.silu(xbc)
@@ -155,8 +177,11 @@ def mamba2_forward(params, cfg, x, *, use_kernel=False):
     y = y.reshape(B, S, di).to(x.dtype)
 
     y = y * F.silu(z)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps)
-    return dense(params["out_proj"], y)
+    if tp is None:
+        y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    else:
+        y = _rmsnorm_cut(params["norm"], y, cfg.norm_eps, d_inner(cfg), tp)
+    return row(params["out_proj"], y, tp)
 
 
 def mamba2_step(params, cfg, x, conv_state, ssm_state):

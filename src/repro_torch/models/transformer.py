@@ -19,16 +19,26 @@ stack (the shared block included where it runs), one block of the
 per-block loop (the shared block not). Other stacks are the
 "blocks" list; seamless keeps its decoder under "layers" with
 "blocks": None, as the reference does.
+
+On a mesh (`models.parallel.current()`, set by the sharded steps) the
+parameters are the rank's stored shards: each layer takes its compute
+slices (`Parallel.take`) inside its checkpoint, so remat gathers them
+again in the backward pass, and the shared block, the embedding, the
+final norm and the unembedding are taken around their use. Blocks cut
+over "model" run Megatron's layout (`layers`, `attention`, `ssm`, `moe`),
+and the logits stay cut by the vocabulary: `loss_fn` takes their
+log-sum-exp and the label's logit with sums over "model".
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, mla, moe, ssm, xlstm
+from repro_torch.models import layers, mla, moe, parallel, ssm, xlstm
 from repro_torch.models.layers import (apply_norm, dense, embed, init_dense,
                                        init_embedding, init_norm, unembed)
 from repro_torch.tree import tree_leaves, tree_map
@@ -137,17 +147,23 @@ def _layer_window(cfg, layer_idx):
     return cfg.sliding_window
 
 
+def _tp(par, kind):
+    return None if par is None else par.tp(kind)
+
+
 def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
-                      window=0, token_mean=None):
+                      window=0, token_mean=None, par=None):
     """One attention layer -> (x, MoE aux loss or 0); `token_mean` as in
-    `moe.load_balance_loss`."""
+    `moe.load_balance_loss`; `par` the rank's view on a mesh (its blocks
+    cut over "model" where `par.tp` says so)."""
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
         a = mla.mla_attention(lp["attn"], cfg, h, positions=positions,
                               mask=mask)
     else:
         a = attn_mod.attention(lp["attn"], cfg, h, positions=positions,
-                               mask=mask, window=window)
+                               mask=mask, window=window,
+                               tp=_tp(par, "attn"))
     x = x + a
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if enc_out is not None:
@@ -163,25 +179,27 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
     if "mlp" in lp:
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
-            y, aux = moe.moe_ffn(lp["mlp"], cfg, h, token_mean)
+            y, aux = moe.moe_ffn(lp["mlp"], cfg, h, token_mean,
+                                 tp=_tp(par, "moe"))
         elif cfg.norm_type == "layernorm":
-            y = layers.gelu_mlp(lp["mlp"], h)
+            y = layers.gelu_mlp(lp["mlp"], h, _tp(par, "mlp"))
         else:
-            y = layers.swiglu_mlp(lp["mlp"], h)
+            y = layers.swiglu_mlp(lp["mlp"], h, _tp(par, "mlp"))
         x = x + y
     return x, aux
 
 
 def _apply_kind(lp, cfg, kind, x, *, positions, mask, enc_out=None,
-                window=0, token_mean=None):
+                window=0, token_mean=None, par=None):
     if kind == "attn":
         return _apply_attn_layer(lp, cfg, x, positions=positions, mask=mask,
                                  enc_out=enc_out, window=window,
-                                 token_mean=token_mean)
+                                 token_mean=token_mean, par=par)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
     if kind == "mamba":
-        return x + ssm.mamba2_forward(lp["mamba"], cfg, h), aux
+        return x + ssm.mamba2_forward(lp["mamba"], cfg, h,
+                                      tp=_tp(par, "mamba")), aux
     if kind == "mlstm":
         return x + xlstm.mlstm_block(lp["mlstm"], cfg, h), aux
     if kind == "slstm":
@@ -204,24 +222,46 @@ def uses_shared(cfg, i):
                 and i % cfg.shared_attn_every == 0)
 
 
-def _encode(params, cfg, frames, remat):
+def _encode(params, cfg, frames, remat, par=None):
     """seamless' encoder over (B, F, d) frame embeddings: the reference's
     scanned stack with a bidirectional zero mask (which only the einsum
     path reads: flash and chunked attention run it causally, as in the
-    reference), each layer checkpointed under `remat`."""
+    reference), each layer checkpointed under `remat`; on a mesh computed
+    whole, its leaves taken a layer at a time."""
     enc_cfg = cfg.with_updates(moe=False)
-    e = dense(params["input_proj"], frames)
+    take = _taker(par)
+    e = dense(take(params["input_proj"], "encoder", "input_proj"), frames)
     B, F = e.shape[:2]
     epos = torch.arange(F, dtype=torch.int32, device=e.device)[None].expand(
         B, F)
     emask = torch.zeros((F, F), dtype=torch.float32, device=e.device)
 
     def layer(lp, e):
+        lp = take(lp, "encoder", "layers")
         return _apply_attn_layer(lp, enc_cfg, e, positions=epos, mask=emask)
 
+    stack = _layers(params, par)
     for i in range(cfg.encoder_layers):
-        e, _ = _call(remat, layer, layer_params(params, i), e)
-    return apply_norm(cfg.norm_type, params["final_norm"], e, cfg.norm_eps)
+        e, _ = _call(remat, layer, stack(i), e)
+    return apply_norm(cfg.norm_type,
+                      take(params["final_norm"], "encoder", "final_norm"),
+                      e, cfg.norm_eps)
+
+
+def _taker(par):
+    """`Parallel.take` on a mesh; off it the stored leaves are the
+    whole ones."""
+    if par is None:
+        return lambda sub, *key: sub
+    return par.take
+
+
+def _layers(params, par):
+    """i -> layer i's stored leaves of the stacked "layers" subtree."""
+    if par is None:
+        return lambda i: layer_params(params, i)
+    stacked = par.unstack(params["layers"])
+    return lambda i: par.layer(stacked, i)
 
 
 def _remat(cfg, params):
@@ -254,11 +294,33 @@ def forward(params, cfg, batch, token_mean=None):
     batch's tokens; `moe.load_balance_loss`). Mamba
     layers run the reference's prefill (`ssd_chunked`); the scan kernel is
     reached, as in the reference, through
-    `ssm.mamba2_forward(..., use_kernel=True)`."""
+    `ssm.mamba2_forward(..., use_kernel=True)`. On a mesh `params` are the
+    rank's stored shards and the logits its vocabulary columns where the
+    vocabulary is cut over "model" (module docstring)."""
+    par = parallel.current()
+    with _regathering(par, cfg, params):
+        x, aux = _forward(params, cfg, batch, token_mean, par)
+        return _logits(params, cfg, x, par), aux
+
+
+def _regathering(par, cfg, params):
+    """On a mesh without remat: the backward pass gathers each layer again
+    (`Parallel.regathering`)."""
+    if (par is not None and not _remat(cfg, params)
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(params))):
+        return par.regathering()
+    return contextlib.nullcontext()
+
+
+def _forward(params, cfg, batch, token_mean, par):
+    take = _taker(par)
     adt = cfg.activation_dtype
-    x = embed(params["embed"], batch["tokens"], adt)
+    x = embed(take(params["embed"], "embed"), batch["tokens"], adt,
+              _tp(par, "vocab"))
     if cfg.modality == "vision":
-        vis = dense(params["vision_proj"], batch["vision_embeds"].to(adt))
+        vis = dense(take(params["vision_proj"], "vision_proj"),
+                    batch["vision_embeds"].to(adt))
         x = torch.cat([vis, x], dim=1)
     B, S = x.shape[:2]
     dev = x.device
@@ -269,7 +331,7 @@ def forward(params, cfg, batch, token_mean=None):
     enc_out = None
     if cfg.encoder_layers:
         enc_out = _encode(params["encoder"], cfg,
-                          batch["audio_frames"].to(adt), remat)
+                          batch["audio_frames"].to(adt), remat, par)
 
     kinds = cfg.layer_kinds()
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -293,16 +355,19 @@ def forward(params, cfg, batch, token_mean=None):
         def body(lp, x, shared, mask, window):
             # one step of the reference's scan body: the shared block (where
             # it runs) and the layer
+            lp = take(lp, "layers")
             if shared is not None:
-                x, _ = _apply_attn_layer(shared, cfg, x, positions=positions,
+                x, _ = _apply_attn_layer(take(shared, "shared_attn"), cfg, x,
+                                         positions=positions,
                                          mask=masks["default"],
-                                         token_mean=token_mean)
+                                         token_mean=token_mean, par=par)
             return _apply_kind(lp, cfg, kind, x, positions=positions,
                                mask=mask, enc_out=enc_out, window=window,
-                               token_mean=token_mean)
+                               token_mean=token_mean, par=par)
 
+        stack = _layers(params, par)
         for i in range(cfg.num_layers):
-            lp = layer_params(params, i)
+            lp = stack(i)
             if cfg.sliding_window and cfg.global_every:
                 is_global = (i + 1) % cfg.global_every == 0
                 if masks.get("local") is not None:
@@ -318,45 +383,90 @@ def forward(params, cfg, batch, token_mean=None):
             x, aux = _call(remat, body, lp, x, shared, mask, window)
             aux_total = aux_total + aux
     else:
-        def one_block(lp, x, kind, mask, window):
-            return _apply_kind(lp, cfg, kind, x, positions=positions,
-                               mask=mask, enc_out=enc_out, window=window,
-                               token_mean=token_mean)
+        def one_block(lp, x, kind, mask, window, i):
+            return _apply_kind(take(lp, "blocks", i), cfg, kind, x,
+                               positions=positions, mask=mask,
+                               enc_out=enc_out, window=window,
+                               token_mean=token_mean, par=par)
 
         for i, (lp, kind) in enumerate(zip(params["blocks"], kinds)):
             if uses_shared(cfg, i):
-                x, _ = _apply_attn_layer(params["shared_attn"], cfg, x,
-                                         positions=positions,
-                                         mask=masks["default"],
-                                         token_mean=token_mean)
+                x, _ = _apply_attn_layer(
+                    take(params["shared_attn"], "shared_attn"), cfg, x,
+                    positions=positions, mask=masks["default"],
+                    token_mean=token_mean, par=par)
             w = _layer_window(cfg, i)
             mask = (masks["local"] if (w and masks.get("local") is not None)
                     else masks["default"])
-            x, aux = _call(remat, one_block, lp, x, kind, mask, w)
+            x, aux = _call(remat, one_block, lp, x, kind, mask, w, i)
             aux_total = aux_total + aux
+    return x, aux_total
 
-    x = apply_norm(cfg.norm_type, params["final_norm"], x, cfg.norm_eps)
+
+def _logits(params, cfg, x, par, softcap=True):
+    """The final norm and the unembedding: float32 logits, under a cut
+    vocabulary the rank's columns of them (the decode step applies no
+    softcap, as the reference's)."""
+    take = _taker(par)
+    x = apply_norm(cfg.norm_type, take(params["final_norm"], "final_norm"),
+                   x, cfg.norm_eps)
+    tp = _tp(par, "vocab")
     if cfg.tie_embeddings:
-        logits = unembed(params["embed"], x)
+        logits = unembed(take(params["embed"], "embed"), x, tp)
     else:
-        logits = dense(params["unembed"], x).float()
-    if cfg.logits_softcap:
+        logits = layers.column(take(params["unembed"], "unembed"), x,
+                               tp).float()
+    if softcap and cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits, aux_total
+    return logits
 
 
 def loss_fn(params, cfg, batch, token_mean=None):
     """Causal LM loss plus `aux_loss_weight` x the MoE aux loss (its token
     means through `token_mean`, as in `forward`). labels: (B, S) with -1 =
-    ignore. Returns (loss, {"nll", "aux"})."""
-    logits, aux = forward(params, cfg, batch, token_mean)
+    ignore. Returns (loss, {"nll", "aux"}). On a mesh whose vocabulary is
+    cut over "model", the log-sum-exp and the label's logit come from the
+    rank's logit columns: their max, then one sum over "model" of the
+    exponentials' sums and the label's logit (no rank builds whole-vocab
+    logits), fused with the unembedding (`layers.vocab_parallel_nll`)
+    where no softcap applies."""
     labels = batch["labels"]
-    # logits for token positions only (the vision prefix predicts nothing)
-    logits = logits[:, -labels.shape[1]:, :]
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    lse = torch.logsumexp(logits, dim=-1)                        # (B,S)
-    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    par = parallel.current()
+    tp = _tp(par, "vocab")
+    if tp is not None and not cfg.logits_softcap:
+        with _regathering(par, cfg, params):
+            x, aux = _forward(params, cfg, batch, token_mean, par)
+            take = _taker(par)
+            # token positions only (the vision prefix predicts nothing)
+            x = apply_norm(cfg.norm_type,
+                           take(params["final_norm"], "final_norm"),
+                           x[:, -labels.shape[1]:], cfg.norm_eps)
+            w = (take(params["embed"], "embed")["embed"].t()
+                 if cfg.tie_embeddings
+                 else take(params["unembed"], "unembed")["kernel"])
+            nll = layers.vocab_parallel_nll(x, w, safe, tp)
+        nll = (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+        return nll + cfg.aux_loss_weight * aux, {"nll": nll, "aux": aux}
+    logits, aux = forward(params, cfg, batch, token_mean)
+    # logits for token positions only (the vision prefix predicts nothing)
+    logits = logits[:, -labels.shape[1]:, :]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)                    # (B,S)
+        label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = tp.max(logits.detach().amax(dim=-1))
+        local = safe - tp.index * n
+        inside = (local >= 0) & (local < n)
+        mine = torch.gather(logits, -1, torch.where(
+            inside, local, torch.zeros_like(local))[..., None])[..., 0]
+        parts = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                             torch.where(inside, mine,
+                                         torch.zeros_like(mine))], -1)
+        sums, label_logit = tp.g(parts).unbind(-1)
+        lse = m + torch.log(sums)
     nll = lse - label_logit
     nll = (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
     return nll + cfg.aux_loss_weight * aux, {"nll": nll, "aux": aux}

@@ -482,3 +482,189 @@ def remap_act_spec(spec, mesh) -> PartitionSpec:
         out[1] = sa
     return P(*out)
 
+
+
+# ---------------------------------------------------------------------------
+# compute layout: what a rank computes of each leaf (tensor parallelism)
+#
+# The reference's GSPMD splits compute over "model" where its activations
+# keep "model" on their features (`remap_act_spec`): the tp profile, and the
+# multi-pod moe profile. A rank there computes Megatron's layout: attention
+# heads and MLP columns column-parallel, their output products row-parallel
+# (one all-reduce over "model" each), MoE experts, Mamba2 heads and the
+# vocabulary. `compute_layout` says, for one leaf, which slice of it the rank
+# computes with; `models.parallel.Parallel.take` makes that slice from the
+# rank's stored shard, one layer at a time.
+# ---------------------------------------------------------------------------
+
+def tp_axis(mesh):
+    """"model" where a rank computes its "model" shard of each layer: the
+    tp profile and the multi-pod moe profile, on a mesh whose "model" axis
+    has more than one rank; else None (every rank along "model" computes
+    whole layers on its own rows)."""
+    prof = get_profile()
+    if not (prof == "tp" or (prof == "moe" and "pod" in mesh.axis_names)):
+        return None
+    return "model" if axis_size(mesh, "model") > 1 else None
+
+
+def _mamba_heads(cfg) -> int:
+    return cfg.mamba_expand * cfg.d_model // cfg.ssm_head_dim
+
+
+def cut_kinds(cfg, M: int) -> Dict[str, bool]:
+    """Which of the config's blocks a "model" axis of M ranks cuts: GQA
+    attention by heads, the dense MLP and MoE's shared experts by columns,
+    MoE by experts, Mamba2 by heads, the embedding and logits by the
+    vocabulary. A block whose count does not divide over M is computed
+    whole on every rank (gemma3-4b's 8 heads at M = 16), as are MLA,
+    xLSTM, the encoder, cross-attention and the vision projection
+    (ROADMAP A.19b)."""
+    if M < 2:
+        return {k: False for k in ("attn", "mlp", "moe", "mamba", "vocab")}
+    ff = cfg.num_shared_experts * cfg.d_ff if cfg.moe else cfg.d_ff
+    return {"attn": (cfg.attention_kind == "gqa"
+                     and cfg.num_heads % M == 0),
+            "mlp": ff > 0 and ff % M == 0,
+            "moe": bool(cfg.moe) and cfg.num_experts % M == 0,
+            "mamba": bool(cfg.ssm_state) and _mamba_heads(cfg) % M == 0,
+            "vocab": cfg.vocab_size % M == 0}
+
+
+class Layout(tuple):
+    """One leaf's compute layout: (kind, dim, ranges, partial). `kind` is
+    column | row | vocab | expert | head | whole; the rank computes with
+    the concatenation of `ranges` ((lo, hi) pairs) along `dim` (None:
+    the whole leaf). `partial` is true where the rank's gradient is a part
+    of the leaf's (its slice, or a whole leaf it applies to its own heads
+    only), to be summed over "model"; false where every rank along "model"
+    computes the same gradient."""
+
+    def __new__(cls, kind, dim=None, ranges=(), partial=False):
+        return super().__new__(cls, (kind, dim, tuple(ranges), partial))
+
+    kind = property(lambda s: s[0])
+    dim = property(lambda s: s[1])
+    ranges = property(lambda s: s[2])
+    partial = property(lambda s: s[3])
+
+
+WHOLE = Layout("whole")
+
+
+def attn_heads(cfg, M: int, index: int):
+    """(first query head, query heads, first kv head, kv heads) of rank
+    `index` of M under head-parallel attention: its H/M query heads and
+    the kv heads they read (under GQA several ranks may read one)."""
+    H, Hk = cfg.num_heads, cfg.num_kv_heads
+    hl = H // M
+    q0 = index * hl
+    G = H // Hk
+    k0 = q0 // G
+    return q0, hl, k0, (q0 + hl - 1) // G + 1 - k0
+
+
+def compute_layout(cfg, mesh, path: str, shape, index: int,
+                   whole=()) -> Layout:
+    """The compute layout of the leaf at `path` (its per-layer `shape`, the
+    stacked layer dim dropped) on the rank at index `index` of the
+    "model" axis. `whole` names blocks computed whole all the same (a
+    decode step's "kv" where the cache is not cut by heads, and its
+    "mamba", whose state is cut across heads)."""
+    name = tp_axis(mesh)
+    M = axis_size(mesh, name) if name else 1
+    cut = cut_kinds(cfg, M)
+    seg = path.split("/")
+    if (M < 2 or seg[0] in ("encoder", "vision_proj")
+            or "cross_attn" in seg):
+        return WHOLE
+    if path == "embed/embed" or path == "unembed/kernel":
+        if not cut["vocab"]:
+            return WHOLE
+        d = 0 if path == "embed/embed" else 1
+        n = shape[d] // M
+        return Layout("vocab", d, [(index * n, (index + 1) * n)], True)
+    block = next((b for b in ("attn", "mlp", "mamba") if b in seg), None)
+    leaf = "/".join(seg[seg.index(block) + 1:]) if block else ""
+    if "attn" in seg:
+        if not cut["attn"]:
+            return WHOLE
+        dh = cfg.head_dim
+        q0, hl, k0, kl = attn_heads(cfg, M, index)
+        qr = [(q0 * dh, (q0 + hl) * dh)]
+        kr = [(k0 * dh, (k0 + kl) * dh)]
+        if re.match(r"(wk|wv|k_norm)(/|$)", leaf) and "kv" in whole:
+            return WHOLE
+        if leaf == "wq/kernel":
+            return Layout("column", 1, qr, True)
+        if leaf == "wq/bias":
+            return Layout("column", 0, qr, True)
+        if leaf in ("wk/kernel", "wv/kernel"):
+            return Layout("column", 1, kr, True)
+        if leaf in ("wk/bias", "wv/bias"):
+            return Layout("column", 0, kr, True)
+        if leaf == "wo/kernel":
+            return Layout("row", 0, qr, True)
+        if leaf in ("q_norm/scale", "k_norm/scale"):
+            return Layout("whole", None, (), True)
+        return WHOLE           # wo/bias: added after the all-reduce
+    if "mlp" in seg:
+        moe_block = cfg.moe and seg[0] != "shared_attn"
+        if moe_block and re.match(r"experts_", leaf):
+            if not cut["moe"]:
+                return WHOLE
+            n = shape[0] // M
+            return Layout("expert", 0, [(index * n, (index + 1) * n)], True)
+        if moe_block and not leaf.startswith("shared/"):
+            return WHOLE       # the router: whole
+        if moe_block:
+            leaf = leaf[len("shared/"):]
+            if not (cut["moe"] and cut["mlp"]):
+                return WHOLE
+        elif not cut["mlp"]:
+            return WHOLE
+        col = {"wi_gate": 1, "wi_up": 1, "wi/kernel": 1, "wi/bias": 0}
+        if leaf in col:
+            d = col[leaf]
+            n = shape[d] // M
+            return Layout("column", d, [(index * n, (index + 1) * n)], True)
+        if leaf in ("wo", "wo/kernel"):
+            n = shape[0] // M
+            return Layout("row", 0, [(index * n, (index + 1) * n)], True)
+        return WHOLE           # wo/bias: added after the all-reduce
+    if "mamba" in seg:
+        if not cut["mamba"] or "mamba" in whole:
+            return WHOLE
+        hm, dhs, N = _mamba_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+        di = hm * dhs
+        hl = hm // M
+        h0 = index * hl
+        heads = (h0 * dhs, (h0 + hl) * dhs)
+        if leaf == "in_proj/kernel":
+            # z | x | B | C | dt: the rank's heads' z, x and dt, all of B, C
+            return Layout("column", 1, [
+                heads, (di + heads[0], di + heads[1]),
+                (2 * di, 2 * di + 2 * N),
+                (2 * di + 2 * N + h0, 2 * di + 2 * N + h0 + hl)], True)
+        if leaf == "conv1d":
+            return Layout("column", 1, [heads, (di, di + 2 * N)], True)
+        if leaf in ("A_log", "D", "dt_bias"):
+            return Layout("head", 0, [(h0, h0 + hl)], True)
+        if leaf == "norm/scale":
+            return Layout("head", 0, [heads], True)
+        if leaf == "out_proj/kernel":
+            return Layout("row", 0, [heads], True)
+        return WHOLE
+    return WHOLE
+
+
+def compute_layouts(cfg, mesh, params, index: int, whole=()):
+    """`compute_layout` over a parameter tree (leaves with `.shape`);
+    a leaf stacked under `layers/` gets its per-layer layout."""
+    def one(pair):
+        path, leaf = pair
+        shape = tuple(leaf.shape)
+        if _STACKED_RE.search(path) and len(shape) >= 2:
+            shape = shape[1:]
+        return compute_layout(cfg, mesh, path, shape, index, whole)
+    return tree_map(one, _paths(params))

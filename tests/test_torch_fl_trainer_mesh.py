@@ -21,7 +21,10 @@ half) on the CPU.
   weights and partial participation; the served model too. Every
   strategy issues collectives;
   gossip's ring is a counted collective-permute, as the reference's HLO
-  holds one.
+  holds one. Under the tp profile (the trainer keeps the caller's, "tp"
+  by default, as the reference's FL dry-run runs it) each rank computes
+  its "model" shard of each client's layers (`models.parallel`): phi3-mini
+  cuts its attention, MLP and vocabulary, zamba2 its Mamba2 heads.
 
 One `launch.mesh.World` of 8 CPU ranks serves the module; the ranks run
 `torch_sharded_cases.fl`."""
@@ -179,7 +182,8 @@ def _rounds(vocab, C=C):
     return out
 
 
-def _run_and_check(world, fl_case, C, groups, part, reference=True):
+def _run_and_check(world, fl_case, C, groups, part, reference=True,
+                   arch=ARCH, cut=("attn", "mlp", "vocab")):
     """2 rounds of `fl_case` with C clients in `groups` HFL groups on the 8
     ranks, against the one-device port trainer and, with `reference`, the
     reference's `fl_train_step`, both from the reference's init; without
@@ -190,9 +194,9 @@ def _run_and_check(world, fl_case, C, groups, part, reference=True):
                  lr=0.05)
     kw = dict(dtype="float32")
     ptr = port_trainer.FederatedTrainer(
-        build_model(get_config(ARCH).reduced(**kw)), FLConfig(**fl_kw))
+        build_model(get_config(arch).reduced(**kw)), FLConfig(**fl_kw))
     if reference:
-        rtr = RefTrainer(ref_build(ref_get_config(ARCH).reduced(**kw)),
+        rtr = RefTrainer(ref_build(ref_get_config(arch).reduced(**kw)),
                          RefFLConfig(**fl_kw))
         rstate = rtr.init_state(jax.random.PRNGKey(0))
         to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
@@ -220,7 +224,7 @@ def _run_and_check(world, fl_case, C, groups, part, reference=True):
             pstate, {k: torch.as_tensor(v) for k, v in b.items()},
             torch.as_tensor(w), torch.as_tensor(part))
         p_losses.append(float(pm["loss"]))
-    outs = world.run(cases.fl, ARCH, kw, fl_kw, *MESH, batches, w, part,
+    outs = world.run(cases.fl, arch, kw, fl_kw, *MESH, batches, w, part,
                      client_params=cp, global_params=gp)
     for (lo, hi), m, mine, glob, losses, report in outs:
         np.testing.assert_allclose(losses, p_losses, rtol=TOL)
@@ -247,6 +251,7 @@ def _run_and_check(world, fl_case, C, groups, part, reference=True):
             np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=TOL)
         kinds = report["collectives"]["kinds"]
         assert sum(kinds.values()) > 0, kinds
+        assert set(report["cut"]) == set(cut), report["cut"]
         if fl_case.get("afl_mode") == "gossip":
             assert kinds.get("collective-permute", 0) == 2 * ROUNDS, kinds
     return [(c, m) for c, m, *_ in outs]
@@ -295,3 +300,14 @@ def test_mesh_trainer_hfl_groups_straddling_ranks(world):
     got = _run_and_check(world, CASES["hfl"], 12, 3, np.ones(12, bool))
     assert sorted(got) == sorted(((3 * i, 3 * i + 3), m) for i in range(4)
                                  for m in range(2))
+
+
+@pytest.mark.parametrize("strategy", ["hfl", "cfl"])
+def test_mesh_trainer_cuts_mamba2_heads_over_model(world, strategy):
+    """zamba2 reduced: each client's local steps run its Mamba2 heads over
+    "model"; held to the one-device port trainer from the port's init."""
+    got = _run_and_check(world, CASES[strategy], C, 2, np.ones(C, bool),
+                         reference=False, arch="zamba2-1.2b",
+                         cut=("mamba", "vocab"))
+    assert sorted(got) == [((c, c + 1), m) for c in range(C)
+                           for m in range(2)]

@@ -18,6 +18,12 @@ steps (`repro_torch.launch.serve`'s mesh half) on the CPU.
   decode run under its `NamedSharding`s on 8 fake devices (params by
   `tree_shardings`, tokens by `batch_shardings` / `token_shardings`, the
   state by `decode_state_shardings`), row for row within 1e-5.
+* Under "tp" each rank computes its "model" shard of every layer
+  (`models.parallel`), its logits its vocabulary columns: zamba2 (Mamba2's
+  heads over "model" in the prefill, whole in decode), qwen3-moe (experts
+  over "model") and yi-9b with one KV head (no cache cut by heads: every
+  rank computes the whole new K/V and attends with the head it reads)
+  equal the single-device prefill and decode within 1e-5.
 
 One `launch.mesh.World` of 8 CPU ranks serves the module; the ranks run
 `torch_sharded_cases.serve`."""
@@ -289,3 +295,43 @@ def test_sharded_prefill_and_decode_match_the_reference(world,
                                    rtol=0, atol=TOL)
         np.testing.assert_allclose(dec, ref["decode"][:, c:d], rtol=0,
                                    atol=TOL)
+
+
+TP_CASES = {
+    "zamba2-1.2b": ("zamba2-1.2b", dict(dtype="float32",
+                                        sharding_profile="tp"),
+                    {"mamba", "vocab"}),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b",
+                          dict(dtype="float32", sharding_profile="tp"),
+                          {"attn", "moe", "vocab"}),
+    "yi-9b-kv1": ("yi-9b", dict(dtype="float32", num_kv_heads=1,
+                                sharding_profile="tp"),
+                  {"attn", "mlp", "vocab"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TP_CASES))
+def test_tensor_parallel_prefill_and_decode_match_single_device(world, case):
+    arch, kw, want_cut = TP_CASES[case]
+    model = cases.build(arch, **kw)
+    params = model.init(generator(0), "cpu")
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, 64),
+                           generator=generator(2))
+    steps = 4
+    with torch.no_grad():
+        logits = port_serve.make_prefill_step(model)(params,
+                                                     {"tokens": tokens})
+        state = model.init_decode_state(B, steps, device="cpu")
+        want = []
+        for i in range(steps):
+            lg, state = model.decode_step(params, state, tokens[:, i:i + 1])
+            want.append(lg[:, 0])
+    want = torch.stack(want).numpy()
+    outs = world.run(cases.serve, arch, kw, *MESHES["4x2"], tokens.numpy(),
+                     steps, params=params_to_numpy(params))
+    for (a, b), lg, (c, d), dec, report in outs:
+        np.testing.assert_allclose(cases.load(lg)[0], logits[a:b].numpy(),
+                                   rtol=0, atol=TOL)
+        np.testing.assert_allclose(dec, want[:, c:d], rtol=0, atol=TOL)
+        assert set(report["cut"]) == want_cut, report["cut"]
+        assert report["collectives"]["kinds"].get("all-reduce", 0) > 0

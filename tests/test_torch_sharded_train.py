@@ -17,7 +17,10 @@ on the CPU.
   micro-batches do, with labels padded unevenly, with micro-batches
   smaller than a rank's rows, with a rank's rows straddling two
   micro-batches (12 rows under grad_accum 3), and with MoE's aux loss.
-  Each issues all-gathers and reduce-scatters.
+  Each issues all-gathers and reduce-scatters. Under "tp" each rank
+  computes its "model" shard of every layer (`models.parallel`), Mamba2's
+  heads too, with remat and without it (the backward pass then gathers
+  each layer again).
 
 The reference's Mamba2 gradient is NaN where a chunk's decay overflows
 (tests/test_torch_train.py); zamba2 is held to it with that module's
@@ -290,6 +293,8 @@ ACCUM_CASES = {     # (arch, grad_accum, global rows)
     # the same with token means: a rank holding no row of a round's
     # micro-batch issues its collectives with zeros
     "qwen3-moe-30b-a3b-accum3-straddling": ("qwen3-moe-30b-a3b", 3, 12),
+    # Mamba2's heads over "model" under grad_accum
+    "zamba2-1.2b-accum2": ("zamba2-1.2b", 2, B),
 }
 
 
@@ -315,3 +320,24 @@ def test_grad_accum_weighs_rows_as_the_single_device_micro_batches(world,
     _check((cases.load(full), metrics[0]), want, "single device")
     assert abs(metrics[0]["aux"] - want[1]["aux"]) <= REL * max(
         want[1]["aux"], 1e-30)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "zamba2-1.2b"])
+def test_tensor_parallel_step_without_remat(world, arch):
+    """`remat=False` under "tp": the SGD step equals the single-device
+    step's, and the backward pass gathers each layer again (at least as
+    many all-gathers as remat's recompute makes)."""
+    kw = dict(dtype="float32", sharding_profile="tp", remat=False)
+    model = build_model(get_config(arch).reduced(**kw))
+    params_np = params_to_numpy(model.init(generator(0), "cpu"))
+    batch = _batch(model.cfg, seed=8)
+    full, metrics, report = world.run(cases.train, arch, kw, *MESH, batch,
+                                      params=params_np)[0]
+    _check((cases.load(full), metrics[0]),
+           _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2)),
+           "single device")
+    with_remat = world.run(cases.train, arch, dict(kw, remat=True), *MESH,
+                           batch, params=params_np)[0][2]
+    assert (report["collectives"]["kinds"]["all-gather"]
+            >= with_remat["collectives"]["kinds"]["all-gather"])
+    assert "vocab" in report["cut"]

@@ -127,6 +127,7 @@ def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
         metrics.append({k: float(v) for k, v in m.items()})
     report = _report(rank, start, t0)
     report["step_seconds"] = times
+    report["cut"] = sorted(step.parallel.ran)
     if repeat:
         q, s = p0, o.init(p0)
         again = []
@@ -189,6 +190,7 @@ def fl(rank, arch, cfg_kw, fl_kw, mesh_shape, names, batches, weights,
     state, losses = rounds()
     _sync(rank)
     report = _report(rank, start, t0)
+    report["cut"] = sorted(tr._view().ran)
     from repro_torch.tree import tree_leaves
     report["served"] = tree_leaves(_np(tr.served_model(state)))
     if repeat:
@@ -225,14 +227,46 @@ def _kernel_prefill():
     return ctx()
 
 
+def _recording():
+    """Record the shapes B5 and B6 launch at (q and k / xh and Bm) while
+    the context is open: {"flash_attention": [...], "ssm_scan": [...]}."""
+    import contextlib
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ssm_scan as ss
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = {"flash_attention": [], "ssm_scan": []}
+        f0, s0 = fl.flash_attention, ss.ssm_scan
+
+        def f(q, k, v, **kw):
+            seen["flash_attention"].append(
+                [list(q.shape), list(k.shape), str(q.dtype)])
+            return f0(q, k, v, **kw)
+
+        def s_(xh, a, dt, Bm, Cm, **kw):
+            seen["ssm_scan"].append(
+                [list(xh.shape), list(Bm.shape), str(xh.dtype)])
+            return s0(xh, a, dt, Bm, Cm, **kw)
+        fl.flash_attention, ss.ssm_scan = f, s_
+        try:
+            yield seen
+        finally:
+            fl.flash_attention, ss.ssm_scan = f0, s0
+    return ctx()
+
+
 def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
           params=None, seed=0, kernel=False, reduced=True, out_dir=None):
     """The sharded prefill of the whole `tokens` (numpy (B, S)), then
     `decode_steps` sharded decode steps from an empty state fed the
     first tokens. Returns (the rank's prefill rows (start, stop), [their
     logits] (`load`), its decode rows, their logits of every step (steps,
-    rows, V), the report); `kernel` runs the kernel prefill."""
-    from repro_torch.launch.serve import (make_sharded_prefill_step,
+    rows, V), the report); `kernel` runs the kernel prefill. The report
+    holds the block kinds that ran cut over "model" ("cut") and the
+    shapes the kernels launched at ("kernel_shapes")."""
+    from repro_torch.launch.serve import (gather_logits,
+                                          make_sharded_prefill_step,
                                           make_sharded_serve_step)
     deterministic_f32()
     dev = rank.device
@@ -261,7 +295,7 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     start = _launches()
     t0 = time.perf_counter()
     batch = mesh.shard_tree({"tokens": tok}, b_sh, rm)
-    with torch.no_grad():
+    with torch.no_grad(), _recording() as shapes:
         if kernel:
             with _kernel_prefill():
                 logits = prefill(p, batch)
@@ -273,11 +307,121 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
         for i in range(decode_steps):
             lg, state = serve_step(p, state,
                                    mesh.shard(tok[:, i:i + 1], t_sh, rm))
-            outs.append(lg[:, 0].float().cpu().numpy())
+            outs.append(lg[:, 0])
+        _sync(rank)
+        decode_s = time.perf_counter() - t0 - prefill_s
+        # the vocabulary's columns joined over "model" (outside the timing)
+        logits = gather_logits(logits, prefill.parallel)
+        outs = [gather_logits(lg, serve_step.parallel).float().cpu().numpy()
+                for lg in outs]
         _sync(rank)
     report = _report(rank, start, t0)
     report["prefill_seconds"] = prefill_s
-    report["decode_seconds"] = report["seconds"] - prefill_s
+    report["decode_seconds"] = decode_s
+    report["cut"] = sorted(prefill.parallel.ran | serve_step.parallel.ran)
+    report["kernel_shapes"] = shapes
     return ((rows.start, rows.stop),
             _ship(rank, [logits.float().cpu().numpy()], out_dir, "logits"),
             (drows.start, drows.stop), np.stack(outs), report)
+
+
+def _memory():
+    """The caching allocator's bytes by block state, from one
+    `torch.cuda.memory_snapshot()`, with the allocated and reserved bytes
+    and the segments."""
+    import collections
+    snap = torch.cuda.memory_snapshot()
+    by = collections.Counter()
+    for seg in snap:
+        for b in seg["blocks"]:
+            by[b["state"]] += b["size"]
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "segments": len(snap), **by}
+
+
+def exchange_snapshot(rank, mb=64):
+    """One card exchange (`collectives.card_gather`, the form of a layer's
+    gather) of `mb` MB a rank between memory snapshots: the allocator's
+    bytes by block state before it, with its result alive, after the
+    result is freed, and after the rank collects its IPC blocks and
+    empties its cache; with the peak allocated during the exchange."""
+    from repro_torch.core import collectives
+    from repro_torch.sharding.specs import NamedSharding, P
+    dev = rank.device
+    rm = rank.mesh(MeshShape((rank.size,), ("data",)))
+    out = {"before": _memory()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    x = torch.full((mb * 2**18,), float(rank.rank), device=dev)
+    plan = mesh.card_plan(x, NamedSharding(rm.shape, P("data")), rm)
+    full = collectives.card_gather([plan])[0]
+    torch.cuda.synchronize(dev)
+    out["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["with_result"] = _memory()
+    ok = bool((full.view(rank.size, -1)[:, 0].cpu()
+               == torch.arange(rank.size).float()).all())
+    del full, x, plan
+    out["freed"] = _memory()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    out["collected"] = _memory()
+    out["ok"] = ok
+    return out
+
+
+def tp_ops(rank):
+    """`collectives.copy_to`, `reduce_from` and `gather_leaves` over a
+    4-rank "model" axis of the (2, 4) mesh: values, gradients and counted
+    kinds. Rank r on the axis holds x = arange(6) + r and weighs the
+    result by r + 1; the gathered leaf is (8, 3), two rows a rank."""
+    from repro_torch.core import collectives as co
+    from repro_torch.sharding.specs import WHOLE, NamedSharding, P
+    rm = rank.mesh(MeshShape((2, 4), ("data", "model")))
+    ax = rm.axis("model")
+    r = ax.index
+    w = torch.full((6,), float(r + 1))
+    out = {}
+    mesh.reset_collective_counts()
+    x = (torch.arange(6.0) + r).requires_grad_(True)
+    y = co.copy_to(x, ax)
+    (y * w).sum().backward()
+    out["f"] = (_np(y.detach()), _np(x.grad))
+    x = (torch.arange(6.0) + r).requires_grad_(True)
+    y = co.reduce_from(x, ax)
+    (y * w).sum().backward()
+    out["g"] = (_np(y.detach()), _np(x.grad))
+    shard = (torch.arange(6.0).reshape(2, 3) + 10 * r).requires_grad_(True)
+    plan = mesh.leaf_plan((2, 3), NamedSharding(rm.shape, P("model")),
+                          WHOLE, rm, sum_axes=("model",))
+    full, = co.gather_leaves([plan], [shard])
+    (full * torch.full((8, 3), float(r + 1))).sum().backward()
+    out["gather"] = (_np(full.detach()), _np(shard.grad))
+    out["kinds"] = mesh.collective_counts()["kinds"]
+    return out
+
+
+def layer_grads(rank, arch, cfg_kw, mesh_shape, names, batch, params,
+                profile):
+    """The loss and gradients of `model.loss` on the whole `batch` (numpy)
+    from the whole `params` (numpy), computed on the rank's stored shards
+    under `profile`'s rules, one layer gathered at a time
+    (`models.parallel`), every rank on the whole batch: rank 0 returns
+    (loss, the gradients gathered whole, numpy, in tree order, the block
+    kinds that ran cut)."""
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import parallel
+    from repro_torch.sharding import specs as sh
+    from repro_torch.tree import tree_leaves
+    model = build(arch, True, **cfg_kw)
+    rm = rank.mesh(MeshShape(mesh_shape, names))
+    with sh.profile_ctx(profile):
+        specs = model.param_specs()
+        p_sh = sh.tree_shardings(specs, rm.shape)
+        view = parallel.Parallel(model.cfg, rm, p_sh, specs)
+    p = mesh.shard_tree(convert.params_from_jax(params, rank.device), p_sh,
+                        rm)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with parallel.use(view):
+        (loss, _), g = value_and_grad(model.loss, p, b)
+    whole = tree_leaves(_np(mesh.gather_tree(g, p_sh, rm)))
+    return (float(loss), whole, sorted(view.ran)) if rank.rank == 0 else None
