@@ -259,8 +259,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    train_4k on 16x16 under fsdp and tp (tp FLOPs a device at most 1.15x
    fsdp's; peaks below the whole model's f32 params, 35.3 GB, and 45 GB;
    the whole sweep runs through `python -m repro_torch.launch.dryrun`,
-   PERF.md §5). Each rank's peak memory and seconds a step print beside
-   the single-device step's; no kernel launches in (a) and (b). Ranks
+   PERF.md §5), qwen3-moe-30b-a3b's train_4k on 16x16 under moe
+   (all-to-alls, a layer's expert gathers 1/16 of its experts, FLOPs a
+   device within 5% of the parent's) and yi-9b's on 2x16x16 under fsdp
+   (512 x the FLOPs a device within 0.99-1.15x one device's); (e) expert
+   parallelism on (data 4, model 2) under moe: qwen3-moe-30b-a3b at full
+   width cut 48 -> 2 (drawn on the card, 8 x 512: 2 SGD steps at (a)'s
+   gates, its prefill and 16 decode steps at (c)'s), qwen3-moe and
+   deepseek-v2-lite reduced (2 SGD + 1 AdamW, prefill, decode), every
+   rank issuing all-to-alls and gathering E/2 experts of a layer; (f)
+   context parallelism on (pod 2, data 2, model 2) under fsdp:
+   phi3-mini-3.8b at full width cut 32 -> 4 (8 x 1024, a rank's batch 2
+   x 512) and gemma3-4b reduced with a 16-token window, at (a)'s gates,
+   and the phi3-mini cut's prefill and 4 decode steps. Each rank's peak
+   memory and seconds a step print beside the single-device step's; no
+   kernel launches in (a), (b), (e) and (f). Ranks
    sharing the card gather a layer's leaves and sum its gradients card
    to card (CUDA IPC), and sum tp's activations through gloo;
 16. the examples' twins and the graphed decode (slice 15) — (a)
@@ -2546,7 +2559,11 @@ def zoo_rest_phase(arch, device="cuda", seed=0):
     n_flash = cfg.num_layers if flash else 0
     start, t0 = _counts(), time.perf_counter()
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: model.init(generator(seed), device))
+    # the model's own init drawn on the card (the host's draw took ~45 s
+    # of the phase)
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_cases as cases
+    params, init_ms = _timed(lambda: cases.card_init(model, seed, device))
     batch = synthetic_train_batch(generator(seed + 1), cfg, B, S_tok,
                                   device=device)
     batch.pop("labels")
@@ -2557,7 +2574,7 @@ def zoo_rest_phase(arch, device="cuda", seed=0):
            "params": model.param_count(params), "init_ms": init_ms,
            "B": B, "S": S}
     print(f"  {arch}: {out['params']} parameters (cuts {out['reduced']}), "
-          f"init {init_ms:.0f} ms on the host, B = {B}, S = {S}", flush=True)
+          f"init {init_ms:.0f} ms on {device}, B = {B}, S = {S}", flush=True)
     cfg16 = cfg.with_updates(dtype="bfloat16")
     prefills = {             # name -> (the call, its flash launches)
         "plain_prefill": (lambda: make_prefill_step(build_model(
@@ -2680,7 +2697,7 @@ def zoo_rest_main_phase(device="cuda"):
     if launches["flash_attention"] == 0 or launches["ssm_scan"] != 0:
         raise SystemExit(f"12(a): launches {launches}")
     seconds = time.perf_counter() - t0
-    print(f"  phase 12(a) launches {launches}, {seconds:.1f}s (host init "
+    print(f"  phase 12(a) launches {launches}, {seconds:.1f}s (init "
           f"{sum(r['init_ms'] for r in runs.values()) / 1e3:.1f}s of it)",
           flush=True)
     return {"runs": runs, "launches": launches, "seconds": seconds}
@@ -4084,10 +4101,14 @@ def _mb(report):
 
 
 def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
-                        gated_all_gather=False, tp=False):
+                        gated_all_gather=False, tp=False, mesh=SHARDED_MESH,
+                        init="host", check=None, opts=("sgd", "adamw")):
     """One config: 2 SGD steps (lr 1e-2) and 1 AdamW step of
-    `make_sharded_train_step` on the ranks against `make_train_step` on
-    the card from one init (seed 0) and batch (seed 1)."""
+    `make_sharded_train_step` on the ranks of `mesh` against
+    `make_train_step` on the card from one init (seed 0: drawn on the host,
+    or on the card with init="card", `torch_sharded_cases.card_init`) and
+    batch (seed 1); `opts` picks the optimizers. `check(model, reports)`
+    returns the case's own fields and whether they fail."""
     import numpy as np
     import torch
     import torch_sharded_cases as cases
@@ -4105,7 +4126,8 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
     out = {"B": B, "S": S}
 
     def single(opt, steps):
-        p = model.init(generator(0), device)
+        p = (cases.card_init(model, 0, device) if init == "card"
+             else model.init(generator(0), device))
         s, ms, times = opt.init(p), [], []
         step = make_train_step(model, opt)
         for _ in range(steps):
@@ -4118,11 +4140,15 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
             ("sgd", optimizers.sgd(1e-2), "sgd", 1e-2, 2),
             ("adamw", optimizers.adamw(3e-4, weight_decay=0.01), "adamw",
              3e-4, 1)):
+        if name not in opts:
+            continue
+        t_case = time.perf_counter()
         want_p, want_m, single_s = single(opt, steps)
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
-            outs = world.run(cases.train, arch, kw, *SHARDED_MESH, bnp,
+            outs = world.run(cases.train, arch, kw, *mesh, bnp,
                              opt=kind, lr=lr, steps=steps, reduced=reduced,
-                             repeat=name == "sgd", out_dir=tmp)
+                             repeat=name == "sgd", out_dir=tmp, init=init)
             full = cases.load(outs[0][0])
         _, metrics, rep0 = outs[0]
         rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
@@ -4141,6 +4167,10 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
                "single_step_s": single_s,
                "rank_peak_mb": [_mb(r) for *_, r in outs],
                "cut": rep0["cut"]}
+        own_bad = False
+        if check is not None:
+            own, own_bad = check(model, [r for *_, r in outs])
+            row.update(own)
         out[name] = row
         print(f"  {label} {name}: loss {metrics[-1]['loss']:.6f} "
               f"grad-norm {metrics[-1]['grad_norm']:.6f}; rel {rel:.2e}; "
@@ -4151,8 +4181,12 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
               f"{[round(t, 3) for t in single_s]}; collectives {kinds}; "
               f"cut over model {row['cut']}; rank peak MB "
               f"{row['rank_peak_mb']} (whole-tree gathers "
-              f"{WHOLE_TREE_RANK_PEAK_MB})", flush=True)
-        bad = (rel > SHARDED_REL or not agree or any(launches)
+              f"{WHOLE_TREE_RANK_PEAK_MB}); "
+              f"{time.perf_counter() - t_case:.1f}s", flush=True)
+        row["seconds"] = time.perf_counter() - t_case
+        if check is not None:
+            print(f"  {label} {name}: {own}", flush=True)
+        bad = (own_bad or rel > SHARDED_REL or not agree or any(launches)
                or (name == "sgd" and (perr > SHARDED_PARAM_ATOL
                                       or not repeat))
                or not sum(kinds.values())
@@ -4175,12 +4209,15 @@ def sharded_train_phase(world, device="cuda", B=8, S=256):
     sharded over the ranks against `make_train_step` on the card."""
     from repro_torch.device import deterministic_f32
     deterministic_f32()
+    # the full-width cuts draw their weights on the card (eight ranks'
+    # host draws took tens of seconds of the phase)
     out = {"zamba2-1.2b-cut": _sharded_train_case(
         world, "zamba2-1.2b cut 38 -> 7 (fsdp)", ZAMBA, _zamba_cut_kw(), B,
-        S, False, device, gated_all_gather=True)}
+        S, False, device, gated_all_gather=True, init="card")}
     out["phi3-mini-3.8b-cut-tp"] = _sharded_train_case(
         world, f"phi3-mini-3.8b cut 32 -> {PHI3_CUT} (tp)", "phi3-mini-3.8b",
-        _phi3_cut_kw(), B, S, False, device, gated_all_gather=True, tp=True)
+        _phi3_cut_kw(), B, S, False, device, gated_all_gather=True, tp=True,
+        init="card")
     for arch, profile in SHARDED_PAIRS:
         out[f"{arch}-{profile}"] = _sharded_train_case(
             world, f"{arch} reduced ({profile})", arch,
@@ -4309,7 +4346,7 @@ def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16,
     deterministic_f32()
     kw = _zamba_cut_kw(attn_impl="flash")
     model = cases.build(ZAMBA, False, **kw)
-    params = model.init(generator(0), device)
+    params = cases.card_init(model, 0, device)
     tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
                            generator=generator(1))
     tok = tokens.to(device)
@@ -4332,7 +4369,7 @@ def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16,
         with tempfile.TemporaryDirectory() as tmp:
             outs = world.run(cases.serve, ZAMBA, pkw, *SHARDED_MESH,
                              tokens.numpy(), steps, kernel=True,
-                             reduced=False, out_dir=tmp)
+                             reduced=False, out_dir=tmp, init="card")
             for (a, b), lg, *_ in outs:
                 perr = max(perr, float(np.abs(cases.load(lg)[0]
                                               - logits[a:b]).max()))
@@ -4422,12 +4459,324 @@ def _sharded_kernel_rows(cfg, reports):
     return out
 
 
+# 15(e): expert parallelism (the single-pod moe profile) on SHARDED_MESH;
+# 15(f): context parallelism (the multi-pod fsdp profile) on CP_MESH
+QWEN_MOE = "qwen3-moe-30b-a3b"
+EP_CUT = 2                 # qwen3-moe-30b-a3b at full width, 48 -> 2 layers
+CP_CUT = 4                 # phi3-mini-3.8b at full width, 32 -> 4 layers
+CP_MESH = ((2, 2, 2), ("pod", "data", "model"))
+CP_WINDOW = 16             # gemma3-4b reduced: a window across rank blocks
+EP_DECODE_STEPS = 16
+
+
+def _moe_cut_kw(**kw):
+    return dict(dtype="float32", num_layers=EP_CUT, sharding_profile="moe",
+                **kw)
+
+
+def _cp_cut_kw(**kw):
+    return dict(dtype="float32", num_layers=CP_CUT, sharding_profile="fsdp",
+                **kw)
+
+
+def _ep_check(model, reports):
+    """Expert parallelism: every rank issued all-to-alls and gathered its
+    E/M experts of a layer (over "data" only), never a whole layer's."""
+    M = SHARDED_MESH[0][1]
+    whole = {}
+    for (path, x) in _leaf_paths(model.param_specs()):
+        if "experts_" in path:
+            shape = x.shape[1:] if path.startswith("layers/") else x.shape
+            whole[path] = math.prod(shape) * x.element_size()
+    got = [{k: v for k, v in r["gathered_bytes"].items() if k in whole}
+           for r in reports]
+    a2a = [r["collectives"]["kinds"].get("all-to-all", 0) for r in reports]
+    share = max(g[k] / whole[k] for g in got for k in whole)
+    own = {"all_to_all": a2a, "expert_gather_share": share,
+           "rank_peak_reserved_mb": [
+               None if r["peak_reserved_bytes"] is None
+               else round(r["peak_reserved_bytes"] / 2**20, 1)
+               for r in reports],
+           "expert_gather_bytes": got[0],
+           "expert_layer_bytes": whole,
+           "expert_parallel": [r["expert_parallel"] for r in reports]}
+    bad = (not all(a2a) or not whole or not all(own["expert_parallel"])
+           or any(g[k] * M != whole[k] for g in got for k in whole))
+    return own, bad
+
+
+def _leaf_paths(tree):
+    from repro_torch.sharding import specs as sh
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(sh._paths(tree))
+
+
+def _cp_check(rows, positions):
+    """Context parallelism: every rank's batch stayed `rows` x
+    `positions` (cut by sequence over "model")."""
+    def check(model, reports):
+        shapes = [r["local_shapes"]["labels"] for r in reports]
+        own = {"local_batch": shapes, "cut_all": [r["cut"] for r in reports]}
+        bad = any(tuple(s) != (rows, positions) for s in shapes) or any(
+            "seq" not in c for c in own["cut_all"])
+        return own, bad
+    return check
+
+
+def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
+                        device, mesh=SHARDED_MESH, init="host",
+                        expect_ep=False):
+    """The sharded prefill of B x S tokens (seed 1) and `steps`
+    teacher-forced decode steps on the ranks of `mesh` against one
+    device's, from one init (as `_sharded_train_case`): prefill within
+    SHARDED_PREFILL_REL of the largest logit, decode within
+    SHARDED_DECODE_ATOL; `expect_ep`: the prefill's all-to-alls in every
+    rank."""
+    import numpy as np
+    import torch
+    import torch_sharded_cases as cases
+    from repro_torch.device import generator
+    from repro_torch.launch.serve import make_prefill_step
+
+    t_case = time.perf_counter()
+    model = cases.build(arch, reduced, **kw)
+    params = (cases.card_init(model, 0, device) if init == "card"
+              else model.init(generator(0), device))
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
+                           generator=generator(1))
+    tok = tokens.to(device)
+    with torch.no_grad():
+        logits, prefill_ms = _timed(lambda: make_prefill_step(model)(
+            params, {"tokens": tok}))
+        dec, decode_ms = _timed(lambda: _decode(model, params, tok, steps,
+                                                device))
+    logits = logits.float().cpu().numpy()
+    dec = dec.float().transpose(0, 1).cpu().numpy()      # (steps, B, V)
+    del params
+    torch.cuda.empty_cache()
+    scale = float(np.abs(logits).max())
+    perr = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = world.run(cases.serve, arch, kw, *mesh, tokens.numpy(), steps,
+                         reduced=reduced, out_dir=tmp, init=init)
+        for (a, b), lg, *_, rep in outs:
+            lo, hi = rep["positions"]
+            perr = max(perr, float(np.abs(cases.load(lg)[0]
+                                          - logits[a:b, lo:hi]).max()))
+    derr = max(float(np.abs(d - dec[:, c:e]).max())
+               for _, _, (c, e), d, _ in outs)
+    reps = [o[4] for o in outs]
+    out = {"B": B, "S": S, "decode_steps": steps,
+           "prefill_max_abs_err": perr, "prefill_max_abs": scale,
+           "decode_max_abs_err": derr,
+           "single_prefill_s": prefill_ms / 1e3,
+           "single_decode_s_per_step": decode_ms / 1e3 / steps,
+           "rank_prefill_s": [r["prefill_seconds"] for r in reps],
+           "rank_decode_s_per_step": [r["decode_seconds"] / steps
+                                      for r in reps],
+           "rank_peak_mb": [_mb(r) for r in reps],
+           "collectives": [r["collectives"]["kinds"] for r in reps],
+           "positions": sorted({tuple(r["positions"]) for r in reps}),
+           "cut": reps[0]["cut"],
+           "launches": [r["launches"] for r in reps]}
+    print(f"  {label}: prefill |sharded - single| {perr:.3e} (bar "
+          f"{SHARDED_PREFILL_REL} x {scale:.3f}); decode {derr:.3e}; "
+          f"positions a rank {out['positions']}; prefill s ranks "
+          f"{max(out['rank_prefill_s']):.3f} single "
+          f"{out['single_prefill_s']:.3f}; decode s/step ranks "
+          f"{max(out['rank_decode_s_per_step']):.3f} single "
+          f"{out['single_decode_s_per_step']:.4f}; collectives "
+          f"{out['collectives'][0]}; cut {out['cut']}; rank peak MB "
+          f"{out['rank_peak_mb']}; {time.perf_counter() - t_case:.1f}s",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t_case
+    if not (perr <= SHARDED_PREFILL_REL * scale
+            and derr <= SHARDED_DECODE_ATOL):
+        raise SystemExit(f"15 {label}: prefill {perr} or decode {derr} off")
+    if any(sum(l.values()) for l in out["launches"]):
+        raise SystemExit(f"15 {label}: kernels launched {out['launches']}")
+    if expect_ep and not all(k.get("all-to-all") for k in
+                             out["collectives"]):
+        raise SystemExit(f"15 {label}: no all-to-all in a rank "
+                         f"{out['collectives']}")
+    return out
+
+
+def sharded_ep_phase(world, device="cuda", B=8, S=512):
+    """15(e): expert parallelism on SHARDED_MESH under the moe profile
+    ("model" carries rows and experts): qwen3-moe-30b-a3b at full width
+    cut 48 -> EP_CUT layers (float32, drawn on the card), B x S = 8 x 512
+    (one 512-token routing group a rank, the single-device step's drops),
+    2 SGD steps against `make_train_step` (with AdamW's moments that
+    width does not fit eight ranks on one card, see below), then its sharded prefill and EP_DECODE_STEPS
+    decode steps against one device; then qwen3-moe reduced (2 SGD and 1
+    AdamW steps) and deepseek-v2-lite reduced (its shared experts) at 8 x
+    64 alike. Every rank must issue all-to-alls and gather E/2 experts of
+    a layer."""
+    from repro_torch.device import deterministic_f32
+    deterministic_f32()
+    kw = _moe_cut_kw()
+    label = f"{QWEN_MOE} cut 48 -> {EP_CUT} (moe)"
+    # SGD only at full width: a rank's shards are 1.16 GiB (half of it the
+    # vocabulary, stored over "model" alone); with AdamW's two moments the
+    # eight ranks' first backward ran the 80 GB card out of memory (5.40
+    # GiB allocated in the failing rank, the rest of the card held by the
+    # other ranks' caches and contexts); AdamW runs reduced below
+    out = {"qwen3-moe-30b-a3b-cut": _sharded_train_case(
+        world, label, QWEN_MOE, kw, B, S, False, device,
+        gated_all_gather=True, init="card", check=_ep_check,
+        opts=("sgd",))}
+    out["qwen3-moe-30b-a3b-cut-serve"] = _sharded_serve_case(
+        world, label, QWEN_MOE, kw, B, S, EP_DECODE_STEPS, False, device,
+        init="card", expect_ep=True)
+    dkw = dict(dtype="float32", sharding_profile="moe", vocab_size=512)
+    out["qwen3-moe-30b-a3b"] = _sharded_train_case(
+        world, f"{QWEN_MOE} reduced (moe)", QWEN_MOE, dkw, 8, 64, True,
+        device, check=_ep_check)
+    dlabel = "deepseek-v2-lite-16b reduced (moe)"
+    out["deepseek-v2-lite-16b"] = _sharded_train_case(
+        world, dlabel, "deepseek-v2-lite-16b", dkw, 8, 64, True, device,
+        check=_ep_check)
+    out["deepseek-v2-lite-16b-serve"] = _sharded_serve_case(
+        world, dlabel, "deepseek-v2-lite-16b", dkw, 8, 64, EP_DECODE_STEPS,
+        True, device, expect_ep=True)
+    return out
+
+
+def sharded_cp_phase(world, device="cuda", B=8, S=1024):
+    """15(f): context parallelism on CP_MESH under the multi-pod fsdp
+    profile (the batch stays cut by sequence over "model"): phi3-mini-3.8b
+    at full width cut 32 -> CP_CUT layers (float32, drawn on the card), B
+    x S = 8 x 1024, each rank 2 rows x 512 positions, 2 SGD and 1 AdamW
+    steps against `make_train_step`; gemma3-4b reduced with a 16-token
+    window (across the ranks' blocks) at 8 x 64; the sharded prefill of
+    the phi3-mini cut and 4 decode steps against one device."""
+    from repro_torch.device import deterministic_f32
+    deterministic_f32()
+    pods, data, model = CP_MESH[0]
+    kw = _cp_cut_kw()
+    label = f"phi3-mini-3.8b cut 32 -> {CP_CUT} (fsdp, 2x2x2)"
+    out = {"phi3-mini-3.8b-cut-cp": _sharded_train_case(
+        world, label, "phi3-mini-3.8b", kw, B, S, False, device,
+        gated_all_gather=True, mesh=CP_MESH, init="card",
+        check=_cp_check(B // (pods * data), S // model))}
+    gkw = dict(dtype="float32", sharding_profile="fsdp", vocab_size=512,
+               sliding_window=CP_WINDOW)
+    out["gemma3-4b-window-cp"] = _sharded_train_case(
+        world, f"gemma3-4b reduced, window {CP_WINDOW} (fsdp, 2x2x2)",
+        "gemma3-4b", gkw, 8, 64, True, device, mesh=CP_MESH,
+        check=_cp_check(8 // (pods * data), 64 // model))
+    out["phi3-mini-3.8b-cut-cp-serve"] = _sharded_serve_case(
+        world, label, "phi3-mini-3.8b", kw, B, S, 4, False, device,
+        mesh=CP_MESH, init="card")
+    return out
+
+
 DRYRUN_FL = (("hfl", "fedavg"), ("afl", "fedavg"), ("afl", "gossip"),
              ("cfl", "fedavg"))
 # the dry-runs that fit the script's time limit; the whole sweep (every
 # config at train_4k, yi-9b at all four shapes on both meshes: ~17 min,
 # xlstm's sLSTM loop alone 603 s) runs through the CLI (PERF.md §5)
 DRYRUN_SHAPES = ("decode_32k", "long_500k")
+
+
+# the parent's (the tree before expert and context parallelism) dry-run
+# of the two train_4k lines 15(d) gained, a device, measured through its
+# CLI on the card's host (PERF.md section 6): qwen3-moe-30b-a3b on 16x16
+# under moe (every layer's experts gathered whole), yi-9b on 2x16x16
+# under fsdp (the sequence gathered whole over "model")
+PARENT_MOE_FLOPS = 193_602_093_318_144.0
+PARENT_MOE_PEAK = 13_743_433_864
+PARENT_CP_FLOPS = 2_508_948_095_631_360.0
+PARENT_CP_PEAK = 59_565_745_284
+DRYRUN_MOE_FLOPS_TOL = 0.05     # the all-to-all moves no FLOPs
+DRYRUN_MOE_GATHER_TOL = 0.01    # a layer's expert gathers: 1/16 of it
+DRYRUN_CP_RATIO = (0.99, 1.15)  # 512 x per device / one device
+
+
+def _dry_expert_bytes(arch, B, S):
+    """(bytes a device gathers of one layer's experts, the layer's
+    experts' bytes) of `arch`'s train step on 16x16 (its sharded step's
+    `Parallel.gathered_bytes`, on the meta device)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import dry_run_mesh, make_production_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import optimizers
+    model = build_model(dryrun._apply_overrides(get_config(arch), None))
+    with collectives.dry_run():
+        rank = dry_run_mesh(make_production_mesh())
+        step = train_mod.make_sharded_train_step(
+            model, optimizers.adamw(1e-4), rank,
+            model.train_batch_specs(B, S))
+    whole = {p: math.prod(x.shape[1:]) * x.element_size()
+             for p, x in _leaf_paths(model.param_specs())
+             if p.startswith("layers/") and "experts_" in p}
+    got = step.parallel.gathered_bytes()
+    return sum(got[p] for p in whole), sum(whole.values())
+
+
+def _dry_extra(t1):
+    """15(d)'s two lines of the sharded profiles the zoo ships with:
+    qwen3-moe train_4k on 16x16 under moe (expert parallelism) and yi-9b
+    train_4k on 2x16x16 under fsdp (context parallelism)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.specs import MeshShape
+    shape = INPUT_SHAPES["train_4k"]
+    B, S = shape.global_batch, shape.seq_len
+    out = {}
+    r = dryrun.lower_and_compile(QWEN_MOE, "train_4k")
+    # the counts of the run just measured, by the reference's op kinds
+    kinds = collectives.collective_counts()["kinds"]
+    got, whole = _dry_expert_bytes(QWEN_MOE, B, S)
+    flops = r["roofline"]["flops_per_device"]
+    r["collective_kinds"] = kinds
+    r["all_to_all"] = kinds.get("all-to-all", 0)
+    r["expert_gather_share"] = got / whole
+    r["profile"] = "moe"
+    out["moe"] = r
+    print(f"  {QWEN_MOE} train_4k 16x16 moe: FLOPs a device "
+          f"{flops / 1e12:.2f} T (parent {PARENT_MOE_FLOPS / 1e12:.2f}), "
+          f"peak {r['memory']['peak_bytes'] / 1e9:.2f} GB (parent "
+          f"{PARENT_MOE_PEAK / 1e9:.2f}), a layer's expert gathers "
+          f"{got / 1e6:.1f} MB of {whole / 1e6:.1f} MB ({got / whole:.4f}; "
+          f"parent 1.0), collectives {r['roofline']['collective_count']} "
+          f"{kinds} ({time.perf_counter() - t1:.1f}s)", flush=True)
+    t2 = time.perf_counter()
+    r = dryrun.lower_and_compile("yi-9b", "train_4k", multi_pod=True)
+    cfg = dryrun._apply_overrides(get_config("yi-9b"), None)
+    rows = 8                 # the one-device count, scaled by B / rows
+    one = dryrun.run_step(cfg, "train", rows, S, MeshShape(
+        (1, 1), ("data", "model")))["flops"] * (B // rows)
+    flops = r["roofline"]["flops_per_device"]
+    r["one_device_flops"] = one
+    r["ratio_to_one_device"] = r["chips"] * flops / one
+    r["profile"] = "fsdp"
+    out["cp"] = r
+    print(f"  yi-9b train_4k 2x16x16 fsdp: FLOPs a device "
+          f"{flops / 1e12:.2f} T (parent {PARENT_CP_FLOPS / 1e12:.2f}), x "
+          f"{r['chips']} "
+          f"/ one device ({one / 1e15:.2f} P, {rows} rows x {B // rows}) "
+          f"{r['ratio_to_one_device']:.4f}; peak "
+          f"{r['memory']['peak_bytes'] / 1e9:.2f} GB (parent "
+          f"{PARENT_CP_PEAK / 1e9:.2f}) ({time.perf_counter() - t2:.1f}s)",
+          flush=True)
+    moe, cp = out["moe"], out["cp"]
+    lo, hi = DRYRUN_CP_RATIO
+    bad = (abs(moe["expert_gather_share"] * 16 - 1) > DRYRUN_MOE_GATHER_TOL
+           or not moe["roofline"]["collective_count"]
+           or not moe.get("all_to_all")
+           or not lo <= cp["ratio_to_one_device"] <= hi
+           or abs(moe["roofline"]["flops_per_device"] / PARENT_MOE_FLOPS
+                  - 1) > DRYRUN_MOE_FLOPS_TOL)
+    if bad:
+        raise SystemExit(f"15(d) the sharded profiles: {out}")
+    return out
 
 
 def dryrun_phase():
@@ -4437,7 +4786,11 @@ def dryrun_phase():
     tp. Each must return ok with FLOPs and collectives; train_4k's
     per-device FLOPs under tp at most DRYRUN_TP_FLOPS_RATIO x fsdp's, its
     peak under fsdp below the whole model's f32 parameters and under tp
-    below DRYRUN_TP_PEAK."""
+    below DRYRUN_TP_PEAK. Then `_dry_extra`: qwen3-moe train_4k on 16x16
+    under moe issues all-to-alls, gathers 1/16 of a layer's experts a
+    device and keeps the parent's FLOPs within 5%; yi-9b train_4k on
+    2x16x16 under fsdp does 512 x its per-device FLOPs within
+    DRYRUN_CP_RATIO of the one-device step's."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
 
@@ -4483,6 +4836,8 @@ def dryrun_phase():
                          f"(tp, bar {DRYRUN_TP_PEAK})")
     print(f"  {len(out)} dry-runs in {time.perf_counter() - t0:.1f}s; "
           f"yi-9b train_4k tp / fsdp FLOPs {ratio:.3f}", flush=True)
+    for r in _dry_extra(time.perf_counter()).values():
+        out.append(r)
     return out
 
 
@@ -4508,12 +4863,71 @@ def _exchange_snapshot(world, when):
 
 
 def sharded_phase(device="cuda"):
-    """15(a)-(c) on one world of SHARDED_RANKS ranks sharing the card,
-    then 15(d)."""
-    from repro_torch.launch import mesh
+    """15(a)-(c), (e) and (f) on one world of SHARDED_RANKS ranks sharing
+    the card, with 15(d) beside them in a child process: the ranks' step
+    times are taken beside the dry-run's host work."""
     sys.path.insert(0, str(ROOT / "tests"))
     out = {}
     t0 = time.perf_counter()
+    # the dry-run needs no card: it runs beside the ranks, at a lower
+    # priority, in the host time their exchanges leave idle
+    dry = _DryRunProcess()
+    try:
+        _sharded_parts(out, device, t0)
+        print(f"  -- (d) the dry-run on the meta device (beside the "
+              f"ranks from 0.0s; joined at "
+              f"{time.perf_counter() - t0:.1f}s)", flush=True)
+        out["dryrun"] = dry.join()
+    finally:
+        dry.stop()
+    if "serve" in out:
+        out["serve_tp"] = out["serve"]["tp"]
+        out["serve"] = out["serve"]["fsdp"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+class _DryRunProcess:
+    """`dryrun_phase()` in a child process at a lower priority (it runs on
+    the meta device): `join` prints its output and returns its results,
+    raising SystemExit where it failed; `stop` ends it if it still
+    runs."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        self.result = os.path.join(self.dir, "dryrun.json")
+        self.log = open(os.path.join(self.dir, "dryrun.log"), "w+")
+        code = ("import json, os, sys; os.nice(10); "
+                f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
+                "import chip_smoke as cs; out = cs.dryrun_phase(); "
+                f"json.dump(out, open({self.result!r}, 'w'), default=str)")
+        self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+
+    def join(self, timeout=900):
+        rc = self.proc.wait(timeout=timeout)
+        self.log.seek(0)
+        text = self.log.read()
+        print(text, end="", flush=True)
+        if rc != 0:
+            raise SystemExit(f"15(d): the dry-run exited {rc}")
+        with open(self.result) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _sharded_parts(out, device, t0):
+    """15(a)-(c), (e) and (f) on one world of SHARDED_RANKS ranks sharing
+    the card (`sharded_phase`)."""
+    from repro_torch.launch import mesh
     with mesh.World(SHARDED_RANKS, device=device, timeout=600) as world:
         print(f"  {SHARDED_RANKS} ranks on {device}, backend "
               f"{world.backend}, mesh {SHARDED_MESH}, started in "
@@ -4524,20 +4938,17 @@ def sharded_phase(device="cuda"):
                 ("train", "(a) the sharded train step", sharded_train_phase),
                 ("fl", "(b) the sharded federated trainer", sharded_fl_phase),
                 ("serve", "(c) the sharded kernel prefill and decode, fsdp "
-                 "and tensor-parallel", sharded_serve_phase)):
+                 "and tensor-parallel", sharded_serve_phase),
+                ("ep", "(e) expert parallelism (moe, 4x2)",
+                 sharded_ep_phase),
+                ("cp", "(f) context parallelism (fsdp, 2x2x2)",
+                 sharded_cp_phase)):
             print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
                   flush=True)
             out[key] = fn(world, device)
             if key == "train" and device == "cuda":
                 out["snapshot_after_train"] = _exchange_snapshot(
                     world, "after 15(a)")
-    print(f"  -- (d) the dry-run on the meta device (at "
-          f"{time.perf_counter() - t0:.1f}s, the ranks stopped)", flush=True)
-    out["serve_tp"] = out["serve"]["tp"]
-    out["serve"] = out["serve"]["fsdp"]
-    out["dryrun"] = dryrun_phase()
-    out["seconds"] = time.perf_counter() - t0
-    return out
 
 
 # -- phase 16 -----------------------------------------------------------------

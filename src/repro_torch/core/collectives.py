@@ -8,16 +8,18 @@ no collective at all. Two tallies are kept:
 
 * "calls" / "bytes": what went to the process group, by name. Gloo runs
   only `all_reduce` and `broadcast` on CUDA tensors, so on every backend
-  each collective but `all_gather` is ONE sum `all_reduce` on the wire
-  (or a `barrier`); `all_gather` is one `all_gather` (gloo's on host
-  copies of CUDA tensors). Ranks that share a card swap CUDA IPC
+  each collective but `all_gather` and `all_to_all` is ONE sum
+  `all_reduce` on the wire (or a `barrier`); `all_gather` is one
+  `all_gather` (gloo's on host copies of CUDA tensors), `all_to_all` one
+  `all_to_all_single`. Ranks that share a card swap CUDA IPC
   handles instead ("card_exchange") for the gathers of a sharded step,
   and read each other's blocks card to card.
 * "kinds" / "kind_bytes": the collective each call stands for, under the
   reference's HLO op names ("all-reduce", "all-gather", "reduce-scatter",
-  "collective-permute"), with the bytes of its result, which is what the
-  reference's `roofline.parse_collective_bytes` reads from HLO text
-  (`launch.roofline.collective_bytes` weighs them as it does).
+  "collective-permute", "all-to-all"), with the bytes of its result,
+  which is what the reference's `roofline.parse_collective_bytes` reads
+  from HLO text (`launch.roofline.collective_bytes` weighs them as it
+  does).
 
 `all_reduce_sum` sums in place; `all_gather` sends each rank's block
 once; `card_gather` and `card_reduce` make many gathers and sums at once
@@ -27,7 +29,10 @@ a step, which through the host bounded them); `ppermute` is a slot
 expansion read at the senders' slots. The tensor-parallel steps'
 autograd operations (`copy_to`, `reduce_from`, `sum_over`, and
 `gather_leaves`, an all-gather whose backward reduce-scatters the
-gradient) sit at the end. Inside `dry_run()` no collective touches a
+gradient) and the expert- and context-parallel exchanges (`all_to_all`,
+whose backward is the inverse all-to-all, and `gather_seq`, the keys' and
+values' all-gather over the sequence axis, whose backward
+reduce-scatters) sit at the end. Inside `dry_run()` no collective touches a
 process group: each counts its kind and bytes and returns a tensor of its
 result's shape (on the meta device when its input is there), as if every
 rank held the same data. The dry-run (`launch/dryrun.py`) runs rank 0's
@@ -285,6 +290,61 @@ def card_reduce(items) -> List[torch.Tensor]:
     return outs
 
 
+def _all_to_all(x: torch.Tensor, axis, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    """`x` cut into axis.size blocks along `split_dim`, block p sent to the
+    rank at position p of the axis, and the blocks received joined along
+    `concat_dim` in axis order: one all-to-all, counted as the reference's
+    "all-to-all" with the bytes of its result (the bytes of `x`). Ranks
+    sharing a card read their peers' blocks card to card
+    (`card_all_to_all`); elsewhere one `all_to_all_single` (gloo's on
+    CPU tensors, NCCL's on the card)."""
+    n, i = axis.size, axis.index
+    if on_shared_card(x):
+        _count_kind("all-to-all", 1, _nbytes(x))
+        return card_all_to_all(x, axis, split_dim, concat_dim)
+    _count("all_to_all", _nbytes(x), "all-to-all", 1, _nbytes(x))
+    if _DRY[0]:
+        return torch.cat([x.chunk(n, split_dim)[i]] * n, concat_dim)
+    import torch.distributed as dist
+    # all_to_all_single cuts its input along dim 0 in the group's order
+    # (ascending global ranks); the axis may list its ranks in another
+    order = sorted(axis.members)
+    pos = [axis.members.index(r) for r in order]
+    blocks = x.chunk(n, split_dim)
+    send = torch.stack([blocks[p] for p in pos]).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=axis.group)
+    got = [recv[order.index(r)] for r in axis.members]
+    return torch.cat(got, concat_dim)
+
+
+def card_all_to_all(x: torch.Tensor, axis, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """`_all_to_all` between ranks that share a card, in one card exchange
+    (`card_gather`): item p is each rank's block p, read only by the rank
+    at position p of the axis, which places its peers' blocks in axis
+    order. Shares as `card_gather` (one a reader, so a rank's block is
+    opened once by each peer); not counted by kind here."""
+    n, i = axis.size, axis.index
+    blocks = [b.contiguous() for b in x.chunk(n, split_dim)]
+    shape = list(blocks[i].shape)
+    step = shape[concat_dim]
+    shape[concat_dim] = step * n
+    items = []
+    for p, b in enumerate(blocks):
+        if p != i:
+            items.append((b, (0,), [], []))
+            continue
+        places = []
+        for q, r in enumerate(axis.members):
+            where = [slice(None)] * len(shape)
+            where[concat_dim] = slice(q * step, (q + 1) * step)
+            places.append((r, tuple(where)))
+        items.append((b, tuple(shape), places, []))
+    return card_gather(items)[i]
+
+
 def ppermute(x: torch.Tensor, axis, shifts: Sequence[int]):
     """For each shift s, the `x` of the rank s places before this one on
     the axis ring (rank i sends to i + s, as `lax.ppermute` with the
@@ -461,7 +521,12 @@ class _GatherLeaves(torch.autograd.Function):
         items, where = [], []
         for members in groups.values():
             axis = plans[members[0]].sum_axis
-            buf = torch.cat([padded[i].reshape(-1) for i in members])
+            # ranks sharing a card read one leaf's gradient where it lies
+            # (a whole leaf's is the size of the leaf: no second copy);
+            # a sum in place works on a copy
+            buf = (padded[members[0]].contiguous().reshape(-1)
+                   if card and len(members) == 1 else
+                   torch.cat([padded[i].reshape(-1) for i in members]))
             pieces, at = [], 0
             for i in members:
                 n = padded[i].numel()
@@ -482,8 +547,11 @@ class _GatherLeaves(torch.autograd.Function):
         if items:
             for i, x in zip(where, card_reduce(items)):
                 out[i] = x
-        return (None,) + tuple(x.clone(memory_format=torch.contiguous_format)
-                               for x in out)
+        # a view of a padded gradient is copied, so that nothing keeps the
+        # padded tensor alive; a sum's fresh result is returned as it is
+        return (None,) + tuple(
+            x if x._base is None and x.is_contiguous()
+            else x.clone(memory_format=torch.contiguous_format) for x in out)
 
 
 def gather_leaves(plans, shards) -> List[torch.Tensor]:
@@ -491,3 +559,81 @@ def gather_leaves(plans, shards) -> List[torch.Tensor]:
     autograd function whose backward sums each slice's gradient over its
     axis and keeps the rank's stored block (`_GatherLeaves`)."""
     return list(_GatherLeaves.apply(tuple(plans), *shards))
+
+
+# -- expert and context parallelism: autograd exchanges over a mesh axis ----
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.args = (axis, concat_dim, split_dim)
+        return _all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The all-to-all of `_all_to_all` (the expert-parallel dispatch's
+    boundary); its backward is the inverse all-to-all of the gradient
+    (split along `concat_dim`, joined along `split_dim`)."""
+    return _AllToAll.apply(x, axis, split_dim, concat_dim)
+
+
+def _block(shape, dim, n, i):
+    where = [slice(None)] * len(shape)
+    step = shape[dim] // n
+    where[dim] = slice(i * step, (i + 1) * step)
+    return tuple(where)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: each of `xs` all-gathered along `dim` over `axis` (one card
+    exchange for all of them on ranks sharing a card). Backward: each
+    gradient summed over the axis and cut to the rank's block, a
+    reduce-scatter (one card exchange for all, or one sum all_reduce
+    each)."""
+
+    @staticmethod
+    def forward(ctx, axis, dim, *xs):
+        ctx.axis, ctx.dim = axis, dim
+        n = axis.size
+        if xs and on_shared_card(xs[0]):
+            items = []
+            for x in xs:
+                shape = list(x.shape)
+                shape[dim] *= n
+                items.append((x.contiguous(), tuple(shape), [
+                    (r, _block(shape, dim, n, q))
+                    for q, r in enumerate(axis.members)],
+                    [_nbytes(x) * n]))
+            return tuple(card_gather(items))
+        return tuple(all_gather(x.contiguous(), axis, dim) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis, dim = ctx.axis, ctx.dim
+        n, i = axis.size, axis.index
+        mine = [_block(g.shape, dim, n, i) for g in grads]
+        for g, w in zip(grads, mine):
+            _count_kind("reduce-scatter", 1, _nbytes(g[w]))
+        if grads and on_shared_card(grads[0]):
+            items = [(g.contiguous().reshape(-1), axis.members,
+                      [(0, tuple(g.shape), w)]) for g, w in zip(grads, mine)]
+            out = card_reduce(items)
+        else:
+            out = [_sum(g.contiguous().clone(), axis, "")[w]
+                   for g, w in zip(grads, mine)]
+        return (None, None) + tuple(
+            x.clone(memory_format=torch.contiguous_format) for x in out)
+
+
+def gather_seq(xs: Sequence[torch.Tensor], axis,
+               dim: int = 1) -> List[torch.Tensor]:
+    """The ranks' blocks of each of `xs` joined along `dim` in axis order
+    (context parallelism's keys and values, each rank holding a block of
+    the sequence); the backward reduce-scatters each gradient back to the
+    rank's block."""
+    return list(_GatherSeq.apply(axis, dim, *xs))

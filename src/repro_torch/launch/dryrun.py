@@ -30,10 +30,13 @@ process group and no `XLA_FLAGS` are needed. What the run measures:
   each layer's weight all-gathers and gradient reduce-scatters and, under
   the tp profile, the activation all-reduces over "model" of Megatron's
   layout, as each rank computes its "model" shard of each layer
-  (`models.parallel`). The single-pod moe profile's expert all-to-all,
-  and the layers computed whole (MLA, xLSTM, the encoder,
-  cross-attention, the vision projection), are ROADMAP A.19b; the
-  multi-pod fsdp profile's context parallelism A.19c.
+  (`models.parallel`); under the single-pod moe profile the experts'
+  all-to-alls (each rank gathers its E/M experts of a layer); under the
+  multi-pod fsdp profile the keys' and values' all-gathers over the
+  sequence (context parallelism: the rank computes its block of
+  positions). The layers computed whole (MLA, xLSTM, the encoder,
+  cross-attention, the vision projection) are ROADMAP A.19b; the vision
+  prefix's and encoder's sequences under context parallelism A.19c.
 
 `scan_cost_corrected` is always false and the reference's
 `_extrapolate_costs` has no counterpart: it corrects XLA's cost analysis

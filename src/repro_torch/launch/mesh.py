@@ -631,15 +631,10 @@ def global_shape(shape, sharding) -> tuple:
     return tuple(d * axis_size(sharding.mesh, e) for d, e in zip(shape, spec))
 
 
-def leaf_plan(shard_shape, sharding, layout, rank_mesh: RankMesh,
-              sum_axes: Sequence[str] = (), tp: Optional[str] = None):
-    """The `collectives.LeafPlan` of one stored shard (its `shard_shape`,
-    `sharding`) for its compute `layout` (`specs.Layout`): the shard is
-    gathered over its axes, but for `tp` ("model") where its stored
-    block along the layout's dim is the rank's compute slice; the slice is
-    then cut from the gathered tensor. The gradient is summed over
-    `sum_axes` (the step's batch axes) and, where the layout is partial
-    and the slice not kept, over `tp` too."""
+def _kept(shard_shape, sharding, layout, rank_mesh, tp):
+    """(the leaf's global shape, the axes its gather keeps, the slice cut
+    from the gathered tensor, the sharding of the gathered tensor) of
+    `leaf_plan`."""
     glob = global_shape(shard_shape, sharding)
     spec = list(sharding.spec) + [None] * (len(glob) - len(sharding.spec))
     keep = ()
@@ -654,6 +649,28 @@ def leaf_plan(shard_shape, sharding, layout, rank_mesh: RankMesh,
             select = (d, layout.ranges)
     kept = NamedSharding(rank_mesh.shape, P(*[e if e in keep else None
                                               for e in spec]))
+    return glob, keep, select, kept
+
+
+def gathered_shape(shard_shape, sharding, layout, rank_mesh: RankMesh,
+                   tp: Optional[str] = None):
+    """The shape `leaf_plan` gathers the stored shard to (before the
+    compute slice is cut from it)."""
+    glob, _, _, kept = _kept(shard_shape, sharding, layout, rank_mesh, tp)
+    return kept.shard_shape(glob)
+
+
+def leaf_plan(shard_shape, sharding, layout, rank_mesh: RankMesh,
+              sum_axes: Sequence[str] = (), tp: Optional[str] = None):
+    """The `collectives.LeafPlan` of one stored shard (its `shard_shape`,
+    `sharding`) for its compute `layout` (`specs.Layout`): the shard is
+    gathered over its axes, but for `tp` ("model") where its stored
+    block along the layout's dim is the rank's compute slice; the slice is
+    then cut from the gathered tensor. The gradient is summed over
+    `sum_axes` (the step's batch axes) but a kept `tp` and, where the
+    layout is partial and the slice not kept, over `tp` too."""
+    glob, keep, select, kept = _kept(shard_shape, sharding, layout,
+                                     rank_mesh, tp)
     shape = kept.shard_shape(glob)
     dims = [(d, rank_mesh.axis(rest))
             for d, rest in _gathered_dims(sharding, keep)]
@@ -661,7 +678,10 @@ def leaf_plan(shard_shape, sharding, layout, rank_mesh: RankMesh,
     if dims:
         card = card_plan(torch.empty(shard_shape, device="meta"), sharding,
                          rank_mesh, keep)[1:]
-    names = set(sum_axes)
+    # a rank that keeps its block over `tp` computes that block's whole
+    # gradient (under expert parallelism from every rank's tokens, which
+    # the all-to-all brought): never summed with other blocks over `tp`
+    names = set(sum_axes) - set(keep)
     if tp and layout.partial and not keep:
         names.add(tp)
     names = tuple(a for a in rank_mesh.names if a in names)

@@ -188,11 +188,15 @@ def _lead_axes(sharding):
 def make_sharded_prefill_step(model, rank_mesh, batch_specs):
     """`make_prefill_step` on a rank of `rank_mesh`: (param shards, batch
     shards) -> the logits of the rank's batch rows (its vocabulary columns
-    where the vocabulary is cut over "model": `gather_logits`). The shards
-    are cut by `specs.tree_shardings` and `train.batch_shardings` of the
-    global shapes (`batch_specs`, e.g. `model.train_batch_specs(B, S)`
-    without "labels") under the config's rules; `.shardings` holds both,
-    `.parallel` the rank's `models.parallel.Parallel`."""
+    where the vocabulary is cut over "model": `gather_logits`; its block
+    of positions under the multi-pod fsdp profile's context parallelism,
+    `specs.context_parallel`). The shards are cut by
+    `specs.tree_shardings` and `train.batch_shardings` of the global
+    shapes (`batch_specs`, e.g. `model.train_batch_specs(B, S)` without
+    "labels") under the config's rules; `.shardings` holds both,
+    `.parallel` the rank's `models.parallel.Parallel`. Under the single-pod
+    moe profile the ranks along "model" hold other rows, and each runs its
+    experts on their tokens too (the all-to-all of `models.moe`)."""
     from repro_torch.launch.mesh import gather_tree
     from repro_torch.launch.train import batch_shardings
     from repro_torch.models import parallel
@@ -201,8 +205,13 @@ def make_sharded_prefill_step(model, rank_mesh, batch_specs):
         p_specs = model.param_specs()
         p_sh = sh.tree_shardings(p_specs, mesh)
         b_sh = batch_shardings(batch_specs, mesh)
-        view = parallel.Parallel(model.cfg, rank_mesh, p_sh, p_specs)
-    keep = _lead_axes(b_sh["tokens"])
+        rows = _lead_axes(b_sh["tokens"])
+        spec = b_sh["tokens"].spec
+        seq = (sh.entry_axes(spec[1]) if len(spec) > 1
+               and sh.context_parallel(model.cfg, mesh) else ())
+        view = parallel.Parallel(model.cfg, rank_mesh, p_sh, p_specs,
+                                 row_axes=rows, seq=seq)
+    keep = rows + seq
     body = make_prefill_step(model)
 
     def prefill(params, batch):
@@ -240,7 +249,10 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
     the rank's kv heads and stays so; every other state leaf is gathered
     over its non-batch axes for the step and cut again after it, and its
     block (a cache cut by sequence or not at all, Mamba2's state) is
-    computed whole: every kv head's new entry, the whole Mamba2 layer."""
+    computed whole: every kv head's new entry, the whole Mamba2 layer.
+    Under the single-pod moe profile the ranks along "model" hold the
+    same rows: each runs its experts on them and one sum over "model"
+    follows (`moe_ffn`'s `tp` form)."""
     from repro_torch.launch.mesh import cut_from, gather_tree
     from repro_torch.models import parallel
     mesh = rank_mesh.shape
@@ -252,12 +264,12 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
         M = sh.axis_size(mesh, name) if name else 1
         heads_cut = sh.cut_kinds(cfg, M)["attn"] and (
             cfg.num_kv_heads % M == 0)
+        t_sh = token_shardings(token_spec, mesh)
+        keep = _lead_axes(t_sh)
         view = parallel.Parallel(
-            cfg, rank_mesh, p_sh, p_specs,
+            cfg, rank_mesh, p_sh, p_specs, row_axes=keep,
             whole=("mamba",) + (() if heads_cut else ("kv",)))
     st_sh = decode_state_shardings(state_specs, mesh, cfg)
-    t_sh = token_shardings(token_spec, mesh)
-    keep = _lead_axes(t_sh)
     body = make_serve_step(model)
 
     def kept(pair, sharding):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import math
 import re
 import time
@@ -296,7 +297,18 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     must both be a multiple of it for the drops to be the single-device
     step's. Every MoE config meets this at train_4k on 16x16 (1 x 4096
     tokens a rank, groups of 512) and the reduced ones at pieces of
-    B x S >= 64."""
+    B x S >= 64. Under the single-pod moe profile, where "model" cuts the
+    rows, a rank runs its experts on its "model" peers' tokens too
+    (`models.moe`, one all-to-all each way a layer): the peers' pieces of
+    a round must then route as many groups; a layout whose pieces differ
+    along "model" raises.
+
+    Under the multi-pod fsdp profile the batch stays cut by sequence over
+    "model" (`specs.context_parallel`, dense token-only stacks): a rank
+    runs its rows' block of positions (`models.parallel`'s `seq` view),
+    and the label counts and the gradients are summed over the batch axes
+    and that axis. `.local_shapes` holds the shapes of the last step's
+    local batch."""
     from repro_torch.core.collectives import all_reduce_sum
     from repro_torch.launch.mesh import gather_tree
     from repro_torch.models import parallel
@@ -307,11 +319,17 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     with sh.config_rules(cfg):
         p_sh, o_sh = train_state_shardings(p_specs, opt.init(p_specs), mesh)
         b_sh = batch_shardings(batch_specs, mesh)
-        batch_names = sh.entry_axes(b_sh["labels"].spec[0]
-                                    if len(b_sh["labels"].spec) else None)
+        spec = b_sh["labels"].spec
+        batch_names = sh.entry_axes(spec[0] if len(spec) else None)
+        # context parallelism: the rank keeps its block of positions
+        seq_names = (sh.entry_axes(spec[1]) if len(spec) > 1
+                     and sh.context_parallel(cfg, mesh) else ())
+        sum_names = tuple(a for a in mesh.axis_names
+                          if a in batch_names + seq_names)
         view = parallel.Parallel(cfg, rank_mesh, p_sh, p_specs,
-                                 batch_axes=batch_names)
-    baxis = rank_mesh.axis(batch_names) if batch_names else None
+                                 batch_axes=sum_names,
+                                 row_axes=batch_names, seq=seq_names)
+    baxis = rank_mesh.axis(sum_names) if sum_names else None
     world = rank_mesh.axis(mesh.axis_names)
     coords = rank_mesh.coords
     label_shape = tuple(batch_specs["labels"].shape)
@@ -319,6 +337,25 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     n = rows.stop - rows.start
     rounds = _rounds(rows.start // n, n, accum, label_shape[0])
     micro_rows = label_shape[0] // accum
+    if view.expert_parallel:
+        # the all-to-all swaps equal blocks: the ranks along "model" must
+        # route as many tokens a round (a round one holds no row of: one
+        # row), on every rank of the mesh alike
+        def lengths(c):
+            r = b_sh["labels"].index(label_shape, c)[0]
+            return tuple(1 if p is None else p[1] - p[0] for p in _rounds(
+                r.start // n, n, accum, label_shape[0]))
+        groups: dict = {}
+        for c in itertools.product(*(range(k) for k in mesh.axis_sizes)):
+            c = dict(zip(mesh.axis_names, c))
+            key = tuple(v for a, v in c.items() if a != view.name)
+            groups.setdefault(key, set()).add(lengths(c))
+        bad = [g for g in groups.values() if len(g) > 1]
+        if bad:
+            raise ValueError(
+                f"expert parallelism over {view.name!r}: the ranks' pieces "
+                f"of {label_shape[0]} rows under grad_accum={accum} differ "
+                f"along it ({sorted(bad[0])})")
     # ranks holding the same block of a leaf: its squared norm is summed
     # once a block over the world
     reps = [mesh.size // math.prod(mesh.shape[a] for a in s.axes())
@@ -337,7 +374,9 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
         return m
 
     def step(params, opt_state, batch):
-        local = gather_tree(batch, b_sh, rank_mesh, keep=batch_names)
+        local = gather_tree(batch, b_sh, rank_mesh,
+                            keep=batch_names + seq_names)
+        step.local_shapes = {k: tuple(v.shape) for k, v in local.items()}
         dev = local["labels"].device
         counts = torch.zeros(accum, dtype=torch.float32, device=dev)
         for a, b, j in filter(None, rounds):
@@ -379,18 +418,24 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
             if piece is not None:
                 sums[j, 0] += frac * aux["nll"]
                 sums[j, 1] += share * aux["aux"]
+        # the step owns its gradients: each is dropped as soon as it is
+        # used, and clipped in place (ranks sharing a card share its
+        # memory; a full-width step's gradients are GBs a rank)
         out = tree_leaves(gsum)
+        del gsum, g
         if accum > 1:
-            out = [g / accum for g in out]
+            out = [x / accum for x in out]
         nll, aux = summed(sums).mean(0).unbind()
-        sq = sum(torch.sum(torch.square(g.float())) / r
-                 for g, r in zip(out, reps))
+        sq = sum(torch.sum(torch.square(x.float())) / r
+                 for x, r in zip(out, reps))
         gnorm = torch.sqrt(all_reduce_sum(sq.reshape(1), world)[0])
         if clip_norm:
             scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
-            out = [g * scale for g in out]
+            out = [x.mul_(scale) for x in out]
         grads = tree_unflatten(params, out)
+        del out
         updates, opt_state = opt.update(grads, opt_state, params)
+        del grads
         params = optimizers.apply_updates(params, updates)
         return params, opt_state, {"loss": nll + w_aux * aux,
                                    "grad_norm": gnorm, "nll": nll,

@@ -14,6 +14,14 @@ Under `tp` (a `models.parallel.Parallel` cutting heads over "model") the
 block runs on the rank's H/M query heads and the kv heads they read
 (`specs.attn_heads`): the head counts come from the shapes of the rank's
 `wq` / `wk` slices, and `wo` is row-parallel.
+
+Under `seq` (the view's context parallelism: the rank holds a block of
+positions) the block projects and rotates its own positions, gathers
+every rank's keys and values over the sequence axis (`Parallel.gather_seq`,
+whose backward reduce-scatters) and attends with its own queries under
+the mask of their absolute positions (`q_offset`): causal, sliding-window
+and GQA alike. It runs the einsum or chunked path, never the flash
+kernel, as the reference's `_maybe_flash` refuses a query offset.
 """
 from __future__ import annotations
 
@@ -83,11 +91,12 @@ def gqa_attention(q, k, v, mask=None, *, scale=None):
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
-                      scale=None):
+                      scale=None, q_offset=0):
     """Online-softmax attention over key chunks, a Python loop where the
     reference runs `lax.scan`. Never materialises the (S, T) score matrix.
 
-    q: (B,S,H,dh); k,v: (B,T,Hk,dh). Exact (not an approximation)."""
+    q: (B,S,H,dh); k,v: (B,T,Hk,dh); `q_offset` the absolute position of
+    q[0]. Exact (not an approximation)."""
     B, S, H, dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -100,7 +109,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
     dv = v.shape[-1]
     dev = q.device
     qg = q.reshape(B, S, Hk, G, dh).float()
-    qpos = torch.arange(S, device=dev)
+    qpos = torch.arange(S, device=dev) + q_offset
     m = torch.full((B, Hk, G, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hk, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hk, G, S, dv), dtype=torch.float32, device=dev)
@@ -167,7 +176,7 @@ def _heads(cfg, tp):
 
 def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
               cache_index=None, window=0, causal=True, rope_theta=None,
-              kv_override=None, tp=None):
+              kv_override=None, tp=None, seq=None):
     """Full attention block (projections + SDPA + output projection).
 
     Train/prefill: cache_kv=None, x: (B,S,D).
@@ -178,6 +187,8 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
             Returns (out, (new_ck, new_cv)).
     Cross-attention: kv_override=(k, v) precomputed from encoder output.
     `tp`: the rank's heads (module docstring); never with kv_override.
+    `seq`: the rank's block of positions (module docstring; `positions`
+    and `mask` are its own, the mask (S, T) against every rank's keys).
     """
     dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
@@ -204,6 +215,10 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
         k = apply_rope(k, positions, theta)
 
     new_cache = None
+    q_offset = 0
+    if seq is not None:
+        q_offset = seq.seq_offset(q.shape[1])
+        k, v = seq.gather_seq(k, v)
     if tp is not None and cache_kv is None:
         k, v = _rank_kv(cfg, tp, H, k, v)
     if cache_kv is not None:
@@ -229,16 +244,17 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
             out = gqa_attention(q, k, v, mask)
     elif cfg.attn_impl == "chunked":
         out = chunked_attention(q, k, v, causal=causal, window=window,
-                                chunk=cfg.attn_chunk)
+                                chunk=cfg.attn_chunk, q_offset=q_offset)
     else:
-        f = _maybe_flash(cfg, q, k, v, causal=causal, window=window,
-                         q_offset=0)
+        f = None if seq is not None else _maybe_flash(
+            cfg, q, k, v, causal=causal, window=window, q_offset=0)
         if f is not None:
             out = f
         else:
             if mask is None:
                 mask = make_attention_mask(q.shape[1], k.shape[1],
                                            causal=causal, window=window,
+                                           q_offset=q_offset,
                                            device=x.device)
             out = gqa_attention(q, k, v, mask)
 

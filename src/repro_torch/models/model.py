@@ -26,10 +26,12 @@ class Model:
         self.cfg = cfg
 
     def init(self, generator, device="cuda"):
-        """Random parameters drawn from `generator` (a CPU
-        torch.Generator) and moved to `device`."""
+        """Random parameters drawn from `generator` and moved to `device`:
+        a CPU torch.Generator draws on the host (one seed, the same
+        tensors on every device), a CUDA one on its card."""
         dev = resolve_device(device)
-        params = transformer.init_transformer(generator, self.cfg)
+        with torch.device(generator.device):
+            params = transformer.init_transformer(generator, self.cfg)
         return tree_map(lambda a: a.to(dev), params)
 
     def apply(self, params, batch):

@@ -19,7 +19,19 @@ the tp profile and the multi-pod moe profile) the router, its capacity
 and drops and the aux loss stay whole on every rank; the rank's E/M
 experts run on its tokens, the combine takes their slots, the shared
 experts run on the rank's columns, and one sum over "model" follows, the
-row-parallel form of the reference's expert-parallel dispatch.
+row-parallel form of the reference's expert-parallel dispatch (also the
+single-pod moe profile's decode step, whose ranks along "model" hold the
+same rows).
+
+Under `ep` (the single-pod moe profile's train step and prefill: the
+ranks along "model" hold other rows, `specs.ep_axis`) the rank routes its
+own groups with the whole router, builds (E, G_r, C, D) and sends each
+rank along "model" the block of its E/M experts, one all-to-all; it runs
+its experts on the (E/M, M G_r, C, D) it receives, sends the results back
+by the inverse all-to-all and combines its own tokens: the reference's
+dispatch across its expert-parallel boundary (`repro.models.moe`, the
+`shard_activation` of `xe` over "model"). The shared experts run on the
+rank's rows.
 
 The aux loss's token means (f_e, p_e) are over the tokens of the call.
 `moe_ffn(..., token_mean=fn)` takes them through `fn` instead, which maps
@@ -108,10 +120,10 @@ def load_balance_loss(gates, top_idx, num_experts, token_mean=None):
     return num_experts * torch.sum(f_e * p_e)
 
 
-def moe_ffn(params, cfg, x, token_mean=None, tp=None):
+def moe_ffn(params, cfg, x, token_mean=None, tp=None, ep=None):
     """x: (B, S, D) -> (out, aux_loss); `token_mean` as in
-    `load_balance_loss`; `tp` runs the rank's experts (module
-    docstring)."""
+    `load_balance_loss`; `tp` runs the rank's experts on its rows, `ep` on
+    every rank's tokens routed to them (module docstring)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     tokens = B * S
@@ -134,12 +146,17 @@ def moe_ffn(params, cfg, x, token_mean=None, tp=None):
     dispatch = (combine > 0).to(x.dtype)
 
     xe = torch.einsum("gsec,gsd->egcd", dispatch, xin)
+    if ep is not None:
+        # the rank's experts' slots of every rank's groups along "model"
+        xe = ep.all_to_all(xe, 0, 1)
     g = torch.einsum("egcd,edf->egcf", xe,
                      params["experts_gate"].to(x.dtype))
     u = torch.einsum("egcd,edf->egcf", xe, params["experts_up"].to(x.dtype))
     h = F.silu(g) * u
     ye = torch.einsum("egcf,efd->egcd", h,
                       params["experts_down"].to(x.dtype))
+    if ep is not None:
+        ye = ep.all_to_all(ye, 1, 0)
 
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), ye)
     out = out.reshape(B, S, D)

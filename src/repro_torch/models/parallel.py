@@ -21,6 +21,17 @@ recompute and no rank ever holds the whole tree:
   "model" (`specs.cut_kinds`), else None; a cut block enters through `f`
   and leaves through `g` after its row-parallel product, Megatron's pair
   (`core.collectives.copy_to` / `reduce_from`).
+* `ep(kind)` is the view where the experts are cut over "model" and the
+  ranks along it hold other rows (the single-pod moe profile's train step
+  and prefill, `specs.ep_axis`): each rank runs its experts on every
+  rank's tokens routed to them, through an all-to-all
+  (`collectives.all_to_all`). Where those ranks hold the same rows (the
+  decode step), `tp("moe")` cuts the experts with a sum over "model".
+* `seq()` is the view where the step's batch stays cut by sequence over
+  `specs.seq_axis` (the multi-pod fsdp profile's context parallelism):
+  a rank holds a block of positions, attends with its own queries to
+  every rank's keys and values (`gather_seq`), and is row-local
+  elsewhere.
 * Without remat (`cfg.remat` off) a backward pass would keep every
   gathered weight that autograd saves until it runs, the whole model at
   the end of the forward pass; inside `regathering()` such a weight (or
@@ -32,6 +43,7 @@ Off a mesh `current()` is None and every layer runs as on one device.
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 from typing import Dict, Optional, Sequence
 
@@ -73,25 +85,37 @@ class Parallel:
     layouts for the rank's index on "model", and the stored shardings of
     the parameter tree (`shardings`, of the global `param_specs`). Build it
     under the rules the shardings were made by (`specs.config_rules`).
-    `batch_axes` are the axes whose ranks hold other rows: the gradients
-    are summed over them. `whole` names blocks a decode step computes whole
-    ("kv", "mamba"; `specs.compute_layout`)."""
+    `batch_axes` are the axes whose gradients are summed over (the ranks
+    holding other rows or other positions); `row_axes` the axes whose
+    ranks hold other rows (default `batch_axes`). `whole` names blocks a
+    decode step computes whole ("kv", "mamba"; `specs.compute_layout`).
+    `seq` names the axes the step's batch stays cut by sequence over (the
+    caller's batch spec; `specs.context_parallel`), () where it is not."""
 
     def __init__(self, cfg, rank_mesh, shardings, param_specs, *,
-                 batch_axes: Sequence[str] = (), whole: Sequence[str] = ()):
+                 batch_axes: Sequence[str] = (), whole: Sequence[str] = (),
+                 row_axes: Optional[Sequence[str]] = None,
+                 seq: Sequence[str] = ()):
         mesh = rank_mesh.shape
-        self.name = sh.tp_axis(mesh)
+        self.name, experts_only = sh.model_axis(mesh)
         self.axis = rank_mesh.axis(self.name) if self.name else None
         self.size = self.axis.size if self.axis else 1
         self.index = self.axis.index if self.axis else 0
-        self.cut: Dict[str, bool] = sh.cut_kinds(cfg, self.size)
+        self.cut: Dict[str, bool] = sh.cut_kinds(cfg, self.size,
+                                                 experts_only)
         if "mamba" in whole:
             self.cut["mamba"] = False
+        rows = batch_axes if row_axes is None else row_axes
+        # the experts' all-to-all: ranks along the expert axis hold other
+        # rows; holding the same rows they cut the experts with a sum
+        self.expert_parallel = experts_only and self.name in rows
         self.layouts = sh.compute_layouts(cfg, mesh, param_specs,
                                           self.index, whole)
+        self.param_specs = param_specs
         self.shardings = shardings
         self.rank_mesh = rank_mesh
         self.batch_axes = tuple(batch_axes)
+        self.seq_axis = rank_mesh.axis(seq) if seq else None
         self.ran = set()         # the block kinds that ran cut
         self._plans: Dict[tuple, list] = {}
         self._made = None        # inside `regathering()`: what take made
@@ -99,12 +123,42 @@ class Parallel:
     # -- the tensor-parallel handle of a block --------------------------------
 
     def tp(self, kind: str) -> Optional["Parallel"]:
-        """This view where blocks of `kind` are cut over "model", else
-        None (the block computes whole on every rank)."""
-        if self.cut.get(kind):
+        """This view where blocks of `kind` are cut over "model" and the
+        ranks along it hold the same rows, else None (the block computes
+        whole on every rank, or runs through `ep`)."""
+        if self.cut.get(kind) and not self.expert_parallel:
             self.ran.add(kind)
             return self
         return None
+
+    def ep(self, kind: str) -> Optional["Parallel"]:
+        """This view where blocks of `kind` (the experts) are cut over
+        "model" and the ranks along it hold other rows: the all-to-all
+        form (`models.moe`); else None."""
+        if self.cut.get(kind) and self.expert_parallel:
+            self.ran.add(kind)
+            return self
+        return None
+
+    def seq(self) -> Optional["Parallel"]:
+        """This view where the step's rows are cut by sequence (context
+        parallelism), else None."""
+        if self.seq_axis is None:
+            return None
+        self.ran.add("seq")
+        return self
+
+    def seq_offset(self, n: int) -> int:
+        """The absolute position of this rank's first of its `n`."""
+        return self.seq_axis.index * n
+
+    def gather_seq(self, *xs):
+        """Every rank's positions of each of `xs` ((B, S/M, ...) blocks),
+        in order; the backward reduce-scatters."""
+        return collectives.gather_seq(xs, self.seq_axis, dim=1)
+
+    def all_to_all(self, x, split_dim: int, concat_dim: int):
+        return collectives.all_to_all(x, self.axis, split_dim, concat_dim)
 
     def f(self, x):
         return collectives.copy_to(x, self.axis)
@@ -130,6 +184,23 @@ class Parallel:
     @staticmethod
     def layer(unstacked, i):
         return tree_map(lambda t: t[i], unstacked)
+
+    def gathered_bytes(self) -> Dict[str, int]:
+        """Leaf path -> the bytes one `take` of it gathers (one layer's of a
+        stacked leaf): the shape its stored shard is gathered to."""
+        from repro_torch.launch import mesh as mesh_mod
+        out = {}
+        for (path, x), s, lay in zip(
+                tree_leaves(sh._paths(self.param_specs)),
+                tree_leaves(self.shardings), tree_leaves(self.layouts)):
+            shape = tuple(x.shape)
+            if sh._STACKED_RE.search(path):
+                shape = shape[1:]
+                s = sh.NamedSharding(self.rank_mesh.shape, sh.P(*s.spec[1:]))
+            out[path] = math.prod(mesh_mod.gathered_shape(
+                s.shard_shape(shape), s, lay, self.rank_mesh,
+                self.name)) * x.element_size()
+        return out
 
     def take(self, stored, *key):
         """The compute slices of the stored subtree `stored`, which sits at

@@ -27,7 +27,11 @@ again in the backward pass, and the shared block, the embedding, the
 final norm and the unembedding are taken around their use. Blocks cut
 over "model" run Megatron's layout (`layers`, `attention`, `ssm`, `moe`),
 and the logits stay cut by the vocabulary: `loss_fn` takes their
-log-sum-exp and the label's logit with sums over "model".
+log-sum-exp and the label's logit with sums over "model". Under the
+view's context parallelism (`Parallel.seq`) the batch is the rank's block
+of positions: RoPE and the masks take their absolute positions, attention
+gathers every rank's keys and values, and everything else (norms, MLPs,
+the embedding, logits and loss) is row-local.
 """
 from __future__ import annotations
 
@@ -95,9 +99,9 @@ def is_homogeneous(cfg) -> bool:
 
 
 def init_transformer(generator, cfg) -> Dict[str, Any]:
-    """Random parameters drawn from `generator` (a CPU torch.Generator),
-    with the reference's keys, layouts and distributions (not its
-    draws)."""
+    """Random parameters drawn from `generator` on the default device
+    (`Model.init` sets it to the generator's), with the reference's keys,
+    layouts and distributions (not its draws)."""
     dtype = cfg.parameter_dtype
     p: Dict[str, Any] = {"embed": init_embedding(generator, cfg.vocab_size,
                                                  cfg.d_model, dtype)}
@@ -163,7 +167,8 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
     else:
         a = attn_mod.attention(lp["attn"], cfg, h, positions=positions,
                                mask=mask, window=window,
-                               tp=_tp(par, "attn"))
+                               tp=_tp(par, "attn"),
+                               seq=None if par is None else par.seq())
     x = x + a
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if enc_out is not None:
@@ -180,7 +185,8 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
             y, aux = moe.moe_ffn(lp["mlp"], cfg, h, token_mean,
-                                 tp=_tp(par, "moe"))
+                                 tp=_tp(par, "moe"),
+                                 ep=None if par is None else par.ep("moe"))
         elif cfg.norm_type == "layernorm":
             y = layers.gelu_mlp(lp["mlp"], h, _tp(par, "mlp"))
         else:
@@ -324,8 +330,13 @@ def _forward(params, cfg, batch, token_mean, par):
         x = torch.cat([vis, x], dim=1)
     B, S = x.shape[:2]
     dev = x.device
-    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
-        B, S)
+    # under context parallelism the rank's block of positions: its queries
+    # at their absolute positions, against every rank's T keys
+    sq = None if par is None else par.seq()
+    off = sq.seq_offset(S) if sq is not None else 0
+    T = S * sq.seq_axis.size if sq is not None else S
+    positions = (torch.arange(S, dtype=torch.int32, device=dev)
+                 + off)[None].expand(B, S)
 
     remat = _remat(cfg, params)
     enc_out = None
@@ -339,11 +350,13 @@ def _forward(params, cfg, batch, token_mean, par):
         # online-softmax path: no (S,S) mask tensors; windows are scalars
         masks = {"default": None, "global": None, "local": None}
     else:
-        causal = attn_mod.make_attention_mask(S, S, causal=True, device=dev)
+        causal = attn_mod.make_attention_mask(S, T, causal=True,
+                                              q_offset=off, device=dev)
         masks = {"default": causal, "global": causal}
         if cfg.sliding_window:
             masks["local"] = attn_mod.make_attention_mask(
-                S, S, causal=True, window=cfg.sliding_window, device=dev)
+                S, T, causal=True, window=cfg.sliding_window, q_offset=off,
+                device=dev)
             if not cfg.global_every:
                 masks["default"] = masks["local"]
 

@@ -229,6 +229,18 @@ def seq_axis(mesh):
     return None
 
 
+def context_parallel(cfg, mesh):
+    """`seq_axis` where the port keeps a step's batch cut by sequence: a
+    token-only dense stack; else None. A vision prefix's or an encoder's
+    sequence is still gathered whole over it (ROADMAP A.19b), and so is an
+    MoE stack's (a config whose profile is overridden to fsdp): its
+    routing groups are runs of consecutive tokens, which a rank's block
+    of positions would cut into other groups than the reference's."""
+    if cfg.modality != "text" or cfg.encoder_layers or cfg.moe:
+        return None
+    return seq_axis(mesh)
+
+
 # ---------------------------------------------------------------------------
 # parameter rules: (regex on the param path) -> spec template; "F" is the
 # FSDP compound axis and "M" the model axis. First match wins; the result
@@ -492,7 +504,9 @@ def remap_act_spec(spec, mesh) -> PartitionSpec:
 # multi-pod moe profile. A rank there computes Megatron's layout: attention
 # heads and MLP columns column-parallel, their output products row-parallel
 # (one all-reduce over "model" each), MoE experts, Mamba2 heads and the
-# vocabulary. `compute_layout` says, for one leaf, which slice of it the rank
+# vocabulary. Under the single-pod moe profile "model" carries rows and the
+# experts (`ep_axis`): a rank computes only its experts, on every rank's
+# tokens routed to them (the all-to-all of `models.moe`). `compute_layout` says, for one leaf, which slice of it the rank
 # computes with; `models.parallel.Parallel.take` makes that slice from the
 # rank's stored shard, one layer at a time.
 # ---------------------------------------------------------------------------
@@ -508,27 +522,53 @@ def tp_axis(mesh):
     return "model" if axis_size(mesh, "model") > 1 else None
 
 
+def ep_axis(mesh):
+    """"model" where a rank holds its "model" shard of the MoE experts and
+    runs only those: the single-pod moe profile (`spec_for_param` keeps
+    the experts over "model"; the reference's dispatch crosses an
+    all-to-all there), on a mesh whose "model" axis has more than one
+    rank; else None."""
+    if get_profile() != "moe" or "pod" in mesh.axis_names:
+        return None
+    return "model" if axis_size(mesh, "model") > 1 else None
+
+
+def model_axis(mesh):
+    """The axis a rank computes its "model" shard over, and whether only
+    the experts are cut there: (`tp_axis`, False), else (`ep_axis`,
+    True), else (None, False)."""
+    name = tp_axis(mesh)
+    if name:
+        return name, False
+    name = ep_axis(mesh)
+    return name, name is not None
+
+
 def _mamba_heads(cfg) -> int:
     return cfg.mamba_expand * cfg.d_model // cfg.ssm_head_dim
 
 
-def cut_kinds(cfg, M: int) -> Dict[str, bool]:
+def cut_kinds(cfg, M: int, experts_only: bool = False) -> Dict[str, bool]:
     """Which of the config's blocks a "model" axis of M ranks cuts: GQA
     attention by heads, the dense MLP and MoE's shared experts by columns,
     MoE by experts, Mamba2 by heads, the embedding and logits by the
     vocabulary. A block whose count does not divide over M is computed
     whole on every rank (gemma3-4b's 8 heads at M = 16), as are MLA,
     xLSTM, the encoder, cross-attention and the vision projection
-    (ROADMAP A.19b)."""
+    (ROADMAP A.19b). `experts_only` (the `ep_axis`): only MoE's experts."""
+    out = {k: False for k in ("attn", "mlp", "moe", "mamba", "vocab")}
     if M < 2:
-        return {k: False for k in ("attn", "mlp", "moe", "mamba", "vocab")}
+        return out
+    out["moe"] = bool(cfg.moe) and cfg.num_experts % M == 0
+    if experts_only:
+        return out
     ff = cfg.num_shared_experts * cfg.d_ff if cfg.moe else cfg.d_ff
-    return {"attn": (cfg.attention_kind == "gqa"
+    out.update(attn=(cfg.attention_kind == "gqa"
                      and cfg.num_heads % M == 0),
-            "mlp": ff > 0 and ff % M == 0,
-            "moe": bool(cfg.moe) and cfg.num_experts % M == 0,
-            "mamba": bool(cfg.ssm_state) and _mamba_heads(cfg) % M == 0,
-            "vocab": cfg.vocab_size % M == 0}
+               mlp=ff > 0 and ff % M == 0,
+               mamba=bool(cfg.ssm_state) and _mamba_heads(cfg) % M == 0,
+               vocab=cfg.vocab_size % M == 0)
+    return out
 
 
 class Layout(tuple):
@@ -571,9 +611,9 @@ def compute_layout(cfg, mesh, path: str, shape, index: int,
     "model" axis. `whole` names blocks computed whole all the same (a
     decode step's "kv" where the cache is not cut by heads, and its
     "mamba", whose state is cut across heads)."""
-    name = tp_axis(mesh)
+    name, experts_only = model_axis(mesh)
     M = axis_size(mesh, name) if name else 1
-    cut = cut_kinds(cfg, M)
+    cut = cut_kinds(cfg, M, experts_only)
     seg = path.split("/")
     if (M < 2 or seg[0] in ("encoder", "vision_proj")
             or "cross_attn" in seg):

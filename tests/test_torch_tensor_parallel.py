@@ -23,12 +23,15 @@ CPU.
   reduced, float32) equals the reference's `make_train_step` from its
   init: loss and grad-norm within 1e-5 relative, SGD params within 1e-6.
 * The dry-run's per-device FLOPs (`launch.dryrun.run_step`, meta device)
-  on the 4x2 mesh: the tp pairs within 0.7-1.15x the reference's
-  compiled count (from a subprocess with 8 fake devices and
-  `scan_layers=False`, as tests/test_sharding_and_dryrun.py compiles),
-  the fsdp and moe pairs within 5% of the count before tensor
-  parallelism, and 8x the count within 0.99-1.15x the single-device
-  step's, so no work is left out.
+  on the 4x2 mesh (2x2x2 for the multi-pod fsdp pairs): the tp pairs,
+  qwen3-moe under "moe" (expert parallelism, issuing an all-to-all) and
+  phi3-mini's train step and prefill under multi-pod "fsdp" (context
+  parallelism) within 0.7-1.15x the reference's compiled count (from a
+  subprocess with 8 fake devices and `scan_layers=False`, as
+  tests/test_sharding_and_dryrun.py compiles), the 4x2 fsdp and moe
+  pairs within 5% of the count before tensor parallelism, and 8x the
+  count within 0.99-1.15x the single-device step's, so no work is left
+  out.
 
 One `launch.mesh.World` of 8 CPU ranks serves the module; the ranks run
 `torch_sharded_cases`."""
@@ -244,7 +247,16 @@ def test_tensor_parallel_train_step_matches_the_reference(world, arch,
 FLOP_PAIRS = [("phi3-mini-3.8b", "tp", "train"),
               ("phi3-mini-3.8b", "tp", "prefill"),
               ("qwen3-moe-30b-a3b", "tp", "train"),
-              ("zamba2-1.2b", "tp", "train")]
+              ("zamba2-1.2b", "tp", "train"),
+              # expert parallelism: "model" carries rows and experts
+              ("qwen3-moe-30b-a3b", "moe", "train"),
+              # context parallelism: the sequence over "model"
+              ("phi3-mini-3.8b", "fsdp", "train"),
+              ("phi3-mini-3.8b", "fsdp", "prefill")]
+# the mesh of each pair (4x2 unless named)
+MULTI_POD = ((2, 2, 2), ("pod", "data", "model"))
+PAIR_MESH = {("phi3-mini-3.8b", "fsdp", "train"): MULTI_POD,
+             ("phi3-mini-3.8b", "fsdp", "prefill"): MULTI_POD}
 # the port's per-device counts before tensor parallelism (every rank along
 # "model" computed whole layers): each holds within 5%
 BEFORE = {("phi3-mini-3.8b", "fsdp", "train"): 0.721e9,
@@ -264,15 +276,14 @@ _REFERENCE_FLOPS = textwrap.dedent("""
     from repro.optim import optimizers
     from repro.sharding import specs as sh
 
-    mesh = jax.make_mesh((4, 2), ("data", "model"),
-                         **mesh_mod.axis_types_kw(2))
-
     def sds(tree, shardings):
         return jax.tree.map(lambda l, s: jax.ShapeDtypeStruct(
             l.shape, l.dtype, sharding=s), tree, shardings)
 
     out = {{}}
-    for arch, profile, kind in {pairs!r}:
+    for (arch, profile, kind), (shape, names) in {pairs!r}:
+        mesh = jax.make_mesh(shape, names,
+                             **mesh_mod.axis_types_kw(len(shape)))
         cfg = get_config(arch).reduced().with_updates(
             sharding_profile=profile, scan_layers=False)
         sh.set_profile(profile)
@@ -302,7 +313,8 @@ _REFERENCE_FLOPS = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def reference_flops():
-    code = _REFERENCE_FLOPS.format(src=SRC, pairs=FLOP_PAIRS, B=B, S=S)
+    pairs = [(p, PAIR_MESH.get(p, MESH)) for p in FLOP_PAIRS]
+    code = _REFERENCE_FLOPS.format(src=SRC, pairs=pairs, B=B, S=S)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -317,12 +329,17 @@ def _port_flops(arch, profile, kind, mesh_shape=MESH_SHAPE):
 
 @pytest.mark.parametrize("pair", FLOP_PAIRS, ids="/".join)
 def test_per_device_flops_match_the_reference(reference_flops, pair):
-    got = _port_flops(*pair)
+    got = _port_flops(*pair, sh.MeshShape(*PAIR_MESH.get(pair, MESH)))
     want = reference_flops["/".join(pair)]
     assert 0.7 <= got / want <= 1.15, (pair, got, want)
     # every rank's share of the single-device step, nothing left out
     one = _port_flops(*pair, sh.MeshShape((1, 1), ("data", "model")))
     assert 0.99 <= 8 * got / one <= 1.15, (pair, got, one)
+    kinds = dryrun.run_step(get_config(pair[0]).reduced().with_updates(
+        sharding_profile=pair[1], scan_layers=False), pair[2], B, S,
+        sh.MeshShape(*PAIR_MESH.get(pair, MESH)))["counts"]["kinds"]
+    if pair[1] == "moe":
+        assert kinds.get("all-to-all", 0) > 0, kinds
 
 
 @pytest.mark.parametrize("pair", sorted(BEFORE), ids="/".join)

@@ -34,10 +34,43 @@ def build(arch, reduced=True, **kw):
     return build_model(cfg.with_updates(**kw))
 
 
-def _params(model, params, seed, device):
+def card_init(model, seed, device):
+    """The model's own random parameters (`Model.init`: its layouts and
+    distributions) drawn on `device` from a generator there seeded with
+    `seed`: the same tensors on every process of one card, other draws
+    than a host generator's. A full-width MoE's host init takes ~25 s;
+    this takes well under one."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return model.init(g, device)
+
+
+def _params(model, params, seed, device, init="host"):
     if params is None:
+        if init == "card":
+            return card_init(model, seed, device)
         return model.init(generator(seed), device)
     return convert.params_from_jax(params, device)
+
+
+def _shards(rank, model, params, seed, sharding, rm, init="host"):
+    """The rank's shards of the whole params. Under a card init the ranks
+    draw the whole tree in turn, each keeping its shards, so the card
+    holds one whole tree at a time (the drawing rank's allocator
+    uncapped)."""
+    if init != "card" or params is not None:
+        return mesh.shard_tree(_params(model, params, seed, rank.device),
+                               sharding, rm)
+    mine = None
+    for r in range(rank.size):
+        if r == rank.rank:
+            if rank.device.type == "cuda":     # lift `_compact`'s cap
+                torch.cuda.set_per_process_memory_fraction(1.0, rank.device)
+            mine = mesh.shard_tree(card_init(model, seed, rank.device),
+                                   sharding, rm)
+            _release(rank)
+        rank.barrier()
+    return mine
 
 
 def _ship(rank, leaves, out_dir, name):
@@ -73,7 +106,10 @@ def _report(rank, start, t0):
     dev = rank.device
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
+    reserved = (torch.cuda.max_memory_reserved(dev) if dev.type == "cuda"
+                else None)
     return {"collectives": mesh.collective_counts(),
+            "peak_reserved_bytes": reserved,
             "launches": {k: v - start[k] for k, v in _launches().items()},
             "peak_bytes": peak, "seconds": time.perf_counter() - t0}
 
@@ -81,6 +117,38 @@ def _report(rank, start, t0):
 def _sync(rank):
     if rank.device.type == "cuda":
         torch.cuda.synchronize(rank.device)
+
+
+# the share of a card its ranks' allocators may hold together; the rest is
+# left to the processes' CUDA contexts and to the main process
+SHARED_CARD_USE = 0.85
+
+
+def _compact(rank, init):
+    """A full-width case (its weights drawn on the card): the rank's
+    allocator splits no block above 256 MB, so that the whole-leaf
+    gathers and gradients of eight ranks sharing the card leave no
+    cached segment half used (fragmentation ran the card out of memory),
+    and it holds at most its share of the card (SHARED_CARD_USE of it over
+    the ranks on the card): past that it hands its own cached blocks back
+    before it allocates, so one rank's cache cannot run another out of
+    memory (eight ranks' caches at their peaks filled the card)."""
+    if init == "card" and rank.device.type == "cuda":
+        torch._C._accelerator_setAllocatorSettings("max_split_size_mb:256")
+        cards = torch.cuda.device_count()
+        mine = sum(1 for r in range(rank.size)
+                   if r % cards == rank.device.index)
+        torch.cuda.set_per_process_memory_fraction(SHARED_CARD_USE / mine,
+                                                   rank.device)
+
+
+def _release(rank):
+    """Hand this rank's cached free blocks back to the card between steps:
+    the ranks share it, and a full-width step's blocks cached in one rank
+    are memory the others cannot use."""
+    if rank.device.type == "cuda":
+        torch.cuda.synchronize(rank.device)
+        torch.cuda.empty_cache()
 
 
 def _same(a, b):
@@ -91,13 +159,14 @@ def _same(a, b):
 
 def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
           seed=0, opt="sgd", lr=1e-2, steps=1, reduced=True, repeat=False,
-          out_dir=None):
+          out_dir=None, init="host"):
     """`steps` sharded train steps from the whole `params` (numpy, or drawn
-    from `seed`) on the whole `batch` (numpy). Returns (rank 0's gathered
-    params after the steps, their leaves in tree order (`load`), else
-    None; the metrics of every step; the report). `repeat` runs the steps
-    again from the same shards and reports whether the rank's shards and
-    metrics repeat bit for bit."""
+    from `seed`: on the host, or by `card_init` with init="card") on the
+    whole `batch` (numpy). Returns (rank 0's gathered params after the
+    steps, their leaves in tree order (`load`), else None; the metrics of
+    every step; the report). `repeat` runs the steps again from the same
+    shards and reports whether the rank's shards and metrics repeat bit
+    for bit."""
     from repro_torch.launch.train import make_sharded_train_step
     from repro_torch.optim import optimizers
     deterministic_f32()
@@ -111,34 +180,55 @@ def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
              for k, v in b.items()}
     step = make_sharded_train_step(model, o, rm, specs)
     p_sh, o_sh, b_sh = step.shardings
-    p0 = mesh.shard_tree(_params(model, params, seed, dev), p_sh, rm)
+    p = _shards(rank, model, params, seed, p_sh, rm, init)
+    _compact(rank, init)
+    # a full-width model's starting shards (GBs a rank) wait on the host
+    # for the repeat, as its shards after the steps do while it runs
+    from repro_torch.tree import tree_leaves
+    park = (dev.type == "cuda" and sum(
+        t.numel() * t.element_size() for t in tree_leaves(p)) > 2**30)
+    to_host = (lambda t: t.cpu()) if park else (lambda t: t)
+    p0 = tree_map(to_host, p) if repeat else None
     b = mesh.shard_tree(b, b_sh, rm)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     mesh.reset_collective_counts()
     start, metrics, times = _launches(), [], []
     t0 = time.perf_counter()
-    p, s = p0, o.init(p0)
+    s = o.init(p)
     for _ in range(steps):
         t1 = time.perf_counter()
         p, s, m = step(p, s, b)
         _sync(rank)
         times.append(time.perf_counter() - t1)
         metrics.append({k: float(v) for k, v in m.items()})
+        _release(rank)
     report = _report(rank, start, t0)
     report["step_seconds"] = times
     report["cut"] = sorted(step.parallel.ran)
+    report["local_shapes"] = step.local_shapes
+    report["expert_parallel"] = step.parallel.expert_parallel
+    report["gathered_bytes"] = step.parallel.gathered_bytes()
     if repeat:
-        q, s = p0, o.init(p0)
+        p = tree_map(to_host, p)
+        del s
+        _release(rank)
+        q = tree_map(lambda t: t.to(dev), p0)
+        s = o.init(q)
         again = []
         for _ in range(steps):
             q, s, m = step(q, s, b)
             again.append({k: float(v) for k, v in m.items()})
-        report["bitwise_repeat"] = _same(p, q) and again == metrics
-    from repro_torch.tree import tree_leaves
-    full = tree_leaves(_np(mesh.gather_tree(p, p_sh, rm)))
-    return ((_ship(rank, full, out_dir, "params") if rank.rank == 0
-             else None), metrics, report)
+            _release(rank)
+        report["bitwise_repeat"] = (_same(p, tree_map(to_host, q))
+                                    and again == metrics)
+        del q, s
+        p = tree_map(lambda t: t.to(dev), p)
+    # every rank joins the gathers; only rank 0 copies the result out
+    full = mesh.gather_tree(p, p_sh, rm)
+    shipped = (_ship(rank, tree_leaves(_np(full)), out_dir, "params")
+               if rank.rank == 0 else None)
+    return shipped, metrics, report
 
 
 def fl(rank, arch, cfg_kw, fl_kw, mesh_shape, names, batches, weights,
@@ -257,14 +347,18 @@ def _recording():
 
 
 def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
-          params=None, seed=0, kernel=False, reduced=True, out_dir=None):
+          params=None, seed=0, kernel=False, reduced=True, out_dir=None,
+          init="host"):
     """The sharded prefill of the whole `tokens` (numpy (B, S)), then
     `decode_steps` sharded decode steps from an empty state fed the
-    first tokens. Returns (the rank's prefill rows (start, stop), [their
-    logits] (`load`), its decode rows, their logits of every step (steps,
-    rows, V), the report); `kernel` runs the kernel prefill. The report
-    holds the block kinds that ran cut over "model" ("cut") and the
-    shapes the kernels launched at ("kernel_shapes")."""
+    first tokens (params as `train` takes them). Returns (the rank's
+    prefill rows (start, stop), [their logits] (`load`), its decode rows,
+    their logits of every step (steps, rows, V), the report); `kernel`
+    runs the kernel prefill. The report
+    holds the block kinds that ran cut over "model" ("cut"), the shapes
+    the kernels launched at ("kernel_shapes") and the prefill's block of
+    positions ("positions": all of them but under context
+    parallelism)."""
     from repro_torch.launch.serve import (gather_logits,
                                           make_sharded_prefill_step,
                                           make_sharded_serve_step)
@@ -272,16 +366,15 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     dev = rank.device
     model = build(arch, reduced, **cfg_kw)
     rm = rank.mesh(MeshShape(mesh_shape, names))
-    full = _params(model, params, seed, dev)
     tok = torch.as_tensor(tokens, device=dev).long()
     B, S = tok.shape
     specs = {"tokens": torch.empty((B, S), dtype=torch.int64,
                                    device="meta")}
     prefill = make_sharded_prefill_step(model, rm, specs)
     p_sh, b_sh = prefill.shardings
-    p = mesh.shard_tree(full, p_sh, rm)
-    del full
-    rows = b_sh["tokens"].index((B, S), rm.coords)[0]
+    p = _shards(rank, model, params, seed, p_sh, rm, init)
+    _compact(rank, init)
+    rows, cols = b_sh["tokens"].index((B, S), rm.coords)[:2]
     st_specs = model.decode_state_specs(B, decode_steps)
     serve_step = make_sharded_serve_step(
         model, rm, st_specs, model.decode_token_specs(B))
@@ -319,6 +412,9 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     report["prefill_seconds"] = prefill_s
     report["decode_seconds"] = decode_s
     report["cut"] = sorted(prefill.parallel.ran | serve_step.parallel.ran)
+    report["positions"] = ((cols.start, cols.stop)
+                           if prefill.parallel.seq_axis else (0, S))
+    report["expert_parallel"] = prefill.parallel.expert_parallel
     report["kernel_shapes"] = shapes
     return ((rows.start, rows.stop),
             _ship(rank, [logits.float().cpu().numpy()], out_dir, "logits"),
@@ -425,3 +521,112 @@ def layer_grads(rank, arch, cfg_kw, mesh_shape, names, batch, params,
         (loss, _), g = value_and_grad(model.loss, p, b)
     whole = tree_leaves(_np(mesh.gather_tree(g, p_sh, rm)))
     return (float(loss), whole, sorted(view.ran)) if rank.rank == 0 else None
+
+
+def ep_ops(rank):
+    """`collectives.all_to_all` over the 4-rank "model" axis of the (2, 4)
+    mesh: rank r on the axis holds x[p] = 10 r + p + arange(3) / 4 for
+    p < 4 and weighs its result by r + 1; values, the gradient and the
+    counted kinds and bytes."""
+    from repro_torch.core import collectives as co
+    rm = rank.mesh(MeshShape((2, 4), ("data", "model")))
+    ax = rm.axis("model")
+    r = ax.index
+    mesh.reset_collective_counts()
+    x = (10.0 * r + torch.arange(4.0)[:, None]
+         + torch.arange(3.0)[None] / 4).requires_grad_(True)
+    y = co.all_to_all(x, ax, 0, 1)
+    (y * (r + 1)).sum().backward()
+    counts = mesh.collective_counts()
+    return {"y": _np(y.detach()), "grad": _np(x.grad),
+            "kinds": counts["kinds"], "kind_bytes": counts["kind_bytes"]}
+
+
+def ep_moe(rank, arch, cfg_kw, params, x, w):
+    """`moe.moe_ffn` under the expert-parallel view on the (2, 4) mesh
+    ("model" carrying rows and experts, `specs.ep_axis`): rank (d, m)
+    holds row 4 d + m of the global `x` (numpy (8, S, D)) and the "model"
+    block m of the experts of `params` (one layer's MoE leaves, numpy),
+    and weighs its output by `w` (numpy, like `x`); the aux loss takes its
+    token means over the global batch. Returns the rank's output, the aux
+    loss, and the gradients of sum(out * w) + aux: its row of x, the
+    router's summed over the world, its experts' summed over "data"."""
+    from repro_torch.core import collectives as co
+    from repro_torch.launch.train import _token_mean
+    from repro_torch.models import moe
+    from repro_torch.sharding import specs as sh
+    cfg = build(arch, True, **cfg_kw).cfg
+    rm = rank.mesh(MeshShape((2, 4), ("data", "model")))
+    ax = rm.axis("model")
+    row = rm.coords["data"] * 4 + ax.index
+    with sh.profile_ctx("moe"):
+        assert sh.ep_axis(rm.shape) == "model"
+    E = params["experts_gate"].shape[0]
+    n = E // ax.size
+    p = {k: (v[ax.index * n:(ax.index + 1) * n]
+             if k.startswith("experts_") else v) for k, v in params.items()}
+    p = tree_map(lambda v: torch.tensor(v).requires_grad_(True), p)
+    xr = torch.tensor(x[row:row + 1]).requires_grad_(True)
+
+    class View:
+        def all_to_all(self, t, split_dim, concat_dim):
+            return co.all_to_all(t, ax, split_dim, concat_dim)
+
+    world = rm.axis(rm.names)
+    mean = functools.partial(_token_mean, share=1 / 8, j=0, slots=1,
+                             axis=world)
+    mesh.reset_collective_counts()
+    out, aux = moe.moe_ffn(p, cfg, xr, mean, ep=View())
+    ((out * torch.tensor(w[row:row + 1])).sum() + aux).backward()
+    kinds = mesh.collective_counts()["kinds"]
+    router = tree_map(lambda v: co.all_reduce_sum(v.grad.clone(), world),
+                      p["router"])
+    data = rm.axis("data")
+    experts = {k: co.all_reduce_sum(p[k].grad.clone(), data)
+               for k in p if k.startswith("experts_")}
+    return {"row": row, "out": _np(out.detach()),
+            "aux": float(aux.detach()),
+            "x_grad": _np(xr.grad), "router_grad": _np(router),
+            "expert_grads": _np(experts), "block": ax.index,
+            "kinds": kinds}
+
+
+def cp_attention(rank, arch, cfg_kw, params, x, w, window):
+    """`attention.attention` with the rank's block of positions (the
+    "model" axis of the (4, 2) mesh carrying the sequence; every "data"
+    rank the same): rank m holds positions [m S/2, (m + 1) S/2) of `x`
+    (numpy (B, S, D)) and weighs its output by that block of `w`; the
+    mask is causal with `window` (0: none) at the block's absolute
+    positions. Returns the rank's output, its block's gradient of x and
+    the parameters' gradients summed over "model"."""
+    from repro_torch.core import collectives as co
+    from repro_torch.models import attention as attn
+    cfg = build(arch, True, **cfg_kw).cfg
+    rm = rank.mesh(MeshShape((4, 2), ("data", "model")))
+    ax = rm.axis("model")
+    B, S, _ = x.shape
+    n = S // ax.size
+    lo = ax.index * n
+    p = tree_map(lambda v: torch.tensor(v).requires_grad_(True), params)
+    xr = torch.tensor(x[:, lo:lo + n]).requires_grad_(True)
+
+    class View:
+        seq_axis = ax
+
+        def seq_offset(self, k):
+            return ax.index * k
+
+        def gather_seq(self, *xs):
+            return co.gather_seq(xs, ax, dim=1)
+
+    positions = (torch.arange(n, dtype=torch.int32) + lo)[None].expand(B, n)
+    mask = (None if cfg.attn_impl == "chunked"
+            else attn.make_attention_mask(n, S, window=window, q_offset=lo))
+    mesh.reset_collective_counts()
+    out = attn.attention(p, cfg, xr, positions=positions, mask=mask,
+                         window=window if mask is None else 0, seq=View())
+    (out * torch.tensor(w[:, lo:lo + n])).sum().backward()
+    kinds = mesh.collective_counts()["kinds"]
+    grads = tree_map(lambda v: co.all_reduce_sum(v.grad.clone(), ax), p)
+    return {"block": (lo, lo + n), "out": _np(out.detach()),
+            "x_grad": _np(xr.grad), "grads": _np(grads), "kinds": kinds}
