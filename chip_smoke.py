@@ -261,19 +261,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the whole sweep runs through `python -m repro_torch.launch.dryrun`,
    PERF.md §5), qwen3-moe-30b-a3b's train_4k on 16x16 under moe
    (all-to-alls, a layer's expert gathers 1/16 of its experts, FLOPs a
-   device within 5% of the parent's) and yi-9b's on 2x16x16 under fsdp
-   (512 x the FLOPs a device within 0.99-1.15x one device's); (e) expert
+   device within 5% of the parent's) and, on 2x16x16, yi-9b's under
+   fsdp, deepseek-v2-lite-16b's under moe (MLA cut by heads) and
+   phi-3-vision-4.2b's and seamless-m4t-large-v2's under fsdp (the
+   vision prefix and the encoder cut by position): 512 x the FLOPs a
+   device within 0.99-1.15x one device's, peaks beside the parent's;
+   (e) expert
    parallelism on (data 4, model 2) under moe: qwen3-moe-30b-a3b at full
-   width cut 48 -> 2 (drawn on the card, 8 x 512: 2 SGD steps at (a)'s
-   gates, its prefill and 16 decode steps at (c)'s), qwen3-moe and
+   width cut 48 -> 2 (drawn on the card, 8 x 512: 2 SGD steps and 1
+   AdamW step at (a)'s gates, the step updating its shards in place, its
+   prefill and 16 decode steps at (c)'s), qwen3-moe and
    deepseek-v2-lite reduced (2 SGD + 1 AdamW, prefill, decode), every
    rank issuing all-to-alls and gathering E/2 experts of a layer; (f)
    context parallelism on (pod 2, data 2, model 2) under fsdp:
    phi3-mini-3.8b at full width cut 32 -> 4 (8 x 1024, a rank's batch 2
    x 512) and gemma3-4b reduced with a 16-token window, at (a)'s gates,
-   and the phi3-mini cut's prefill and 4 decode steps. Each rank's peak
+   and the phi3-mini cut's prefill and 4 decode steps; (g) the shipped
+   multi-pod profiles on (pod 2, data 2, model 2), full width, drawn on
+   the card: deepseek-v2-lite-16b cut 27 -> 2 under moe (8 x 512, MLA
+   cut by heads), phi-3-vision-4.2b cut 32 -> 2 under fsdp (8 x (576
+   patches + 1472 tokens), a rank's batch 2 x (288 + 736)) and
+   seamless-m4t-large-v2 cut 24 + 24 -> 2 + 2 under fsdp (8 x (1024
+   frames + 512 tokens)): 2 SGD and 1 AdamW steps at (a)'s gates, the
+   prefill and 4 decode steps at (c)'s. Each rank's peak
    memory and seconds a step print beside the single-device step's; no
-   kernel launches in (a), (b), (e) and (f). Ranks
+   kernel launches in (a), (b), (e), (f) and (g). Ranks
    sharing the card gather a layer's leaves and sum its gradients card
    to card (CUDA IPC), and sum tp's activations through gloo;
 16. the examples' twins and the graphed decode (slice 15) — (a)
@@ -314,15 +326,19 @@ The last lines are the card's nvidia-smi line, one JSON object
 {"kernels": [...]} and the result {"ok": true, "device": {...}}. Full
 results also go to chiprun_out/chip_smoke.json.
 """
+import atexit
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2239,7 +2255,7 @@ def zamba2_phase(device="cuda", seed=0, B=2, S=4096):
     cfg = get_config(ZAMBA).with_updates(dtype="float32", attn_impl="flash")
     plain = cfg.with_updates(attn_impl="einsum")
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: _init_once(model, seed, device))
+    params, init_ms = _timed(lambda: _card_init(model, seed, device))
     n_params = model.param_count(params)
     tokens = synthetic_train_batch(generator(seed + 1), cfg, B, S,
                                    device=device)["tokens"]
@@ -2406,7 +2422,7 @@ def yi_phase(device="cuda", seed=0, B=1, S=2048, layers=4):
     cfg = get_config(YI).with_updates(num_layers=layers, dtype="float32",
                                       attn_impl="flash")
     model = build_model(cfg)
-    params = model.init(generator(seed), device)
+    params = _card_init(model, seed, device)
     batch = {"tokens": synthetic_train_batch(generator(seed + 1), cfg, B, S,
                                              device=device)["tokens"]}
     want, plain_ms = _timed(lambda: make_prefill_step(build_model(
@@ -2561,9 +2577,7 @@ def zoo_rest_phase(arch, device="cuda", seed=0):
     model = build_model(cfg)
     # the model's own init drawn on the card (the host's draw took ~45 s
     # of the phase)
-    sys.path.insert(0, str(ROOT / "tests"))
-    import torch_sharded_cases as cases
-    params, init_ms = _timed(lambda: cases.card_init(model, seed, device))
+    params, init_ms = _timed(lambda: _card_init(model, seed, device))
     batch = synthetic_train_batch(generator(seed + 1), cfg, B, S_tok,
                                   device=device)
     batch.pop("labels")
@@ -2724,20 +2738,16 @@ def _kernel_counts():
             "flash_attention": fl.launches, "ssm_scan": ss.launches}
 
 
-_INITS = {}        # (seed, parameter shapes and dtypes) -> a CPU draw
-
-
-def _init_once(model, seed, device):
-    """`model.init(generator(seed), device)`, drawn on the CPU once a run
-    for each seed and parameter shapes (zamba2-1.2b whole in 9(c), 13(b)
-    and 16(a): ~11 s a draw) and copied to `device` for each caller."""
-    from repro_torch.device import generator
-    from repro_torch.tree import tree_leaves, tree_map
-    key = (seed, tuple((tuple(p.shape), p.dtype)
-                       for p in tree_leaves(model.param_specs())))
-    if key not in _INITS:
-        _INITS[key] = model.init(generator(seed), "cpu")
-    return tree_map(lambda a: a.to(device, copy=True), _INITS[key])
+def _card_init(model, seed, device):
+    """The model's own random parameters drawn on `device` from a generator
+    there seeded with `seed` (`torch_sharded_cases.card_init`; on the CPU
+    the host's draw). At full width the card draws in well under a second
+    what the host took 11-16 s to draw (zamba2-1.2b whole, yi-9b cut)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_sharded_cases as cases
+    return cases.card_init(model, seed, device)
 
 
 def _train_cut_cfg(**kw):
@@ -2816,29 +2826,135 @@ def _leaves_equal(a, b):
                                                  tree_leaves(b)))
 
 
-def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
+def _train_opts():
+    """13(a)'s optimizers: (SGD at lr 1e-2, AdamW at lr 3e-4)."""
+    from repro_torch.optim import optimizers
+    return (optimizers.sgd(1e-2),
+            optimizers.adamw(3e-4, weight_decay=0.01))
+
+
+def _cpu_train_steps(folder):
+    """13(a)'s CPU side, in `_CpuSteps`'s child: one SGD and one AdamW
+    `make_train_step` on the host of the config, params and batch pickled
+    in `folder`; each step's (params, metrics) and milliseconds pickled
+    back there."""
+    import pickle
+
+    from repro_torch.device import deterministic_f32
+
+    deterministic_f32()
+    with open(f"{folder}/inputs.pkl", "rb") as f:
+        cfg, params, batch = pickle.load(f)
+    out = {}
+    for name, opt in zip(("sgd", "adamw"), _train_opts()):
+        t0 = time.perf_counter()
+        got = _step_once(cfg, params, batch, opt, "cpu")
+        out[name] = (got, (time.perf_counter() - t0) * 1e3)
+    with open(f"{folder}/steps.pkl", "wb") as f:
+        pickle.dump(out, f, protocol=5)
+
+
+class _Child:
+    """A child Python with the repo on its path and this script imported as
+    `cs` (`start(code)`), its output logged in a temporary folder
+    (`self.dir`, which `code` reads as `folder`): `wait` returns the log,
+    raising SystemExit where the child failed; `stop` (also at exit: a
+    phase that fails first must not leave it running) ends it and removes
+    the folder."""
+
+    def __init__(self):
+        self.started = time.perf_counter()
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.log = open(os.path.join(self.dir, "log"), "w+")
+        self.proc = None
+        atexit.register(self.stop)
+
+    def start(self, code, env=None):
+        head = (f"import os, sys; sys.path[:0] = [{str(ROOT)!r}, "
+                f"{str(ROOT / 'src')!r}]; import chip_smoke as cs; "
+                f"folder = {self.dir!r}; ")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", head + code],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env)
+
+    def wait(self, what, timeout):
+        rc = self.proc.wait(timeout=timeout)
+        self.log.seek(0)
+        text = self.log.read()
+        if rc != 0:
+            raise SystemExit(f"{what} exited {rc}:\n{text}")
+        return text
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+class _CpuSteps(_Child):
+    """`_cpu_train_steps` in a child process that sees no card (CUDA
+    hidden), at a lower priority on `threads` of the host's threads
+    (None: all), of 13(a)'s inputs drawn on `device`
+    (`_train_parity_inputs`, pickled to its folder; `self.inputs` holds
+    them): the CPU steps (~25 s on 8 threads) run while this process runs
+    other work. `result()` waits and returns {"sgd" / "adamw": ((params,
+    metrics), ms)}."""
+
+    def __init__(self, device, B, S, threads=None):
+        import pickle
+        super().__init__()
+        self.inputs = _train_parity_inputs(device, B, S)
+        with open(f"{self.dir}/inputs.pkl", "wb") as f:
+            pickle.dump(self.inputs, f, protocol=5)
+        cap = ("" if threads is None
+               else f"import torch; torch.set_num_threads({threads}); ")
+        self.start("os.nice(10); " + cap + "cs._cpu_train_steps(folder)",
+                   env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def result(self, timeout=600):
+        import pickle
+        self.wait("13(a): the CPU steps", timeout)
+        with open(f"{self.dir}/steps.pkl", "rb") as f:
+            return pickle.load(f)
+
+
+def _train_parity_inputs(device, B, S):
+    """13(a)'s (config, params drawn on `device` and held on the host,
+    host batch of B x S tokens)."""
+    from repro_torch.device import generator
+    from repro_torch.models.model import build_model, synthetic_train_batch
+    from repro_torch.tree import tree_map
+    cfg = _train_cut_cfg()
+    params = tree_map(lambda a: a.cpu(),
+                      _card_init(build_model(cfg), 0, device))
+    return cfg, params, synthetic_train_batch(generator(1), cfg, B, S,
+                                              device="cpu")
+
+
+def train_parity_phase(device="cuda", B=2, S=256, cpu=None):
     """13(a): zamba2-1.2b at full width, depth cut 38 -> 7 (the shared
     block runs once, before layer 6, at its published cadence), float32,
     B = 2, S = 256: one SGD step (lr 1e-2) and one AdamW step on the card
-    against the CPU from one init; the SGD step repeated bitwise on the
-    card; then on the card grad_accum = 2 against 1 over the same global
-    batch, and remat on against off; then the graphed step
-    (`make_graphed_train_step`) against the eager one, bit for bit over
-    two successive steps, in each of GRAPH_TRAIN_VARIANTS."""
-    from repro_torch.device import deterministic_f32, generator
-    from repro_torch.models.model import build_model, synthetic_train_batch
-    from repro_torch.optim import optimizers
+    against the CPU from one init (`cpu`, a `_CpuSteps` started earlier;
+    None: started here, beside the card's side); the SGD step repeated
+    bitwise on the card; then on the card grad_accum = 2 against 1 over
+    the same global batch, and remat on against off; then the graphed
+    step (`make_graphed_train_step`) against the eager one, bit for bit
+    over two successive steps, in each of GRAPH_TRAIN_VARIANTS."""
+    from repro_torch.device import deterministic_f32
 
     deterministic_f32()
-    cfg = _train_cut_cfg()
+    cpu = cpu or _CpuSteps(device, B, S)
+    cfg, params, batch = cpu.inputs
     print(f"  zamba2-1.2b cut {TRAIN_CUT}: {cfg.num_layers} Mamba2 layers, "
           f"shared block before layer {cfg.shared_attn_every}; float32, "
           f"B = {B}, S = {S}", flush=True)
-    params = build_model(cfg).init(generator(0), reference)
-    batch = synthetic_train_batch(generator(1), cfg, B, S, device=reference)
     out = {"cut": TRAIN_CUT, "B": B, "S": S}
-    sgd = optimizers.sgd(1e-2)
-    adamw = optimizers.adamw(3e-4, weight_decay=0.01)
+    sgd, adamw = _train_opts()
     before = _kernel_counts()
 
     def gate(label, got, want, params_gated=True):
@@ -2856,43 +2972,53 @@ def train_parity_phase(device="cuda", reference="cpu", B=2, S=256):
             raise SystemExit(f"13(a) {label}: rel {rel} > {TRAIN_REL} or "
                              f"params {perr} > {TRAIN_PARAM_ATOL}")
 
-    ref_sgd, ms = _timed(lambda: _step_once(cfg, params, batch, sgd,
-                                            reference))
-    out["cpu_sgd_ms"] = ms
-    card_sgd, ms = _timed(lambda: _step_once(cfg, params, batch, sgd,
-                                             device))
-    out["card_sgd_ms"] = ms
+    try:
+        card_sgd, ms = _timed(lambda: _step_once(cfg, params, batch, sgd,
+                                                 device))
+        out["card_sgd_ms"] = ms
+        again = _step_once(cfg, params, batch, sgd, device)
+        bitwise = (_leaves_equal(again[0], card_sgd[0])
+                   and again[1] == card_sgd[1])
+        out["sgd_bitwise_repeat"] = bitwise
+        print(f"  sgd repeat on the card bitwise {bitwise}", flush=True)
+        if not bitwise:
+            raise SystemExit("13(a): the card's SGD step differs on a "
+                             "repeat")
+        del again
+        card_adamw = _step_once(cfg, params, batch, adamw, device)
+        for label, kw in (("grad_accum 2 vs 1 (card)", {"grad_accum": 2}),
+                          ("remat off vs on (card)", {"remat": False})):
+            gate(label, _step_once(_train_cut_cfg(**kw), params, batch,
+                                   sgd, device), card_sgd)
+        # the graphed step (make_graphed_train_step) against the eager one
+        out["graph"] = {}
+        for label, kw, opt_name in GRAPH_TRAIN_VARIANTS:
+            same, capture_ms = _graph_vs_eager(
+                _train_cut_cfg(**kw), params, batch,
+                sgd if opt_name == "sgd" else adamw, device)
+            out["graph"][label] = {"bitwise": same,
+                                   "capture_ms": capture_ms}
+            print(f"  graph vs eager, {label} ({opt_name}): bitwise after "
+                  f"each of {len(same)} steps {same}; capture "
+                  f"{capture_ms:.0f} ms", flush=True)
+            if not all(same):
+                raise SystemExit(f"13(a) graph vs eager, {label}: {same}")
+        t_wait = time.perf_counter()
+        ref = cpu.result()
+        out["cpu_wait_s"] = time.perf_counter() - t_wait
+    finally:
+        cpu.stop()
+    ref_sgd, out["cpu_sgd_ms"] = ref["sgd"]
+    print(f"  the CPU's steps (a child process, started "
+          f"{time.perf_counter() - cpu.started:.0f}s ago): SGD "
+          f"{out['cpu_sgd_ms']:.0f} ms, AdamW {ref['adamw'][1]:.0f} ms; "
+          f"waited {out['cpu_wait_s']:.1f}s for them", flush=True)
     gate("sgd card vs CPU", card_sgd, ref_sgd)
-    again = _step_once(cfg, params, batch, sgd, device)
-    bitwise = _leaves_equal(again[0], card_sgd[0]) and again[1] == card_sgd[1]
-    out["sgd_bitwise_repeat"] = bitwise
-    print(f"  sgd repeat on the card bitwise {bitwise}", flush=True)
-    if not bitwise:
-        raise SystemExit("13(a): the card's SGD step differs on a repeat")
-    del again, ref_sgd
     # AdamW's first step moves a parameter by ~lr times the sign of its
     # gradient, which flips where a gradient sums to ~0 in another order:
     # its parameters are printed, its loss and grad-norm gated
-    gate("adamw card vs CPU", _step_once(cfg, params, batch, adamw, device),
-         _step_once(cfg, params, batch, adamw, reference),
+    gate("adamw card vs CPU", card_adamw, ref["adamw"][0],
          params_gated=False)
-    for label, kw in (("grad_accum 2 vs 1 (card)", {"grad_accum": 2}),
-                      ("remat off vs on (card)", {"remat": False})):
-        gate(label, _step_once(_train_cut_cfg(**kw), params, batch, sgd,
-                               device), card_sgd)
-    del card_sgd
-    # the graphed step (make_graphed_train_step) against the eager one
-    out["graph"] = {}
-    for label, kw, opt_name in GRAPH_TRAIN_VARIANTS:
-        same, capture_ms = _graph_vs_eager(
-            _train_cut_cfg(**kw), params, batch,
-            sgd if opt_name == "sgd" else adamw, device)
-        out["graph"][label] = {"bitwise": same, "capture_ms": capture_ms}
-        print(f"  graph vs eager, {label} ({opt_name}): bitwise after each "
-              f"of {len(same)} steps {same}; capture {capture_ms:.0f} ms",
-              flush=True)
-        if not all(same):
-            raise SystemExit(f"13(a) graph vs eager, {label}: {same}")
     delta = {k: v - before[k] for k, v in _kernel_counts().items()}
     out["launches"] = delta
     if any(delta.values()):
@@ -2937,7 +3063,7 @@ def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
     fresh_peak()
     cfg = get_config(ZAMBA).with_updates(grad_accum=accum)
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: _init_once(model, seed, device))
+    params, init_ms = _timed(lambda: _card_init(model, seed, device))
     n_params = model.param_count(params)
     active = roofline.active_param_count(cfg, n_params)
     lm = MarkovLM(cfg.vocab_size, seed=seed)
@@ -3191,14 +3317,15 @@ def fl_train_phase(device="cuda", C=4, K=2, B=2, S=256, rounds=2):
     return out
 
 
-def train_phase(device="cuda"):
+def train_phase(device="cuda", cpu=None):
     """Phase 13: the zoo's training and the federated trainer (slice
-    12); every kernel's count is 0 at its start and read at its end."""
+    12); every kernel's count is 0 at its start and read at its end.
+    `cpu`: 13(a)'s CPU steps, started earlier (`_CpuSteps`)."""
     _reset_launches()                    # the main path's count starts here
     t0 = time.perf_counter()
     print("  -- (a) card against CPU: zamba2-1.2b at full width, 7 layers",
           flush=True)
-    parity = train_parity_phase(device, "cpu")
+    parity = train_parity_phase(device, cpu=cpu)
     print("  -- (b) zamba2-1.2b whole: 38 layers and the shared block",
           flush=True)
     zamba = zamba2_train_phase(device)
@@ -3719,18 +3846,28 @@ def _mesh_host(op, x, w, kw, device):
     raise ValueError(op)
 
 
-def mesh_operator_phase(device="cuda", ranks=MESH_OP_RANKS):
+def _phase_world(early, user, size, device, t0, **kw):
+    """(world, how it started) for a phase that started at `t0`: `early`'s
+    (an `_EarlyWorld`), or a world of `size` ranks started here."""
+    from repro_torch.launch import mesh
+    if early is not None:
+        return early.get(user), early.how(t0)
+    world = mesh.World(size, device=device, **kw)
+    return world, f"started in {time.perf_counter() - t0:.1f}s"
+
+
+def mesh_operator_phase(device="cuda", ranks=MESH_OP_RANKS, early=None):
     """14(a): every mesh operator case of tests/test_torch_mesh.py on
     `ranks` ranks sharing the card (gloo over CUDA tensors; the rank
-    halves are tests/torch_mesh_cases.py), against the host aggregate of
-    the gathered stack on the card, at the reference tests' tolerances
-    (replicated to 1e-5, error below 1e-4), at the paper CNN's width. HFL's
-    tier 1 must issue no collective on any rank."""
+    halves are tests/torch_mesh_cases.py; `early` an `_EarlyWorld` of
+    them), against the host aggregate of the gathered stack on the card,
+    at the reference tests' tolerances (replicated to 1e-5, error below
+    1e-4), at the paper CNN's width. HFL's tier 1 must issue no collective
+    on any rank."""
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_mesh_cases as cases
-    from repro_torch.launch import mesh
 
     C, N = 16, 7900
     rng = np.random.default_rng(0)
@@ -3753,10 +3890,11 @@ def mesh_operator_phase(device="cuda", ranks=MESH_OP_RANKS):
                    ("cfl", {"global": stacked[ranks], "alpha": 0.3})]
     out = {}
     t0 = time.perf_counter()
-    with mesh.World(ranks, device=device) as world:
+    world, how = _phase_world(early, "14(a)", ranks, device, t0)
+    with world:
         start_s = time.perf_counter() - t0
         print(f"  {ranks} ranks on {device}, backend {world.backend}, "
-              f"started in {start_s:.1f}s", flush=True)
+              f"{how}", flush=True)
         for op, kw in stacked_cases + [("tier1", dict(groups_local=2))]:
             outs = world.run(cases.stacked_op, op, stacked, weights, **kw)
             label = op + "".join(f"-{k}{v}" for k, v in kw.items()
@@ -3940,7 +4078,7 @@ def _tier1_local(label, report):
 
 
 def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
-                        scale=MESH_SCALE):
+                        scale=MESH_SCALE, early=None, early_nccl=None):
     """14(b)-(d). (b) the 6 mesh configurations at 16 clients on `ranks`
     ranks sharing the card (gloo, eager rounds) against the single-device
     fused graph run on the card at the reference's tolerances (trained in
@@ -3952,12 +4090,12 @@ def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
     metric, repeated bitwise; (d) 1024 clients, fused_chunk=32, AFL star,
     2 rounds on `ranks` ranks against the single-device chunked graph run,
     with seconds per round and each rank's peak memory (not a speedup: the
-    ranks share one card)."""
+    ranks share one card). `early` and `early_nccl`: `_EarlyWorld`s of
+    the `ranks` ranks (left open for phase 15) and of (c)'s nccl rank."""
     import torch
     from repro_torch.core.fl_types import FLConfig
     from repro_torch.core.simulation import FederatedSimulation
     from repro_torch.data.synthetic import mnist_like
-    from repro_torch.launch import mesh
 
     ds = mnist_like(**MESH_DS)
     out = {"cases": {}}
@@ -3978,10 +4116,13 @@ def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
     out["refusals_s"] = time.perf_counter() - t0
     print(f"  the {len(MESH_REFUSALS)} preconditions raised before any rank "
           f"started", flush=True)
-    with mesh.World(ranks, device=device) as world:
-        out["start_s"] = time.perf_counter() - t0 - out.get("refusals_s", 0)
+    t1 = time.perf_counter()
+    world, how = _phase_world(early, "14(b)-(d)", ranks, device, t1)
+    # an early world stays open for phase 15, which closes it
+    with contextlib.nullcontext(world) if early else world:
+        out["start_s"] = time.perf_counter() - t1
         print(f"  {ranks} ranks on {device}, backend {world.backend}, "
-              f"started in {out['start_s']:.1f}s", flush=True)
+              f"{how}", flush=True)
         print("  -- (b) the mesh configurations against the single-device "
               "graph run", flush=True)
         runs = {}
@@ -4006,7 +4147,10 @@ def mesh_executor_phase(device="cuda", ranks=MESH_RANKS, nccl=True,
         if nccl:
             print("  -- (c) nccl at world 1, the round as a CUDA graph",
                   flush=True)
-            with mesh.World(1, device=device, backend="nccl") as one:
+            one, how = _phase_world(early_nccl, "14(c)", 1, device,
+                                    time.perf_counter(), backend="nccl")
+            print(f"  1 rank, backend {one.backend}, {how}", flush=True)
+            with one:
                 cfg = dict(MESH_CFG, strategy="hfl")
                 tol = {k: 1e-5 for k in FUSED_TOL}
                 _, _, sa, ra, row = _mesh_pair("hfl-nccl", cfg, ds, device,
@@ -4095,21 +4239,20 @@ def _np_tree(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
-def _mb(report):
-    b = report["peak_bytes"]
+def _mb(report, key="peak_bytes"):
+    b = report[key]
     return None if b is None else round(b / 2**20, 1)
 
 
 def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
                         gated_all_gather=False, tp=False, mesh=SHARDED_MESH,
-                        init="host", check=None, opts=("sgd", "adamw")):
+                        init="host", check=None):
     """One config: 2 SGD steps (lr 1e-2) and 1 AdamW step of
     `make_sharded_train_step` on the ranks of `mesh` against
     `make_train_step` on the card from one init (seed 0: drawn on the host,
     or on the card with init="card", `torch_sharded_cases.card_init`) and
-    batch (seed 1); `opts` picks the optimizers. `check(model, reports)`
-    returns the case's own fields and whether they fail."""
-    import numpy as np
+    batch (seed 1). `check(model, reports)` returns the case's own fields
+    and whether they fail."""
     import torch
     import torch_sharded_cases as cases
     from repro_torch.device import generator
@@ -4119,8 +4262,10 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
     from repro_torch.tree import tree_leaves
 
     model = cases.build(arch, reduced, **kw)
-    batch = synthetic_train_batch(generator(1), model.cfg, B, S,
-                                  device="cpu")
+    # a frontend's bfloat16 patches or frames widened to float32 (exactly)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in synthetic_train_batch(generator(1), model.cfg, B,
+                                               S, device="cpu").items()}
     bnp = {k: v.numpy() for k, v in batch.items()}
     bdev = {k: v.to(device) for k, v in batch.items()}
     out = {"B": B, "S": S}
@@ -4136,66 +4281,104 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
             ms.append({k: float(v) for k, v in m.items()})
         return [x.cpu().numpy() for x in tree_leaves(p)], ms, times
 
-    for name, opt, kind, lr, steps in (
-            ("sgd", optimizers.sgd(1e-2), "sgd", 1e-2, 2),
-            ("adamw", optimizers.adamw(3e-4, weight_decay=0.01), "adamw",
-             3e-4, 1)):
-        if name not in opts:
-            continue
-        t_case = time.perf_counter()
-        want_p, want_m, single_s = single(opt, steps)
-        torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as tmp:
-            outs = world.run(cases.train, arch, kw, *mesh, bnp,
-                             opt=kind, lr=lr, steps=steps, reduced=reduced,
-                             repeat=name == "sgd", out_dir=tmp, init=init)
-            full = cases.load(outs[0][0])
-        _, metrics, rep0 = outs[0]
-        rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
-                  for g, w in zip(metrics, want_m)
-                  for k in ("loss", "grad_norm"))
-        perr = max(float(np.abs(a - b).max()) for a, b in zip(full, want_p))
-        kinds = rep0["collectives"]["kinds"]
-        launches = [sum(r["launches"].values()) for *_, r in outs]
-        repeat = all(r.get("bitwise_repeat", True) for *_, r in outs)
-        agree = all(o[1] == metrics for o in outs)
-        row = {"metrics": metrics, "rel": rel, "param_max_abs_err": perr,
-               "collectives": kinds, "launches": launches,
-               "bitwise_repeat": repeat if name == "sgd" else None,
-               "ranks_agree": agree,
-               "rank_step_s": [r["step_seconds"] for *_, r in outs],
-               "single_step_s": single_s,
-               "rank_peak_mb": [_mb(r) for *_, r in outs],
-               "cut": rep0["cut"]}
-        own_bad = False
-        if check is not None:
-            own, own_bad = check(model, [r for *_, r in outs])
-            row.update(own)
-        out[name] = row
-        print(f"  {label} {name}: loss {metrics[-1]['loss']:.6f} "
-              f"grad-norm {metrics[-1]['grad_norm']:.6f}; rel {rel:.2e}; "
-              f"params max|d| {perr:.3e}"
-              f"{'' if name == 'sgd' else ' (printed)'}; repeat "
-              f"{row['bitwise_repeat']}; s/step ranks "
-              f"{[round(t, 3) for t in rep0['step_seconds']]} single "
-              f"{[round(t, 3) for t in single_s]}; collectives {kinds}; "
-              f"cut over model {row['cut']}; rank peak MB "
-              f"{row['rank_peak_mb']} (whole-tree gathers "
-              f"{WHOLE_TREE_RANK_PEAK_MB}); "
-              f"{time.perf_counter() - t_case:.1f}s", flush=True)
-        row["seconds"] = time.perf_counter() - t_case
-        if check is not None:
-            print(f"  {label} {name}: {own}", flush=True)
-        bad = (own_bad or rel > SHARDED_REL or not agree or any(launches)
-               or (name == "sgd" and (perr > SHARDED_PARAM_ATOL
-                                      or not repeat))
-               or not sum(kinds.values())
-               or (gated_all_gather and not kinds.get("all-gather"))
-               or (tp and not {"attn", "mlp", "vocab"} <= set(row["cut"])))
-        if bad:
-            raise SystemExit(f"15(a) {label} {name}: {row}")
-        del full, outs
-        torch.cuda.empty_cache()
+    todo = (("sgd", optimizers.sgd(1e-2), 1e-2, 2),
+            ("adamw", optimizers.adamw(3e-4, weight_decay=0.01), 3e-4, 1))
+    # one rank task runs every optimizer from one draw; the single-device
+    # results wait on the host meanwhile
+    t_case = time.perf_counter()
+    singles = {name: single(opt, steps) for name, opt, _, steps in todo}
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t_case
+    with tempfile.TemporaryDirectory() as tmp:
+        t_world = time.perf_counter()
+        runs = world.run(cases.train, arch, kw, *mesh, bnp, reduced=reduced,
+                         out_dir=tmp, init=init, runs=[
+                             (name, lr, steps, name == "sgd")
+                             for name, _, lr, steps in todo])
+        world_s = time.perf_counter() - t_world
+        for k, (name, _, _, _) in enumerate(todo):
+            t_cmp = time.perf_counter()
+            outs = [r[k] for r in runs]
+            want_p, want_m, single_steps = singles.pop(name)
+            _, metrics, rep0 = outs[0]
+            # each rank's shards against their blocks of the one-device
+            # params, a block held by several ranks once
+            perr, seen = 0.0, set()
+            for shipped, _, rep in outs:
+                for i, (x, idx) in enumerate(zip(cases.load(shipped),
+                                                 rep["shard_index"])):
+                    key = (i, tuple(map(tuple, idx)))
+                    if key not in seen:
+                        seen.add(key)
+                        perr = max(perr, cases.max_abs_diff(x, want_p[i][
+                            tuple(slice(lo, hi) for lo, hi in idx)]))
+            del want_p
+            rel = max(abs(g[k_] - w[k_]) / max(abs(w[k_]), 1e-30)
+                      for g, w in zip(metrics, want_m)
+                      for k_ in ("loss", "grad_norm"))
+            kinds = rep0["collectives"]["kinds"]
+            launches = [sum(r["launches"].values()) for *_, r in outs]
+            repeat = all(r.get("bitwise_repeat", True) for *_, r in outs)
+            agree = all(o[1] == metrics for o in outs)
+            reps = [r for *_, r in outs]
+            row = {"metrics": metrics, "rel": rel, "param_max_abs_err": perr,
+                   "collectives": kinds, "launches": launches,
+                   "bitwise_repeat": repeat if name == "sgd" else None,
+                   "ranks_agree": agree,
+                   "rank_step_s": [r["step_seconds"] for r in reps],
+                   "single_step_s": single_steps,
+                   "rank_peak_mb": [_mb(r) for r in reps],
+                   "rank_peak_reserved_mb": [_mb(r, "peak_reserved_bytes")
+                                             for r in reps],
+                   "rank_draw_s": max(r["draw_seconds"] for r in reps),
+                   "cut": rep0["cut"]}
+            # where the case's seconds went: the single-device steps, the
+            # ranks' build, draw, steps, repeat and gather for shipping
+            # (the slowest rank each), then loading and comparing here
+            parts = {"single": single_s, "world": world_s,
+                     "build": max(r["build_seconds"] for r in reps),
+                     "draw": row["rank_draw_s"],
+                     "steps": max(sum(r["step_seconds"]) for r in reps),
+                     "repeat": max(r["repeat_seconds"] for r in reps),
+                     "ship": max(r["ship_seconds"] for r in reps),
+                     "compare": time.perf_counter() - t_cmp}
+            row["seconds_by_part"] = parts
+            own_bad = False
+            if check is not None:
+                own, own_bad = check(model, reps)
+                row.update(own)
+            out[name] = row
+            print(f"  {label} {name}: loss {metrics[-1]['loss']:.6f} "
+                  f"grad-norm {metrics[-1]['grad_norm']:.6f}; rel {rel:.2e}; "
+                  f"params max|d| {perr:.3e}"
+                  f"{'' if name == 'sgd' else ' (printed)'}; repeat "
+                  f"{row['bitwise_repeat']}; s/step ranks "
+                  f"{[round(t, 3) for t in rep0['step_seconds']]} single "
+                  f"{[round(t, 3) for t in single_steps]}; collectives "
+                  f"{kinds}; cut over model {row['cut']}; rank peak MB "
+                  f"{row['rank_peak_mb']} (whole-tree gathers "
+                  f"{WHOLE_TREE_RANK_PEAK_MB}), reserved "
+                  f"{row['rank_peak_reserved_mb']}; seconds "
+                  f"{ {k_: round(v, 1) for k_, v in parts.items()} }",
+                  flush=True)
+            if check is not None:
+                print(f"  {label} {name}: {own}", flush=True)
+            bad = (own_bad or rel > SHARDED_REL or not agree
+                   or any(launches)
+                   or (name == "sgd" and (perr > SHARDED_PARAM_ATOL
+                                          or not repeat))
+                   or not sum(kinds.values())
+                   or (gated_all_gather and not kinds.get("all-gather"))
+                   or (tp and not {"attn", "mlp", "vocab"}
+                       <= set(row["cut"])))
+            if bad:
+                raise SystemExit(f"15(a) {label} {name}: {row}")
+        del runs, outs
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_case
+    for name, *_ in todo:
+        out[name]["seconds"] = seconds / len(todo)
+    print(f"  {label} train: {seconds:.1f}s", flush=True)
     return out
 
 
@@ -4361,7 +4544,7 @@ def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16,
     dec = dec.float().transpose(0, 1).cpu().numpy()      # (steps, B, V)
     del params
     torch.cuda.empty_cache()
-    scale = float(np.abs(logits).max())
+    scale = float(torch.as_tensor(logits).abs().max())
     rows = {}
     for profile in profiles:
         perr = 0.0
@@ -4371,8 +4554,8 @@ def sharded_serve_phase(world, device="cuda", B=8, S=2048, steps=16,
                              tokens.numpy(), steps, kernel=True,
                              reduced=False, out_dir=tmp, init="card")
             for (a, b), lg, *_ in outs:
-                perr = max(perr, float(np.abs(cases.load(lg)[0]
-                                              - logits[a:b]).max()))
+                perr = max(perr, cases.max_abs_diff(cases.load(lg)[0],
+                                                    logits[a:b]))
         derr = max(float(np.abs(d - dec[:, c:e]).max())
                    for _, _, (c, e), d, _ in outs)
         reps = [o[4] for o in outs]
@@ -4467,6 +4650,10 @@ CP_CUT = 4                 # phi3-mini-3.8b at full width, 32 -> 4 layers
 CP_MESH = ((2, 2, 2), ("pod", "data", "model"))
 CP_WINDOW = 16             # gemma3-4b reduced: a window across rank blocks
 EP_DECODE_STEPS = 16
+# 15(e)'s full-width SGD rank peaks before the step updated its shards in
+# place (PERF.md section 5): printed beside this run's
+EP_PARENT_PEAK_MB = "4,895.5"
+EP_PARENT_RESERVED_MB = "8,586-8,614"
 
 
 def _moe_cut_kw(**kw):
@@ -4511,14 +4698,21 @@ def _leaf_paths(tree):
     return tree_leaves(sh._paths(tree))
 
 
-def _cp_check(rows, positions):
+def _cp_check(rows, positions, front=0):
     """Context parallelism: every rank's batch stayed `rows` x
-    `positions` (cut by sequence over "model")."""
+    `positions` (cut by sequence over "model"), and its vision patches or
+    audio frames `rows` x `front` (cut by position too)."""
     def check(model, reports):
         shapes = [r["local_shapes"]["labels"] for r in reports]
-        own = {"local_batch": shapes, "cut_all": [r["cut"] for r in reports]}
-        bad = any(tuple(s) != (rows, positions) for s in shapes) or any(
-            "seq" not in c for c in own["cut_all"])
+        fronts = [tuple(v[:2]) for r in reports
+                  for k, v in r["local_shapes"].items()
+                  if k in ("vision_embeds", "audio_frames")]
+        own = {"local_batch": shapes, "local_frontend": fronts,
+               "cut_all": [r["cut"] for r in reports]}
+        bad = (any(tuple(s) != (rows, positions) for s in shapes)
+               or any("seq" not in c for c in own["cut_all"])
+               or len(fronts) != (len(reports) if front else 0)
+               or any(f != (rows, front) for f in fronts))
         return own, bad
     return check
 
@@ -4538,6 +4732,8 @@ def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
     from repro_torch.device import generator
     from repro_torch.launch.serve import make_prefill_step
 
+    from repro_torch.models.model import synthetic_train_batch
+
     t_case = time.perf_counter()
     model = cases.build(arch, reduced, **kw)
     params = (cases.card_init(model, 0, device) if init == "card"
@@ -4545,24 +4741,30 @@ def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
     tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
                            generator=generator(1))
     tok = tokens.to(device)
+    # a vision prefix's patches or an encoder's frames (seed 2)
+    front = {k: v.float() for k, v in synthetic_train_batch(
+        generator(2), model.cfg, B, S, device="cpu").items()
+        if k not in ("tokens", "labels")}
     with torch.no_grad():
         logits, prefill_ms = _timed(lambda: make_prefill_step(model)(
-            params, {"tokens": tok}))
+            params, dict({"tokens": tok},
+                         **{k: v.to(device) for k, v in front.items()})))
         dec, decode_ms = _timed(lambda: _decode(model, params, tok, steps,
                                                 device))
     logits = logits.float().cpu().numpy()
     dec = dec.float().transpose(0, 1).cpu().numpy()      # (steps, B, V)
     del params
     torch.cuda.empty_cache()
-    scale = float(np.abs(logits).max())
+    scale = float(torch.as_tensor(logits).abs().max())
     perr = 0.0
     with tempfile.TemporaryDirectory() as tmp:
         outs = world.run(cases.serve, arch, kw, *mesh, tokens.numpy(), steps,
-                         reduced=reduced, out_dir=tmp, init=init)
+                         reduced=reduced, out_dir=tmp, init=init,
+                         frontend={k: v.numpy() for k, v in front.items()})
         for (a, b), lg, *_, rep in outs:
-            lo, hi = rep["positions"]
-            perr = max(perr, float(np.abs(cases.load(lg)[0]
-                                          - logits[a:b, lo:hi]).max()))
+            want = np.concatenate([logits[a:b, lo:hi]
+                                   for lo, hi in rep["spans"]], 1)
+            perr = max(perr, cases.max_abs_diff(cases.load(lg)[0], want))
     derr = max(float(np.abs(d - dec[:, c:e]).max())
                for _, _, (c, e), d, _ in outs)
     reps = [o[4] for o in outs]
@@ -4577,6 +4779,8 @@ def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
            "rank_peak_mb": [_mb(r) for r in reps],
            "collectives": [r["collectives"]["kinds"] for r in reps],
            "positions": sorted({tuple(r["positions"]) for r in reps}),
+           "spans": sorted({tuple(map(tuple, r["spans"])) for r in reps}),
+           "rank_draw_s": max(r["draw_seconds"] for r in reps),
            "cut": reps[0]["cut"],
            "launches": [r["launches"] for r in reps]}
     print(f"  {label}: prefill |sharded - single| {perr:.3e} (bar "
@@ -4587,8 +4791,8 @@ def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
           f"{max(out['rank_decode_s_per_step']):.3f} single "
           f"{out['single_decode_s_per_step']:.4f}; collectives "
           f"{out['collectives'][0]}; cut {out['cut']}; rank peak MB "
-          f"{out['rank_peak_mb']}; {time.perf_counter() - t_case:.1f}s",
-          flush=True)
+          f"{out['rank_peak_mb']}; draw {out['rank_draw_s']:.1f}s; "
+          f"{time.perf_counter() - t_case:.1f}s", flush=True)
     out["seconds"] = time.perf_counter() - t_case
     if not (perr <= SHARDED_PREFILL_REL * scale
             and derr <= SHARDED_DECODE_ATOL):
@@ -4607,8 +4811,10 @@ def sharded_ep_phase(world, device="cuda", B=8, S=512):
     ("model" carries rows and experts): qwen3-moe-30b-a3b at full width
     cut 48 -> EP_CUT layers (float32, drawn on the card), B x S = 8 x 512
     (one 512-token routing group a rank, the single-device step's drops),
-    2 SGD steps against `make_train_step` (with AdamW's moments that
-    width does not fit eight ranks on one card, see below), then its sharded prefill and EP_DECODE_STEPS
+    2 SGD steps and 1 AdamW step against `make_train_step` (the sharded
+    step updates its shards and moments in place, ROADMAP C.7: AdamW's
+    functional update, old and new trees at once, ran eight ranks out of
+    the card's memory), then its sharded prefill and EP_DECODE_STEPS
     decode steps against one device; then qwen3-moe reduced (2 SGD and 1
     AdamW steps) and deepseek-v2-lite reduced (its shared experts) at 8 x
     64 alike. Every rank must issue all-to-alls and gather E/2 experts of
@@ -4617,15 +4823,15 @@ def sharded_ep_phase(world, device="cuda", B=8, S=512):
     deterministic_f32()
     kw = _moe_cut_kw()
     label = f"{QWEN_MOE} cut 48 -> {EP_CUT} (moe)"
-    # SGD only at full width: a rank's shards are 1.16 GiB (half of it the
-    # vocabulary, stored over "model" alone); with AdamW's two moments the
-    # eight ranks' first backward ran the 80 GB card out of memory (5.40
-    # GiB allocated in the failing rank, the rest of the card held by the
-    # other ranks' caches and contexts); AdamW runs reduced below
     out = {"qwen3-moe-30b-a3b-cut": _sharded_train_case(
         world, label, QWEN_MOE, kw, B, S, False, device,
-        gated_all_gather=True, init="card", check=_ep_check,
-        opts=("sgd",))}
+        gated_all_gather=True, init="card", check=_ep_check)}
+    for opt in ("sgd", "adamw"):
+        row = out["qwen3-moe-30b-a3b-cut"][opt]
+        print(f"  C.7 {QWEN_MOE} cut {opt}: rank peaks MB allocated "
+              f"{row['rank_peak_mb']} (the parent's SGD: {EP_PARENT_PEAK_MB}), "
+              f"reserved {row['rank_peak_reserved_mb']} (the parent's SGD: "
+              f"{EP_PARENT_RESERVED_MB})", flush=True)
     out["qwen3-moe-30b-a3b-cut-serve"] = _sharded_serve_case(
         world, label, QWEN_MOE, kw, B, S, EP_DECODE_STEPS, False, device,
         init="card", expect_ep=True)
@@ -4672,6 +4878,79 @@ def sharded_cp_phase(world, device="cuda", B=8, S=1024):
     return out
 
 
+DEEPSEEK = "deepseek-v2-lite-16b"
+VISION = "phi-3-vision-4.2b"
+SEAMLESS = "seamless-m4t-large-v2"
+MP_CUT = 2                 # 15(g): each stack (and seamless' encoder) -> 2
+MP_DECODE_STEPS = 4
+
+
+def _mp_cut_kw(arch, **kw):
+    """15(g)'s depth cut at full width, in float32, under the config's
+    own profile (deepseek-v2-lite: moe; the other two: fsdp)."""
+    upd = dict(dtype="float32", num_layers=MP_CUT)
+    if arch == SEAMLESS:
+        upd["encoder_layers"] = MP_CUT
+    return dict(upd, **kw)
+
+
+def _mla_check(model, reports):
+    """MLA cut by heads: every rank ran MLA cut over "model" and computed
+    with 1/M of each layer's `wq`, `w_uk`, `w_uv` and `wo` (its heads: the
+    slices its `Parallel.take` made, as the rank reports them); the bytes
+    a rank gathers of each (its stored shard's cut, all three axes with
+    "model" last, is not the heads' blocks: the whole leaf) printed."""
+    M = CP_MESH[0][2]
+    whole = {path: x for path, x in _leaf_paths(model.param_specs())
+             if re.search(r"^layers/attn/(wq|w_uk|w_uv|wo)/kernel$", path)}
+    n = {k: x[0].numel() for k, x in whole.items()}      # one layer's
+    share = [{k: (math.prod(r["taken"][k]) / n[k] if k in r["taken"]
+                  else None) for k in whole} for r in reports]
+    got = reports[0]["gathered_bytes"]
+    own = {"cut_all": [r["cut"] for r in reports],
+           "mla_compute_share": share[0],
+           "mla_gather_share": {k: got[k] / (n[k] * x.element_size())
+                                for k, x in whole.items()}}
+    bad = (not whole or any("mla" not in r["cut"] for r in reports)
+           or any(v != 1 / M for sh_ in share for v in sh_.values()))
+    return own, bad
+
+
+def sharded_mp_phase(world, device="cuda"):
+    """15(g): the shipped multi-pod profiles on CP_MESH (pod 2, data 2,
+    model 2) at full width, cut to MP_CUT layers, float32, drawn on the
+    card: deepseek-v2-lite-16b under moe (MLA cut by heads over "model",
+    8 x 512), phi-3-vision-4.2b under fsdp (8 x (576 patches + 1472
+    tokens): a rank's batch 2 x (288 + 736), its block of patches then its
+    block of tokens) and seamless-m4t-large-v2 under fsdp (8 x (1024
+    frames + 512 tokens): a rank 2 x (512 + 256)); each 2 SGD and 1 AdamW
+    steps against `make_train_step`, its prefill and MP_DECODE_STEPS
+    decode steps against one device, at 15(a)'s, (c)'s and (e)'s bars."""
+    from repro_torch.device import deterministic_f32
+    deterministic_f32()
+    pods, data, mdl = CP_MESH[0]
+    rows = 8 // (pods * data)
+    out = {}
+    cases = ((DEEPSEEK, 512, 0, _mla_check),
+             (VISION, 1472, 576 // mdl, None),
+             (SEAMLESS, 512, 1024 // mdl, None))
+    for arch, S, front, check in cases:
+        t_case = time.perf_counter()
+        kw = _mp_cut_kw(arch)
+        profile = "moe" if arch == DEEPSEEK else "fsdp"
+        label = f"{arch} cut -> {MP_CUT} ({profile}, 2x2x2)"
+        out[arch] = _sharded_train_case(
+            world, label, arch, kw, 8, S, False, device,
+            gated_all_gather=True, mesh=CP_MESH, init="card",
+            check=check or _cp_check(rows, S // mdl, front))
+        out[f"{arch}-serve"] = _sharded_serve_case(
+            world, label, arch, kw, 8, S, MP_DECODE_STEPS, False, device,
+            mesh=CP_MESH, init="card")
+        out[f"{arch}-seconds"] = time.perf_counter() - t_case
+        print(f"  {label}: {out[f'{arch}-seconds']:.1f}s", flush=True)
+    return out
+
+
 DRYRUN_FL = (("hfl", "fedavg"), ("afl", "fedavg"), ("afl", "gossip"),
              ("cfl", "fedavg"))
 # the dry-runs that fit the script's time limit; the whole sweep (every
@@ -4692,6 +4971,13 @@ PARENT_CP_PEAK = 59_565_745_284
 DRYRUN_MOE_FLOPS_TOL = 0.05     # the all-to-all moves no FLOPs
 DRYRUN_MOE_GATHER_TOL = 0.01    # a layer's expert gathers: 1/16 of it
 DRYRUN_CP_RATIO = (0.99, 1.15)  # 512 x per device / one device
+# the parent's (the tree before MLA was cut by heads and the vision prefix
+# and the encoder by position) train_4k on 2x16x16 under the shipped
+# profiles, a device: (FLOPs, peak bytes), measured through its CLI on the
+# card's host (PERF.md section 6)
+PARENT_MP = {"deepseek-v2-lite-16b": (294.1e12, 10.67e9),
+             "phi-3-vision-4.2b": (1320.3e12, 26.12e9),
+             "seamless-m4t-large-v2": (285.8e12, 177.38e9)}
 
 
 def _dry_expert_bytes(arch, B, S):
@@ -4719,9 +5005,13 @@ def _dry_expert_bytes(arch, B, S):
 
 
 def _dry_extra(t1):
-    """15(d)'s two lines of the sharded profiles the zoo ships with:
-    qwen3-moe train_4k on 16x16 under moe (expert parallelism) and yi-9b
-    train_4k on 2x16x16 under fsdp (context parallelism)."""
+    """15(d)'s lines of the sharded profiles the zoo ships with:
+    qwen3-moe train_4k on 16x16 under moe (expert parallelism), yi-9b
+    train_4k on 2x16x16 under fsdp (context parallelism), and on 2x16x16
+    deepseek-v2-lite under moe (MLA cut by heads), phi-3-vision and
+    seamless under fsdp (the vision prefix and the encoder cut by
+    position), each 512 x its FLOPs a device within DRYRUN_CP_RATIO of
+    the one-device step's."""
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.core import collectives
@@ -4766,12 +5056,38 @@ def _dry_extra(t1):
           f"{r['memory']['peak_bytes'] / 1e9:.2f} GB (parent "
           f"{PARENT_CP_PEAK / 1e9:.2f}) ({time.perf_counter() - t2:.1f}s)",
           flush=True)
+    # the shipped multi-pod profiles A.19b cuts: MLA by heads (moe), the
+    # vision prefix and the encoder by position (fsdp)
+    for arch, (p_flops, p_peak) in PARENT_MP.items():
+        t3 = time.perf_counter()
+        r = dryrun.lower_and_compile(arch, "train_4k", multi_pod=True,
+                                     verbose=False)
+        cfg = dryrun._apply_overrides(get_config(arch), None)
+        one = dryrun.run_step(cfg, "train", rows, S, MeshShape(
+            (1, 1), ("data", "model")))["flops"] * (B // rows)
+        flops = r["roofline"]["flops_per_device"]
+        r["one_device_flops"] = one
+        r["ratio_to_one_device"] = r["chips"] * flops / one
+        r["parent_ratio_to_one_device"] = r["chips"] * p_flops / one
+        r["profile"] = cfg.sharding_profile
+        out[f"mp-{arch}"] = r
+        print(f"  {arch} train_4k 2x16x16 {cfg.sharding_profile}: FLOPs a "
+              f"device {flops / 1e12:.2f} T (parent {p_flops / 1e12:.2f}), "
+              f"x {r['chips']} / one device ({one / 1e15:.2f} P) "
+              f"{r['ratio_to_one_device']:.4f} (parent "
+              f"{r['parent_ratio_to_one_device']:.3f}); peak "
+              f"{r['memory']['peak_bytes'] / 1e9:.2f} GB (parent "
+              f"{p_peak / 1e9:.2f}); collectives "
+              f"{r['roofline']['collective_count']} "
+              f"({time.perf_counter() - t3:.1f}s)", flush=True)
     moe, cp = out["moe"], out["cp"]
     lo, hi = DRYRUN_CP_RATIO
     bad = (abs(moe["expert_gather_share"] * 16 - 1) > DRYRUN_MOE_GATHER_TOL
            or not moe["roofline"]["collective_count"]
            or not moe.get("all_to_all")
            or not lo <= cp["ratio_to_one_device"] <= hi
+           or any(not lo <= out[f"mp-{a}"]["ratio_to_one_device"] <= hi
+                  for a in PARENT_MP)
            or abs(moe["roofline"]["flops_per_device"] / PARENT_MOE_FLOPS
                   - 1) > DRYRUN_MOE_FLOPS_TOL)
     if bad:
@@ -4862,20 +5178,22 @@ def _exchange_snapshot(world, when):
     return snaps
 
 
-def sharded_phase(device="cuda"):
-    """15(a)-(c), (e) and (f) on one world of SHARDED_RANKS ranks sharing
-    the card, with 15(d) beside them in a child process: the ranks' step
-    times are taken beside the dry-run's host work."""
+def sharded_phase(device="cuda", dry=None, early=None):
+    """15(a)-(c) and (e)-(g) on one world of SHARDED_RANKS ranks sharing
+    the card (`early`, an `_EarlyWorld` started earlier; None: started
+    here), with 15(d) in a child process (`dry`, a `_DryRunProcess`
+    started earlier; None: started here, beside the ranks, whose step
+    times are then taken beside its host work)."""
     sys.path.insert(0, str(ROOT / "tests"))
     out = {}
     t0 = time.perf_counter()
-    # the dry-run needs no card: it runs beside the ranks, at a lower
-    # priority, in the host time their exchanges leave idle
-    dry = _DryRunProcess()
+    # the dry-run needs no card: it runs at a lower priority, in host time
+    # the phases before it and the ranks' exchanges leave idle
+    dry = dry or _DryRunProcess()
     try:
-        _sharded_parts(out, device, t0)
-        print(f"  -- (d) the dry-run on the meta device (beside the "
-              f"ranks from 0.0s; joined at "
+        _sharded_parts(out, device, t0, early)
+        print(f"  -- (d) the dry-run on the meta device (started "
+              f"{time.perf_counter() - dry.started:.1f}s ago; joined at "
               f"{time.perf_counter() - t0:.1f}s)", flush=True)
         out["dryrun"] = dry.join()
     finally:
@@ -4887,53 +5205,92 @@ def sharded_phase(device="cuda"):
     return out
 
 
-class _DryRunProcess:
+class _DryRunProcess(_Child):
     """`dryrun_phase()` in a child process at a lower priority (it runs on
-    the meta device): `join` prints its output and returns its results,
-    raising SystemExit where it failed; `stop` ends it if it still
-    runs."""
+    the meta device): `join` prints its output and returns its
+    results."""
 
     def __init__(self):
-        self.dir = tempfile.mkdtemp(prefix="dryrun_")
-        self.result = os.path.join(self.dir, "dryrun.json")
-        self.log = open(os.path.join(self.dir, "dryrun.log"), "w+")
-        code = ("import json, os, sys; os.nice(10); "
-                f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
-                "import chip_smoke as cs; out = cs.dryrun_phase(); "
-                f"json.dump(out, open({self.result!r}, 'w'), default=str)")
-        self.proc = subprocess.Popen([sys.executable, "-c", code],
-                                     stdout=self.log,
-                                     stderr=subprocess.STDOUT)
+        super().__init__()
+        self.start("import json; os.nice(10); json.dump(cs.dryrun_phase(), "
+                   "open(folder + '/dryrun.json', 'w'), default=str)")
 
     def join(self, timeout=900):
-        rc = self.proc.wait(timeout=timeout)
-        self.log.seek(0)
-        text = self.log.read()
-        print(text, end="", flush=True)
-        if rc != 0:
-            raise SystemExit(f"15(d): the dry-run exited {rc}")
-        with open(self.result) as f:
+        print(self.wait("15(d): the dry-run", timeout), end="", flush=True)
+        with open(f"{self.dir}/dryrun.json") as f:
             return json.load(f)
 
-    def stop(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        self.log.close()
-        import shutil
-        shutil.rmtree(self.dir, ignore_errors=True)
+
+class _EarlyWorld:
+    """A world of `size` ranks started in a thread while earlier phases
+    run (its ranks spawn, join their process group, import the port's
+    modules and make their CUDA contexts in host time those phases leave
+    idle; they then wait, holding only those contexts): `get()` returns
+    it, `how(t0)` says when it was ready, `close()` (also at exit) ends
+    it."""
+
+    def __init__(self, size, device="cuda", backend=None):
+        sys.path.insert(0, str(ROOT / "tests"))    # the ranks inherit it
+        self.started = time.perf_counter()
+        self.ready = None
+        self.world = self.error = None
+        self.users = []
+        self.thread = threading.Thread(target=self._start,
+                                       args=(size, device, backend),
+                                       daemon=True)
+        self.thread.start()
+        atexit.register(self.close)
+
+    def _start(self, size, device, backend):
+        try:
+            import torch_sharded_cases as cases
+            from repro_torch.launch import mesh
+            self.world = mesh.World(size, device=device, backend=backend,
+                                    timeout=600)
+            self.world.run(cases.warm)
+            self.ready = time.perf_counter() - self.started
+        except BaseException as e:       # raised again by `get`
+            self.error = e
+
+    def get(self, user):
+        """The world, for `user` (a phase's name, kept for `how`)."""
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        self.users.append(user)
+        return self.world
+
+    def how(self, t0):
+        """How the world came to its latest user, which started at `t0`."""
+        before = self.users[:-1]
+        return (f"started before phase 12, ready {self.ready:.1f}s after, "
+                f"waited {time.perf_counter() - t0:.1f}s"
+                + (f", run on by {', '.join(before)} first" if before
+                   else ""))
+
+    def close(self):
+        self.thread.join()
+        if self.world is not None:
+            self.world.close()
 
 
-def _sharded_parts(out, device, t0):
-    """15(a)-(c), (e) and (f) on one world of SHARDED_RANKS ranks sharing
-    the card (`sharded_phase`)."""
+def _sharded_parts(out, device, t0, early=None):
+    """15(a)-(c) and (e)-(g) on one world of SHARDED_RANKS ranks sharing
+    the card (`sharded_phase`; `early` an `_EarlyWorld` holding it)."""
     from repro_torch.launch import mesh
-    with mesh.World(SHARDED_RANKS, device=device, timeout=600) as world:
+    if early is None:
+        world = mesh.World(SHARDED_RANKS, device=device, timeout=600)
+        how, when = f"started in {time.perf_counter() - t0:.1f}s", "fresh"
+    else:
+        world = early.get("15")
+        how = early.how(t0)
+        when = f"after {early.users[0]}" if early.users[:-1] else "fresh"
+    with world:
         print(f"  {SHARDED_RANKS} ranks on {device}, backend "
-              f"{world.backend}, mesh {SHARDED_MESH}, started in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+              f"{world.backend}, mesh {SHARDED_MESH}, {how}", flush=True)
         if device == "cuda":
-            out["snapshot_fresh"] = _exchange_snapshot(world, "fresh ranks")
+            out["snapshot_fresh"] = _exchange_snapshot(world,
+                                                       f"ranks {when}")
         for key, label, fn in (
                 ("train", "(a) the sharded train step", sharded_train_phase),
                 ("fl", "(b) the sharded federated trainer", sharded_fl_phase),
@@ -4942,7 +5299,9 @@ def _sharded_parts(out, device, t0):
                 ("ep", "(e) expert parallelism (moe, 4x2)",
                  sharded_ep_phase),
                 ("cp", "(f) context parallelism (fsdp, 2x2x2)",
-                 sharded_cp_phase)):
+                 sharded_cp_phase),
+                ("mp", "(g) the shipped multi-pod profiles (2x2x2)",
+                 sharded_mp_phase)):
             print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
                   flush=True)
             out[key] = fn(world, device)
@@ -5013,7 +5372,7 @@ def decode_graph_zamba2_phase(device="cuda", seed=0, B=2):
     cfg = get_config(ZAMBA).with_updates(dtype="float32",
                                          attn_impl="einsum")
     model = build_model(cfg)
-    params, init_ms = _timed(lambda: _init_once(model, seed, device))
+    params, init_ms = _timed(lambda: _card_init(model, seed, device))
     n_params = model.param_count(params)
     tokens = synthetic_train_batch(generator(seed + 1), cfg, B, DECODE_STEPS,
                                    device=device)["tokens"]
@@ -5275,6 +5634,10 @@ def main():
                                          or "Compiling" in line):
                 print("  " + line.strip())
 
+    # 13(a)'s two CPU steps (~25 s of eight host threads) run in a child
+    # from here, on 4 threads beside phases 3-12's host work, which leaves
+    # most cores idle
+    cpu_13a = _CpuSteps("cuda", 2, 256, threads=4)
     _phase("kernels")
     kernels = kernel_phase()
     _phase("parity: card against CPU")
@@ -5338,6 +5701,16 @@ def main():
     rates = fused_rate_phase("cuda")
     fused_s = time.perf_counter() - t_fused
     print(f"  phase 11 took {fused_s:.1f}s", flush=True)
+    # 15(d)'s dry-run needs no card and ~300 s of one host core: it starts
+    # here, beside phases 12-14's mostly single-threaded host work, rather
+    # than beside phase 15's eight ranks (PERF.md section 6)
+    dry = _DryRunProcess()
+    # and the ranks of phases 14 and 15 start here too (~20 s of spawning
+    # and imports a world, over by 13(a)'s CPU steps); 14(b)-(d) and 15
+    # share one world of 8
+    early = _EarlyWorld(SHARDED_RANKS)
+    early_ops = _EarlyWorld(MESH_OP_RANKS)
+    early_nccl = _EarlyWorld(1, backend="nccl")
     _phase("model zoo, rest (slice 11)")
     print("  -- (a) qwen3-moe, deepseek-v2-lite, xlstm, seamless, "
           "phi-3-vision at their published widths", flush=True)
@@ -5345,16 +5718,17 @@ def main():
     print("  -- (b) card against CPU: the five reduced", flush=True)
     parity["zoo_rest"] = zoo_rest_parity_phase("cuda", "cpu")
     _phase("training (slice 12)")
-    train = train_phase("cuda")
+    train = train_phase("cuda", cpu_13a)
     _phase("mesh (slice 13)")
     t_mesh = time.perf_counter()
     print("  -- (a) the mesh operators on ranks sharing the card", flush=True)
-    mesh_ops = mesh_operator_phase("cuda")
-    mesh_run = mesh_executor_phase("cuda")
+    mesh_ops = mesh_operator_phase("cuda", early=early_ops)
+    mesh_run = mesh_executor_phase("cuda", early=early,
+                                   early_nccl=early_nccl)
     mesh_s = time.perf_counter() - t_mesh
     print(f"  phase 14 took {mesh_s:.1f}s", flush=True)
     _phase("the zoo's sharded steps and the dry-run (slice 14)")
-    sharded = sharded_phase("cuda")
+    sharded = sharded_phase("cuda", dry, early)
     print(f"  phase 15 took {sharded['seconds']:.1f}s", flush=True)
     _phase("the examples' twins and the graphed decode (slice 15)")
     _reset_launches()                    # the main path's count starts here

@@ -250,7 +250,9 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
     over its non-batch axes for the step and cut again after it, and its
     block (a cache cut by sequence or not at all, Mamba2's state) is
     computed whole: every kv head's new entry, the whole Mamba2 layer.
-    Under the single-pod moe profile the ranks along "model" hold the
+    MLA's latent and rotary caches are gathered alike, and every rank
+    writes the same new entry to them, but its heads are cut over
+    "model" (`models.mla`). Under the single-pod moe profile the ranks along "model" hold the
     same rows: each runs its experts on them and one sum over "model"
     follows (`moe_ffn`'s `tp` form)."""
     from repro_torch.launch.mesh import cut_from, gather_tree

@@ -308,7 +308,16 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
     runs its rows' block of positions (`models.parallel`'s `seq` view),
     and the label counts and the gradients are summed over the batch axes
     and that axis. `.local_shapes` holds the shapes of the last step's
-    local batch."""
+    local batch.
+
+    The step donates its parameter and optimizer-state shards, as the
+    reference's dry-run lowers its step (`jax.jit(step,
+    donate_argnums=(0, 1))`): it writes the new shards and moments into
+    the tensors it was given, leaf by leaf
+    (`optimizers.update_in_place`, the functional update's bits), and
+    returns those same tensors, so a rank holds one leaf's update beside
+    the gradients rather than old and new trees at once. A caller that
+    needs the shards from before the step keeps a copy."""
     from repro_torch.core.collectives import all_reduce_sum
     from repro_torch.launch.mesh import gather_tree
     from repro_torch.models import parallel
@@ -432,11 +441,11 @@ def make_sharded_train_step(model, opt, rank_mesh, batch_specs,
         if clip_norm:
             scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
             out = [x.mul_(scale) for x in out]
-        grads = tree_unflatten(params, out)
+        # donated: the new shards and moments are written into the
+        # tensors given, leaf by leaf
+        params, opt_state = optimizers.update_in_place(opt, out, opt_state,
+                                                       params)
         del out
-        updates, opt_state = opt.update(grads, opt_state, params)
-        del grads
-        params = optimizers.apply_updates(params, updates)
         return params, opt_state, {"loss": nll + w_aux * aux,
                                    "grad_norm": gnorm, "nll": nll,
                                    "aux": aux}

@@ -15,13 +15,16 @@ block runs on the rank's H/M query heads and the kv heads they read
 (`specs.attn_heads`): the head counts come from the shapes of the rank's
 `wq` / `wk` slices, and `wo` is row-parallel.
 
-Under `seq` (the view's context parallelism: the rank holds a block of
-positions) the block projects and rotates its own positions, gathers
-every rank's keys and values over the sequence axis (`Parallel.gather_seq`,
-whose backward reduce-scatters) and attends with its own queries under
-the mask of their absolute positions (`q_offset`): causal, sliding-window
-and GQA alike. It runs the einsum or chunked path, never the flash
-kernel, as the reference's `_maybe_flash` refuses a query offset.
+Under `seq` (the view's context parallelism, a `models.parallel.SeqBlock`:
+the rank holds a block of positions) the block projects and rotates its
+own positions, gathers every rank's keys and values over the sequence
+axis (`SeqBlock.gather_seq`, whose backward reduce-scatters) and attends
+with its own queries under the mask of their absolute positions
+(`q_pos` against the gathered keys' `k_pos`, which need not be one
+contiguous run: a vision prefix's block and a token block): causal,
+sliding-window and GQA alike. It runs the einsum or chunked path, never
+the flash kernel, as the reference's `_maybe_flash` refuses a query
+offset.
 """
 from __future__ import annotations
 
@@ -58,11 +61,15 @@ def _merge_heads(x):
 
 
 def make_attention_mask(q_len, kv_len, *, causal=True, window=0,
-                        q_offset=0, dtype=torch.float32, device="cpu"):
+                        q_offset=0, dtype=torch.float32, device="cpu",
+                        q_pos=None, k_pos=None):
     """(q_len, kv_len) additive mask. `q_offset` = absolute position of
-    q[0]."""
-    qpos = torch.arange(q_len, device=device)[:, None] + q_offset
-    kpos = torch.arange(kv_len, device=device)[None, :]
+    q[0]; `q_pos` / `k_pos` (1-D) the queries' and keys' absolute
+    positions where they are not one contiguous run from 0 (q_offset)."""
+    qpos = (torch.arange(q_len, device=device) + q_offset if q_pos is None
+            else q_pos.to(device))[:, None]
+    kpos = (torch.arange(kv_len, device=device) if k_pos is None
+            else k_pos.to(device))[None, :]
     ok = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
     if causal:
         ok = ok & (kpos <= qpos)
@@ -91,12 +98,15 @@ def gqa_attention(q, k, v, mask=None, *, scale=None):
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
-                      scale=None, q_offset=0):
+                      scale=None, q_offset=0, q_pos=None, k_pos=None):
     """Online-softmax attention over key chunks, a Python loop where the
     reference runs `lax.scan`. Never materialises the (S, T) score matrix.
 
     q: (B,S,H,dh); k,v: (B,T,Hk,dh); `q_offset` the absolute position of
-    q[0]. Exact (not an approximation)."""
+    q[0]; `q_pos` / `k_pos` (1-D, S and T) the absolute positions where
+    they are not one contiguous run (keys in any order: a chunk masked
+    whole is rescaled away by the first visible key). Exact (not an
+    approximation)."""
     B, S, H, dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -109,7 +119,8 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
     dv = v.shape[-1]
     dev = q.device
     qg = q.reshape(B, S, Hk, G, dh).float()
-    qpos = torch.arange(S, device=dev) + q_offset
+    qpos = (torch.arange(S, device=dev) + q_offset if q_pos is None
+            else q_pos.to(dev))
     m = torch.full((B, Hk, G, S), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hk, G, S), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hk, G, S, dv), dtype=torch.float32, device=dev)
@@ -117,7 +128,9 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
     for ci in range(nk):
         kt = k[:, ci * chunk:(ci + 1) * chunk].float()
         vt = v[:, ci * chunk:(ci + 1) * chunk].float()
-        kpos = ci * chunk + torch.arange(chunk, device=dev)
+        kpos = (ci * chunk + torch.arange(chunk, device=dev)
+                if k_pos is None
+                else k_pos[ci * chunk:(ci + 1) * chunk].to(dev))
         s = torch.einsum("bskgd,btkd->bkgst", qg, kt) * scale
         ok = torch.ones((S, chunk), dtype=torch.bool, device=dev)
         if causal:
@@ -137,16 +150,21 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
     return out.to(q.dtype)
 
 
+def flash_tiles(cfg, S, T, dh) -> bool:
+    """Whether `_maybe_flash` takes the flash kernel for S queries against
+    T keys of head dim dh with no query offset (the reference's
+    conditions: enabled, S, T >= 128 and multiples of 128, dh % 8 == 0)."""
+    return (cfg.attn_impl == "flash" and min(S, T) >= 128
+            and not (S % 128 or T % 128 or dh % 8))
+
+
 def _maybe_flash(cfg, q, k, v, *, causal, window, q_offset):
-    """The flash kernel when enabled and the shapes tile (the reference's
-    conditions: S, T >= 128 and multiples of 128, dh % 8 == 0, no query
-    offset); None sends the caller to the einsum path."""
-    if cfg.attn_impl != "flash":
+    """The flash kernel when `flash_tiles` and no query offset; None sends
+    the caller to the einsum path."""
+    if q_offset or not flash_tiles(cfg, q.shape[1], k.shape[1],
+                                   q.shape[-1]):
         return None
     from repro_torch.kernels import ops as kops
-    S, T, dh = q.shape[1], k.shape[1], q.shape[-1]
-    if S < 128 or T < 128 or S % 128 or T % 128 or dh % 8 or q_offset:
-        return None
     return kops.flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=causal, window=window)
 
@@ -189,6 +207,9 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
     `tp`: the rank's heads (module docstring); never with kv_override.
     `seq`: the rank's block of positions (module docstring; `positions`
     and `mask` are its own, the mask (S, T) against every rank's keys).
+    With `kv_override` and `seq` the given keys and values are the rank's
+    block, gathered here (cross-attention to an encoder cut by position;
+    no mask).
     """
     dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
@@ -215,10 +236,10 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
         k = apply_rope(k, positions, theta)
 
     new_cache = None
-    q_offset = 0
+    q_pos = k_pos = None
     if seq is not None:
-        q_offset = seq.seq_offset(q.shape[1])
         k, v = seq.gather_seq(k, v)
+        q_pos, k_pos = seq.q_pos, seq.k_pos
     if tp is not None and cache_kv is None:
         k, v = _rank_kv(cfg, tp, H, k, v)
     if cache_kv is not None:
@@ -244,7 +265,8 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
             out = gqa_attention(q, k, v, mask)
     elif cfg.attn_impl == "chunked":
         out = chunked_attention(q, k, v, causal=causal, window=window,
-                                chunk=cfg.attn_chunk, q_offset=q_offset)
+                                chunk=cfg.attn_chunk, q_pos=q_pos,
+                                k_pos=k_pos)
     else:
         f = None if seq is not None else _maybe_flash(
             cfg, q, k, v, causal=causal, window=window, q_offset=0)
@@ -254,7 +276,7 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
             if mask is None:
                 mask = make_attention_mask(q.shape[1], k.shape[1],
                                            causal=causal, window=window,
-                                           q_offset=q_offset,
+                                           q_pos=q_pos, k_pos=k_pos,
                                            device=x.device)
             out = gqa_attention(q, k, v, mask)
 

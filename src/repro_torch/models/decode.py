@@ -106,7 +106,8 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None):
     if cfg.attention_kind == "mla":
         a, ckv, kpe = mla.mla_decode(lp["attn"], cfg, h, positions=positions,
                                      c_kv_cache=st["ckv"],
-                                     k_pe_cache=st["kpe"], cache_index=index)
+                                     k_pe_cache=st["kpe"], cache_index=index,
+                                     tp=_tp(par, "mla"))
         st = {"ckv": ckv, "kpe": kpe}
     else:
         a, (ck, cv) = attn_mod.attention(

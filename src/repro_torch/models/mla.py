@@ -12,6 +12,16 @@ cache, and the attention output stays in latent space until w_uv.
 
 MLA has no flash path, in the reference or here: under
 `attn_impl="flash"` it takes the einsum path.
+
+Under `tp` (a `models.parallel.Parallel` cutting MLA by heads over
+"model", Megatron's layout as `attention(tp=)` cuts GQA) the block runs
+on the rank's H/M heads: its columns of `wq` (each head's nope + rope
+slice), `w_uk` and `w_uv`, its rows of `wo` (row-parallel: one sum over
+"model"), the input entering through Megatron's f. The latent `w_dkv`
+and the shared rotary key `w_kpe` stay whole on every rank (their
+gradients are the rank's heads' part, summed over "model"), and so do
+the decode step's latent and rotary caches: every rank writes the same
+new entry. The head count comes from the shape of the rank's `wq`.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import torch
 
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import chunked_attention, make_attention_mask
-from repro_torch.models.layers import apply_rope, dense, init_dense
+from repro_torch.models.layers import apply_rope, dense, init_dense, row
 
 NEG_INF = -2.0e38
 
@@ -40,8 +50,14 @@ def init_mla(generator, cfg, dtype=torch.float32):
     }
 
 
+def _heads(params, cfg):
+    """The heads the (rank's) `wq` holds: all of them off a mesh."""
+    return params["wq"]["kernel"].shape[1] // (cfg.qk_nope_dim
+                                               + cfg.qk_rope_dim)
+
+
 def _q_proj(params, cfg, x, positions):
-    H = cfg.num_heads
+    H = _heads(params, cfg)
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = dense(params["wq"], x).reshape(*x.shape[:-1], H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -49,13 +65,16 @@ def _q_proj(params, cfg, x, positions):
     return q_nope, q_rope
 
 
-def mla_attention(params, cfg, x, *, positions, mask=None):
-    """Train/prefill path (expanded K/V). x: (B,S,D).
+def mla_attention(params, cfg, x, *, positions, mask=None, tp=None):
+    """Train/prefill path (expanded K/V). x: (B,S,D); `tp` the rank's
+    heads (module docstring).
 
     Under attn_impl="chunked" the scores concat(q_nope, q_rope) ·
     concat(k_nope, k_pe) go through the shared `chunked_attention`."""
+    if tp is not None:
+        x = tp.f(x)
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = _heads(params, cfg)
     nope, vdim, rope = cfg.qk_nope_dim, cfg.v_head_dim, cfg.qk_rope_dim
 
     q_nope, q_rope = _q_proj(params, cfg, x, positions)
@@ -70,7 +89,7 @@ def mla_attention(params, cfg, x, *, positions, mask=None):
         k_cat = torch.cat([k_nope, k_pe.expand(B, S, H, rope)], dim=-1)
         out = chunked_attention(q_cat, k_cat, v, causal=True,
                                 chunk=cfg.attn_chunk)
-        return dense(params["wo"], out.reshape(B, S, H * vdim))
+        return row(params["wo"], out.reshape(B, S, H * vdim), tp)
 
     scale = 1.0 / math.sqrt(nope + rope)
     logits = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
@@ -81,19 +100,22 @@ def mla_attention(params, cfg, x, *, positions, mask=None):
     w = torch.softmax(logits + mask, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", w, v.float())
     out = out.reshape(B, S, H * vdim).to(x.dtype)
-    return dense(params["wo"], out)
+    return row(params["wo"], out, tp)
 
 
 def mla_decode(params, cfg, x, *, positions, c_kv_cache, k_pe_cache,
-               cache_index):
+               cache_index, tp=None):
     """Absorbed decode. x: (B,1,D); caches: (B,cap,1,r)/(B,cap,1,rope),
     written in place (`kvcache.update_layer`); cache_index is the decode
     state's 0-d int32 "index" tensor (tokens already cached), read on the
-    device.
+    device. Under `tp` the rank's heads of `q_lat`, the scores, `o_lat`,
+    `w_uv` and `wo`; the caches stay whole (module docstring).
 
     Returns (out, c_kv_cache, k_pe_cache)."""
+    if tp is not None:
+        x = tp.f(x)
     B = x.shape[0]
-    H = cfg.num_heads
+    H = _heads(params, cfg)
     r, nope, vdim = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
     cap = c_kv_cache.shape[1]
 
@@ -123,4 +145,4 @@ def mla_decode(params, cfg, x, *, positions, c_kv_cache, k_pe_cache,
     w_uv = params["w_uv"]["kernel"].reshape(r, H, vdim)
     out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv.float())
     out = out.reshape(B, 1, H * vdim).to(x.dtype)
-    return dense(params["wo"], out), c_kv_cache, k_pe_cache
+    return row(params["wo"], out, tp), c_kv_cache, k_pe_cache

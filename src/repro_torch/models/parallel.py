@@ -31,7 +31,9 @@ recompute and no rank ever holds the whole tree:
   `specs.seq_axis` (the multi-pod fsdp profile's context parallelism):
   a rank holds a block of positions, attends with its own queries to
   every rank's keys and values (`gather_seq`), and is row-local
-  elsewhere.
+  elsewhere. `block(segments)` lays the rank's positions out: a vision
+  prefix's block of patches then its block of tokens, each at its
+  absolute position in the whole sequence (`SeqBlock`).
 * Without remat (`cfg.remat` off) a backward pass would keep every
   gathered weight that autograd saves until it runs, the whole model at
   the end of the forward pass; inside `regathering()` such a weight (or
@@ -117,7 +119,10 @@ class Parallel:
         self.batch_axes = tuple(batch_axes)
         self.seq_axis = rank_mesh.axis(seq) if seq else None
         self.ran = set()         # the block kinds that ran cut
+        # leaf path -> the shape of the compute slice `take` last made
+        self.taken: Dict[str, tuple] = {}
         self._plans: Dict[tuple, list] = {}
+        self._taken_paths: Dict[tuple, list] = {}
         self._made = None        # inside `regathering()`: what take made
 
     # -- the tensor-parallel handle of a block --------------------------------
@@ -148,9 +153,11 @@ class Parallel:
         self.ran.add("seq")
         return self
 
-    def seq_offset(self, n: int) -> int:
-        """The absolute position of this rank's first of its `n`."""
-        return self.seq_axis.index * n
+    def block(self, segments: Sequence[int], device) -> "SeqBlock":
+        """The rank's block of positions, `segments` its local lengths of
+        each run of the whole sequence (one run: tokens or frames; two: a
+        vision prefix's patches, then the tokens)."""
+        return SeqBlock(self, segments, device)
 
     def gather_seq(self, *xs):
         """Every rank's positions of each of `xs` ((B, S/M, ...) blocks),
@@ -222,7 +229,12 @@ class Parallel:
                     tuple(x.shape), s, lay, self.rank_mesh,
                     self.batch_axes, self.name))
             self._plans[key] = plans
+            self._taken_paths[key] = [path for path, _ in tree_leaves(
+                sh._paths(_at(self.param_specs, key),
+                          "".join(f"{k}/" for k in key)))]
         out = collectives.gather_leaves(plans, leaves)
+        for path, t in zip(self._taken_paths[key], out):
+            self.taken[path] = tuple(t.shape)
         if self._made is not None:
             self._remember(leaves, plans, out)
         return tree_unflatten(stored, out)
@@ -289,3 +301,31 @@ class Parallel:
         if cast is not None:
             w = w.to(cast)
         return w.as_strided(shape, stride, offset)
+
+
+class SeqBlock:
+    """A rank's block of positions under context parallelism: of every run
+    of the whole sequence (lengths M x `segments`, runs one after another)
+    the rank holds block `index` of M. `q_pos` are its positions' absolute
+    places, `k_pos` those of the keys `gather_seq` brings (every rank's
+    block in rank order). The reference's GSPMD cuts the concatenated
+    prefix + token sequence into M contiguous blocks instead; the rank's
+    batch arrives cut run by run (`train.batch_shardings` cuts
+    `vision_embeds` and the tokens by position each), so keeping that
+    layout saves two exchanges a step, and the positions make the RoPE,
+    masks and key order the reference's."""
+
+    def __init__(self, view: Parallel, segments: Sequence[int], device):
+        ax = view.seq_axis
+        M, m = ax.size, ax.index
+        starts = [M * sum(segments[:j]) for j in range(len(segments))]
+
+        def pos(r):
+            return torch.cat([s0 + r * n + torch.arange(n, device=device)
+                              for s0, n in zip(starts, segments)])
+        self.view = view
+        self.q_pos = pos(m)
+        self.k_pos = torch.cat([pos(r) for r in range(M)])
+
+    def gather_seq(self, *xs):
+        return self.view.gather_seq(*xs)

@@ -31,7 +31,11 @@ log-sum-exp and the label's logit with sums over "model". Under the
 view's context parallelism (`Parallel.seq`) the batch is the rank's block
 of positions: RoPE and the masks take their absolute positions, attention
 gathers every rank's keys and values, and everything else (norms, MLPs,
-the embedding, logits and loss) is row-local.
+the embedding, logits and loss) is row-local. A vision prefix's rank
+holds its block of patches followed by its block of tokens
+(`parallel.SeqBlock`: the layout the batch arrives in, at the
+reference's absolute positions); seamless' encoder runs the rank's block
+of frames, and cross-attention gathers the encoder's keys and values.
 """
 from __future__ import annotations
 
@@ -156,19 +160,20 @@ def _tp(par, kind):
 
 
 def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
-                      window=0, token_mean=None, par=None):
+                      window=0, token_mean=None, par=None, seq=None):
     """One attention layer -> (x, MoE aux loss or 0); `token_mean` as in
     `moe.load_balance_loss`; `par` the rank's view on a mesh (its blocks
-    cut over "model" where `par.tp` says so)."""
+    cut over "model" where `par.tp` says so), `seq` its block of
+    positions under context parallelism (`parallel.SeqBlock`; then
+    `enc_out` is the rank's block of frames too)."""
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
         a = mla.mla_attention(lp["attn"], cfg, h, positions=positions,
-                              mask=mask)
+                              mask=mask, tp=_tp(par, "mla"))
     else:
         a = attn_mod.attention(lp["attn"], cfg, h, positions=positions,
                                mask=mask, window=window,
-                               tp=_tp(par, "attn"),
-                               seq=None if par is None else par.seq())
+                               tp=_tp(par, "attn"), seq=seq)
     x = x + a
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if enc_out is not None:
@@ -180,7 +185,8 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
         v = v.reshape(*v.shape[:-1], Hk, dh)
         x = x + attn_mod.attention(lp["cross_attn"], cfg, h,
                                    positions=positions, mask=None,
-                                   causal=False, kv_override=(k, v))
+                                   causal=False, kv_override=(k, v),
+                                   seq=seq)
     if "mlp" in lp:
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
@@ -196,11 +202,11 @@ def _apply_attn_layer(lp, cfg, x, *, positions, mask, enc_out=None,
 
 
 def _apply_kind(lp, cfg, kind, x, *, positions, mask, enc_out=None,
-                window=0, token_mean=None, par=None):
+                window=0, token_mean=None, par=None, seq=None):
     if kind == "attn":
         return _apply_attn_layer(lp, cfg, x, positions=positions, mask=mask,
                                  enc_out=enc_out, window=window,
-                                 token_mean=token_mean, par=par)
+                                 token_mean=token_mean, par=par, seq=seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -233,18 +239,34 @@ def _encode(params, cfg, frames, remat, par=None):
     scanned stack with a bidirectional zero mask (which only the einsum
     path reads: flash and chunked attention run it causally, as in the
     reference), each layer checkpointed under `remat`; on a mesh computed
-    whole, its leaves taken a layer at a time."""
+    whole, its leaves taken a layer at a time. Under context parallelism
+    `frames` are the rank's block: its queries attend to every rank's
+    keys at their absolute positions (bidirectional on the einsum path;
+    where one device would take the flash kernel, which the block's
+    query offset refuses, the einsum path runs it under the causal mask
+    the kernel applies)."""
     enc_cfg = cfg.with_updates(moe=False)
     take = _taker(par)
     e = dense(take(params["input_proj"], "encoder", "input_proj"), frames)
     B, F = e.shape[:2]
-    epos = torch.arange(F, dtype=torch.int32, device=e.device)[None].expand(
-        B, F)
-    emask = torch.zeros((F, F), dtype=torch.float32, device=e.device)
+    sq = None if par is None else par.seq()
+    blk = None if sq is None else sq.block([F], e.device)
+    pos = (torch.arange(F, device=e.device) if blk is None
+           else blk.q_pos)
+    epos = pos.to(torch.int32)[None].expand(B, F)
+    T = F if blk is None else blk.k_pos.numel()
+    emask = torch.zeros((F, T), dtype=torch.float32, device=e.device)
+    if blk is not None and attn_mod.flash_tiles(enc_cfg, T, T,
+                                                enc_cfg.head_dim):
+        emask = attn_mod.make_attention_mask(F, T, causal=True,
+                                             q_pos=blk.q_pos,
+                                             k_pos=blk.k_pos,
+                                             device=e.device)
 
     def layer(lp, e):
         lp = take(lp, "encoder", "layers")
-        return _apply_attn_layer(lp, enc_cfg, e, positions=epos, mask=emask)
+        return _apply_attn_layer(lp, enc_cfg, e, positions=epos, mask=emask,
+                                 seq=blk)
 
     stack = _layers(params, par)
     for i in range(cfg.encoder_layers):
@@ -324,19 +346,23 @@ def _forward(params, cfg, batch, token_mean, par):
     adt = cfg.activation_dtype
     x = embed(take(params["embed"], "embed"), batch["tokens"], adt,
               _tp(par, "vocab"))
+    segments = [x.shape[1]]
     if cfg.modality == "vision":
         vis = dense(take(params["vision_proj"], "vision_proj"),
                     batch["vision_embeds"].to(adt))
         x = torch.cat([vis, x], dim=1)
+        segments = [vis.shape[1]] + segments
     B, S = x.shape[:2]
     dev = x.device
     # under context parallelism the rank's block of positions: its queries
     # at their absolute positions, against every rank's T keys
     sq = None if par is None else par.seq()
-    off = sq.seq_offset(S) if sq is not None else 0
-    T = S * sq.seq_axis.size if sq is not None else S
-    positions = (torch.arange(S, dtype=torch.int32, device=dev)
-                 + off)[None].expand(B, S)
+    blk = None if sq is None else sq.block(segments, dev)
+    qpos = None if blk is None else blk.q_pos
+    kpos = None if blk is None else blk.k_pos
+    T = S if blk is None else kpos.numel()
+    positions = (torch.arange(S, device=dev) if blk is None
+                 else qpos).to(torch.int32)[None].expand(B, S)
 
     remat = _remat(cfg, params)
     enc_out = None
@@ -351,12 +377,13 @@ def _forward(params, cfg, batch, token_mean, par):
         masks = {"default": None, "global": None, "local": None}
     else:
         causal = attn_mod.make_attention_mask(S, T, causal=True,
-                                              q_offset=off, device=dev)
+                                              q_pos=qpos, k_pos=kpos,
+                                              device=dev)
         masks = {"default": causal, "global": causal}
         if cfg.sliding_window:
             masks["local"] = attn_mod.make_attention_mask(
-                S, T, causal=True, window=cfg.sliding_window, q_offset=off,
-                device=dev)
+                S, T, causal=True, window=cfg.sliding_window, q_pos=qpos,
+                k_pos=kpos, device=dev)
             if not cfg.global_every:
                 masks["default"] = masks["local"]
 
@@ -373,10 +400,11 @@ def _forward(params, cfg, batch, token_mean, par):
                 x, _ = _apply_attn_layer(take(shared, "shared_attn"), cfg, x,
                                          positions=positions,
                                          mask=masks["default"],
-                                         token_mean=token_mean, par=par)
+                                         token_mean=token_mean, par=par,
+                                         seq=blk)
             return _apply_kind(lp, cfg, kind, x, positions=positions,
                                mask=mask, enc_out=enc_out, window=window,
-                               token_mean=token_mean, par=par)
+                               token_mean=token_mean, par=par, seq=blk)
 
         stack = _layers(params, par)
         for i in range(cfg.num_layers):
@@ -400,14 +428,14 @@ def _forward(params, cfg, batch, token_mean, par):
             return _apply_kind(take(lp, "blocks", i), cfg, kind, x,
                                positions=positions, mask=mask,
                                enc_out=enc_out, window=window,
-                               token_mean=token_mean, par=par)
+                               token_mean=token_mean, par=par, seq=blk)
 
         for i, (lp, kind) in enumerate(zip(params["blocks"], kinds)):
             if uses_shared(cfg, i):
                 x, _ = _apply_attn_layer(
                     take(params["shared_attn"], "shared_attn"), cfg, x,
                     positions=positions, mask=masks["default"],
-                    token_mean=token_mean, par=par)
+                    token_mean=token_mean, par=par, seq=blk)
             w = _layer_window(cfg, i)
             mask = (masks["local"] if (w and masks.get("local") is not None)
                     else masks["default"])

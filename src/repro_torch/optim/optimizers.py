@@ -8,7 +8,8 @@ The optax-style convention of the reference:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Momentum is `mu = momentum * mu + g`, the update `-lr * mu`. State is
+or, donating params and state, `update_in_place(opt, grads, state,
+params)`. Momentum is `mu = momentum * mu + g`, the update `-lr * mu`. State is
 created fresh for every local-training event, as in the reference; there
 is no persistent `torch.optim` object. Adam (the FedAdam server
 optimizer) keeps its step count in its state. `lr` may be a callable of
@@ -38,6 +39,37 @@ class Optimizer(NamedTuple):
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def update_in_place(opt, grads, state, params):
+    """`opt.update` then `apply_updates`, written into the tensors of
+    `params` and `state` leaf by leaf: the form of a step whose params
+    and optimizer state are donated (the reference's
+    `jax.jit(step, donate_argnums=(0, 1))`), which XLA updates in place.
+    The arithmetic of each leaf is `opt.update`'s on that leaf, so the
+    bits are the functional update's; at most one leaf's update is alive
+    at a time. `grads` is the list of gradient leaves in `params`' leaf
+    order; each is dropped (set to None) once used. A state entry that is
+    a tensor (a step count) is shared by every leaf and written after the
+    last. Returns (params, state), the tensors given."""
+    p_leaves = tree_leaves(params)
+    shared = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+    per_leaf = {k: tree_leaves(v) for k, v in state.items()
+                if k not in shared}
+    new_shared = {}
+    for i, p in enumerate(p_leaves):
+        g, grads[i] = grads[i], None
+        one = dict(shared, **{k: v[i] for k, v in per_leaf.items()})
+        u, new = opt.update(g, one, p)
+        del g
+        p.copy_(apply_updates(p, u))
+        del u
+        for k, v in per_leaf.items():
+            v[i].copy_(new[k])
+        new_shared = {k: new[k] for k in shared}
+    for k, v in new_shared.items():
+        state[k].copy_(v)
+    return params, state
 
 
 def global_norm(tree):

@@ -231,12 +231,14 @@ def seq_axis(mesh):
 
 def context_parallel(cfg, mesh):
     """`seq_axis` where the port keeps a step's batch cut by sequence: a
-    token-only dense stack; else None. A vision prefix's or an encoder's
-    sequence is still gathered whole over it (ROADMAP A.19b), and so is an
-    MoE stack's (a config whose profile is overridden to fsdp): its
-    routing groups are runs of consecutive tokens, which a rank's block
-    of positions would cut into other groups than the reference's."""
-    if cfg.modality != "text" or cfg.encoder_layers or cfg.moe:
+    dense attention-only stack, its vision prefix (a rank's block of
+    patches and of tokens) and its encoder (a rank's block of frames)
+    included; else None. An MoE stack's batch (a config whose profile is
+    overridden to fsdp) is still gathered whole over it (ROADMAP A.19b):
+    its routing groups are runs of consecutive tokens, which a rank's
+    block of positions would cut into other groups than the
+    reference's."""
+    if cfg.moe:
         return None
     return seq_axis(mesh)
 
@@ -550,21 +552,23 @@ def _mamba_heads(cfg) -> int:
 
 def cut_kinds(cfg, M: int, experts_only: bool = False) -> Dict[str, bool]:
     """Which of the config's blocks a "model" axis of M ranks cuts: GQA
-    attention by heads, the dense MLP and MoE's shared experts by columns,
-    MoE by experts, Mamba2 by heads, the embedding and logits by the
-    vocabulary. A block whose count does not divide over M is computed
-    whole on every rank (gemma3-4b's 8 heads at M = 16), as are MLA,
-    xLSTM, the encoder, cross-attention and the vision projection
-    (ROADMAP A.19b). `experts_only` (the `ep_axis`): only MoE's experts."""
-    out = {k: False for k in ("attn", "mlp", "moe", "mamba", "vocab")}
+    attention and MLA by heads, the dense MLP and MoE's shared experts by
+    columns, MoE by experts, Mamba2 by heads, the embedding and logits by
+    the vocabulary. A block whose count does not divide over M is computed
+    whole on every rank (gemma3-4b's 8 heads at M = 16), as are xLSTM, the
+    encoder, cross-attention and the vision projection (ROADMAP A.19b).
+    `experts_only` (the `ep_axis`): only MoE's experts."""
+    out = {k: False for k in ("attn", "mla", "mlp", "moe", "mamba",
+                              "vocab")}
     if M < 2:
         return out
     out["moe"] = bool(cfg.moe) and cfg.num_experts % M == 0
     if experts_only:
         return out
     ff = cfg.num_shared_experts * cfg.d_ff if cfg.moe else cfg.d_ff
-    out.update(attn=(cfg.attention_kind == "gqa"
-                     and cfg.num_heads % M == 0),
+    heads = cfg.num_heads % M == 0
+    out.update(attn=cfg.attention_kind == "gqa" and heads,
+               mla=cfg.attention_kind == "mla" and heads,
                mlp=ff > 0 and ff % M == 0,
                mamba=bool(cfg.ssm_state) and _mamba_heads(cfg) % M == 0,
                vocab=cfg.vocab_size % M == 0)
@@ -626,6 +630,8 @@ def compute_layout(cfg, mesh, path: str, shape, index: int,
         return Layout("vocab", d, [(index * n, (index + 1) * n)], True)
     block = next((b for b in ("attn", "mlp", "mamba") if b in seg), None)
     leaf = "/".join(seg[seg.index(block) + 1:]) if block else ""
+    if "attn" in seg and cfg.attention_kind == "mla":
+        return _mla_layout(cfg, leaf, index, M) if cut["mla"] else WHOLE
     if "attn" in seg:
         if not cut["attn"]:
             return WHOLE
@@ -695,6 +701,28 @@ def compute_layout(cfg, mesh, path: str, shape, index: int,
         if leaf == "out_proj/kernel":
             return Layout("row", 0, [heads], True)
         return WHOLE
+    return WHOLE
+
+
+def _mla_layout(cfg, leaf: str, index: int, M: int) -> Layout:
+    """MLA cut by heads (`models.mla`): the rank's heads' columns of `wq`
+    (nope + rope a head), `w_uk` (nope) and `w_uv` (v_head_dim), its rows
+    of `wo`; `w_dkv` and `w_kpe` whole, their gradients the rank's heads'
+    part. A decode step's caches stay whole, so its "kv" changes
+    nothing here."""
+    hl = cfg.num_heads // M
+    q0 = index * hl
+
+    def heads(width):
+        return [(q0 * width, (q0 + hl) * width)]
+    cols = {"wq/kernel": cfg.qk_nope_dim + cfg.qk_rope_dim,
+            "w_uk/kernel": cfg.qk_nope_dim, "w_uv/kernel": cfg.v_head_dim}
+    if leaf in cols:
+        return Layout("column", 1, heads(cols[leaf]), True)
+    if leaf == "wo/kernel":
+        return Layout("row", 0, heads(cfg.v_head_dim), True)
+    if leaf in ("w_dkv/kernel", "w_kpe/kernel"):
+        return Layout("whole", None, (), True)
     return WHOLE
 
 

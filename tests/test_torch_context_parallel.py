@@ -8,16 +8,27 @@ CPU.
   that crosses the ranks' blocks, GQA (4 query heads on 2 kv heads),
   under the einsum and the chunked paths; the output, the input's
   gradient and the parameters' gradients within 1e-5.
-* `make_sharded_train_step` for phi3-mini-3.8b and gemma3-4b
-  (`sliding_window` 16 in both packages) reduced under "fsdp" on 2x2x2,
-  against the reference's `make_train_step` from its init: loss and
-  grad-norm within 1e-5 relative, SGD params within 1e-6; each rank's
-  batch stays 2 rows x 32 positions.
+* The same with a rank's positions that are not one run: its block of a
+  vision prefix, then its block of tokens (`parallel.SeqBlock`).
+* `make_sharded_train_step` for phi3-mini-3.8b, gemma3-4b
+  (`sliding_window` 16 in both packages), phi-3-vision-4.2b (8 patches)
+  and seamless-m4t-large-v2 (16 frames, its encoder) reduced under
+  "fsdp" on 2x2x2, against the reference's `make_train_step` from its
+  init: loss and grad-norm within 1e-5 relative, SGD params within 1e-6;
+  each rank's batch stays 2 rows x 32 positions, its patches or frames
+  cut by position too.
 * The sharded prefill on 2x2x2 (each rank its rows' block of positions)
-  and decode against one device within 1e-5.
+  and decode against one device within 1e-5; seamless' encoder where one
+  device takes the flash path (causal) at 256 frames.
 * Which stacks keep the sequence cut (`specs.context_parallel`): the
-  dense token-only ones on the multi-pod mesh under fsdp; not a vision
-  prefix, an encoder or an MoE stack, nor a single-pod mesh.
+  dense attention-only ones on the multi-pod mesh under fsdp, a vision
+  prefix and an encoder included; not an MoE stack, nor a single-pod
+  mesh.
+* Per-device FLOPs on 2x2x2: phi-3-vision within 0.7-1.15x the
+  reference's compiled count, seamless gated by 8x its count against one
+  device's (the reference's count leaves out its scanned encoder); the
+  full-width dry-runs cut to 2 layers on 2x16x16, 512 x per device
+  within 0.99-1.15x one device's.
 
 One `launch.mesh.World` of 8 CPU ranks serves the module; the ranks run
 `torch_sharded_cases`."""
@@ -50,7 +61,10 @@ REL, PARAM_ATOL, TOL = 1e-5, 1e-6, 1e-5
 WINDOW = 16
 CASES = {"phi3-mini-3.8b": dict(dtype="float32", sharding_profile="fsdp"),
          "gemma3-4b": dict(dtype="float32", sharding_profile="fsdp",
-                           sliding_window=WINDOW)}
+                           sliding_window=WINDOW),
+         # a vision prefix (8 patches) and an encoder (16 frames)
+         "phi-3-vision-4.2b": dict(dtype="float32"),
+         "seamless-m4t-large-v2": dict(dtype="float32")}
 
 
 @pytest.fixture(scope="module")
@@ -86,15 +100,59 @@ def test_context_parallel_attention_matches_whole(world, window, impl):
     outs = world.run(cases.cp_attention, "yi-9b", kw,
                      params_to_numpy(params), x, w, window)
     for got in outs:
-        lo, hi = got["block"]
-        _close(got["out"], out[:, lo:hi].detach())
-        _close(got["x_grad"], xt.grad[:, lo:hi])
+        mine = got["block"]
+        _close(got["out"], out[:, mine].detach())
+        _close(got["x_grad"], xt.grad[:, mine])
         for a, b in zip(tree_leaves(got["grads"]), tree_leaves(p)):
             _close(a, b.grad)
         kinds = got["kinds"]
         # K and V gathered forward, reduce-scattered backward
         assert kinds == {"all-gather": 2, "reduce-scatter": 2}, kinds
-    assert sorted({o["block"] for o in outs}) == [(0, S // 2), (S // 2, S)]
+    assert sorted({tuple(o["block"]) for o in outs}) == [
+        tuple(range(S // 2)), tuple(range(S // 2, S))]
+
+
+@pytest.mark.parametrize("impl", ["einsum", "chunked"])
+def test_context_parallel_attention_with_a_vision_prefix(world, impl):
+    """A rank's positions that are not one run: its block of a 16-patch
+    prefix, then its block of 48 tokens (`parallel.SeqBlock`), causal
+    at their absolute positions, against whole attention."""
+    kw = dict(dtype="float32", num_heads=4, num_kv_heads=2, attn_impl=impl,
+              attn_chunk=16)
+    cfg = build_model(get_config("yi-9b").reduced(**kw)).cfg
+    params = attn.init_attention(generator(0), cfg)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    p = tree_map(lambda v: v.clone().requires_grad_(True), params)
+    xt = torch.tensor(x, requires_grad=True)
+    positions = torch.arange(S, dtype=torch.int32)[None].expand(2, S)
+    out = attn.attention(p, cfg, xt, positions=positions,
+                         mask=attn.make_attention_mask(S, S))
+    (out * torch.tensor(w)).sum().backward()
+    outs = world.run(cases.cp_attention, "yi-9b", kw,
+                     params_to_numpy(params), x, w, 0, [16, S - 16])
+    for got in outs:
+        mine = got["block"]
+        _close(got["out"], out[:, mine].detach())
+        _close(got["x_grad"], xt.grad[:, mine])
+        for a, b in zip(tree_leaves(got["grads"]), tree_leaves(p)):
+            _close(a, b.grad)
+    # rank m: patches [8m, 8m + 8), then tokens [16 + 24m, 16 + 24m + 24)
+    assert sorted({tuple(o["block"]) for o in outs}) == [
+        tuple(range(8)) + tuple(range(16, 40)),
+        tuple(range(8, 16)) + tuple(range(40, 64))]
+
+
+def _frontend(cfg, rng, rows=B):
+    """The config's vision patches or audio frames, numpy float32."""
+    if cfg.modality == "vision":
+        return {"vision_embeds": rng.standard_normal(
+            (rows, cfg.num_patches, cfg.d_model)).astype(np.float32)}
+    if cfg.encoder_layers:
+        return {"audio_frames": rng.standard_normal(
+            (rows, cfg.num_frames, cfg.d_model)).astype(np.float32)}
+    return {}
 
 
 def _batch(cfg, seed=3, rows=B):
@@ -102,7 +160,13 @@ def _batch(cfg, seed=3, rows=B):
     toks = rng.integers(0, cfg.vocab_size, (rows, S), dtype=np.int64)
     labels = np.concatenate([toks[:, 1:], np.full((rows, 1), -1, np.int64)],
                             1)
-    return {"tokens": toks, "labels": labels}
+    return dict({"tokens": toks, "labels": labels}, **_frontend(cfg, rng,
+                                                                rows))
+
+
+def _ref_batch(batch):
+    return {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64
+                           else v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("arch", sorted(CASES))
@@ -112,22 +176,25 @@ def test_sharded_train_step_matches_the_reference(world, arch):
     assert rmodel.cfg.sliding_window == kw.get("sliding_window", 0)
     rparams = rmodel.init(jax.random.PRNGKey(7))
     batch = _batch(get_config(arch).reduced())
-    outs = world.run(cases.train, arch, kw, *MESH, batch,
-                     params=jax.tree.map(np.asarray, rparams))
-    full, metrics, _ = outs[0]
+    outs = [r[0] for r in world.run(
+        cases.train, arch, kw, *MESH, batch,
+        params=jax.tree.map(np.asarray, rparams))]
+    full = cases.gathered(outs)
+    _, metrics, _ = outs[0]
     step = jax.jit(ref_train.make_train_step(rmodel, ref_opt.sgd(1e-2)))
-    rb = {k: jnp.asarray(v.astype(np.int32)) for k, v in batch.items()}
-    p, _, m = step(rparams, ref_opt.sgd(1e-2).init(rparams), rb)
+    p, _, m = step(rparams, ref_opt.sgd(1e-2).init(rparams),
+                   _ref_batch(batch))
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - float(m[k])) <= REL * abs(float(m[k]))
-    for a, b in zip(cases.load(full), jax.tree.leaves(p)):
+    for a, b in zip(full, jax.tree.leaves(p)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0,
                                    atol=PARAM_ATOL)
     for _, got, rep in outs:
         assert got == metrics
-        # the rank's batch stays cut by sequence: 2 rows x 32 positions
-        assert rep["local_shapes"] == {"tokens": (2, S // 2),
-                                       "labels": (2, S // 2)}
+        # the rank's batch stays cut by sequence: 2 rows x 32 positions,
+        # its block of patches or frames too
+        assert rep["local_shapes"] == {
+            k: (2, v.shape[1] // 2) + v.shape[2:] for k, v in batch.items()}
         assert rep["cut"] == ["seq"]
         kinds = rep["collectives"]["kinds"]
         assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0
@@ -140,10 +207,12 @@ def test_sharded_prefill_and_decode_match_single_device(world, arch):
     params = model.init(generator(0), "cpu")
     tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
                            generator=generator(2))
+    front = _frontend(model.cfg, np.random.default_rng(5))
     steps = 4
     with torch.no_grad():
-        logits = port_serve.make_prefill_step(model)(params,
-                                                     {"tokens": tokens})
+        logits = port_serve.make_prefill_step(model)(params, dict(
+            {"tokens": tokens},
+            **{k: torch.tensor(v) for k, v in front.items()}))
         state = model.init_decode_state(B, steps, device="cpu")
         want = []
         for i in range(steps):
@@ -151,15 +220,17 @@ def test_sharded_prefill_and_decode_match_single_device(world, arch):
             want.append(lg[:, 0])
     want = torch.stack(want).numpy()
     outs = world.run(cases.serve, arch, kw, *MESH, tokens.numpy(), steps,
-                     params=params_to_numpy(params))
+                     params=params_to_numpy(params), frontend=front)
     blocks = set()
+    P = model.cfg.num_patches if model.cfg.modality == "vision" else 0
     for (a, b), lg, (c, d), dec, report in outs:
         lo, hi = report["positions"]
         blocks.add((a, b, lo, hi))
         got = cases.load(lg)[0]
-        assert got.shape[:2] == (2, S // 2)
-        np.testing.assert_allclose(got, logits[a:b, lo:hi].numpy(),
-                                   rtol=0, atol=TOL)
+        assert got.shape[:2] == (2, (S + P) // 2)
+        want_lg = np.concatenate([logits[a:b, x:y].numpy()
+                                  for x, y in report["spans"]], 1)
+        np.testing.assert_allclose(got, want_lg, rtol=0, atol=TOL)
         np.testing.assert_allclose(dec, want[:, c:d], rtol=0, atol=TOL)
     # every (rows, positions) block once
     assert len(blocks) == 8
@@ -168,8 +239,8 @@ def test_sharded_prefill_and_decode_match_single_device(world, arch):
 @pytest.mark.parametrize("arch,want", [
     ("phi3-mini-3.8b", "model"), ("yi-9b", "model"), ("qwen3-32b", "model"),
     ("gemma3-4b", "model"),
-    # the vision prefix's and the encoder's sequences stay gathered whole
-    ("phi-3-vision-4.2b", None), ("seamless-m4t-large-v2", None),
+    # the vision prefix's and the encoder's sequences are cut by position
+    ("phi-3-vision-4.2b", "model"), ("seamless-m4t-large-v2", "model"),
     # routing groups are runs of tokens: an MoE stack under fsdp too
     ("qwen3-moe-30b-a3b", None)])
 def test_context_parallel_takes_token_only_dense_stacks(arch, want):
@@ -179,3 +250,99 @@ def test_context_parallel_takes_token_only_dense_stacks(arch, want):
         assert sh.context_parallel(cfg, sh.MeshShape(*MESH)) == want
         assert sh.context_parallel(cfg, sh.MeshShape(
             (4, 2), ("data", "model"))) is None
+
+
+# -- per-device FLOPs: the vision prefix and the encoder cut by position ------
+
+DRY_RATIO = (0.99, 1.15)
+FLOP_PAIRS = [("phi-3-vision-4.2b", "fsdp", "train"),
+              ("seamless-m4t-large-v2", "fsdp", "train")]
+
+
+@pytest.fixture(scope="module")
+def reference_flops():
+    """The reference's compiled per-device count of FLOP_PAIRS on 2x2x2
+    (`test_torch_tensor_parallel._REFERENCE_FLOPS`, B 8, S 64)."""
+    import json
+    import subprocess
+    import sys
+    from test_torch_tensor_parallel import _REFERENCE_FLOPS, SRC
+    pairs = [(p, MESH) for p in FLOP_PAIRS]
+    code = _REFERENCE_FLOPS.format(src=SRC, pairs=pairs, B=B, S=S)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _port_flops(arch, profile, kind, mesh_shape):
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch).reduced().with_updates(sharding_profile=profile,
+                                                  scan_layers=False)
+    return dryrun.run_step(cfg, kind, B, S, mesh_shape)["flops"]
+
+
+@pytest.mark.parametrize("pair", FLOP_PAIRS, ids="/".join)
+def test_per_device_flops_match_the_reference(reference_flops, pair):
+    """phi-3-vision within 0.7-1.15x the reference's compiled count (1.76x
+    while its sequence was gathered whole). seamless' pair is gated by
+    the one-device ratio alone: the reference runs its encoder through
+    `lax.scan` whatever `scan_layers` says, and XLA's cost analysis
+    counts a scanned body once, so its count (printed) leaves out all
+    but one encoder layer."""
+    from repro_torch.sharding import specs as sh
+    got = _port_flops(*pair, sh.MeshShape(*MESH))
+    want = reference_flops["/".join(pair)]
+    one = _port_flops(*pair, sh.MeshShape((1, 1), ("data", "model")))
+    print(f"{'/'.join(pair)}: port {got:.4g}, reference {want:.4g} "
+          f"({got / want:.3f}), 8 x port / one device {8 * got / one:.4f}")
+    if pair[0] != "seamless-m4t-large-v2":
+        assert 0.7 <= got / want <= 1.15, (pair, got, want)
+    assert 0.99 <= 8 * got / one <= 1.15, (pair, got, one)
+
+
+@pytest.mark.parametrize("arch,upd", [
+    ("phi-3-vision-4.2b", dict(num_layers=2)),
+    ("seamless-m4t-large-v2", dict(num_layers=2, encoder_layers=2))])
+def test_full_width_dry_run_computes_the_per_device_share(arch, upd):
+    """At full width cut to 2 layers (2 + 2), train_4k on 2x16x16 under
+    the shipped fsdp profile (meta device): 512 x the per-device FLOPs
+    within 0.99-1.15x the one-device step's (8 rows x 4096, x 32); both
+    read 16.000 while each rank along "model" computed its rows' whole
+    sequence."""
+    from test_torch_mla_parallel import _dry_ratio
+    ratio = _dry_ratio(arch, **upd)
+    assert DRY_RATIO[0] <= ratio <= DRY_RATIO[1], ratio
+
+
+def test_sharded_prefill_of_an_encoder_one_device_runs_through_flash(world):
+    """seamless under `attn_impl="flash"` with 256 frames: one device runs
+    its encoder through the flash path (causal, as the reference's kernel
+    does; on the CPU its plain version); each rank's block of 128 frames
+    cannot take it (a query offset) and runs the einsum path under the
+    causal mask of its absolute positions, to the same logits."""
+    kw = dict(dtype="float32", attn_impl="flash", num_frames=256)
+    model = cases.build("seamless-m4t-large-v2", **kw)
+    params = model.init(generator(0), "cpu")
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, S),
+                           generator=generator(2))
+    front = _frontend(model.cfg, np.random.default_rng(6))
+    with torch.no_grad():
+        logits = port_serve.make_prefill_step(model)(params, {
+            "tokens": tokens,
+            "audio_frames": torch.tensor(front["audio_frames"])})
+        bidirectional = port_serve.make_prefill_step(cases.build(
+            "seamless-m4t-large-v2", **dict(kw, attn_impl="einsum")))(
+            params, {"tokens": tokens,
+                     "audio_frames": torch.tensor(front["audio_frames"])})
+    # the flash path's causal encoder is another function than einsum's
+    assert not torch.allclose(logits, bidirectional, atol=1e-3)
+    outs = world.run(cases.serve, "seamless-m4t-large-v2", kw, *MESH,
+                     tokens.numpy(), 1, params=params_to_numpy(params),
+                     frontend=front)
+    for (a, b), lg, _, _, report in outs:
+        want = np.concatenate([logits[a:b, x:y].numpy()
+                               for x, y in report["spans"]], 1)
+        np.testing.assert_allclose(cases.load(lg)[0], want, rtol=0,
+                                   atol=TOL)
+        assert report["cut"] == ["seq"]

@@ -129,15 +129,17 @@ def test_sharded_train_step_matches_the_reference(world, arch):
     rmodel = ref_build(ref_get_config(arch).reduced(**kw))
     rparams = rmodel.init(jax.random.PRNGKey(7))
     batch = _batch(get_config(arch).reduced())
-    outs = world.run(cases.train, arch, kw, *MESH, batch,
-                     params=jax.tree.map(np.asarray, rparams))
-    full, metrics, report = outs[0]
+    outs = [r[0] for r in world.run(
+        cases.train, arch, kw, *MESH, batch,
+        params=jax.tree.map(np.asarray, rparams))]
+    full = cases.gathered(outs)
+    _, metrics, report = outs[0]
     step = jax.jit(ref_train.make_train_step(rmodel, ref_opt.sgd(1e-2)))
     rb = {k: jnp.asarray(v.astype(np.int32)) for k, v in batch.items()}
     p, _, m = step(rparams, ref_opt.sgd(1e-2).init(rparams), rb)
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - float(m[k])) <= REL * abs(float(m[k]))
-    for a, b in zip(cases.load(full), jax.tree.leaves(p)):
+    for a, b in zip(full, jax.tree.leaves(p)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0,
                                    atol=PARAM_ATOL)
     cfg = get_config(arch).reduced(**kw)

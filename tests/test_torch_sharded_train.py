@@ -230,9 +230,11 @@ def test_sharded_step_matches_single_device_and_reference(world, case,
         jax.random.PRNGKey(7))
     params_np = jax.tree.map(np.asarray, rparams)
     batch = _batch(get_config(arch).reduced())
-    outs = world.run(cases.train, arch, kw, *MESH, batch, params=params_np)
-    full, metrics, report = outs[0]
-    got = (cases.load(full), metrics[0])
+    outs = [r[0] for r in world.run(cases.train, arch, kw, *MESH, batch,
+                                    params=params_np)]
+    full = cases.gathered(outs)
+    _, metrics, report = outs[0]
+    got = (full, metrics[0])
     # every rank reports the global batch's metrics
     assert all(o[1] == metrics for o in outs)
     _check(got, _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2)),
@@ -254,12 +256,14 @@ def test_moe_aux_loss_is_the_global_batch(world):
     model = build_model(get_config(arch).reduced(**kw))
     params_np = params_to_numpy(model.init(generator(0), "cpu"))
     batch = _batch(model.cfg)
-    full, metrics, _ = world.run(cases.train, arch, kw, *MESH, batch,
-                                 params=params_np)[0]
+    outs = [r[0] for r in world.run(cases.train, arch, kw, *MESH, batch,
+                                    params=params_np)]
+    full = cases.gathered(outs)
+    _, metrics, _ = outs[0]
     want = _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2))
     assert metrics[0]["aux"] > 0
     assert abs(metrics[0]["aux"] - want[1]["aux"]) <= REL * want[1]["aux"]
-    _check((cases.load(full), metrics[0]), want, "single device")
+    _check((full, metrics[0]), want, "single device")
 
 
 def test_grad_accum_cuts_each_ranks_rows(world):
@@ -272,8 +276,11 @@ def test_grad_accum_cuts_each_ranks_rows(world):
     model = build_model(get_config(arch).reduced(**kw))
     params_np = params_to_numpy(model.init(generator(0), "cpu"))
     batch = _batch(model.cfg, seed=4)
-    full, metrics, _ = world.run(cases.train, arch, kw, *MESH, batch,
-                                 params=params_np, opt="adamw", lr=3e-4)[0]
+    outs = [r[0] for r in world.run(
+        cases.train, arch, kw, *MESH, batch, params=params_np,
+        runs=[("adamw", 3e-4, 1, False)])]
+    full = cases.gathered(outs)
+    _, metrics, _ = outs[0]
     want = _port_step(arch, kw, params_np, batch,
                       optimizers.adamw(3e-4, weight_decay=0.01))
     for k in ("loss", "grad_norm"):
@@ -314,10 +321,12 @@ def test_grad_accum_weighs_rows_as_the_single_device_micro_batches(world,
     for r in range(rows):
         # row r keeps a random number of its leading labels
         batch["labels"][r, int(rng.integers(1, S)):] = -1
-    full, metrics, _ = world.run(cases.train, arch, kw, *MESH, batch,
-                                 params=params_np)[0]
+    outs = [r[0] for r in world.run(cases.train, arch, kw, *MESH, batch,
+                                    params=params_np)]
+    full = cases.gathered(outs)
+    _, metrics, _ = outs[0]
     want = _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2))
-    _check((cases.load(full), metrics[0]), want, "single device")
+    _check((full, metrics[0]), want, "single device")
     assert abs(metrics[0]["aux"] - want[1]["aux"]) <= REL * max(
         want[1]["aux"], 1e-30)
 
@@ -331,13 +340,63 @@ def test_tensor_parallel_step_without_remat(world, arch):
     model = build_model(get_config(arch).reduced(**kw))
     params_np = params_to_numpy(model.init(generator(0), "cpu"))
     batch = _batch(model.cfg, seed=8)
-    full, metrics, report = world.run(cases.train, arch, kw, *MESH, batch,
-                                      params=params_np)[0]
-    _check((cases.load(full), metrics[0]),
+    outs = [r[0] for r in world.run(cases.train, arch, kw, *MESH, batch,
+                                    params=params_np)]
+    full = cases.gathered(outs)
+    _, metrics, report = outs[0]
+    _check((full, metrics[0]),
            _port_step(arch, kw, params_np, batch, optimizers.sgd(1e-2)),
            "single device")
     with_remat = world.run(cases.train, arch, dict(kw, remat=True), *MESH,
-                           batch, params=params_np)[0][2]
+                           batch, params=params_np)[0][0][2]
     assert (report["collectives"]["kinds"]["all-gather"]
             >= with_remat["collectives"]["kinds"]["all-gather"])
     assert "vocab" in report["cut"]
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+def test_sharded_step_updates_its_shards_in_place(world, opt):
+    """The step donates its params and optimizer state (ROADMAP C.7, the
+    reference's `donate_argnums=(0, 1)`): it returns the tensors it was
+    given, holding bit for bit the functional update of the gradients it
+    took (SGD with momentum, AdamW's moments and step count), on every
+    rank of phi3-mini under "tp"."""
+    arch, kw = "phi3-mini-3.8b", dict(dtype="float32",
+                                      sharding_profile="tp")
+    model = build_model(get_config(arch).reduced(**kw))
+    params_np = params_to_numpy(model.init(generator(0), "cpu"))
+    outs = world.run(cases.donated, arch, kw, *MESH, _batch(model.cfg),
+                     params_np, opt)
+    n = len(tree_leaves(model.param_specs()))
+    for got in outs:
+        assert got == {"same_tensors": True, "params_bitwise": True,
+                       "state_bitwise": True, "leaves": n}, got
+
+
+def test_update_in_place_is_the_functional_update_bitwise():
+    """`optimizers.update_in_place` on one device: the given tensors,
+    bitwise `opt.update` then `apply_updates`, a scheduled learning rate
+    read at the step count before the count is written."""
+    gen = generator(3)
+    params = {"a": torch.randn(5, 3, generator=gen),
+              "b": [torch.randn(4, generator=gen),
+                    torch.randn(2, 2, generator=gen)]}
+    grads = torch.randn(5, 3, generator=gen), torch.randn(
+        4, generator=gen), torch.randn(2, 2, generator=gen)
+    for opt in (optimizers.sgd(optimizers.cosine_schedule(0.1, 2, 10),
+                               momentum=0.9),
+                optimizers.adamw(1e-2, weight_decay=0.01)):
+        state = opt.init(params)
+        for _ in range(2):
+            want_u, want_s = opt.update(
+                port_train.tree_unflatten(params, list(grads)), state,
+                params)
+            want_p = optimizers.apply_updates(params, want_u)
+            leaves = tree_leaves(params) + tree_leaves(state)
+            p, s = optimizers.update_in_place(opt, list(grads), state,
+                                              params)
+            assert all(x is y for x, y in zip(
+                tree_leaves(p) + tree_leaves(s), leaves))
+            for x, y in zip(tree_leaves(p) + tree_leaves(s),
+                            tree_leaves(want_p) + tree_leaves(want_s)):
+                assert torch.equal(x, y)

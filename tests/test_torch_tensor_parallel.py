@@ -230,12 +230,14 @@ def test_tensor_parallel_train_step_matches_the_reference(world, arch,
     rparams = rmodel.init(jax.random.PRNGKey(7))
     params_np = jax.tree.map(np.asarray, rparams)
     batch = _batch(get_config(arch).reduced())
-    full, metrics, report = world.run(cases.train, arch, kw, *MESH, batch,
-                                      params=params_np)[0]
+    outs = [r[0] for r in world.run(cases.train, arch, kw, *MESH, batch,
+                                    params=params_np)]
+    full = cases.gathered(outs)
+    _, metrics, report = outs[0]
     step = jax.jit(ref_train.make_train_step(rmodel, ref_opt.sgd(1e-2)))
     rb = {k: jnp.asarray(v.astype(np.int32)) for k, v in batch.items()}
     p, _, m = step(rparams, ref_opt.sgd(1e-2).init(rparams), rb)
-    _check((cases.load(full), metrics[0]),
+    _check((full, metrics[0]),
            (jax.tree.leaves(jax.tree.map(np.asarray, p)),
             {k: float(v) for k, v in m.items()}), "reference")
     assert "vocab" in report["cut"] and len(report["cut"]) >= 2

@@ -8,9 +8,9 @@ shards, runs the sharded step and returns numpy results with the rank's
 collective counts and kernel launches. Imports torch and the port only,
 so the ranks never load jax.
 
-Large results (whole parameters, prefill logits) go through a file in
-`out_dir` when one is given (`load` reads them back): a pipe moves a
-pickled array of hundreds of MB at a few MB/s."""
+Large results (a rank's parameter shards, prefill logits) go through
+files in `out_dir` when one is given (`load` reads them back): a pipe
+moves a pickled array of hundreds of MB at a few MB/s."""
 import functools
 import os
 import time
@@ -53,17 +53,38 @@ def _params(model, params, seed, device, init="host"):
     return convert.params_from_jax(params, device)
 
 
+# the share of a card the ranks drawing a whole tree at once may fill with
+# their trees (each counted twice: a stacked leaf's layers are drawn, then
+# stacked)
+DRAW_CARD_USE = 0.6
+
+
+def drawers(rank, model):
+    """How many ranks draw a whole tree at once under a card init: as many
+    of the ranks sharing the card as DRAW_CARD_USE of its memory holds
+    (the same on every rank: the card's size, the tree's bytes)."""
+    if rank.device.type != "cuda":
+        return rank.size
+    from repro_torch.tree import tree_leaves
+    tree = sum(x.numel() * x.element_size()
+               for x in tree_leaves(model.param_specs()))
+    card = torch.cuda.get_device_properties(rank.device).total_memory
+    on_card = -(-rank.size // torch.cuda.device_count())
+    return max(1, min(on_card, int(DRAW_CARD_USE * card // (2 * tree))))
+
+
 def _shards(rank, model, params, seed, sharding, rm, init="host"):
     """The rank's shards of the whole params. Under a card init the ranks
-    draw the whole tree in turn, each keeping its shards, so the card
-    holds one whole tree at a time (the drawing rank's allocator
-    uncapped)."""
+    draw the whole tree in groups of `drawers` at once, each keeping its
+    shards, so the card holds that many whole trees at a time (the
+    drawing ranks' allocators uncapped)."""
     if init != "card" or params is not None:
         return mesh.shard_tree(_params(model, params, seed, rank.device),
                                sharding, rm)
     mine = None
-    for r in range(rank.size):
-        if r == rank.rank:
+    n = drawers(rank, model)
+    for first in range(0, rank.size, n):
+        if first <= rank.rank < first + n:
             if rank.device.type == "cuda":     # lift `_compact`'s cap
                 torch.cuda.set_per_process_memory_fraction(1.0, rank.device)
             mine = mesh.shard_tree(card_init(model, seed, rank.device),
@@ -74,26 +95,53 @@ def _shards(rank, model, params, seed, sharding, rm, init="host"):
 
 
 def _ship(rank, leaves, out_dir, name):
-    """numpy `leaves` (a list) inline, or saved under `out_dir` and named
-    by their path."""
+    """numpy `leaves` (a list) inline, or saved under `out_dir`, one raw
+    `.npy` file a leaf (no archive: a zip's checksums over GBs took
+    seconds each way), and named by their paths."""
     if out_dir is None:
         return leaves
-    path = os.path.join(out_dir, f"{name}-rank{rank.rank}.npz")
-    np.savez(path, *leaves)
-    return path
+    paths = []
+    for i, x in enumerate(leaves):
+        paths.append(os.path.join(out_dir, f"{name}-rank{rank.rank}-{i}.npy"))
+        np.save(paths[-1], x)
+    return {"npy": paths}
 
 
 def load(shipped):
-    """The list of arrays `_ship` sent."""
-    if isinstance(shipped, str):
-        with np.load(shipped) as f:
-            return [f[f"arr_{i}"] for i in range(len(f.files))]
+    """The list of arrays `_ship` sent, its files mapped copy-on-write (a
+    comparison reads them from the page cache: reading GBs into fresh
+    arrays first took three times as long)."""
+    if isinstance(shipped, dict):
+        return [np.load(p, mmap_mode="c") for p in shipped["npy"]]
     return shipped
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| over two arrays of one shape (numpy or tensors), taken
+    by torch on the host's threads (numpy takes one)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(b.device) - b).abs().max())
 
 
 def _np(tree):
     return tree_map(lambda t: t.detach().cpu().numpy()
                     if isinstance(t, torch.Tensor) else t, tree)
+
+
+def warm(rank):
+    """Import what the sharded cases run and make the rank's CUDA context
+    (one small allocation, freed after the task): a world started early
+    pays these before its first case. A draw on the meta device
+    (`Model.param_specs`) imports torch._dynamo on its first call, which
+    took 13-16 s in each of eight ranks at once."""
+    import torch._dynamo  # noqa: F401
+
+    import repro_torch.launch.serve  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401
+    import repro_torch.models.model  # noqa: F401
+    torch.zeros(1, device=rank.device)
 
 
 def _launches():
@@ -143,9 +191,10 @@ def _compact(rank, init):
 
 
 def _release(rank):
-    """Hand this rank's cached free blocks back to the card between steps:
-    the ranks share it, and a full-width step's blocks cached in one rank
-    are memory the others cannot use."""
+    """Hand this rank's cached free blocks back to the card between a
+    case's parts (its draw, its repeat, its last gathers): the ranks share
+    it, and a full-width step's blocks cached in one rank are memory the
+    others cannot use."""
     if rank.device.type == "cuda":
         torch.cuda.synchronize(rank.device)
         torch.cuda.empty_cache()
@@ -157,78 +206,148 @@ def _same(a, b):
                                                  tree_leaves(b)))
 
 
+# `train`'s default: one SGD step (lr 1e-2), not repeated
+SGD_STEP = (("sgd", 1e-2, 1, False),)
+
+
 def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
-          seed=0, opt="sgd", lr=1e-2, steps=1, reduced=True, repeat=False,
-          out_dir=None, init="host"):
-    """`steps` sharded train steps from the whole `params` (numpy, or drawn
-    from `seed`: on the host, or by `card_init` with init="card") on the
-    whole `batch` (numpy). Returns (rank 0's gathered params after the
-    steps, their leaves in tree order (`load`), else None; the metrics of
-    every step; the report). `repeat` runs the steps again from the same
-    shards and reports whether the rank's shards and metrics repeat bit
-    for bit."""
-    from repro_torch.launch.train import make_sharded_train_step
-    from repro_torch.optim import optimizers
+          seed=0, runs=SGD_STEP, reduced=True, out_dir=None, init="host"):
+    """Sharded train steps from the whole `params` (numpy, or drawn from
+    `seed`: on the host, or by `card_init` with init="card") on the whole
+    `batch` (numpy): each of `runs` ([(opt, lr, steps, repeat), ...],
+    opt "sgd" or "adamw") runs its `steps` from the same starting shards,
+    drawn once; with `repeat` it runs them again from those shards and
+    reports whether the rank's shards and metrics repeat bit for bit.
+    Returns a list, one (the rank's param shards after the steps, in tree
+    order (`load`); the metrics of every step; the report, with each
+    shard's place in its whole leaf: `gathered` joins the ranks' shards)
+    a run."""
     deterministic_f32()
+    t_build = time.perf_counter()
     dev = rank.device
     model = build(arch, reduced, **cfg_kw)
     rm = rank.mesh(MeshShape(mesh_shape, names))
     b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    steps_ = [_train_step(model, rm, b, opt, lr) for opt, lr, *_ in runs]
+    p_sh, _, b_sh = steps_[0][0].shardings
+    build_s = time.perf_counter() - t_build
+    t_draw = time.perf_counter()
+    p = _shards(rank, model, params, seed, p_sh, rm, init)
+    draw_s = time.perf_counter() - t_draw
+    _compact(rank, init)
+    from repro_torch.tree import tree_leaves
+    # a full-width model's starting shards (GBs a rank) wait on the host
+    # for the repeat and the next run, as its shards after the steps do
+    # while the repeat runs
+    park = (dev.type == "cuda" and sum(
+        t.numel() * t.element_size() for t in tree_leaves(p)) > 2**30)
+    b = mesh.shard_tree(b, b_sh, rm)
+    # the step updates its shards in place (donated): a repeat and every
+    # run after the first start from a copy of the starting shards
+    stash = (tree_map(lambda t: t.cpu() if park else t.clone(), p)
+             if len(runs) > 1 or any(r[3] for r in runs) else None)
+
+    def fresh():
+        return tree_map(lambda t: t.to(dev, copy=True), stash)
+    out = []
+    for k, ((_, _, n, again), (step, opt)) in enumerate(zip(runs, steps_)):
+        got = _train_run(rank, step, opt, p if k == 0 else fresh(),
+                         fresh if again else None, b, n, park, out_dir,
+                         f"params-{k}")
+        p = None
+        got[2].update(build_seconds=build_s, draw_seconds=draw_s)
+        out.append(got)
+    return out
+
+
+def _train_step(model, rm, b, opt, lr):
+    """(the sharded train step of `opt` at `lr`, its optimizer)."""
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.optim import optimizers
     o = (optimizers.sgd(lr) if opt == "sgd"
          else optimizers.adamw(lr, weight_decay=0.01))
     specs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
              for k, v in b.items()}
-    step = make_sharded_train_step(model, o, rm, specs)
-    p_sh, o_sh, b_sh = step.shardings
-    p = _shards(rank, model, params, seed, p_sh, rm, init)
-    _compact(rank, init)
-    # a full-width model's starting shards (GBs a rank) wait on the host
-    # for the repeat, as its shards after the steps do while it runs
+    return make_sharded_train_step(model, o, rm, specs), o
+
+
+def _train_run(rank, step, o, p, fresh, b, steps, park, out_dir, name):
+    """`steps` of `step` (optimizer `o`) from the shards `p` (updated in
+    place), repeated from `fresh()` (a copy of them) unless it is None;
+    then the rank's shards shipped. Returns one of `train`'s triples."""
     from repro_torch.tree import tree_leaves
-    park = (dev.type == "cuda" and sum(
-        t.numel() * t.element_size() for t in tree_leaves(p)) > 2**30)
+    dev = rank.device
+    p_sh = step.shardings[0]
     to_host = (lambda t: t.cpu()) if park else (lambda t: t)
-    p0 = tree_map(to_host, p) if repeat else None
-    b = mesh.shard_tree(b, b_sh, rm)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     mesh.reset_collective_counts()
     start, metrics, times = _launches(), [], []
     t0 = time.perf_counter()
     s = o.init(p)
+    # between steps the rank keeps its cache: a full-width rank's is
+    # capped (`_compact`), and emptying it made every step allocate its
+    # blocks anew on a card eight ranks share
     for _ in range(steps):
         t1 = time.perf_counter()
         p, s, m = step(p, s, b)
         _sync(rank)
         times.append(time.perf_counter() - t1)
         metrics.append({k: float(v) for k, v in m.items()})
-        _release(rank)
     report = _report(rank, start, t0)
     report["step_seconds"] = times
     report["cut"] = sorted(step.parallel.ran)
     report["local_shapes"] = step.local_shapes
     report["expert_parallel"] = step.parallel.expert_parallel
     report["gathered_bytes"] = step.parallel.gathered_bytes()
-    if repeat:
+    report["taken"] = dict(step.parallel.taken)
+    t_repeat = time.perf_counter()
+    if fresh is not None:
         p = tree_map(to_host, p)
         del s
         _release(rank)
-        q = tree_map(lambda t: t.to(dev), p0)
+        q = fresh()
         s = o.init(q)
         again = []
         for _ in range(steps):
             q, s, m = step(q, s, b)
             again.append({k: float(v) for k, v in m.items()})
-            _release(rank)
         report["bitwise_repeat"] = (_same(p, tree_map(to_host, q))
                                     and again == metrics)
         del q, s
         p = tree_map(lambda t: t.to(dev), p)
-    # every rank joins the gathers; only rank 0 copies the result out
-    full = mesh.gather_tree(p, p_sh, rm)
-    shipped = (_ship(rank, tree_leaves(_np(full)), out_dir, "params")
-               if rank.rank == 0 else None)
+    report["repeat_seconds"] = time.perf_counter() - t_repeat
+    # every rank ships its own shards and where they sit in the whole
+    # leaves (`gathered` joins them): no rank gathers a whole tree, which
+    # on eight full-width ranks sharing a card overflowed it
+    t_ship = time.perf_counter()
+    s = None
+    coords = step.parallel.rank_mesh.coords
+    report["global_shapes"] = [tuple(w.shape) for w in
+                               tree_leaves(step.parallel.param_specs)]
+    report["shard_index"] = [
+        [(d.start, d.stop) for d in sx.index(shape, coords)]
+        for sx, shape in zip(tree_leaves(p_sh), report["global_shapes"])]
+    shards = [x.detach().cpu().numpy() for x in tree_leaves(p)]
+    del p
+    _release(rank)
+    shipped = _ship(rank, shards, out_dir, name)
+    report["ship_seconds"] = time.perf_counter() - t_ship
     return shipped, metrics, report
+
+
+def gathered(outs):
+    """The whole params, in tree order, from every rank's result of
+    `train` (its shipped shards and their places)."""
+    whole = None
+    for shipped, _, rep in outs:
+        shards = load(shipped)
+        if whole is None:
+            whole = [np.empty(shape, dtype=x.dtype) for shape, x in
+                     zip(rep["global_shapes"], shards)]
+        for w, x, idx in zip(whole, shards, rep["shard_index"]):
+            w[tuple(slice(lo, hi) for lo, hi in idx)] = x
+    return whole
 
 
 def fl(rank, arch, cfg_kw, fl_kw, mesh_shape, names, batches, weights,
@@ -348,17 +467,20 @@ def _recording():
 
 def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
           params=None, seed=0, kernel=False, reduced=True, out_dir=None,
-          init="host"):
-    """The sharded prefill of the whole `tokens` (numpy (B, S)), then
+          init="host", frontend=None):
+    """The sharded prefill of the whole `tokens` (numpy (B, S)) and
+    `frontend` (numpy "vision_embeds" / "audio_frames", if any), then
     `decode_steps` sharded decode steps from an empty state fed the
     first tokens (params as `train` takes them). Returns (the rank's
     prefill rows (start, stop), [their logits] (`load`), its decode rows,
     their logits of every step (steps, rows, V), the report); `kernel`
     runs the kernel prefill. The report
     holds the block kinds that ran cut over "model" ("cut"), the shapes
-    the kernels launched at ("kernel_shapes") and the prefill's block of
-    positions ("positions": all of them but under context
-    parallelism)."""
+    the kernels launched at ("kernel_shapes"), the prefill's block of
+    token positions ("positions": all of them but under context
+    parallelism) and the runs of the one-device prefill's positions its
+    logits are, in order ("spans": a vision prefix's block of patches,
+    then its block of tokens)."""
     from repro_torch.launch.serve import (gather_logits,
                                           make_sharded_prefill_step,
                                           make_sharded_serve_step)
@@ -368,11 +490,16 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     rm = rank.mesh(MeshShape(mesh_shape, names))
     tok = torch.as_tensor(tokens, device=dev).long()
     B, S = tok.shape
-    specs = {"tokens": torch.empty((B, S), dtype=torch.int64,
-                                   device="meta")}
+    whole = {"tokens": tok}
+    for k, v in (frontend or {}).items():
+        whole[k] = torch.as_tensor(v, device=dev)
+    specs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in whole.items()}
     prefill = make_sharded_prefill_step(model, rm, specs)
     p_sh, b_sh = prefill.shardings
+    t_draw = time.perf_counter()
     p = _shards(rank, model, params, seed, p_sh, rm, init)
+    draw_s = time.perf_counter() - t_draw
     _compact(rank, init)
     rows, cols = b_sh["tokens"].index((B, S), rm.coords)[:2]
     st_specs = model.decode_state_specs(B, decode_steps)
@@ -387,7 +514,7 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     mesh.reset_collective_counts()
     start = _launches()
     t0 = time.perf_counter()
-    batch = mesh.shard_tree({"tokens": tok}, b_sh, rm)
+    batch = mesh.shard_tree(whole, b_sh, rm)
     with torch.no_grad(), _recording() as shapes:
         if kernel:
             with _kernel_prefill():
@@ -410,10 +537,19 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
         _sync(rank)
     report = _report(rank, start, t0)
     report["prefill_seconds"] = prefill_s
+    report["draw_seconds"] = draw_s
     report["decode_seconds"] = decode_s
     report["cut"] = sorted(prefill.parallel.ran | serve_step.parallel.ran)
     report["positions"] = ((cols.start, cols.stop)
                            if prefill.parallel.seq_axis else (0, S))
+    P = whole["vision_embeds"].shape[1] if "vision_embeds" in whole else 0
+    spans = [tuple(P + c for c in report["positions"])]
+    if P:
+        pr = (b_sh["vision_embeds"].index(whole["vision_embeds"].shape,
+                                          rm.coords)[1]
+              if prefill.parallel.seq_axis else slice(0, P))
+        spans.insert(0, (pr.start, pr.stop))
+    report["spans"] = spans
     report["expert_parallel"] = prefill.parallel.expert_parallel
     report["kernel_shapes"] = shapes
     return ((rows.start, rows.stop),
@@ -591,42 +727,155 @@ def ep_moe(rank, arch, cfg_kw, params, x, w):
             "kinds": kinds}
 
 
-def cp_attention(rank, arch, cfg_kw, params, x, w, window):
+def cp_attention(rank, arch, cfg_kw, params, x, w, window, runs=None):
     """`attention.attention` with the rank's block of positions (the
     "model" axis of the (4, 2) mesh carrying the sequence; every "data"
-    rank the same): rank m holds positions [m S/2, (m + 1) S/2) of `x`
-    (numpy (B, S, D)) and weighs its output by that block of `w`; the
-    mask is causal with `window` (0: none) at the block's absolute
-    positions. Returns the rank's output, its block's gradient of x and
-    the parameters' gradients summed over "model"."""
+    rank the same): the sequence of `x` (numpy (B, S, D)) is the runs of
+    lengths `runs` one after another (None: one run, the tokens; two: a
+    vision prefix's patches, then the tokens), and rank m holds block m
+    of each run (`parallel.SeqBlock`), weighing its output by those
+    positions of `w`; the mask is causal with `window` (0: none) at the
+    absolute positions. Returns the absolute positions the rank holds,
+    its output, its positions' gradient of x and the parameters'
+    gradients summed over "model"."""
     from repro_torch.core import collectives as co
     from repro_torch.models import attention as attn
+    from repro_torch.models.parallel import SeqBlock
     cfg = build(arch, True, **cfg_kw).cfg
     rm = rank.mesh(MeshShape((4, 2), ("data", "model")))
     ax = rm.axis("model")
     B, S, _ = x.shape
-    n = S // ax.size
-    lo = ax.index * n
-    p = tree_map(lambda v: torch.tensor(v).requires_grad_(True), params)
-    xr = torch.tensor(x[:, lo:lo + n]).requires_grad_(True)
+    runs = runs or [S]
 
     class View:
         seq_axis = ax
 
-        def seq_offset(self, k):
-            return ax.index * k
-
         def gather_seq(self, *xs):
             return co.gather_seq(xs, ax, dim=1)
 
-    positions = (torch.arange(n, dtype=torch.int32) + lo)[None].expand(B, n)
+    blk = SeqBlock(View(), [n // ax.size for n in runs], "cpu")
+    mine = blk.q_pos.numpy()
+    n = len(mine)
+    p = tree_map(lambda v: torch.tensor(v).requires_grad_(True), params)
+    xr = torch.tensor(x[:, mine]).requires_grad_(True)
+    positions = blk.q_pos.to(torch.int32)[None].expand(B, n)
     mask = (None if cfg.attn_impl == "chunked"
-            else attn.make_attention_mask(n, S, window=window, q_offset=lo))
+            else attn.make_attention_mask(n, S, window=window,
+                                          q_pos=blk.q_pos, k_pos=blk.k_pos))
     mesh.reset_collective_counts()
     out = attn.attention(p, cfg, xr, positions=positions, mask=mask,
-                         window=window if mask is None else 0, seq=View())
-    (out * torch.tensor(w[:, lo:lo + n])).sum().backward()
+                         window=window if mask is None else 0, seq=blk)
+    (out * torch.tensor(w[:, mine])).sum().backward()
     kinds = mesh.collective_counts()["kinds"]
     grads = tree_map(lambda v: co.all_reduce_sum(v.grad.clone(), ax), p)
-    return {"block": (lo, lo + n), "out": _np(out.detach()),
+    return {"block": mine.tolist(), "out": _np(out.detach()),
             "x_grad": _np(xr.grad), "grads": _np(grads), "kinds": kinds}
+
+
+def donated(rank, arch, cfg_kw, mesh_shape, names, batch, params, opt):
+    """One sharded train step on the rank's shards of `params` (numpy)
+    under `opt` ("sgd" with momentum or "adamw"), its optimizer recording
+    the gradient leaves the step hands it: whether the returned params
+    and optimizer state are the very tensors given, and whether they
+    equal, bit for bit, the functional update (`opt.update` then
+    `apply_updates`) of copies of the shards taken before the step with
+    those gradients."""
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.optim import optimizers
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    deterministic_f32()
+    model = build(arch, True, **cfg_kw)
+    rm = rank.mesh(MeshShape(mesh_shape, names))
+    base = (optimizers.sgd(1e-2, momentum=0.9) if opt == "sgd"
+            else optimizers.adamw(3e-4, weight_decay=0.01))
+    seen = []
+
+    def update(g, state, p):
+        seen.append(g.clone())
+        return base.update(g, state, p)
+
+    o = optimizers.Optimizer(base.init, update)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    specs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in b.items()}
+    step = make_sharded_train_step(model, o, rm, specs)
+    p_sh, _, b_sh = step.shardings
+    p = mesh.shard_tree(convert.params_from_jax(params, rank.device), p_sh,
+                        rm)
+    s = o.init(p)
+    # a first step, so AdamW's moments and SGD's momentum are not zeros
+    p, s, _ = step(p, s, mesh.shard_tree(b, b_sh, rm))
+    seen.clear()
+    p0, s0 = tree_map(torch.clone, p), tree_map(torch.clone, s)
+    p1, s1, _ = step(p, s, mesh.shard_tree(b, b_sh, rm))
+    same = all(a is c for a, c in zip(tree_leaves(p1) + tree_leaves(s1),
+                                      tree_leaves(p) + tree_leaves(s)))
+    u, want_s = base.update(tree_unflatten(p0, seen), s0, p0)
+    want_p = optimizers.apply_updates(p0, u)
+    return {"same_tensors": same,
+            "params_bitwise": _same(p1, want_p),
+            "state_bitwise": _same(s1, want_s),
+            "leaves": len(seen)}
+
+
+def tp_mla(rank, arch, cfg_kw, params, x, w, ckv, kpe, index):
+    """MLA cut by heads over the "model" axis of the (4, 2) mesh (every
+    "data" rank the same): `mla.mla_attention` on the whole `x` (numpy
+    (B, S, D)) weighted by `w`, with the rank's slices of one layer's MLA
+    `params` (numpy) by `specs.compute_layout` under "tp"; then the
+    absorbed `mla.mla_decode` of x[:, :1] against the caches `ckv` /
+    `kpe` (numpy (B, cap, 1, r) / (B, cap, 1, rope)) at `index`. Returns
+    the rank's output and x's gradient (both whole), each leaf's gradient
+    (its slice; a whole leaf's summed over "model"), the layouts, the
+    decode output and caches, and the counted kinds."""
+    from repro_torch.core import collectives as co
+    from repro_torch.models import mla
+    from repro_torch.sharding import specs as sh
+    cfg = build(arch, True, **cfg_kw).cfg
+    rm = rank.mesh(MeshShape((4, 2), ("data", "model")))
+    ax = rm.axis("model")
+    with sh.profile_ctx("tp"):
+        lay = {k: sh.compute_layout(cfg, rm.shape, f"layers/attn/{k}/kernel",
+                                    v["kernel"].shape, ax.index)
+               for k, v in params.items()}
+
+    def cut(v, lay):
+        if lay.dim is None:
+            return v
+        idx = [slice(None)] * v.ndim
+        idx[lay.dim] = slice(*lay.ranges[0])
+        return v[tuple(idx)]
+
+    p = {k: {"kernel": torch.tensor(cut(v["kernel"], lay[k]))
+             .requires_grad_(True)} for k, v in params.items()}
+
+    class View:
+        size, index = ax.size, ax.index
+
+        def f(self, t):
+            return co.copy_to(t, ax)
+
+        def g(self, t):
+            return co.reduce_from(t, ax)
+
+    B, S, _ = x.shape
+    xr = torch.tensor(x).requires_grad_(True)
+    positions = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    mesh.reset_collective_counts()
+    out = mla.mla_attention(p, cfg, xr, positions=positions, tp=View())
+    (out * torch.tensor(w)).sum().backward()
+    kinds = mesh.collective_counts()["kinds"]
+    grads = {k: (v["kernel"].grad if lay[k].dim is not None
+                 else co.all_reduce_sum(v["kernel"].grad.clone(), ax))
+             for k, v in p.items()}
+    with torch.no_grad():
+        c, k_ = torch.tensor(ckv), torch.tensor(kpe)
+        dec, c, k_ = mla.mla_decode(
+            p, cfg, xr[:, :1].detach(), positions=torch.full(
+                (B, 1), index, dtype=torch.int32), c_kv_cache=c,
+            k_pe_cache=k_, cache_index=torch.tensor(index), tp=View())
+    return {"out": _np(out.detach()), "x_grad": _np(xr.grad),
+            "grads": _np(grads), "layouts": {k: tuple(v) for k, v in
+                                             lay.items()},
+            "decode": _np(dec), "ckv": _np(c), "kpe": _np(k_),
+            "kinds": kinds}
