@@ -183,7 +183,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    bfloat16 activations, float32 parameters, remat) on MarkovLM batches
    of 4 x 2048 with grad_accum = 2 and AdamW (3e-4, weight decay 0.01,
    clip 1.0): eager, a warm-up, 2 timed steps and one profiled; then the
-   graphed step from their state: the capture timed, 4 timed replays on
+   graphed step from their state: the capture timed (one warm-up step
+   on its side stream), 4 timed replays on
    fresh batches, then 6 on one repeated batch (the first profiled), whose
    loss must fall; each side's ms per step (median and range), tokens/s,
    MFU (6 N D over the step and the bf16 peak, `launch/roofline.py`),
@@ -266,7 +267,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    phi-3-vision-4.2b's and seamless-m4t-large-v2's under fsdp (the
    vision prefix and the encoder cut by position): 512 x the FLOPs a
    device within 0.99-1.15x one device's, peaks beside the parent's;
-   (e) expert
+   the decode lines under the shipped fsdp profile (yi-9b's decode_32k
+   and long_500k on both meshes, phi3-mini's decode_32k on 16x16: FLOPs
+   a device at most 1.15x the reference's and at least 0.99x one
+   device's / chips, the peak at most 1.15x the reference's; zamba2's
+   decode_32k peak below the parent's), each beside the reference's
+   and the parent's counts; (e) expert
    parallelism on (data 4, model 2) under moe: qwen3-moe-30b-a3b at full
    width cut 48 -> 2 (drawn on the card, 8 x 512: 2 SGD steps and 1
    AdamW step at (a)'s gates, the step updating its shards in place, its
@@ -283,9 +289,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    patches + 1472 tokens), a rank's batch 2 x (288 + 736)) and
    seamless-m4t-large-v2 cut 24 + 24 -> 2 + 2 under fsdp (8 x (1024
    frames + 512 tokens)): 2 SGD and 1 AdamW steps at (a)'s gates, the
-   prefill and 4 decode steps at (c)'s. Each rank's peak
+   prefill and 4 decode steps at (c)'s; (h) the sharded decode step
+   with its KV caches kept cut as stored, at full width cut to 2 layers
+   (float32, drawn on the card, a stand-in cache of 4096 positions drawn
+   on the card, 6 steps from index 2045): yi-9b on (data 1, model 8),
+   B = 1, its 4 kv heads' caches cut by position (512 a rank, the writes
+   crossing position 2048 from rank 3's block to rank 4's), and
+   phi3-mini-3.8b on (data 2, model 4), B = 2, its caches
+   cut by heads: logits within 1e-4 of one device's max abs(logit),
+   caches within 1e-5 of their max abs(entry), a bitwise repeat, every
+   cache written where it lies (no collective moves a block). Each rank's peak
    memory and seconds a step print beside the single-device step's; no
-   kernel launches in (a), (b), (e), (f) and (g). Ranks
+   kernel launches in (a), (b), (e), (f), (g) and (h). Ranks
    sharing the card gather a layer's leaves and sum its gradients card
    to card (CUDA IPC), and sum tp's activations through gloo;
 16. the examples' twins and the graphed decode (slice 15) — (a)
@@ -3133,10 +3148,12 @@ def zamba2_train_phase(device="cuda", seed=0, B=4, S=2048, accum=2,
     # the graph: captured from the eager steps' params and state, which
     # it then updates in place
     fresh_peak()
+    # the eager steps above paid the first-use costs in this process: one
+    # warm-up step on the capture's side stream (two took ~10 s more)
     graphed, capture_ms = _timed(lambda: make_graphed_train_step(
-        model, opt, params, opt_state, batches[0], clip_norm=1.0))
+        model, opt, params, opt_state, batches[0], clip_norm=1.0, warmup=1))
     capture_peak = peak()
-    print(f"  capture: {capture_ms:.0f} ms (two warm-up steps on a clone of "
+    print(f"  capture: {capture_ms:.0f} ms (one warm-up step on a clone of "
           f"the params and optimizer state, then the capture); peak "
           f"{(capture_peak or 0) / 2**30:.2f} GiB", flush=True)
     if on_card:
@@ -4291,7 +4308,8 @@ def _sharded_train_case(world, label, arch, kw, B, S, reduced, device,
     single_s = time.perf_counter() - t_case
     with tempfile.TemporaryDirectory() as tmp:
         t_world = time.perf_counter()
-        runs = world.run(cases.train, arch, kw, *mesh, bnp, reduced=reduced,
+        runs = world.run(cases.train, arch, kw, *mesh,
+                         cases.stage(bnp, tmp, "batch"), reduced=reduced,
                          out_dir=tmp, init=init, runs=[
                              (name, lr, steps, name == "sgd")
                              for name, _, lr, steps in todo])
@@ -4760,7 +4778,9 @@ def _sharded_serve_case(world, label, arch, kw, B, S, steps, reduced,
     with tempfile.TemporaryDirectory() as tmp:
         outs = world.run(cases.serve, arch, kw, *mesh, tokens.numpy(), steps,
                          reduced=reduced, out_dir=tmp, init=init,
-                         frontend={k: v.numpy() for k, v in front.items()})
+                         frontend=cases.stage({k: v.numpy() for k, v in
+                                               front.items()}, tmp,
+                                              "frontend"))
         for (a, b), lg, *_, rep in outs:
             want = np.concatenate([logits[a:b, lo:hi]
                                    for lo, hi in rep["spans"]], 1)
@@ -4951,6 +4971,136 @@ def sharded_mp_phase(world, device="cuda"):
     return out
 
 
+# 15(h): the sharded decode step, its KV caches kept cut as stored: (arch,
+# the depth cut at full width, B, cache positions, the first step's index,
+# the mesh); 6 steps each
+CUT_DECODE_CASES = (
+    ("yi-9b", 2, 1, 4096, 2045, ((1, 8), ("data", "model"))),
+    ("phi3-mini-3.8b", 2, 2, 4096, 2045, ((2, 4), ("data", "model"))))
+CUT_DECODE_STEPS = 6
+CUT_DECODE_LOGIT_REL = 1e-4     # of the one-device logits' max |logit|
+# of the cache's max |entry|: the new entries of layer 1 come through
+# layer 0's sums over "model" in another order than one device's (yi-9b
+# read 1.1e-6 on the card, PERF.md section 6); a misplaced write is O(1)
+CUT_DECODE_CACHE_REL = 1e-5
+
+
+def _decode_cut_kw(arch, layers, **kw):
+    """15(h)'s depth cut of `arch` at full width, in float32."""
+    return dict(dtype="float32", num_layers=layers, **kw)
+
+
+def _decode_case(world, arch, layers, B, cap, start, mesh, device):
+    """One 15(h) case: the model at full width cut to `layers`, float32,
+    its shipped profile, drawn on the card; a stand-in state of B rows
+    and `cap` positions drawn on the card
+    (`torch_sharded_cases.stand_in_state`); CUT_DECODE_STEPS decode steps from
+    index `start` on the ranks of `mesh` (`torch_sharded_cases.decode_cut`)
+    against one device, from the same draws."""
+    import numpy as np
+    import torch
+    import torch_sharded_cases as cases
+    from repro_torch.launch.serve import decode_state_shardings
+    from repro_torch.sharding.specs import MeshShape
+    from repro_torch.tree import tree_leaves
+
+    t_case = time.perf_counter()
+    kw = _decode_cut_kw(arch, layers)
+    model = cases.build(arch, False, **kw)
+    label = (f"{arch} cut -> {layers} ({model.cfg.sharding_profile}, "
+             f"{'x'.join(map(str, mesh[0]))}), B {B}, {cap} positions")
+    tokens = np.random.default_rng(5).integers(
+        0, model.cfg.vocab_size, (CUT_DECODE_STEPS, B))
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = cases.card_init(model, 0, device)
+    state = cases.stand_in_state(model, B, cap, start, 1, device, card=True)
+    want, secs = [], []
+    with torch.no_grad():
+        for t in tokens:
+            lg, ms = _timed(lambda: model.decode_step(
+                params, state, torch.as_tensor(t[:, None], device=device)))
+            lg, state = lg
+            secs.append(ms / 1e3)
+            want.append(lg[:, 0].float().cpu().numpy())
+    want = np.stack(want)
+    caches = {f"layers/{i}/{n}": st[n].float().cpu().numpy()
+              for i, st in enumerate(state["layers"]) for n in ("k", "v")}
+    single_peak = torch.cuda.max_memory_allocated() if on_card else None
+    del params, state
+    if on_card:
+        torch.cuda.empty_cache()
+    specs = model.decode_state_specs(B, cap)
+    stored = {p: s.indices_map(tuple(x.shape)) for (p, x), s in zip(
+        _leaf_paths(specs), tree_leaves(decode_state_shardings(
+            specs, MeshShape(*mesh), model.cfg)))}
+    scale = float(np.abs(want).max())
+    lerr = cerr = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = world.run(cases.decode_cut, arch, kw, *mesh, B, cap, start,
+                         tokens, reduced=False, init="card", out_dir=tmp)
+        for r, ((a, b), logits, (names, shipped), _) in enumerate(outs):
+            lerr = max(lerr, float(np.abs(logits - want[:, a:b]).max()))
+            for name, got in zip(names, cases.load(shipped)):
+                whole = caches[name]
+                cerr = max(cerr, cases.max_abs_diff(
+                    got, whole[stored[name][r]]) / max(
+                        1.0, float(np.abs(whole).max())))
+    reps = [o[3] for o in outs]
+    out = {"B": B, "cap": cap, "start": start, "steps": CUT_DECODE_STEPS,
+           "mesh": mesh, "logits_max_abs_err": lerr, "logits_max_abs": scale,
+           "cache_rel_err": cerr,
+           "repeat_bitwise": all(r["repeat_bitwise"] for r in reps),
+           "cache_in_place": all(r["cache_in_place"] for r in reps),
+           "caches": reps[0]["caches"],
+           "cuts": sorted({c[0] for r in reps for c in r["caches"].values()}),
+           "single_s_per_step": secs,
+           "rank_s_per_step": [statistics.median(r["step_seconds"])
+                               for r in reps],
+           "single_peak_mb": _mb({"peak_bytes": single_peak}),
+           "rank_peak_mb": [_mb(r) for r in reps],
+           "collectives": reps[0]["collectives"]["kinds"],
+           "cut": reps[0]["cut"],
+           "rank_draw_s": max(r["draw_seconds"] for r in reps)}
+    out["seconds"] = time.perf_counter() - t_case
+    print(f"  {label}: caches cut by {out['cuts']} (a rank's first: "
+          f"{out['caches']['layers/0']}); logits |sharded - single| "
+          f"{lerr:.3e} (bar {CUT_DECODE_LOGIT_REL} x {scale:.3f}); caches "
+          f"{cerr:.3e} of their max |entry| (bar {CUT_DECODE_CACHE_REL}); "
+          f"repeat bitwise {out['repeat_bitwise']}; caches written where "
+          f"they lie "
+          f"{out['cache_in_place']}; s/step ranks "
+          f"{max(out['rank_s_per_step']):.3f} single "
+          f"{statistics.median(secs):.4f}; peak MB ranks "
+          f"{out['rank_peak_mb']} single {out['single_peak_mb']}; "
+          f"collectives {out['collectives']}; draw {out['rank_draw_s']:.1f}s;"
+          f" {out['seconds']:.1f}s", flush=True)
+    if not (lerr <= CUT_DECODE_LOGIT_REL * scale
+            and cerr <= CUT_DECODE_CACHE_REL and out["repeat_bitwise"]
+            and out["cache_in_place"]):
+        raise SystemExit(f"15(h) {label}: {out}")
+    return out
+
+
+def sharded_decode_phase(world, device="cuda"):
+    """15(h): the sharded decode step keeps its KV caches cut as
+    `decode_state_shardings` stores them (CUT_DECODE_CASES): yi-9b's 4 kv
+    heads cut by position over "model" (every rank the same row, 512
+    positions a rank, the steps writing across position 2048 from rank
+    3's block to rank 4's), phi3-mini's 32 cut by heads. Gates: the
+    logits within CUT_DECODE_LOGIT_REL of one device's max |logit|, the
+    caches within CUT_DECODE_CACHE_REL, a bitwise repeat, and every cache
+    written where it lies (no collective moved a block)."""
+    from repro_torch.device import deterministic_f32
+    deterministic_f32()
+    out = {}
+    for arch, layers, B, cap, start, mesh in CUT_DECODE_CASES:
+        out[arch] = _decode_case(world, arch, layers, B, cap, start, mesh,
+                                 device)
+    return out
+
+
 DRYRUN_FL = (("hfl", "fedavg"), ("afl", "fedavg"), ("afl", "gossip"),
              ("cfl", "fedavg"))
 # the dry-runs that fit the script's time limit; the whole sweep (every
@@ -4978,6 +5128,96 @@ DRYRUN_CP_RATIO = (0.99, 1.15)  # 512 x per device / one device
 PARENT_MP = {"deepseek-v2-lite-16b": (294.1e12, 10.67e9),
              "phi-3-vision-4.2b": (1320.3e12, 26.12e9),
              "seamless-m4t-large-v2": (285.8e12, 177.38e9)}
+
+
+# 15(d)'s decode lines under the shipped profiles (fsdp), a device:
+# (FLOPs, peak bytes, collective bytes). The reference's through its
+# dry-run CLI (`python -m repro.launch.dryrun --arch A --shape S --mesh
+# both`, 256 or 512 forced host devices) on a CPU (the card's host has no
+# jax; collective bytes read for yi-9b decode_32k on 16x16 only); the
+# parent's (the tree before the decode step kept its caches cut) through
+# the port's CLI on the meta device (PERF.md section 6)
+REFERENCE_DECODE = {
+    ("yi-9b", "decode_32k", "16x16"): (6.088e10, 10.51e9, 7.6e9),
+    ("yi-9b", "long_500k", "16x16"): (1.185e10, 3.57e9, None),
+    ("yi-9b", "decode_32k", "2x16x16"): (8.149e10, 10.29e9, None),
+    ("yi-9b", "long_500k", "2x16x16"): (1.173e10, 4.48e9, None),
+    ("phi3-mini-3.8b", "decode_32k", "16x16"): (2.209e10, 14.32e9, None),
+    ("zamba2-1.2b", "decode_32k", "16x16"): (1.920e10, 3.22e9, None)}
+PARENT_DECODE = {
+    ("yi-9b", "decode_32k", "16x16"): (343_228_284_928.0, 29_907_368_068,
+                                       61_087_432_704.0),
+    ("yi-9b", "long_500k", "16x16"): (429_450_592_256.0, 58_243_154_000,
+                                      86_857_236_480.0),
+    ("yi-9b", "decode_32k", "2x16x16"): (171_614_142_464.0, 16_912_571_460,
+                                         48_202_530_816.0),
+    ("yi-9b", "long_500k", "2x16x16"): (429_450_592_256.0, 58_939_143_216,
+                                        86_857_236_480.0),
+    ("phi3-mini-3.8b", "decode_32k", "16x16"): (162_637_283_328.0,
+                                                116_565_847_156,
+                                                118_363_533_312.0),
+    ("zamba2-1.2b", "decode_32k", "16x16"): (36_085_481_472.0,
+                                             19_267_689_732,
+                                             19_234_886_144.0)}
+# the gated lines: per-device FLOPs at most DRYRUN_DECODE_RATIO[1] x the
+# reference's and at least DRYRUN_DECODE_RATIO[0] x one device's / chips;
+# the peak at most DRYRUN_DECODE_RATIO[1] x the reference's. zamba2's
+# Mamba2 state stays gathered (ROADMAP A.19b): its peak below the parent's
+DRYRUN_DECODE_RATIO = (0.99, 1.15)
+DRYRUN_DECODE_GATED = ("yi-9b", "phi3-mini-3.8b")
+
+
+def _dry_decode(out):
+    """15(d)'s decode lines: yi-9b's decode_32k and long_500k on both
+    meshes (from `out`, the dry-runs just made), phi3-mini's and zamba2's
+    decode_32k on 16x16, each beside the reference's counts, the parent's
+    and one device's (the whole batch and cache on a (1, 1) mesh) / chips,
+    gated (DRYRUN_DECODE_RATIO)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.specs import MeshShape
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in out
+           if r.get("kind") == "decode"}
+    lines, bad = [], []
+    lo, hi = DRYRUN_DECODE_RATIO
+    for key in REFERENCE_DECODE:
+        arch, shape, mesh_name = key
+        t1 = time.perf_counter()
+        r = got.get(key) or dryrun.lower_and_compile(
+            arch, shape, multi_pod=mesh_name == "2x16x16", verbose=False)
+        cfg = dryrun._apply_overrides(get_config(arch), None)
+        spec = INPUT_SHAPES[shape]
+        one = dryrun.run_step(cfg, "decode", spec.global_batch, spec.seq_len,
+                              MeshShape((1, 1), ("data", "model")))["flops"]
+        flops = r["roofline"]["flops_per_device"]
+        peak = r["memory"]["peak_bytes"]
+        coll = r["roofline"]["collective_bytes_per_device"]
+        ref, parent = REFERENCE_DECODE[key], PARENT_DECODE[key]
+        r.update(profile=cfg.sharding_profile, one_device_flops=one,
+                 ratio_to_one_device=r["chips"] * flops / one,
+                 reference=ref, parent=parent)
+        gated = arch in DRYRUN_DECODE_GATED
+        ok = (flops <= hi * ref[0] and r["ratio_to_one_device"] >= lo
+              and peak <= hi * ref[1]) if gated else peak < parent[1]
+        r["decode_gate"] = ok
+        print(f"  {arch} {shape} {mesh_name} {cfg.sharding_profile}: FLOPs a "
+              f"device {flops:.4g} (reference {ref[0]:.4g}, parent "
+              f"{parent[0]:.4g}; x {r['chips']} / one device "
+              f"{r['ratio_to_one_device']:.4f}); peak {peak / 1e9:.2f} GB "
+              f"(reference {ref[1] / 1e9:.2f}, parent {parent[1] / 1e9:.2f});"
+              f" collectives {coll / 1e9:.2f} GB (reference "
+              f"{'not measured' if ref[2] is None else f'{ref[2] / 1e9:.1f}'},"
+              f" parent {parent[2] / 1e9:.2f}); "
+              f"{'gated' if gated else 'peak below the parent'} "
+              f"{'ok' if ok else 'FAILED'} ({time.perf_counter() - t1:.1f}s)",
+              flush=True)
+        lines.append(r)
+        if not ok:
+            bad.append(key)
+    if bad:
+        raise SystemExit(f"15(d) the decode lines {bad}: {lines}")
+    return lines
 
 
 def _dry_expert_bytes(arch, B, S):
@@ -5099,7 +5339,9 @@ def dryrun_phase():
     """15(d): the port's dry-run on the meta device (no card), at full
     size: each FL strategy over phi3-mini on 16x16, yi-9b's decode shapes
     on 16x16 and 2x16x16, and yi-9b's train_4k on 16x16 under fsdp and
-    tp. Each must return ok with FLOPs and collectives; train_4k's
+    tp. Each must return ok with FLOPs and collectives; the decode lines
+    (with phi3-mini's and zamba2's decode_32k) are gated by `_dry_decode`;
+    train_4k's
     per-device FLOPs under tp at most DRYRUN_TP_FLOPS_RATIO x fsdp's, its
     peak under fsdp below the whole model's f32 parameters and under tp
     below DRYRUN_TP_PEAK. Then `_dry_extra`: qwen3-moe train_4k on 16x16
@@ -5152,6 +5394,8 @@ def dryrun_phase():
                          f"(tp, bar {DRYRUN_TP_PEAK})")
     print(f"  {len(out)} dry-runs in {time.perf_counter() - t0:.1f}s; "
           f"yi-9b train_4k tp / fsdp FLOPs {ratio:.3f}", flush=True)
+    decode = _dry_decode(out)
+    out.extend(r for r in decode if r not in out)
     for r in _dry_extra(time.perf_counter()).values():
         out.append(r)
     return out
@@ -5179,7 +5423,7 @@ def _exchange_snapshot(world, when):
 
 
 def sharded_phase(device="cuda", dry=None, early=None):
-    """15(a)-(c) and (e)-(g) on one world of SHARDED_RANKS ranks sharing
+    """15(a)-(c) and (e)-(h) on one world of SHARDED_RANKS ranks sharing
     the card (`early`, an `_EarlyWorld` started earlier; None: started
     here), with 15(d) in a child process (`dry`, a `_DryRunProcess`
     started earlier; None: started here, beside the ranks, whose step
@@ -5275,7 +5519,7 @@ class _EarlyWorld:
 
 
 def _sharded_parts(out, device, t0, early=None):
-    """15(a)-(c) and (e)-(g) on one world of SHARDED_RANKS ranks sharing
+    """15(a)-(c) and (e)-(h) on one world of SHARDED_RANKS ranks sharing
     the card (`sharded_phase`; `early` an `_EarlyWorld` holding it)."""
     from repro_torch.launch import mesh
     if early is None:
@@ -5301,7 +5545,9 @@ def _sharded_parts(out, device, t0, early=None):
                 ("cp", "(f) context parallelism (fsdp, 2x2x2)",
                  sharded_cp_phase),
                 ("mp", "(g) the shipped multi-pod profiles (2x2x2)",
-                 sharded_mp_phase)):
+                 sharded_mp_phase),
+                ("decode", "(h) the sharded decode step, its caches cut as "
+                 "stored", sharded_decode_phase)):
             print(f"  -- {label} (at {time.perf_counter() - t0:.1f}s)",
                   flush=True)
             out[key] = fn(world, device)

@@ -501,9 +501,13 @@ class _GatherLeaves(torch.autograd.Function):
                     [(shards[i],) + c for i, c in cards])):
                 full[i] = x
         else:
+            # each leaf's slice is cut as soon as it is gathered, so one
+            # gathered leaf at a time is alive
             for i, p in enumerate(plans):
                 for d, axis in p.dims:
                     full[i] = all_gather(full[i], axis, dim=d)
+                full[i] = _select(full[i], p.select)
+            return tuple(full)
         return tuple(_select(x, p.select) for x, p in zip(full, plans))
 
     @staticmethod

@@ -7,14 +7,15 @@ rank keeps its shards of the parameters (`specs.tree_shardings`), of the
 batch (`train.batch_shardings`) and of the decode state
 (`decode_state_shardings`, `token_shardings`). A step runs the model on
 the rank's batch rows and its stored shards (`models.parallel`): each
-layer takes its compute slices when it runs, and under the tp profile a
-rank computes its "model" shard of each layer, so its logits are its
+layer takes its compute slices when it runs, and under the tp profile
+(and in every decode step, whose ranks along "model" hold the same rows)
+a rank computes its "model" shard of each layer, so its logits are its
 vocabulary columns (`gather_logits` joins them). The decode state's KV
-caches cut by heads over "model" stay cut (they hold the rank's kv
-heads); the rest of the state is gathered over its non-batch axes for
-the step and cut again after it. With `attn_impl="flash"` or the kernel
-prefill, the flash and scan kernels launch in every rank, on its rows
-and its heads.
+caches stay cut as they are stored, by kv heads or by position, and the
+rank computes where its block lies (`Parallel.cache`); the rest of the
+state is gathered over its non-batch axes for the step and cut again
+after it. With `attn_impl="flash"` or the kernel prefill, the flash and
+scan kernels launch in every rank, on its rows and its heads.
 """
 from __future__ import annotations
 
@@ -245,45 +246,42 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
     `decode_state_shardings` and `token_shardings` of the global shapes
     (`state_specs`, e.g. `model.decode_state_specs(B, cap)`, and
     `token_spec`); `.shardings` holds the three, `.parallel` the rank's
-    view. Under a cut attention a KV cache cut by heads over "model" is
-    the rank's kv heads and stays so; every other state leaf is gathered
-    over its non-batch axes for the step and cut again after it, and its
-    block (a cache cut by sequence or not at all, Mamba2's state) is
-    computed whole: every kv head's new entry, the whole Mamba2 layer.
-    MLA's latent and rotary caches are gathered alike, and every rank
-    writes the same new entry to them, but its heads are cut over
-    "model" (`models.mla`). Under the single-pod moe profile the ranks along "model" hold the
-    same rows: each runs its experts on them and one sum over "model"
-    follows (`moe_ffn`'s `tp` form)."""
+    view. The tokens are cut over the FSDP axes only, so the ranks along
+    "model" hold the same rows under every profile and each computes its
+    "model" shard of the layers (`models.parallel`, `decode=True`). Each
+    KV cache of a GQA layer stays as it is stored and is written in place:
+    the rank computes with its kv heads, or over its block of positions
+    with the partial softmaxes joined over the ranks
+    (`Parallel.cache`). Every other state leaf is gathered over its
+    non-batch axes for the step and cut again after it: Mamba2's state
+    (the layer computed whole), xLSTM's, the cross-attention caches, and
+    MLA's latent and rotary caches, to which every rank writes the same
+    new entry while its heads are cut over "model" (`models.mla`)."""
     from repro_torch.launch.mesh import cut_from, gather_tree
     from repro_torch.models import parallel
     mesh = rank_mesh.shape
     cfg = model.cfg
+    st_sh = decode_state_shardings(state_specs, mesh, cfg)
+    caches = {path.rsplit("/", 1)[0]: (tuple(x.shape), s)
+              for (path, x), s in zip(tree_leaves(sh._paths(state_specs)),
+                                      tree_leaves(st_sh))
+              if _KV_LEAF.match(path) and path.endswith("/k")
+              and cfg.attention_kind == "gqa"}
     with sh.config_rules(cfg):
         p_specs = model.param_specs()
         p_sh = sh.tree_shardings(p_specs, mesh)
-        name = sh.tp_axis(mesh)
-        M = sh.axis_size(mesh, name) if name else 1
-        heads_cut = sh.cut_kinds(cfg, M)["attn"] and (
-            cfg.num_kv_heads % M == 0)
         t_sh = token_shardings(token_spec, mesh)
         keep = _lead_axes(t_sh)
-        view = parallel.Parallel(
-            cfg, rank_mesh, p_sh, p_specs, row_axes=keep,
-            whole=("mamba",) + (() if heads_cut else ("kv",)))
-    st_sh = decode_state_shardings(state_specs, mesh, cfg)
+        view = parallel.Parallel(cfg, rank_mesh, p_sh, p_specs,
+                                 row_axes=keep, whole=("mamba",),
+                                 decode=True, caches=caches)
     body = make_serve_step(model)
 
-    def kept(pair, sharding):
-        # a cache whose heads lie over "model" as the rank computes them
-        spec = list(sharding.spec)
-        return bool(heads_cut and _KV_LEAF.match(pair[0]) and len(spec) > 2
-                    and spec[2] == name)
-
-    # per leaf, the axes the step keeps cut: the batch axes (the rank's
-    # rows), and "model" for a kept cache; every other axis is gathered
-    keeps = tree_map(lambda pair, s: tuple(keep) + (
-        (name,) if kept(pair, s) else ()), sh._paths(state_specs), st_sh)
+    # per leaf, the axes the step keeps cut: every stored axis of a kept
+    # KV cache, the batch axes (the rank's rows) of the rest; every other
+    # axis is gathered
+    keeps = tree_map(lambda pair, s: s.axes() if pair[0].rsplit(
+        "/", 1)[0] in caches else tuple(keep), sh._paths(state_specs), st_sh)
 
     def cut(x, s, k):
         if not isinstance(x, torch.Tensor) or set(s.axes()) <= set(k):

@@ -109,7 +109,7 @@ def _batch_key(batch):
 
 
 def make_graphed_train_step(model, opt, params, opt_state, batch,
-                            clip_norm: float = 1.0):
+                            clip_norm: float = 1.0, warmup: int = 2):
     """`make_train_step` bound to `params` and `opt_state` and, on the
     card, captured as one CUDA graph: the port's form of the reference's
     `jax.jit(make_train_step(...))` with its state donated.
@@ -128,7 +128,7 @@ def make_graphed_train_step(model, opt, params, opt_state, batch,
     As `jax.jit` retraces for a new input shape, a batch whose shapes or
     dtypes differ from every earlier one is captured as a graph of its
     own, in the first graph's memory pool. Each capture is
-    `launch.graph.capture`'s: two warm-up steps on a side stream on a
+    `launch.graph.capture`'s: `warmup` steps on a side stream on a
     throwaway clone of the params and optimizer state, then one captured
     step, which runs nothing. A capture that fails raises RuntimeError:
     there is no eager fallback on the card. On CPU params the same
@@ -164,7 +164,8 @@ def make_graphed_train_step(model, opt, params, opt_state, batch,
             buf = {k: v.to(dev, copy=True) for k, v in b.items()}
             pool = next(iter(graphs.values()))[1].pool() if graphs else None
             graph, metrics = capture(lambda st: body(st, buf), state,
-                                     "the train step", pool=pool)
+                                     "the train step", pool=pool,
+                                     warmup=warmup)
             graphs[key] = (buf, graph, metrics)
         return graphs[key]
 

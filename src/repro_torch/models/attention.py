@@ -25,6 +25,16 @@ contiguous run: a vision prefix's block and a token block): causal,
 sliding-window and GQA alike. It runs the einsum or chunked path, never
 the flash kernel, as the reference's `_maybe_flash` refuses a query
 offset.
+
+Under `kv` (a decode step's `models.parallel.KVCut`: the rank's block of
+a KV cache cut over "model", `_cut_decode`) the rank's columns of `wq`,
+`wk` and `wv` project the new token; where its block holds positions
+rather than its kv heads, q, k and v are gathered over "model". The
+entry is written where the block holds its slot, and the rank attends
+over its span of positions with its query heads: a float32 partial
+softmax (row max m_r, sum l_r, unnormalised o_r), joined over the axes
+that split the positions as o = sum_r e^(m_r - m) o_r / sum_r e^(m_r - m)
+l_r (flash-decoding's split). The rank then takes its rows of `wo`.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, dense, init_dense
 
@@ -172,19 +183,106 @@ def _maybe_flash(cfg, q, k, v, *, causal, window, q_offset):
 def _rank_kv(cfg, tp, q_heads, k, v):
     """The rank's kv heads for its `q_heads` query heads, laid out for
     `gqa_attention` (query head i reads kv head i // (q_heads / kv
-    heads)): `k` / `v` hold the rank's kv heads, or all of them (a decode
-    cache not cut by heads), which are cut; kv heads that straddle the
-    rank's groups are repeated, one a query head."""
+    heads)): `k` / `v` hold the rank's kv heads; kv heads that straddle
+    the rank's groups are repeated, one a query head."""
     q0, hl, k0, kl = _heads(cfg, tp)
-    if k.shape[2] != kl:
-        k, v = k[:, :, k0:k0 + kl], v[:, :, k0:k0 + kl]
+    return _kv_for(cfg, q0, q_heads, k0, k, v)
+
+
+def _kv_for(cfg, q0, hl, kv0, k, v):
+    """The kv heads query heads [q0, q0 + hl) read, laid out for
+    `gqa_attention`, from `k` / `v` holding kv heads from `kv0` on."""
     G = cfg.num_heads // cfg.num_kv_heads
-    want = [(q0 + i) // G - k0 for i in range(q_heads)]
-    if q_heads % kl == 0 and want == [i // (q_heads // kl)
-                                      for i in range(q_heads)]:
+    first, last = q0 // G, (q0 + hl - 1) // G
+    kl = last - first + 1
+    if first - kv0 or k.shape[2] != kl:
+        k = k[:, :, first - kv0:last + 1 - kv0]
+        v = v[:, :, first - kv0:last + 1 - kv0]
+    want = [(q0 + i) // G - first for i in range(hl)]
+    if hl % kl == 0 and want == [i // (hl // kl) for i in range(hl)]:
         return k, v
     idx = torch.tensor(want, device=k.device)
     return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _partial_softmax(q, k, v, valid, scale):
+    """One rank's share of single-query attention: q (B, 1, H, dh) against
+    k, v (B, T, Hk, dh) at the `valid` (T,) slots -> (m, l, o) in float32,
+    the row max (B, Hk, G, 1), the sum of e^(s - m) and the unnormalised
+    output (B, Hk, G, 1, dh). A span with no valid slot gives l = o = 0
+    and m = NEG_INF, whose weight e^(m - max) in `_join` is zero."""
+    B, S, H, dh = q.shape
+    Hk = k.shape[2]
+    qg = q.reshape(B, S, Hk, H // Hk, dh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    s = torch.where(valid, s, neg)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]),
+                    torch.zeros((), dtype=torch.float32, device=q.device))
+    return m, p.sum(dim=-1), torch.einsum("bkgst,btkd->bkgsd", p,
+                                          v.float())
+
+
+def _join(m, l, o, axis):
+    """The output (B, Hk, G, 1, dh) of the ranks' partial softmaxes joined
+    over `axis` (None: this rank's alone): one max and one sum over it."""
+    if axis is not None:
+        top = collectives.max_over(m, axis)
+        w = torch.exp(m - top)
+        both = collectives.sum_over(
+            torch.cat([o * w[..., None], (l * w)[..., None]], -1), axis)
+        o, l = both[..., :-1], both[..., -1]
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _cut_decode(params, cfg, x, *, positions, cache_kv, cache_index,
+                window, theta, tp, kv):
+    """The decode attention of one rank's block of a KV cache (module
+    docstring): -> (out, (new_ck, new_cv)), the block written in place."""
+    from repro_torch.models import kvcache as kvc
+    dh, H = cfg.head_dim, cfg.num_heads
+    q0, hl = kv.heads
+    if tp is not None:
+        x = tp.f(x)
+    q, k, v = (dense(params[n], x) for n in ("wq", "wk", "wv"))
+    if tp is not None and kv.kind != "heads":
+        # the rank's columns are not its heads: every rank gathers the
+        # new token's k and v (its block may hold the slot) and, to attend
+        # with every head, its q
+        k, v = tp.gather(k), tp.gather(v)
+        if hl == H:
+            q = tp.gather(q)
+    q = _split_heads(q, q.shape[-1] // dh, dh)
+    k = _split_heads(k, k.shape[-1] // dh, dh)
+    v = _split_heads(v, v.shape[-1] // dh, dh)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    if kv.row_axis is not None:
+        # the block holds other ranks' rows too: their new entries
+        k = collectives.all_gather(k.contiguous(), kv.row_axis, dim=0)
+        v = collectives.all_gather(v.contiguous(), kv.row_axis, dim=0)
+    ck, cv = kvc.update_layer(*cache_kv, cache_index, k, v, window=window,
+                              offset=kv.offset, capacity=kv.capacity)
+    lo, n = kv.span
+    r0, nr = kv.rows
+    valid = kvc.valid_mask(cache_index, kv.capacity, window=window,
+                           device=x.device, offset=kv.offset + lo, length=n)
+    kk, vv = _kv_for(cfg, q0, hl, kv.kv0, ck[r0:r0 + nr, lo:lo + n],
+                     cv[r0:r0 + nr, lo:lo + n])
+    out = _join(*_partial_softmax(q, kk, vv, valid, 1.0 / math.sqrt(dh)),
+                kv.axis)
+    B = x.shape[0]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, hl * dh).to(q.dtype)
+    if tp is not None and hl == H:
+        # every head's output: the rank's rows of `wo` take their columns
+        cols = H * dh // tp.size
+        out = out[..., tp.index * cols:(tp.index + 1) * cols]
+    return layers.row(params["wo"], out, tp), (ck, cv)
 
 
 def _heads(cfg, tp):
@@ -194,7 +292,7 @@ def _heads(cfg, tp):
 
 def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
               cache_index=None, window=0, causal=True, rope_theta=None,
-              kv_override=None, tp=None, seq=None):
+              kv_override=None, tp=None, seq=None, kv=None):
     """Full attention block (projections + SDPA + output projection).
 
     Train/prefill: cache_kv=None, x: (B,S,D).
@@ -209,10 +307,14 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
     and `mask` are its own, the mask (S, T) against every rank's keys).
     With `kv_override` and `seq` the given keys and values are the rank's
     block, gathered here (cross-attention to an encoder cut by position;
-    no mask).
+    no mask). `kv`: a decode step's cut cache (module docstring).
     """
     dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if kv is not None:
+        return _cut_decode(params, cfg, x, positions=positions,
+                           cache_kv=cache_kv, cache_index=cache_index,
+                           window=window, theta=theta, tp=tp, kv=kv)
     if tp is not None:
         x = tp.f(x)
     # the head counts of the rank's slices (all of them off a mesh)
@@ -244,6 +346,9 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
         k, v = _rank_kv(cfg, tp, H, k, v)
     if cache_kv is not None:
         from repro_torch.models import kvcache as kvc
+        if tp is not None:
+            raise ValueError("a cut attention decodes through its cache's "
+                             "KVCut (`kv`)")
         ck, cv = cache_kv
         cap = ck.shape[1]
         ck, cv = kvc.update_layer(ck, cv, cache_index, k, v, window=window)
@@ -254,8 +359,6 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
                             torch.zeros((), device=x.device),
                             torch.full((), NEG_INF, device=x.device))
         amask = amask[None, None].expand(x.shape[0], 1, q.shape[1], cap)
-        if tp is not None:
-            ck, cv = _rank_kv(cfg, tp, H, ck, cv)
         out = gqa_attention(q, ck, cv, amask)
     elif kv_override is not None:
         if cfg.attn_impl == "chunked":

@@ -14,11 +14,12 @@ As in the reference, nothing fills "cross" from the encoder (it stays
 zeros), and `decode_step` takes tokens only (no vision prefix).
 
 On a mesh (`models.parallel.current()`) the step takes each layer's
-compute slices as `transformer.forward` does: attention runs on the
-rank's query heads (its kv heads' caches, or the whole caches where they
-are not cut by heads: then it writes every kv head), the MLP and MoE on
-the rank's columns and experts, Mamba2 whole (its state is not cut by
-heads), and the logits are the rank's vocabulary columns.
+compute slices as `transformer.forward` does: attention computes where
+the rank's block of its KV cache lies (`Parallel.cache`: its kv heads, or
+a block of positions whose partial softmaxes are joined over the ranks;
+`models.attention`), the MLP and MoE on the rank's columns and experts,
+Mamba2 whole (its state is not cut by heads), and the logits are the
+rank's vocabulary columns.
 """
 from __future__ import annotations
 
@@ -100,7 +101,10 @@ def init_decode_state(cfg, batch, capacity, prefill_len=0,
     return state
 
 
-def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None):
+def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None,
+                 key=""):
+    """One attention layer's decode step; `key` the path of its state
+    ("layers/3", "shared/0": `Parallel.cache`)."""
     positions = index.reshape(1, 1).expand(x.shape[0], 1)
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
@@ -113,7 +117,8 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None):
         a, (ck, cv) = attn_mod.attention(
             lp["attn"], cfg, h, positions=positions,
             cache_kv=(st["k"], st["v"]), cache_index=index, window=window,
-            tp=_tp(par, "attn"))
+            tp=_tp(par, "attn"),
+            kv=None if par is None else par.cache(key))
         st = {"k": ck, "v": cv}
     x = x + a
     if cross_kv is not None:
@@ -159,12 +164,14 @@ def decode_step(params, cfg, state, tokens):
         if uses_shared(cfg, i):
             x, new_shared[shared_i] = _attn_decode(
                 take(params["shared_attn"], "shared_attn"), cfg, x,
-                state["shared"][shared_i], index, 0, par=par)
+                state["shared"][shared_i], index, 0, par=par,
+                key=f"shared/{shared_i}")
             shared_i += 1
         if kind == "attn":
             cross_kv = state["cross"][i] if cfg.encoder_layers else None
             x, st = _attn_decode(lp, cfg, x, st, index,
-                                 _decode_window(cfg, i), cross_kv, par)
+                                 _decode_window(cfg, i), cross_kv, par,
+                                 f"layers/{i}")
         else:
             h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
             if kind == "mamba":

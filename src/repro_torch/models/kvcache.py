@@ -49,7 +49,8 @@ def cache_layer(cache: KVCache, layer: int):
     return cache.k[layer], cache.v[layer]
 
 
-def update_layer(cache_k, cache_v, index, new_k, new_v, window=0):
+def update_layer(cache_k, cache_v, index, new_k, new_v, window=0,
+                 offset=0, capacity=None):
     """Write one decode step (new_k/new_v: (B, n, Hk, dh)) at `index` (a
     0-d integer tensor, or an int).
 
@@ -57,22 +58,46 @@ def update_layer(cache_k, cache_v, index, new_k, new_v, window=0):
     the write position wraps (ring buffer). As `lax.dynamic_update_slice`,
     a start that would run past the end is clamped to cap - n. The
     position stays on the device.
+
+    `offset` / `capacity`: the caches hold positions [offset, offset +
+    their length) of a cache of `capacity` (a rank's block cut by
+    position). One token (n = 1) is written where its position falls in
+    the block; elsewhere the block's slot keeps its entry, so the test
+    stays on the device too.
     """
-    cap, n = cache_k.shape[1], new_k.shape[1]
+    blk, n = cache_k.shape[1], new_k.shape[1]
+    cap = blk if capacity is None else capacity
     index = torch.as_tensor(index, device=cache_k.device)
     pos = torch.remainder(index, cap) if window > 0 else index
     pos = torch.clamp(pos, 0, cap - n).long()
-    slots = pos + torch.arange(n, device=cache_k.device)
-    cache_k.index_copy_(1, slots, new_k.to(cache_k.dtype))
-    cache_v.index_copy_(1, slots, new_v.to(cache_v.dtype))
+    if offset == 0 and cap == blk:
+        slots = pos + torch.arange(n, device=cache_k.device)
+        cache_k.index_copy_(1, slots, new_k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slots, new_v.to(cache_v.dtype))
+        return cache_k, cache_v
+    if n != 1:
+        raise ValueError(f"a block of a cache takes one token a write, "
+                         f"not {n}")
+    local = pos - offset
+    owns = (local >= 0) & (local < blk)
+    slot = torch.clamp(local, 0, blk - 1).reshape(1)
+    for cache, new in ((cache_k, new_k), (cache_v, new_v)):
+        kept = cache.index_select(1, slot)
+        cache.index_copy_(1, slot, torch.where(owns, new.to(cache.dtype),
+                                               kept))
     return cache_k, cache_v
 
 
-def valid_mask(index, capacity, window=0, device="cuda"):
-    """(capacity,) bool — which cache slots hold valid, attendable entries
-    at `index` (a 0-d integer tensor, or an int)."""
+def valid_mask(index, capacity, window=0, device="cuda", offset=0,
+               length=None):
+    """(capacity,) bool: which cache slots hold valid, attendable entries
+    at `index` (a 0-d integer tensor, or an int). `offset` / `length`:
+    only slots [offset, offset + length) of the `capacity`."""
     device = resolve_device(device)
-    slots = torch.arange(capacity, device=device)
+    slots = torch.arange(capacity if length is None else length,
+                         device=device)
+    if offset:
+        slots = slots + offset
     index = torch.as_tensor(index, device=device)
     if window > 0:
         n_valid = torch.clamp(index + 1, max=capacity)

@@ -27,6 +27,21 @@ recompute and no rank ever holds the whole tree:
   rank's tokens routed to them, through an all-to-all
   (`collectives.all_to_all`). Where those ranks hold the same rows (the
   decode step), `tp("moe")` cuts the experts with a sum over "model".
+* A decode step (`decode=True`: `launch.serve.make_sharded_serve_step`)
+  cuts its tokens over the FSDP axes only, so the ranks along "model" hold
+  the same rows under every profile and each computes its "model" shard
+  of attention, the MLPs, the experts and the vocabulary. Its KV caches
+  stay cut as `decode_state_shardings` stores them: `cache(key)` is a
+  layer's `KVCut`, which says where the rank's cache lies and what it
+  computes there. A cache cut by kv heads over "model" holds the rank's
+  heads, which its own columns of `wq` / `wk` / `wv` project. A cache cut
+  by position (or whole) holds a block of positions: the rank gathers the
+  new token's q, k and v over "model", writes the entry if its block holds
+  the slot, and attends with every query head over its block, the partial
+  softmaxes then joined over the axes that split the positions
+  (flash-decoding's split, `models.attention`). Ranks that hold the same
+  block and the same rows (the batch axes where the batch does not divide,
+  long_500k's one row) split the block's positions between them too.
 * `seq()` is the view where the step's batch stays cut by sequence over
   `specs.seq_axis` (the multi-pod fsdp profile's context parallelism):
   a rank holds a block of positions, attends with its own queries to
@@ -47,7 +62,7 @@ from __future__ import annotations
 import contextlib
 import math
 import weakref
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +97,29 @@ def _at(tree, key):
     return tree
 
 
+class KVCut(NamedTuple):
+    """Where a rank's block of one (B, cap, Hk, dh) KV cache lies and what
+    it computes there (`Parallel.cache`). `kind` is the stored cut over
+    "model" (`specs.cache_cut`: "heads", "seq" or "whole"); the block
+    holds positions [`offset`, `offset` + its length) of `capacity` and kv
+    heads from `kv0` on. The rank attends with query heads `heads` (first,
+    count) over positions `span` (start, count) of its block, and joins
+    its partial softmaxes over `axis` (a `launch.mesh.MeshAxis`; None: its
+    span is every position). Its token rows are `rows` (start, count) of
+    the block's; where the block holds more rows than the rank's tokens
+    (a batch cut over fewer axes than the tokens), the new entries of the
+    others come over `row_axis` (else None)."""
+    kind: str
+    capacity: int
+    offset: int
+    kv0: int
+    heads: Tuple[int, int]
+    span: Tuple[int, int]
+    axis: object
+    rows: Tuple[int, int]
+    row_axis: object
+
+
 class Parallel:
     """One rank's view: its `rank_mesh`, the model config's compute
     layouts for the rank's index on "model", and the stored shardings of
@@ -90,34 +128,42 @@ class Parallel:
     `batch_axes` are the axes whose gradients are summed over (the ranks
     holding other rows or other positions); `row_axes` the axes whose
     ranks hold other rows (default `batch_axes`). `whole` names blocks a
-    decode step computes whole ("kv", "mamba"; `specs.compute_layout`).
+    decode step computes whole ("mamba"; `specs.compute_layout`).
     `seq` names the axes the step's batch stays cut by sequence over (the
-    caller's batch spec; `specs.context_parallel`), () where it is not."""
+    caller's batch spec; `specs.context_parallel`), () where it is not.
+    `decode` makes a decode step's view (module docstring); `caches` maps
+    each KV cache it keeps cut (a state path, "layers/3") to its global
+    shape and stored `NamedSharding`."""
 
     def __init__(self, cfg, rank_mesh, shardings, param_specs, *,
                  batch_axes: Sequence[str] = (), whole: Sequence[str] = (),
                  row_axes: Optional[Sequence[str]] = None,
-                 seq: Sequence[str] = ()):
+                 seq: Sequence[str] = (), decode: bool = False,
+                 caches=None):
         mesh = rank_mesh.shape
-        self.name, experts_only = sh.model_axis(mesh)
+        self.name, experts_only = sh.model_axis(mesh, decode)
         self.axis = rank_mesh.axis(self.name) if self.name else None
         self.size = self.axis.size if self.axis else 1
         self.index = self.axis.index if self.axis else 0
         self.cut: Dict[str, bool] = sh.cut_kinds(cfg, self.size,
-                                                 experts_only)
+                                                 experts_only, decode)
         if "mamba" in whole:
             self.cut["mamba"] = False
         rows = batch_axes if row_axes is None else row_axes
+        self.row_axes = tuple(rows)
         # the experts' all-to-all: ranks along the expert axis hold other
         # rows; holding the same rows they cut the experts with a sum
         self.expert_parallel = experts_only and self.name in rows
         self.layouts = sh.compute_layouts(cfg, mesh, param_specs,
-                                          self.index, whole)
+                                          self.index, whole, decode)
         self.param_specs = param_specs
         self.shardings = shardings
         self.rank_mesh = rank_mesh
         self.batch_axes = tuple(batch_axes)
         self.seq_axis = rank_mesh.axis(seq) if seq else None
+        self.caches: Dict[str, KVCut] = {
+            key: self._kv_cut(cfg, shape, s)
+            for key, (shape, s) in (caches or {}).items()}
         self.ran = set()         # the block kinds that ran cut
         # leaf path -> the shape of the compute slice `take` last made
         self.taken: Dict[str, tuple] = {}
@@ -144,6 +190,55 @@ class Parallel:
             self.ran.add(kind)
             return self
         return None
+
+    def cache(self, key: str) -> Optional[KVCut]:
+        """The `KVCut` of the KV cache at state path `key` ("layers/3",
+        "shared/0"), None where the step gathers it whole."""
+        return self.caches.get(key)
+
+    def _kv_cut(self, cfg, shape, sharding) -> KVCut:
+        """The rank's `KVCut` of a cache of global `shape` stored by
+        `sharding`. Its query heads: its own (H / M from index x H / M)
+        where the block holds its kv heads, or where the cache is whole and
+        its projections are cut by heads; else all of them. Its positions:
+        the block's, cut again evenly over the axes whose ranks hold the
+        same block and the same rows ("model" too for a whole cache
+        attended with every head) where the block's length divides."""
+        mesh, axis = self.rank_mesh.shape, self.rank_mesh.axis
+        H = cfg.num_heads
+        kind = sh.cache_cut(sharding.spec)
+        where = sharding.index(shape, self.rank_mesh.coords)
+        blk = where[1].stop - where[1].start
+        M = self.size
+        own = (kind == "heads" or (kind == "whole" and self.cut["attn"]
+                                   and H % M == 0))
+        heads = (self.index * H // M, H // M) if own else (0, H)
+        # the token rows' axes the block's rows are not cut over
+        more = tuple(a for a in self.row_axes
+                     if a not in sh.entry_axes(sharding.spec[0]))
+        n_rows = (where[0].stop - where[0].start) // sh.axis_size(mesh, more)
+        rows = (axis(more).index * n_rows if more else 0, n_rows)
+        held = (set(sharding.axes()) | set(self.row_axes)
+                | ({self.name} if own else set()))
+        spare = tuple(a for a in mesh.axis_names
+                      if a not in held and mesh.shape[a] > 1)
+        R = sh.axis_size(mesh, spare)
+        split = spare if spare and blk % R == 0 else ()
+        span = (0, blk)
+        if split:
+            n = blk // R
+            span = (axis(split).index * n, n)
+        joined = tuple(a for a in mesh.axis_names if a in split
+                       or (a == "model" and kind == "seq"))
+        return KVCut(kind, shape[1], where[1].start, where[2].start, heads,
+                     span, axis(joined) if joined else None, rows,
+                     axis(more) if more else None)
+
+    def gather(self, x):
+        """The ranks' `x` along "model" joined on its last dim (the new
+        token's q, k or v from the rank's columns of a decode step's
+        projections)."""
+        return collectives.all_gather(x.contiguous(), self.axis, dim=-1)
 
     def seq(self) -> Optional["Parallel"]:
         """This view where the step's rows are cut by sequence (context

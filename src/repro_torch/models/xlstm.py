@@ -214,16 +214,16 @@ def init_slstm_state(cfg, batch, dtype=torch.float32, device="cuda"):
     return state
 
 
-def _slstm_cell(params, zt, it, ft, ot, state):
+def _slstm_cell(rec_w, zt, it, ft, ot, state):
     """One sLSTM step; gate preactivations (B,H,dh) already include the
-    input."""
-    h_prev = state["h"].float()
-
-    def rec(w):
-        return torch.einsum("bhd,hde->bhe", h_prev, w.float())
-    zt = torch.tanh(zt + rec(params["rz"]))
-    it = it + rec(params["ri"])
-    ft = ft + rec(params["rf"])
+    input. `rec_w` (H, dh, 3 dh): the z, i and f recurrent weights side
+    by side, one product a step (three a step made the loop's launches
+    and autograd nodes the FL trainer's cost on the card)."""
+    rz, ri, rf = torch.einsum("bhd,hde->bhe", state["h"].float(),
+                              rec_w).chunk(3, dim=-1)
+    zt = torch.tanh(zt + rz)
+    it = it + ri
+    ft = ft + rf
     log_f = F.logsigmoid(ft)
     m_new = torch.maximum(log_f + state["m"], it)
     i_s = torch.exp(it - m_new)
@@ -244,9 +244,10 @@ def slstm_forward(params, cfg, x, state=None):
         for w in ("wz", "wi", "wf", "wo_gate"))
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
+    rec_w = torch.cat([params[w].float() for w in ("rz", "ri", "rf")], -1)
     hs = []
     for t in range(S):
-        state = _slstm_cell(params, z_pre[:, t], i_pre[:, t], f_pre[:, t],
+        state = _slstm_cell(rec_w, z_pre[:, t], i_pre[:, t], f_pre[:, t],
                             o_pre[:, t], state)
         hs.append(state["h"])
     y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)

@@ -508,18 +508,25 @@ def remap_act_spec(spec, mesh) -> PartitionSpec:
 # (one all-reduce over "model" each), MoE experts, Mamba2 heads and the
 # vocabulary. Under the single-pod moe profile "model" carries rows and the
 # experts (`ep_axis`): a rank computes only its experts, on every rank's
-# tokens routed to them (the all-to-all of `models.moe`). `compute_layout` says, for one leaf, which slice of it the rank
-# computes with; `models.parallel.Parallel.take` makes that slice from the
-# rank's stored shard, one layer at a time.
+# tokens routed to them (the all-to-all of `models.moe`). A decode step
+# cuts its tokens over the FSDP axes only, so the ranks along "model" hold
+# the same rows under every profile: there a rank computes its "model"
+# shard whatever the profile (`decode=True`), and its attention computes
+# where its KV cache lies (`cache_cut`). `compute_layout` says, for one
+# leaf, which slice of it the rank computes with;
+# `models.parallel.Parallel.take` makes that slice from the rank's stored
+# shard, one layer at a time.
 # ---------------------------------------------------------------------------
 
-def tp_axis(mesh):
+def tp_axis(mesh, decode: bool = False):
     """"model" where a rank computes its "model" shard of each layer: the
-    tp profile and the multi-pod moe profile, on a mesh whose "model" axis
-    has more than one rank; else None (every rank along "model" computes
-    whole layers on its own rows)."""
+    tp profile and the multi-pod moe profile, and a decode step (`decode`)
+    under every profile, on a mesh whose "model" axis has more than one
+    rank; else None (every rank along "model" computes whole layers on its
+    own rows)."""
     prof = get_profile()
-    if not (prof == "tp" or (prof == "moe" and "pod" in mesh.axis_names)):
+    if not (decode or prof == "tp"
+            or (prof == "moe" and "pod" in mesh.axis_names)):
         return None
     return "model" if axis_size(mesh, "model") > 1 else None
 
@@ -535,11 +542,11 @@ def ep_axis(mesh):
     return "model" if axis_size(mesh, "model") > 1 else None
 
 
-def model_axis(mesh):
+def model_axis(mesh, decode: bool = False):
     """The axis a rank computes its "model" shard over, and whether only
     the experts are cut there: (`tp_axis`, False), else (`ep_axis`,
     True), else (None, False)."""
-    name = tp_axis(mesh)
+    name = tp_axis(mesh, decode)
     if name:
         return name, False
     name = ep_axis(mesh)
@@ -550,14 +557,17 @@ def _mamba_heads(cfg) -> int:
     return cfg.mamba_expand * cfg.d_model // cfg.ssm_head_dim
 
 
-def cut_kinds(cfg, M: int, experts_only: bool = False) -> Dict[str, bool]:
+def cut_kinds(cfg, M: int, experts_only: bool = False,
+              decode: bool = False) -> Dict[str, bool]:
     """Which of the config's blocks a "model" axis of M ranks cuts: GQA
     attention and MLA by heads, the dense MLP and MoE's shared experts by
     columns, MoE by experts, Mamba2 by heads, the embedding and logits by
     the vocabulary. A block whose count does not divide over M is computed
     whole on every rank (gemma3-4b's 8 heads at M = 16), as are xLSTM, the
     encoder, cross-attention and the vision projection (ROADMAP A.19b).
-    `experts_only` (the `ep_axis`): only MoE's experts."""
+    `experts_only` (the `ep_axis`): only MoE's experts. A decode step's
+    GQA attention (`decode`) cuts its projections' columns evenly where
+    they divide, whatever its head counts (`_decode_attn_layout`)."""
     out = {k: False for k in ("attn", "mla", "mlp", "moe", "mamba",
                               "vocab")}
     if M < 2:
@@ -567,7 +577,10 @@ def cut_kinds(cfg, M: int, experts_only: bool = False) -> Dict[str, bool]:
         return out
     ff = cfg.num_shared_experts * cfg.d_ff if cfg.moe else cfg.d_ff
     heads = cfg.num_heads % M == 0
-    out.update(attn=cfg.attention_kind == "gqa" and heads,
+    dh = cfg.head_dim
+    attn = heads if not decode else (
+        cfg.num_heads * dh % M == 0 and cfg.num_kv_heads * dh % M == 0)
+    out.update(attn=cfg.attention_kind == "gqa" and attn,
                mla=cfg.attention_kind == "mla" and heads,
                mlp=ff > 0 and ff % M == 0,
                mamba=bool(cfg.ssm_state) and _mamba_heads(cfg) % M == 0,
@@ -609,15 +622,15 @@ def attn_heads(cfg, M: int, index: int):
 
 
 def compute_layout(cfg, mesh, path: str, shape, index: int,
-                   whole=()) -> Layout:
+                   whole=(), decode: bool = False) -> Layout:
     """The compute layout of the leaf at `path` (its per-layer `shape`, the
     stacked layer dim dropped) on the rank at index `index` of the
     "model" axis. `whole` names blocks computed whole all the same (a
-    decode step's "kv" where the cache is not cut by heads, and its
-    "mamba", whose state is cut across heads)."""
-    name, experts_only = model_axis(mesh)
+    decode step's "mamba", whose state is cut across heads); `decode`:
+    the layouts of a decode step (`tp_axis`, `_decode_attn_layout`)."""
+    name, experts_only = model_axis(mesh, decode)
     M = axis_size(mesh, name) if name else 1
-    cut = cut_kinds(cfg, M, experts_only)
+    cut = cut_kinds(cfg, M, experts_only, decode)
     seg = path.split("/")
     if (M < 2 or seg[0] in ("encoder", "vision_proj")
             or "cross_attn" in seg):
@@ -635,12 +648,12 @@ def compute_layout(cfg, mesh, path: str, shape, index: int,
     if "attn" in seg:
         if not cut["attn"]:
             return WHOLE
+        if decode:
+            return _decode_attn_layout(leaf, shape, index, M)
         dh = cfg.head_dim
         q0, hl, k0, kl = attn_heads(cfg, M, index)
         qr = [(q0 * dh, (q0 + hl) * dh)]
         kr = [(k0 * dh, (k0 + kl) * dh)]
-        if re.match(r"(wk|wv|k_norm)(/|$)", leaf) and "kv" in whole:
-            return WHOLE
         if leaf == "wq/kernel":
             return Layout("column", 1, qr, True)
         if leaf == "wq/bias":
@@ -704,12 +717,45 @@ def compute_layout(cfg, mesh, path: str, shape, index: int,
     return WHOLE
 
 
+def _decode_attn_layout(leaf: str, shape, index: int, M: int) -> Layout:
+    """A decode step's GQA attention: `wq`, `wk` and `wv` (and their
+    biases) cut into M equal column blocks, `wo` into M equal row blocks.
+    Where the kv heads divide over M a block is the rank's heads (its KV
+    cache's); elsewhere the rank gathers the new token's q, k and v over
+    "model" and attends over its block of cache positions
+    (`models.attention`), then takes its rows of `wo`."""
+    def block(d):
+        n = shape[d] // M
+        return [(index * n, (index + 1) * n)]
+    if leaf in ("wq/kernel", "wk/kernel", "wv/kernel"):
+        return Layout("column", 1, block(1), True)
+    if leaf in ("wq/bias", "wk/bias", "wv/bias"):
+        return Layout("column", 0, block(0), True)
+    if leaf == "wo/kernel":
+        return Layout("row", 0, block(0), True)
+    if leaf in ("q_norm/scale", "k_norm/scale"):
+        return Layout("whole", None, (), True)
+    return WHOLE               # wo/bias: added after the all-reduce
+
+
+def cache_cut(spec) -> str:
+    """How a (B, cap, Hk, dh) KV cache's stored spec cuts it over "model":
+    "heads" (its kv heads), "seq" (its positions) or "whole"
+    (`launch.serve.decode_state_shardings`)."""
+    entries = list(spec) + [None] * (4 - len(spec))
+    if "model" in entry_axes(entries[2]):
+        return "heads"
+    if "model" in entry_axes(entries[1]):
+        return "seq"
+    return "whole"
+
+
 def _mla_layout(cfg, leaf: str, index: int, M: int) -> Layout:
     """MLA cut by heads (`models.mla`): the rank's heads' columns of `wq`
     (nope + rope a head), `w_uk` (nope) and `w_uv` (v_head_dim), its rows
     of `wo`; `w_dkv` and `w_kpe` whole, their gradients the rank's heads'
-    part. A decode step's caches stay whole, so its "kv" changes
-    nothing here."""
+    part. A decode step gathers its latent and rotary caches whole
+    (ROADMAP A.19b), so its layouts are these."""
     hl = cfg.num_heads // M
     q0 = index * hl
 
@@ -726,7 +772,8 @@ def _mla_layout(cfg, leaf: str, index: int, M: int) -> Layout:
     return WHOLE
 
 
-def compute_layouts(cfg, mesh, params, index: int, whole=()):
+def compute_layouts(cfg, mesh, params, index: int, whole=(),
+                    decode: bool = False):
     """`compute_layout` over a parameter tree (leaves with `.shape`);
     a leaf stacked under `layers/` gets its per-layer layout."""
     def one(pair):
@@ -734,5 +781,5 @@ def compute_layouts(cfg, mesh, params, index: int, whole=()):
         shape = tuple(leaf.shape)
         if _STACKED_RE.search(path) and len(shape) >= 2:
             shape = shape[1:]
-        return compute_layout(cfg, mesh, path, shape, index, whole)
+        return compute_layout(cfg, mesh, path, shape, index, whole, decode)
     return tree_map(one, _paths(params))

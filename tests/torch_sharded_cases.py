@@ -107,6 +107,30 @@ def _ship(rank, leaves, out_dir, name):
     return {"npy": paths}
 
 
+def stage(arrays, out_dir, name):
+    """The numpy `arrays` (a dict) of a task's input as every rank takes
+    them: each saved once under `out_dir` as a raw `.npy` file (`_ship`'s
+    form), which the ranks map (`unstage`); without `out_dir` the arrays
+    themselves. A task's arguments reach the ranks one after another
+    through pipes at tens of MB/s on the card's host: a 57 MB vision
+    prefix reached the eighth rank ~16 s after the first, which waited
+    that long at the draw's barrier."""
+    if out_dir is None:
+        return arrays
+    out = {}
+    for k, v in arrays.items():
+        path = os.path.join(out_dir, f"{name}-{k}.npy")
+        np.save(path, v)
+        out[k] = {"npy": [path]}
+    return out
+
+
+def unstage(arrays):
+    """`stage`'s arrays, each mapped from its file (`load`)."""
+    return {k: load(v)[0] if isinstance(v, dict) else v
+            for k, v in arrays.items()}
+
+
 def load(shipped):
     """The list of arrays `_ship` sent, its files mapped copy-on-write (a
     comparison reads them from the page cache: reading GBs into fresh
@@ -214,7 +238,7 @@ def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
           seed=0, runs=SGD_STEP, reduced=True, out_dir=None, init="host"):
     """Sharded train steps from the whole `params` (numpy, or drawn from
     `seed`: on the host, or by `card_init` with init="card") on the whole
-    `batch` (numpy): each of `runs` ([(opt, lr, steps, repeat), ...],
+    `batch` (numpy arrays, or `stage`'s files): each of `runs` ([(opt, lr, steps, repeat), ...],
     opt "sgd" or "adamw") runs its `steps` from the same starting shards,
     drawn once; with `repeat` it runs them again from those shards and
     reports whether the rank's shards and metrics repeat bit for bit.
@@ -227,7 +251,8 @@ def train(rank, arch, cfg_kw, mesh_shape, names, batch, *, params=None,
     dev = rank.device
     model = build(arch, reduced, **cfg_kw)
     rm = rank.mesh(MeshShape(mesh_shape, names))
-    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    b = {k: torch.as_tensor(v, device=dev)
+         for k, v in unstage(batch).items()}
     steps_ = [_train_step(model, rm, b, opt, lr) for opt, lr, *_ in runs]
     p_sh, _, b_sh = steps_[0][0].shardings
     build_s = time.perf_counter() - t_build
@@ -491,7 +516,7 @@ def serve(rank, arch, cfg_kw, mesh_shape, names, tokens, decode_steps, *,
     tok = torch.as_tensor(tokens, device=dev).long()
     B, S = tok.shape
     whole = {"tokens": tok}
-    for k, v in (frontend or {}).items():
+    for k, v in unstage(frontend or {}).items():
         whole[k] = torch.as_tensor(v, device=dev)
     specs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
              for k, v in whole.items()}
@@ -879,3 +904,117 @@ def tp_mla(rank, arch, cfg_kw, params, x, w, ckv, kpe, index):
                                              lay.items()},
             "decode": _np(dec), "ckv": _np(c), "kpe": _np(k_),
             "kinds": kinds}
+
+
+def stand_in_state(model, B, cap, index, seed, device, card=False):
+    """A decode state of B rows and `cap` positions at `index`: its KV
+    caches ("layers" and "shared") hold standard normal entries at
+    positions [0, index) and zeros beyond, drawn by numpy's
+    `default_rng(seed)` (or, `card`, by a generator on `device` seeded
+    with `seed`: the same draw on every process of one card); its other
+    leaves are as `init_decode_state` makes them."""
+    from repro_torch.tree import tree_leaves
+    state = model.init_decode_state(B, cap, prefill_len=index,
+                                    device=device)
+    rng = None if card else np.random.default_rng(seed)
+    g = None
+    if card:
+        g = torch.Generator(device=device)
+        g.manual_seed(int(seed))
+    for key in ("layers", "shared"):
+        for leaf in tree_leaves([{n: st[n] for n in ("k", "v") if n in st}
+                                 for st in state.get(key, [])]):
+            shape = (leaf.shape[0], index) + tuple(leaf.shape[2:])
+            draw = (torch.randn(shape, generator=g, device=device) if card
+                    else torch.as_tensor(rng.standard_normal(shape,
+                                                             np.float32)))
+            leaf[:, :index] = draw.to(leaf.device, leaf.dtype)
+    return state
+
+
+def decode_cut(rank, arch, cfg_kw, mesh_shape, names, B, cap, index, tokens,
+               *, params=None, seed=0, reduced=True, init="host",
+               out_dir=None):
+    """The sharded decode step (`launch.serve.make_sharded_serve_step`)
+    fed `tokens` (numpy (steps, B)), one a step, from the stand-in state
+    of B rows and `cap` positions at `index` (`stand_in_state`, seed
+    `seed` + 1), twice from the same state (params as `train` takes
+    them). Returns (the rank's rows (start, stop), their logits of every
+    step (steps, rows, V), its KV cache shards after the steps as
+    {state path: array} (`_ship`), the report): each step's seconds, the
+    cut of each cache ("caches"), whether every state leaf had its stored
+    shard's shape after each step and every cache was the tensor it was
+    written in ("cache_in_place"), and whether the repeat gave the same
+    logits and caches bit for bit ("repeat_bitwise")."""
+    from repro_torch.launch.serve import gather_logits, make_sharded_serve_step
+    from repro_torch.tree import tree_leaves
+    deterministic_f32()
+    dev = rank.device
+    model = build(arch, reduced, **cfg_kw)
+    rm = rank.mesh(MeshShape(mesh_shape, names))
+    st_specs = model.decode_state_specs(B, cap)
+    step = make_sharded_serve_step(model, rm, st_specs,
+                                   model.decode_token_specs(B))
+    p_sh, st_sh, t_sh = step.shardings
+    t_draw = time.perf_counter()
+    p = _shards(rank, model, params, seed, p_sh, rm, init)
+    _compact(rank, init)
+    first = mesh.shard_tree(stand_in_state(model, B, cap, index, seed + 1,
+                                           dev, card=init == "card"),
+                            st_sh, rm)
+    draw_s = time.perf_counter() - t_draw
+    shapes = [s.shard_shape(tuple(x.shape)) for x, s in zip(
+        tree_leaves(st_specs), tree_leaves(st_sh))]
+    keys = [(k, n) for k in sorted(step.parallel.caches) for n in ("k", "v")]
+
+    def leaf(st, key, n):
+        kind, i = key.split("/")
+        return st[kind][int(i)][n]
+    toks = torch.as_tensor(tokens, device=dev).long()
+    drows = t_sh.index((B, 1), rm.coords)[0]
+    runs = []
+    for run in range(2):
+        # the first run steps a copy, the repeat the shards themselves
+        state = (tree_map(lambda t: t.clone(), first) if run == 0
+                 else first)
+        _release(rank)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh.reset_collective_counts()
+        start, t_run = _launches(), time.perf_counter()
+        in_place = True
+        outs, secs = [], []
+        with torch.no_grad():
+            for i in range(toks.shape[0]):
+                t0 = time.perf_counter()
+                lg, new = step(p, state, mesh.shard(toks[i][:, None], t_sh,
+                                                    rm))
+                _sync(rank)
+                secs.append(time.perf_counter() - t0)
+                in_place &= all(leaf(new, k, n) is leaf(state, k, n)
+                                for k, n in keys)
+                in_place &= [tuple(x.shape) for x in tree_leaves(new)
+                             if isinstance(x, torch.Tensor)] == [
+                    s for x, s in zip(tree_leaves(new), shapes)
+                    if isinstance(x, torch.Tensor)]
+                state = new
+                outs.append(lg[:, 0])
+            report = _report(rank, start, t_run)
+            logits = torch.stack([gather_logits(lg, step.parallel)
+                                  for lg in outs]).float()
+        caches = {f"{k}/{n}": leaf(state, k, n) for k, n in keys}
+        runs.append((logits, caches, in_place, secs, report))
+    (logits, caches, in_place, secs, report), again = runs[0], runs[1]
+    report["repeat_bitwise"] = bool(torch.equal(logits, again[0]) and all(
+        torch.equal(caches[k], again[1][k]) for k in caches))
+    report["cache_in_place"] = bool(in_place and again[2])
+    report["step_seconds"] = secs
+    report["draw_seconds"] = draw_s
+    report["caches"] = {k: (c.kind, c.offset, c.span, c.heads)
+                        for k, c in step.parallel.caches.items()}
+    report["cut"] = sorted(step.parallel.ran)
+    paths = sorted(caches)
+    shipped = _ship(rank, [caches[k].float().cpu().numpy() for k in paths],
+                    out_dir, "caches")
+    return ((drows.start, drows.stop), logits.cpu().numpy(),
+            (paths, shipped), report)
