@@ -4976,7 +4976,17 @@ def sharded_mp_phase(world, device="cuda"):
 # the mesh); 6 steps each
 CUT_DECODE_CASES = (
     ("yi-9b", 2, 1, 4096, 2045, ((1, 8), ("data", "model"))),
-    ("phi3-mini-3.8b", 2, 2, 4096, 2045, ((2, 4), ("data", "model"))))
+    ("phi3-mini-3.8b", 2, 2, 4096, 2045, ((2, 4), ("data", "model"))),
+    ("zamba2-1.2b", 2, 2, 4096, 2045, ((2, 4), ("data", "model"))))
+# each case's ranks on the parent tree (every weight gathered whole, then
+# cut): the slowest rank's median seconds a step in two runs, rank 0's
+# all-gather bytes a step (tests/torch_decode_ab.py in an earlier call, on
+# another host: PERF.md section 6). The seconds are printed as that call's,
+# not as an A/B with this run's, which only one call can make; the bytes
+# do not depend on the host
+PARENT_CUT_DECODE = {"yi-9b": ((0.5727, 0.5817), 1_384_243_200),
+                     "phi3-mini-3.8b": ((0.2397, 0.3191), 906_031_104),
+                     "zamba2-1.2b": ((0.2209, 0.2297), 206_864_896)}
 CUT_DECODE_STEPS = 6
 CUT_DECODE_LOGIT_REL = 1e-4     # of the one-device logits' max |logit|
 # of the cache's max |entry|: the new entries of layer 1 come through
@@ -4986,7 +4996,10 @@ CUT_DECODE_CACHE_REL = 1e-5
 
 
 def _decode_cut_kw(arch, layers, **kw):
-    """15(h)'s depth cut of `arch` at full width, in float32."""
+    """15(h)'s depth cut of `arch` at full width, in float32 (a Mamba2
+    stack's pattern cut alike)."""
+    if arch == "zamba2-1.2b":
+        kw["block_pattern"] = ("mamba",) * layers
     return dict(dtype="float32", num_layers=layers, **kw)
 
 
@@ -5025,8 +5038,10 @@ def _decode_case(world, arch, layers, B, cap, start, mesh, device):
             secs.append(ms / 1e3)
             want.append(lg[:, 0].float().cpu().numpy())
     want = np.stack(want)
-    caches = {f"layers/{i}/{n}": st[n].float().cpu().numpy()
-              for i, st in enumerate(state["layers"]) for n in ("k", "v")}
+    caches = {f"{key}/{i}/{n}": st[n].float().cpu().numpy()
+              for key in ("layers", "shared")
+              for i, st in enumerate(state.get(key, []))
+              for n in ("k", "v") if n in st}
     single_peak = torch.cuda.max_memory_allocated() if on_card else None
     del params, state
     if on_card:
@@ -5048,9 +5063,13 @@ def _decode_case(world, arch, layers, B, cap, start, mesh, device):
                     got, whole[stored[name][r]]) / max(
                         1.0, float(np.abs(whole).max())))
     reps = [o[3] for o in outs]
+    counts = reps[0]["collectives"]
+    gathered = counts["kind_bytes"].get("all-gather", 0) / CUT_DECODE_STEPS
+    parent = PARENT_CUT_DECODE.get(arch)
     out = {"B": B, "cap": cap, "start": start, "steps": CUT_DECODE_STEPS,
            "mesh": mesh, "logits_max_abs_err": lerr, "logits_max_abs": scale,
-           "cache_rel_err": cerr,
+           "cache_rel_err": cerr, "rank_gathered_bytes_per_step": gathered,
+           "stills": reps[0]["stills"], "parent": parent,
            "repeat_bitwise": all(r["repeat_bitwise"] for r in reps),
            "cache_in_place": all(r["cache_in_place"] for r in reps),
            "caches": reps[0]["caches"],
@@ -5064,15 +5083,21 @@ def _decode_case(world, arch, layers, B, cap, start, mesh, device):
            "cut": reps[0]["cut"],
            "rank_draw_s": max(r["draw_seconds"] for r in reps)}
     out["seconds"] = time.perf_counter() - t_case
+    first = next(iter(sorted(out["caches"].items())), (None, None))[1]
     print(f"  {label}: caches cut by {out['cuts']} (a rank's first: "
-          f"{out['caches']['layers/0']}); logits |sharded - single| "
+          f"{first}); logits |sharded - single| "
           f"{lerr:.3e} (bar {CUT_DECODE_LOGIT_REL} x {scale:.3f}); caches "
           f"{cerr:.3e} of their max |entry| (bar {CUT_DECODE_CACHE_REL}); "
           f"repeat bitwise {out['repeat_bitwise']}; caches written where "
           f"they lie "
           f"{out['cache_in_place']}; s/step ranks "
-          f"{max(out['rank_s_per_step']):.3f} single "
-          f"{statistics.median(secs):.4f}; peak MB ranks "
+          f"{max(out['rank_s_per_step']):.3f} (parent "
+          f"{'not measured' if parent is None else '%.3f-%.3f' % parent[0]}"
+          f" in an earlier call on another host, PERF.md section 6) "
+          f"single {statistics.median(secs):.4f}; rank 0 gathered "
+          f"{gathered / 1e6:.3f} MB a step (parent "
+          f"{'not measured' if parent is None else f'{parent[1] / 1e6:.1f}'}"
+          f"); stationary blocks {sorted(out['stills'])}; peak MB ranks "
           f"{out['rank_peak_mb']} single {out['single_peak_mb']}; "
           f"collectives {out['collectives']}; draw {out['rank_draw_s']:.1f}s;"
           f" {out['seconds']:.1f}s", flush=True)
@@ -5085,13 +5110,17 @@ def _decode_case(world, arch, layers, B, cap, start, mesh, device):
 
 def sharded_decode_phase(world, device="cuda"):
     """15(h): the sharded decode step keeps its KV caches cut as
-    `decode_state_shardings` stores them (CUT_DECODE_CASES): yi-9b's 4 kv
-    heads cut by position over "model" (every rank the same row, 512
-    positions a rank, the steps writing across position 2048 from rank
-    3's block to rank 4's), phi3-mini's 32 cut by heads. Gates: the
+    `decode_state_shardings` stores them and computes each dense product
+    where its weight is stored (CUT_DECODE_CASES): yi-9b's 4 kv heads cut
+    by position over "model" (every rank the same row, 512 positions a
+    rank, the steps writing across position 2048 from rank 3's block to
+    rank 4's), phi3-mini's 32 cut by heads, zamba2's Mamba2 state carried
+    over the steps (its `in_proj` and `out_proj` stationary). Gates: the
     logits within CUT_DECODE_LOGIT_REL of one device's max |logit|, the
     caches within CUT_DECODE_CACHE_REL, a bitwise repeat, and every cache
-    written where it lies (no collective moved a block)."""
+    written where it lies (no collective moved a block). Each case prints
+    the bytes rank 0 gathered a step and the ranks' seconds a step beside
+    the parent's (PARENT_CUT_DECODE)."""
     from repro_torch.device import deterministic_f32
     deterministic_f32()
     out = {}
@@ -5130,86 +5159,157 @@ PARENT_MP = {"deepseek-v2-lite-16b": (294.1e12, 10.67e9),
              "seamless-m4t-large-v2": (285.8e12, 177.38e9)}
 
 
-# 15(d)'s decode lines under the shipped profiles (fsdp), a device:
-# (FLOPs, peak bytes, collective bytes). The reference's through its
-# dry-run CLI (`python -m repro.launch.dryrun --arch A --shape S --mesh
-# both`, 256 or 512 forced host devices) on a CPU (the card's host has no
-# jax; collective bytes read for yi-9b decode_32k on 16x16 only); the
-# parent's (the tree before the decode step kept its caches cut) through
-# the port's CLI on the meta device (PERF.md section 6)
-REFERENCE_DECODE = {
-    ("yi-9b", "decode_32k", "16x16"): (6.088e10, 10.51e9, 7.6e9),
-    ("yi-9b", "long_500k", "16x16"): (1.185e10, 3.57e9, None),
-    ("yi-9b", "decode_32k", "2x16x16"): (8.149e10, 10.29e9, None),
-    ("yi-9b", "long_500k", "2x16x16"): (1.173e10, 4.48e9, None),
-    ("phi3-mini-3.8b", "decode_32k", "16x16"): (2.209e10, 14.32e9, None),
-    ("zamba2-1.2b", "decode_32k", "16x16"): (1.920e10, 3.22e9, None)}
+# 15(d)'s decode lines under the shipped profiles, a device: (FLOPs, peak
+# bytes, collective bytes). The reference's are read from DECODE_FIXTURE,
+# which tests/torch_reference_decode.py writes from the reference's
+# compiled decode on 256 or 512 forced host devices of a CPU (the card's
+# host has no jax); the parent tree's (before the decode step computed
+# each dense product where its weight is stored) through the port's
+# dry-run CLI on the meta device (PERF.md section 6)
+DECODE_FIXTURE = ROOT / "tests" / "fixtures" / "reference_decode.json"
 PARENT_DECODE = {
-    ("yi-9b", "decode_32k", "16x16"): (343_228_284_928.0, 29_907_368_068,
-                                       61_087_432_704.0),
-    ("yi-9b", "long_500k", "16x16"): (429_450_592_256.0, 58_243_154_000,
-                                      86_857_236_480.0),
-    ("yi-9b", "decode_32k", "2x16x16"): (171_614_142_464.0, 16_912_571_460,
-                                         48_202_530_816.0),
-    ("yi-9b", "long_500k", "2x16x16"): (429_450_592_256.0, 58_939_143_216,
-                                        86_857_236_480.0),
-    ("phi3-mini-3.8b", "decode_32k", "16x16"): (162_637_283_328.0,
-                                                116_565_847_156,
-                                                118_363_533_312.0),
-    ("zamba2-1.2b", "decode_32k", "16x16"): (36_085_481_472.0,
-                                             19_267_689_732,
-                                             19_234_886_144.0)}
-# the gated lines: per-device FLOPs at most DRYRUN_DECODE_RATIO[1] x the
-# reference's and at least DRYRUN_DECODE_RATIO[0] x one device's / chips;
-# the peak at most DRYRUN_DECODE_RATIO[1] x the reference's. zamba2's
-# Mamba2 state stays gathered (ROADMAP A.19b): its peak below the parent's
+    ("yi-9b", "decode_32k", "16x16"): (
+        21451767808.0, 2138429572, 33249902592.0),
+    ("phi3-mini-3.8b", "decode_32k", "16x16"): (
+        10164830208.0, 6959029496, 14502703104.0),
+    ("gemma3-4b", "decode_32k", "16x16"): (
+        4672454656.0, 1685630496, 12847718400.0),
+    ("qwen3-32b", "decode_32k", "16x16"): (
+        66343272448.0, 5939753108, 124890894336.0),
+    ("zamba2-1.2b", "decode_32k", "16x16"): (
+        16983048192.0, 2041494920, 5826548224.0),
+    ("seamless-m4t-large-v2", "decode_32k", "16x16"): (
+        7922221056.0, 5133311860, 3224281088.0),
+    ("deepseek-v2-lite-16b", "decode_32k", "16x16"): (
+        31989432320.0, 9721012004, 15263981568.0),
+    ("qwen3-moe-30b-a3b", "decode_32k", "16x16"): (
+        43495718912.0, 2469339236, 10945880064.0),
+    ("xlstm-125m", "decode_32k", "16x16"): (
+        1788862464.0, 960596196, 170631168.0),
+    ("yi-9b", "long_500k", "16x16"): (
+        2681470976.0, 3748984908, 33224155136.0),
+    ("yi-9b", "decode_32k", "2x16x16"): (
+        10725883904.0, 2029079620, 33235189760.0),
+    ("yi-9b", "long_500k", "2x16x16"): (
+        1876164608.0, 4444974124, 33224155136.0),
+    ("deepseek-v2-lite-16b", "decode_32k", "2x16x16"): (
+        23468965888.0, 5017142164, 11418886144.0)}
+# the lines gated against the reference: FLOPs, peak and collective bytes
+# a device at most DRYRUN_DECODE_RATIO[1] x the reference's, and FLOPs at
+# least DRYRUN_DECODE_RATIO[0] x one device's / chips. yi-9b's other
+# lines keep the FLOPs and peak gates, their collective bytes below the
+# parent's; every other line (MoE experts, MLA, xLSTM, cross-attention:
+# ROADMAP A.19b) at most the parent's FLOPs, peak and collective bytes
 DRYRUN_DECODE_RATIO = (0.99, 1.15)
-DRYRUN_DECODE_GATED = ("yi-9b", "phi3-mini-3.8b")
+DRYRUN_DECODE_GATED = tuple((a, "decode_32k", "16x16") for a in (
+    "yi-9b", "phi3-mini-3.8b", "gemma3-4b", "qwen3-32b", "zamba2-1.2b"))
+
+
+def _reference_decode():
+    """DECODE_FIXTURE's lines: (arch, shape, mesh) -> (FLOPs, peak bytes,
+    collective bytes), a device."""
+    with open(DECODE_FIXTURE) as f:
+        lines = json.load(f)["lines"]
+    return {(r["arch"], r["shape"], r["mesh"]): (
+        r["flops"], r["peak_bytes"], r["collective_bytes"]) for r in lines}
+
+
+def _dry_still_bytes(arch, shape, mesh_name):
+    """(the bytes a device gathers of one layer's stationary leaves, their
+    count, the bytes it gathers of one layer's every leaf, the paths of
+    the attention and MLP weights that gather more than 0) of `arch`'s
+    sharded decode step at `shape` (its `Parallel.gathered_bytes`, on the
+    meta device)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import dry_run_mesh, make_production_mesh
+    from repro_torch.models.model import build_model
+    model = build_model(dryrun._apply_overrides(get_config(arch), None))
+    spec = INPUT_SHAPES[shape]
+    with collectives.dry_run():
+        rank = dry_run_mesh(make_production_mesh(
+            multi_pod=mesh_name == "2x16x16"))
+        step = serve_mod.make_sharded_serve_step(
+            model, rank, model.decode_state_specs(spec.global_batch,
+                                                  spec.seq_len),
+            model.decode_token_specs(spec.global_batch))
+    got = step.parallel.gathered_bytes()
+    still = [f"{prefix}/{leaf}" for prefix, cuts in
+             step.parallel.stills.items() for leaf in cuts]
+    weights = [p for p in got if re.search(
+        r"(^|/)(attn/w[qkvo]|mlp/(wi_gate|wi_up|wo|wi))(/kernel)?$", p)]
+    return (sum(got[p] for p in still), len(still), sum(got.values()),
+            [p for p in weights if got[p]])
 
 
 def _dry_decode(out):
-    """15(d)'s decode lines: yi-9b's decode_32k and long_500k on both
-    meshes (from `out`, the dry-runs just made), phi3-mini's and zamba2's
-    decode_32k on 16x16, each beside the reference's counts, the parent's
-    and one device's (the whole batch and cache on a (1, 1) mesh) / chips,
-    gated (DRYRUN_DECODE_RATIO)."""
+    """15(d)'s decode lines (every line of DECODE_FIXTURE: yi-9b's
+    decode_32k and long_500k on both meshes, taken from `out`, the
+    dry-runs just made; the other shipped configs' decode_32k on 16x16,
+    deepseek-v2-lite's on 2x16x16 too), each beside the reference's
+    counts and the parent's, with the bytes a device gathers of its
+    stationary leaves, gated (DRYRUN_DECODE_GATED); yi-9b's decode_32k on
+    16x16 gathers no byte of an attention or MLP weight."""
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
     from repro_torch.sharding.specs import MeshShape
     got = {(r["arch"], r["shape"], r["mesh"]): r for r in out
            if r.get("kind") == "decode"}
+    reference = _reference_decode()
     lines, bad = [], []
     lo, hi = DRYRUN_DECODE_RATIO
-    for key in REFERENCE_DECODE:
+    for key, ref in reference.items():
         arch, shape, mesh_name = key
         t1 = time.perf_counter()
         r = got.get(key) or dryrun.lower_and_compile(
             arch, shape, multi_pod=mesh_name == "2x16x16", verbose=False)
         cfg = dryrun._apply_overrides(get_config(arch), None)
-        spec = INPUT_SHAPES[shape]
-        one = dryrun.run_step(cfg, "decode", spec.global_batch, spec.seq_len,
-                              MeshShape((1, 1), ("data", "model")))["flops"]
         flops = r["roofline"]["flops_per_device"]
         peak = r["memory"]["peak_bytes"]
         coll = r["roofline"]["collective_bytes_per_device"]
-        ref, parent = REFERENCE_DECODE[key], PARENT_DECODE[key]
-        r.update(profile=cfg.sharding_profile, one_device_flops=one,
-                 ratio_to_one_device=r["chips"] * flops / one,
-                 reference=ref, parent=parent)
-        gated = arch in DRYRUN_DECODE_GATED
-        ok = (flops <= hi * ref[0] and r["ratio_to_one_device"] >= lo
-              and peak <= hi * ref[1]) if gated else peak < parent[1]
+        parent = PARENT_DECODE[key]
+        still, n_still, gathered, heavy = _dry_still_bytes(arch, shape,
+                                                           mesh_name)
+        r.update(profile=cfg.sharding_profile, reference=ref, parent=parent,
+                 still_gathered_bytes=still, still_leaves=n_still,
+                 layer_gathered_bytes=gathered, weights_gathered=heavy)
+        floor = ""
+        if arch == "yi-9b" or key in DRYRUN_DECODE_GATED:
+            spec = INPUT_SHAPES[shape]
+            one = dryrun.run_step(cfg, "decode", spec.global_batch,
+                                  spec.seq_len, MeshShape(
+                                      (1, 1), ("data", "model")))["flops"]
+            r.update(one_device_flops=one,
+                     ratio_to_one_device=r["chips"] * flops / one)
+            floor = f"; x {r['chips']} / one device " \
+                    f"{r['ratio_to_one_device']:.4f}"
+            ok = (flops <= hi * ref[0] and peak <= hi * ref[1]
+                  and r["ratio_to_one_device"] >= lo)
+            if key in DRYRUN_DECODE_GATED:
+                ok = ok and coll <= hi * ref[2]
+                rule = "gated against the reference"
+            else:
+                ok = ok and coll < parent[2]
+                rule = "gated, collectives below the parent's"
+        else:
+            ok = flops <= parent[0] and peak <= parent[1] \
+                and coll <= parent[2]
+            rule = "at most the parent's"
+        if key == ("yi-9b", "decode_32k", "16x16"):
+            ok = ok and not heavy and n_still > 0
         r["decode_gate"] = ok
         print(f"  {arch} {shape} {mesh_name} {cfg.sharding_profile}: FLOPs a "
               f"device {flops:.4g} (reference {ref[0]:.4g}, parent "
-              f"{parent[0]:.4g}; x {r['chips']} / one device "
-              f"{r['ratio_to_one_device']:.4f}); peak {peak / 1e9:.2f} GB "
+              f"{parent[0]:.4g}{floor}); peak {peak / 1e9:.2f} GB "
               f"(reference {ref[1] / 1e9:.2f}, parent {parent[1] / 1e9:.2f});"
-              f" collectives {coll / 1e9:.2f} GB (reference "
-              f"{'not measured' if ref[2] is None else f'{ref[2] / 1e9:.1f}'},"
-              f" parent {parent[2] / 1e9:.2f}); "
-              f"{'gated' if gated else 'peak below the parent'} "
+              f" collectives {coll / 1e9:.3f} GB (reference "
+              f"{ref[2] / 1e9:.3f}, parent {parent[2] / 1e9:.3f}); "
+              f"stationary leaves {n_still}, gathering {still} B a layer "
+              f"(every leaf {gathered / 1e6:.2f} MB a layer); {rule} "
               f"{'ok' if ok else 'FAILED'} ({time.perf_counter() - t1:.1f}s)",
               flush=True)
         lines.append(r)

@@ -22,11 +22,16 @@ no collective at all. Two tallies are kept:
   does).
 
 `all_reduce_sum` sums in place; `all_gather` sends each rank's block
-once; `card_gather` and `card_reduce` make many gathers and sums at once
-between ranks that share a card, reading the blocks card to card (the
-zoo's sharded steps gather every layer's weights and sum its gradients
-a step, which through the host bounded them); `ppermute` is a slot
-expansion read at the senders' slots. The tensor-parallel steps'
+once (where gloo moves CUDA tensors, both take a host path of one copy
+each way for results of at most `SMALL_GATHER_BYTES`: a decode step's
+activations); `card_gather` and `card_reduce` make many gathers and
+sums at once between ranks that share a card, reading the blocks card
+to card (the zoo's sharded steps gather every layer's weights and sum
+its gradients a step, which through the host bounded them), and
+`packed_gather` a take's leaves of at most SMALL_GATHER_BYTES over one
+axis in one host all_gather (a decode step's norms, where a card
+exchange waits longer); `ppermute` is a slot expansion read at the
+senders' slots. The tensor-parallel steps'
 autograd operations (`copy_to`, `reduce_from`, `sum_over`, and
 `gather_leaves`, an all-gather whose backward reduce-scatters the
 gradient) and the expert- and context-parallel exchanges (`all_to_all`,
@@ -125,16 +130,49 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+# the largest result (the gathered bytes) of a gloo collective of CUDA
+# tensors that takes the host path (`_small_on_gloo`). On 8 ranks sharing an
+# H100 (tests/torch_collective_latency.py; PERF.md section 6) the host sum
+# waited about half gloo's own up to 1 MB and more from 4 MB, the host join
+# less than the per-block copies to 128 KB, as long to 1 MB and more from
+# 4 MB: one size for both
+SMALL_GATHER_BYTES = 1 << 20
+
+
+def _small_on_gloo(t: torch.Tensor, group, nbytes: int) -> bool:
+    """Whether a collective of `t` whose result on the wire is `nbytes`
+    takes the host path: gloo moves CUDA tensors through host copies, and
+    for a result of at most SMALL_GATHER_BYTES one copy each way and one
+    gloo all_gather wait less than gloo's own handling of CUDA tensors
+    (tests/torch_collective_latency.py; PERF.md section 6)."""
+    import torch.distributed as dist
+    return (t.is_cuda and nbytes <= SMALL_GATHER_BYTES
+            and dist.get_backend(group) == "gloo")
+
+
 def _sum(t: torch.Tensor, axis, kind: str, n: int = 1,
          kind_bytes=None) -> torch.Tensor:
     """The one wire operation: sum `t` in place over `axis`, counted as
-    one all_reduce standing for `n` collectives of `kind`."""
+    one all_reduce standing for `n` collectives of `kind`. On the host
+    path (`_small_on_gloo`) it is a gloo all_gather of host copies summed
+    in group order, the same bits on every rank."""
     import torch.distributed as dist
     _count("all_reduce", _nbytes(t), kind, n,
            _nbytes(t) if kind_bytes is None else kind_bytes)
-    if not _DRY[0]:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                        group=None if axis is None else axis.group)
+    if _DRY[0]:
+        return t
+    group = None if axis is None else axis.group
+    size = dist.get_world_size(group)
+    if not _small_on_gloo(t, group, _nbytes(t) * size):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+    block = t.detach().cpu()
+    parts = [torch.empty_like(block) for _ in range(size)]
+    dist.all_gather(parts, block, group=group)
+    for p in parts[1:]:
+        parts[0] += p
+    with torch.no_grad():
+        t.copy_(parts[0])
     return t
 
 
@@ -150,8 +188,9 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     gloo a CUDA block goes through a host copy (gloo gathers CPU
     tensors only): the blocks arrive in pinned memory, each is copied to
     `x`'s device and they are joined there, which on ranks sharing a
-    card beat a join on the host and the slot-expanded sum
-    (tests/torch_gather_probe.py; PERF.md §5)."""
+    card beat a join on the host and the slot-expanded sum for a layer's
+    weights (tests/torch_gather_probe.py; PERF.md §5); a result of at
+    most SMALL_GATHER_BYTES is joined on the host and copied once."""
     n = axis.size
     _count("all_gather", _nbytes(x) * n, "all-gather", 1, _nbytes(x) * n)
     if _DRY[0]:
@@ -159,15 +198,18 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     import torch.distributed as dist
     block = x.contiguous()
     staged = block.is_cuda and dist.get_backend(axis.group) == "gloo"
+    small = _small_on_gloo(block, axis.group, _nbytes(x) * n)
     if staged:
         block = block.cpu()
     parts = [torch.empty(block.shape, dtype=block.dtype, device=block.device,
-                         pin_memory=staged) for _ in range(n)]
+                         pin_memory=staged and not small) for _ in range(n)]
     dist.all_gather(parts, block, group=axis.group)
     # a group lists its ranks in ascending order; the axis may not
     order = sorted(axis.members)
-    return torch.cat([parts[order.index(r)].to(x.device)
-                      for r in axis.members], dim)
+    ordered = [parts[order.index(r)] for r in axis.members]
+    if small:
+        return torch.cat(ordered, dim).to(x.device)
+    return torch.cat([p.to(x.device) for p in ordered], dim)
 
 
 def on_shared_card(x) -> bool:
@@ -496,7 +538,14 @@ class _GatherLeaves(torch.autograd.Function):
         ctx.plans = plans
         full = list(shards)
         cards = [(i, p.card) for i, p in enumerate(plans) if p.card]
-        if cards and on_shared_card(shards[0]):
+        axis = cards and on_shared_card(shards[0]) and _one_small_gather(
+            [(shards[i], plans[i]) for i, _ in cards])
+        if axis:
+            for (i, _), x in zip(cards, packed_gather(
+                    [(shards[i], plans[i].dims[0][0]) for i, _ in cards],
+                    axis)):
+                full[i] = x
+        elif cards and on_shared_card(shards[0]):
             for (i, _), x in zip(cards, card_gather(
                     [(shards[i],) + c for i, c in cards])):
                 full[i] = x
@@ -556,6 +605,45 @@ class _GatherLeaves(torch.autograd.Function):
         return (None,) + tuple(
             x if x._base is None and x.is_contiguous()
             else x.clone(memory_format=torch.contiguous_format) for x in out)
+
+
+def _one_small_gather(leaves):
+    """The axis over which every (shard, `LeafPlan`) of `leaves` gathers
+    one dim, where they share it and a dtype and their gathered results
+    come to at most SMALL_GATHER_BYTES (a decode step's norms and small
+    leaves), else None."""
+    axes = {p.dims[0][1].name for _, p in leaves if len(p.dims) == 1}
+    if (len(axes) != 1 or any(len(p.dims) != 1 for _, p in leaves)
+            or len({x.dtype for x, _ in leaves}) != 1):
+        return None
+    axis = leaves[0][1].dims[0][1]
+    total = sum(_nbytes(x) for x, _ in leaves) * axis.size
+    return axis if total <= SMALL_GATHER_BYTES else None
+
+
+def packed_gather(items, axis) -> List[torch.Tensor]:
+    """Each (x, dim) of `items` all-gathered along `dim` over `axis` in
+    axis order, by one `all_gather` of their flat concatenation, joined
+    on the host: on ranks sharing a card a card exchange waited ~4x as
+    long as a gloo all_gather of up to 1 MB (PERF.md section 6). Counted
+    as one call standing for an all-gather an item."""
+    import torch.distributed as dist
+    n = axis.size
+    flat = torch.cat([x.detach().reshape(-1) for x, _ in items]).cpu()
+    _count("all_gather", _nbytes(flat) * n)
+    for x, _ in items:
+        _count_kind("all-gather", 1, _nbytes(x) * n)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=axis.group)
+    order = sorted(axis.members)
+    ranks = [parts[order.index(r)] for r in axis.members]
+    out, at = [], 0
+    for x, d in items:
+        k = x.numel()
+        out.append(torch.cat([p[at:at + k].view(x.shape) for p in ranks],
+                             d).to(x.device))
+        at += k
+    return out
 
 
 def gather_leaves(plans, shards) -> List[torch.Tensor]:

@@ -33,10 +33,16 @@ process group and no `XLA_FLAGS` are needed. What the run measures:
   (`models.parallel`); under the single-pod moe profile the experts'
   all-to-alls (each rank gathers its E/M experts of a layer); under the
   multi-pod fsdp profile the keys' and values' all-gathers over the
-  sequence (context parallelism: the rank computes its block of
-  positions). The layers computed whole (MLA, xLSTM, the encoder,
-  cross-attention, the vision projection) are ROADMAP A.19b; the vision
-  prefix's and encoder's sequences under context parallelism A.19c.
+  sequence and the vision prefix's and encoder's positions (context
+  parallelism: the rank computes its block of positions). A decode step
+  keeps its KV caches cut as stored and computes each dense product whose
+  weight is stored with one dim cut where the weight lies (GQA attention,
+  the dense MLPs, Mamba2's projections under fsdp and moe): it moves the
+  tokens' activations (the partial products' sums, the output columns'
+  and attention outputs' all-gathers, Mamba2's all-to-all), not those
+  weights. Still gathered whole or cut after a gather, ROADMAP A.19b:
+  MoE experts in decode, MLA's projections and caches, xLSTM, the
+  encoder, cross-attention and the vision projection.
 
 `scan_cost_corrected` is always false and the reference's
 `_extrapolate_costs` has no counterpart: it corrects XLA's cost analysis

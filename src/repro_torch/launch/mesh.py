@@ -639,7 +639,11 @@ def _kept(shard_shape, sharding, layout, rank_mesh, tp):
     spec = list(sharding.spec) + [None] * (len(glob) - len(sharding.spec))
     keep = ()
     select = None
-    if layout.dim is not None:
+    if layout.kind == "still":
+        # a stationary product computes with its stored block: every axis
+        # kept, nothing gathered
+        keep = sharding.axes()
+    elif layout.dim is not None:
         d = layout.dim
         n = glob[d] // axis_size(rank_mesh.shape, tp)
         i = rank_mesh.coords[tp]
@@ -647,8 +651,9 @@ def _kept(shard_shape, sharding, layout, rank_mesh, tp):
             keep = (tp,)
         else:
             select = (d, layout.ranges)
-    kept = NamedSharding(rank_mesh.shape, P(*[e if e in keep else None
-                                              for e in spec]))
+    kept = NamedSharding(rank_mesh.shape, P(*[
+        e if entry_axes(e) and set(entry_axes(e)) <= set(keep) else None
+        for e in spec]))
     return glob, keep, select, kept
 
 

@@ -10,7 +10,9 @@ the rank's batch rows and its stored shards (`models.parallel`): each
 layer takes its compute slices when it runs, and under the tp profile
 (and in every decode step, whose ranks along "model" hold the same rows)
 a rank computes its "model" shard of each layer, so its logits are its
-vocabulary columns (`gather_logits` joins them). The decode state's KV
+vocabulary columns (`gather_logits` joins them); a decode step computes
+each dense product whose weight is stored with one dim cut where the
+weight lies (`Parallel.stationary`). The decode state's KV
 caches stay cut as they are stored, by kv heads or by position, and the
 rank computes where its block lies (`Parallel.cache`); the rest of the
 state is gathered over its non-batch axes for the step and cut again
@@ -248,15 +250,21 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
     `token_spec`); `.shardings` holds the three, `.parallel` the rank's
     view. The tokens are cut over the FSDP axes only, so the ranks along
     "model" hold the same rows under every profile and each computes its
-    "model" shard of the layers (`models.parallel`, `decode=True`). Each
-    KV cache of a GQA layer stays as it is stored and is written in place:
-    the rank computes with its kv heads, or over its block of positions
-    with the partial softmaxes joined over the ranks
-    (`Parallel.cache`). Every other state leaf is gathered over its
-    non-batch axes for the step and cut again after it: Mamba2's state
-    (the layer computed whole), xLSTM's, the cross-attention caches, and
-    MLA's latent and rotary caches, to which every rank writes the same
-    new entry while its heads are cut over "model" (`models.mla`)."""
+    "model" shard of the layers (`models.parallel`, `decode=True`). A
+    dense product whose weight is stored with one dim cut (GQA attention's
+    projections, the dense MLPs and Mamba2's `in_proj` / `out_proj` under
+    the fsdp and moe profiles) computes where the weight lies instead,
+    and the step moves the tokens' activations to it, as the reference's
+    compiled decode does (`Parallel.stationary`): the step gathers no
+    byte of those weights. Each KV cache of a GQA layer stays as it is
+    stored and is written in place: the rank computes with its kv heads,
+    or over its block of positions with the partial softmaxes joined over
+    the ranks (`Parallel.cache`). Every other state leaf is gathered over
+    its non-batch axes for the step and cut again after it: Mamba2's state
+    (the scan computed whole on the rank's rows), xLSTM's, the
+    cross-attention caches, and MLA's latent and rotary caches, to which
+    every rank writes the same new entry while its heads are cut over
+    "model" (`models.mla`)."""
     from repro_torch.launch.mesh import cut_from, gather_tree
     from repro_torch.models import parallel
     mesh = rank_mesh.shape
@@ -274,7 +282,8 @@ def make_sharded_serve_step(model, rank_mesh, state_specs, token_spec):
         keep = _lead_axes(t_sh)
         view = parallel.Parallel(cfg, rank_mesh, p_sh, p_specs,
                                  row_axes=keep, whole=("mamba",),
-                                 decode=True, caches=caches)
+                                 decode=True, caches=caches,
+                                 batch=token_spec.shape[0])
     body = make_serve_step(model)
 
     # per leaf, the axes the step keeps cut: every stored axis of a kept

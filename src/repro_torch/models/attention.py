@@ -35,6 +35,12 @@ over its span of positions with its query heads: a float32 partial
 softmax (row max m_r, sum l_r, unnormalised o_r), joined over the axes
 that split the positions as o = sum_r e^(m_r - m) o_r / sum_r e^(m_r - m)
 l_r (flash-decoding's split). The rank then takes its rows of `wo`.
+With `still` (a `models.parallel.Stationary`: the projections compute
+where their weights are stored) the block's input and output hold every
+row of the batch: the four products are `layers.still_dense`'s, whole q,
+k and v give the cache block's rows and kv heads and the rank's rows and
+query heads, and the attention output is joined once over the ranks
+holding other rows (and other heads) for `wo`.
 """
 from __future__ import annotations
 
@@ -237,16 +243,31 @@ def _join(m, l, o, axis):
 
 
 def _cut_decode(params, cfg, x, *, positions, cache_kv, cache_index,
-                window, theta, tp, kv):
+                window, theta, tp, kv, still=None):
     """The decode attention of one rank's block of a KV cache (module
-    docstring): -> (out, (new_ck, new_cv)), the block written in place."""
+    docstring): -> (out, (new_ck, new_cv)), the block written in place.
+    Under `still` (stationary projections) `x` and the output hold every
+    row of the batch."""
     from repro_torch.models import kvcache as kvc
     dh, H = cfg.head_dim, cfg.num_heads
     q0, hl = kv.heads
-    if tp is not None:
+    if still is not None:
+        # q, k and v of every row and head; the block's rows and kv heads
+        # of k and v, the rank's rows and heads of q
+        q, k, v = layers.still_dense([(params[n], f"{n}/kernel")
+                                      for n in ("wq", "wk", "wv")], x, still)
+        b0, nb = kv.block
+        r0 = b0 + kv.rows[0]
+        nk = cache_kv[0].shape[2] * dh
+        k = k[b0:b0 + nb, ..., kv.kv0 * dh:kv.kv0 * dh + nk]
+        v = v[b0:b0 + nb, ..., kv.kv0 * dh:kv.kv0 * dh + nk]
+        q = q[r0:r0 + kv.rows[1], ..., q0 * dh:(q0 + hl) * dh]
+        positions = positions[:nb]
+    elif tp is not None:
         x = tp.f(x)
-    q, k, v = (dense(params[n], x) for n in ("wq", "wk", "wv"))
-    if tp is not None and kv.kind != "heads":
+    if still is None:
+        q, k, v = (dense(params[n], x) for n in ("wq", "wk", "wv"))
+    if still is None and tp is not None and kv.kind != "heads":
         # the rank's columns are not its heads: every rank gathers the
         # new token's k and v (its block may hold the slot) and, to attend
         # with every head, its q
@@ -260,9 +281,9 @@ def _cut_decode(params, cfg, x, *, positions, cache_kv, cache_index,
         q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
     if cfg.use_rope:
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    if kv.row_axis is not None:
+        q = apply_rope(q, positions[:q.shape[0]], theta)
+        k = apply_rope(k, positions[:k.shape[0]], theta)
+    if kv.row_axis is not None and still is None:
         # the block holds other ranks' rows too: their new entries
         k = collectives.all_gather(k.contiguous(), kv.row_axis, dim=0)
         v = collectives.all_gather(v.contiguous(), kv.row_axis, dim=0)
@@ -276,8 +297,15 @@ def _cut_decode(params, cfg, x, *, positions, cache_kv, cache_index,
                      cv[r0:r0 + nr, lo:lo + n])
     out = _join(*_partial_softmax(q, kk, vv, valid, 1.0 / math.sqrt(dh)),
                 kv.axis)
-    B = x.shape[0]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, hl * dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(q.shape[0], 1,
+                                             hl * dh).to(q.dtype)
+    if still is not None:
+        # every row's output of every head: one all-gather over the ranks
+        # holding other rows (and other heads), then `wo`'s block
+        view = still.view
+        out = still.join(out, view.row_axis, view.axis if hl < H else None)
+        return layers.still_dense([(params["wo"], "wo/kernel")], out,
+                                  still)[0], (ck, cv)
     if tp is not None and hl == H:
         # every head's output: the rank's rows of `wo` take their columns
         cols = H * dh // tp.size
@@ -292,7 +320,7 @@ def _heads(cfg, tp):
 
 def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
               cache_index=None, window=0, causal=True, rope_theta=None,
-              kv_override=None, tp=None, seq=None, kv=None):
+              kv_override=None, tp=None, seq=None, kv=None, still=None):
     """Full attention block (projections + SDPA + output projection).
 
     Train/prefill: cache_kv=None, x: (B,S,D).
@@ -307,14 +335,16 @@ def attention(params, cfg, x, *, positions, mask=None, cache_kv=None,
     and `mask` are its own, the mask (S, T) against every rank's keys).
     With `kv_override` and `seq` the given keys and values are the rank's
     block, gathered here (cross-attention to an encoder cut by position;
-    no mask). `kv`: a decode step's cut cache (module docstring).
+    no mask). `kv`: a decode step's cut cache (module docstring), and
+    `still` its stationary projections (`models.parallel.Stationary`).
     """
     dh = cfg.head_dim
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     if kv is not None:
         return _cut_decode(params, cfg, x, positions=positions,
                            cache_kv=cache_kv, cache_index=cache_index,
-                           window=window, theta=theta, tp=tp, kv=kv)
+                           window=window, theta=theta, tp=tp, kv=kv,
+                           still=still)
     if tp is not None:
         x = tp.f(x)
     # the head counts of the rank's slices (all of them off a mesh)

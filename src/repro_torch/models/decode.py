@@ -19,7 +19,11 @@ the rank's block of its KV cache lies (`Parallel.cache`: its kv heads, or
 a block of positions whose partial softmaxes are joined over the ranks;
 `models.attention`), the MLP and MoE on the rank's columns and experts,
 Mamba2 whole (its state is not cut by heads), and the logits are the
-rank's vocabulary columns.
+rank's vocabulary columns. A stationary block (`Parallel.stationary`:
+its products compute where their weights are stored) takes every row of
+the batch (`Parallel.enter`), and its output holds every row too, so the
+residual stream stays whole over the batch from one stationary block to
+the next; any other block takes the rank's token rows.
 """
 from __future__ import annotations
 
@@ -101,10 +105,21 @@ def init_decode_state(cfg, batch, capacity, prefill_len=0,
     return state
 
 
+def _still(par, at, name):
+    return None if par is None else par.stationary(at, name)
+
+
+def _enter(par, x, still):
+    return x if par is None else par.enter(x, still)
+
+
 def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None,
-                 key=""):
+                 key="", at=""):
     """One attention layer's decode step; `key` the path of its state
-    ("layers/3", "shared/0": `Parallel.cache`)."""
+    ("layers/3", "shared/0": `Parallel.cache`), `at` the path of its
+    parameters ("layers", "blocks/3", "shared_attn")."""
+    still = _still(par, at, "attn")
+    x = _enter(par, x, still)
     positions = index.reshape(1, 1).expand(x.shape[0], 1)
     h = apply_norm(cfg.norm_type, lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention_kind == "mla":
@@ -117,25 +132,28 @@ def _attn_decode(lp, cfg, x, st, index, window, cross_kv=None, par=None,
         a, (ck, cv) = attn_mod.attention(
             lp["attn"], cfg, h, positions=positions,
             cache_kv=(st["k"], st["v"]), cache_index=index, window=window,
-            tp=_tp(par, "attn"),
-            kv=None if par is None else par.cache(key))
+            tp=_tp(par, "attn") if still is None else None,
+            kv=None if par is None else par.cache(key), still=still)
         st = {"k": ck, "v": cv}
     x = x + a
     if cross_kv is not None:
+        x = _enter(par, x, None)
         h = apply_norm(cfg.norm_type, lp["cross_norm"], x, cfg.norm_eps)
         x = x + attn_mod.attention(lp["cross_attn"], cfg, h,
-                                   positions=positions, mask=None,
-                                   causal=False,
+                                   positions=positions[:x.shape[0]],
+                                   mask=None, causal=False,
                                    kv_override=(cross_kv["k"],
                                                 cross_kv["v"]))
     if "mlp" in lp:
+        still = _still(par, at, "mlp")
+        x = _enter(par, x, still)
         h = apply_norm(cfg.norm_type, lp["mlp_norm"], x, cfg.norm_eps)
         if cfg.moe:
             y, _ = moe.moe_ffn(lp["mlp"], cfg, h, tp=_tp(par, "moe"))
         elif cfg.norm_type == "layernorm":
-            y = layers.gelu_mlp(lp["mlp"], h, _tp(par, "mlp"))
+            y = layers.gelu_mlp(lp["mlp"], h, _tp(par, "mlp"), still)
         else:
-            y = layers.swiglu_mlp(lp["mlp"], h, _tp(par, "mlp"))
+            y = layers.swiglu_mlp(lp["mlp"], h, _tp(par, "mlp"), still)
         x = x + y
     return x, st
 
@@ -160,23 +178,26 @@ def decode_step(params, cfg, state, tokens):
     for i, kind in enumerate(cfg.layer_kinds()):
         lp = (take(stack(i), "layers") if stacked
               else take(params["blocks"][i], "blocks", i))
+        at = "layers" if stacked else f"blocks/{i}"
         st = state["layers"][i]
         if uses_shared(cfg, i):
             x, new_shared[shared_i] = _attn_decode(
                 take(params["shared_attn"], "shared_attn"), cfg, x,
                 state["shared"][shared_i], index, 0, par=par,
-                key=f"shared/{shared_i}")
+                key=f"shared/{shared_i}", at="shared_attn")
             shared_i += 1
         if kind == "attn":
             cross_kv = state["cross"][i] if cfg.encoder_layers else None
             x, st = _attn_decode(lp, cfg, x, st, index,
                                  _decode_window(cfg, i), cross_kv, par,
-                                 f"layers/{i}")
+                                 f"layers/{i}", at)
         else:
+            still = _still(par, at, kind)
+            x = _enter(par, x, still)
             h = apply_norm(cfg.norm_type, lp["norm"], x, cfg.norm_eps)
             if kind == "mamba":
                 y, conv, s = ssm.mamba2_step(lp["mamba"], cfg, h,
-                                             st["conv"], st["ssm"])
+                                             st["conv"], st["ssm"], still)
                 st = {"conv": conv, "ssm": s}
             elif kind == "mlstm":
                 y, st = xlstm.mlstm_step(lp["mlstm"], cfg, h, st)
@@ -187,7 +208,7 @@ def decode_step(params, cfg, state, tokens):
             x = x + y
         new_layer_states.append(st)
 
-    logits = _logits(params, cfg, x, par, softcap=False)
+    logits = _logits(params, cfg, _enter(par, x, None), par, softcap=False)
 
     new_state = dict(state)
     new_state["index"] = index + 1

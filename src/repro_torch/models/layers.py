@@ -12,8 +12,16 @@ Initializers draw from a CPU `torch.Generator`; the draws are not
 cut a layer over "model"; here a layer given `tp` (a
 `models.parallel.Parallel`) computes Megatron's cut on its slices of the
 weights: `embed` and `unembed` over the vocabulary, `column` / `row`
-products and `swiglu_mlp` / `gelu_mlp` over their hidden columns. With
-`tp=None` every layer runs as on one device.
+products and `swiglu_mlp` / `gelu_mlp` over their hidden columns. A
+decode step's stationary block (`still`, a `models.parallel.Stationary`)
+computes each product where its weight is stored instead: its input holds
+every row of the batch, and the rank multiplies its share of the rows by
+its stored block (`still_part`): a partial sum of every output column
+where the block cuts the product's input ("rows"), summed over every mesh
+axis, or the block's output columns where it cuts the output ("cols"),
+all-gathered (`still_dense`). An MLP's input products and its output
+product share their block of hidden columns, so the block costs one sum.
+With `tp=None` and `still=None` every layer runs as on one device.
 """
 from __future__ import annotations
 
@@ -205,6 +213,45 @@ def row(params, x, tp=None):
     return y
 
 
+def still_part(params, x, st):
+    """The rank's part of `dense(params, x)` (or of `x @ params` for a bare
+    weight) with its stored block, `x` holding every row of the batch:
+    its rows `st.rows` of `x` times the block, a partial product of every
+    output column (the block's input columns of `x`, "rows") or every
+    input column times the block's output columns ("cols", its slice of a
+    whole bias added)."""
+    w = params["kernel"] if isinstance(params, dict) else params
+    x = x[st.rows[0]:st.rows[0] + st.rows[1]]
+    if st.form == "rows":
+        return x[..., st.lo:st.hi] @ w.to(x.dtype)
+    y = x @ w.to(x.dtype)
+    if isinstance(params, dict) and "bias" in params:
+        y = y + params["bias"][st.lo:st.hi].to(x.dtype)
+    return y
+
+
+def still_dense(named, x, still):
+    """`dense(params, x)` of each (params, leaf) of `named`, the products
+    of one stationary block on `x` (every row of the batch), each whole:
+    the partial products summed in one sum (a bias added after it), the
+    columns all-gathered."""
+    parts = [still_part(p, x, still[leaf]) for p, leaf in named]
+    rows = [(y, still[leaf]) for y, (_, leaf) in zip(parts, named)
+            if still[leaf].form == "rows"]
+    sums = iter(still.total(rows) if rows else ())
+    out = []
+    for y, (p, leaf) in zip(parts, named):
+        st = still[leaf]
+        if st.form == "rows":
+            y = next(sums)
+            if "bias" in p:
+                y = y + p["bias"].to(y.dtype)
+        else:
+            y = still.join(y, st.split, st.axis)
+        out.append(y)
+    return out
+
+
 def init_swiglu_mlp(generator, d, d_ff, dtype=torch.float32):
     return {
         "wi_gate": lecun_init(generator, (d, d_ff), dtype=dtype),
@@ -213,9 +260,15 @@ def init_swiglu_mlp(generator, d, d_ff, dtype=torch.float32):
     }
 
 
-def swiglu_mlp(params, x, tp=None):
+def swiglu_mlp(params, x, tp=None, still=None):
     """Under `tp`, column-parallel `wi_gate` / `wi_up` and row-parallel
-    `wo` over the rank's hidden columns."""
+    `wo` over the rank's hidden columns; under `still` their stored
+    blocks, one block of hidden columns (module docstring)."""
+    if still is not None:
+        h = F.silu(still_part(params["wi_gate"], x, still["wi_gate"])) \
+            * still_part(params["wi_up"], x, still["wi_up"])
+        return still.total([(h @ params["wo"].to(h.dtype),
+                             still["wo"])])[0]
     if tp is not None:
         x = tp.f(x)
     g = x @ params["wi_gate"].to(x.dtype)
@@ -231,8 +284,15 @@ def init_gelu_mlp(generator, d, d_ff, dtype=torch.float32):
     }
 
 
-def gelu_mlp(params, x, tp=None):
+def gelu_mlp(params, x, tp=None, still=None):
     """`jax.nn.gelu`'s default is the tanh approximation. Under `tp`,
-    `wi` column- and `wo` row-parallel."""
+    `wi` column- and `wo` row-parallel; under `still` their stored
+    blocks."""
+    if still is not None:
+        h = F.gelu(still_part(params["wi"], x, still["wi/kernel"]),
+                   approximate="tanh")
+        y = still.total([(h @ params["wo"]["kernel"].to(h.dtype),
+                          still["wo/kernel"])])[0]
+        return y + params["wo"]["bias"].to(y.dtype)
     return row(params["wo"], F.gelu(column(params["wi"], x, tp),
                                     approximate="tanh"), tp)

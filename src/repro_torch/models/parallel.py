@@ -42,6 +42,25 @@ recompute and no rank ever holds the whole tree:
   (flash-decoding's split, `models.attention`). Ranks that hold the same
   block and the same rows (the batch axes where the batch does not divide,
   long_500k's one row) split the block's positions between them too.
+* A decode step's stationary blocks (`stationary(prefix, name)`, ROADMAP
+  A.19b item 6; `specs.still_blocks`): GQA attention, the dense MLPs and
+  Mamba2's `in_proj` / `out_proj` whose weights are stored with one dim
+  cut compute where the weight lies, as the reference's compiled decode
+  does, and the step moves the tokens' activations instead: `take`
+  gathers none of their products' leaves. The block's input holds every
+  row of the batch (`enter` / `whole`: the rank's rows all-gathered over
+  the axes whose ranks hold the others, once where the residual stream is
+  not whole already); each rank multiplies its share of the rows by its
+  stored block (a `Still`: the block's range, the axes it is cut over,
+  and the ranks that hold the same block, which split the rows), and the
+  `Stationary` handle sums the partial products of a block cut on its
+  input over every mesh axis in one sum, or joins a block cut on its
+  output in one all-gather (Mamba2's `in_proj`: an all-to-all to the
+  rank's rows). The output holds every row again, so the residual stream
+  stays whole over the batch between stationary blocks; attention takes
+  its cache block's rows and its heads from the whole q, k and v, and
+  joins its output once for `wo`; any other block (`enter` without a
+  handle: MoE, MLA, xLSTM, cross-attention) takes the rank's rows.
 * `seq()` is the view where the step's batch stays cut by sequence over
   `specs.seq_axis` (the multi-pod fsdp profile's context parallelism):
   a rank holds a block of positions, attends with its own queries to
@@ -105,9 +124,10 @@ class KVCut(NamedTuple):
     heads from `kv0` on. The rank attends with query heads `heads` (first,
     count) over positions `span` (start, count) of its block, and joins
     its partial softmaxes over `axis` (a `launch.mesh.MeshAxis`; None: its
-    span is every position). Its token rows are `rows` (start, count) of
-    the block's; where the block holds more rows than the rank's tokens
-    (a batch cut over fewer axes than the tokens), the new entries of the
+    span is every position). The block holds rows `block` (start, count)
+    of the batch; the rank's token rows are `rows` (start, count) of the
+    block's; where the block holds more rows than the rank's tokens (a
+    batch cut over fewer axes than the tokens), the new entries of the
     others come over `row_axis` (else None)."""
     kind: str
     capacity: int
@@ -116,8 +136,104 @@ class KVCut(NamedTuple):
     heads: Tuple[int, int]
     span: Tuple[int, int]
     axis: object
+    block: Tuple[int, int]
     rows: Tuple[int, int]
     row_axis: object
+
+
+class Still(NamedTuple):
+    """Where a rank's block of a stationary product's (in, out) weight lies
+    (`Parallel.stationary`): `form` "rows" where the stored block cuts the
+    product's input dim, "cols" where it cuts its output dim; the block is
+    [`lo`, `hi`) along that dim, cut over `axis` (a `launch.mesh.MeshAxis`,
+    whose index is the block's). The ranks holding the same block (those
+    along `split`) split the batch where its rows divide between them: the
+    rank computes the token rows `rows` (start, count) of the whole batch
+    (every row, and `split` None, where they do not, as for a batch of
+    one row). Its partial products are summed over `sum`: `axis` and
+    `split`."""
+    form: str
+    lo: int
+    hi: int
+    axis: object
+    split: object
+    rows: Tuple[int, int]
+    sum: object
+
+
+class Stationary:
+    """A decode step's handle of one stationary block (`Parallel.
+    stationary`): its products' `Still`s by leaf ("wq/kernel", "wi_gate",
+    "in_proj/kernel"), and the collectives that move the tokens'
+    activations to the weights. The block's input holds every row of the
+    batch (`Parallel.whole`); a product's rows form gives a partial sum of
+    every output column (`total`: one sum of a block's partial products
+    over the axes of their `Still.sum`), its columns form the block's
+    output columns (`join`: one all-gather to the whole output, or `own`:
+    the rank's token rows of every column)."""
+
+    def __init__(self, view: "Parallel", cuts: Dict[str, Still]):
+        self.view, self.cuts = view, cuts
+
+    def __getitem__(self, leaf: str) -> Still:
+        return self.cuts[leaf]
+
+    def total(self, parts):
+        """[(a partial product of the rank's rows, its `Still`)] -> each
+        summed over its `sum` axes, every row of the batch: one sum of all
+        of them that share those axes (each placed at its rows of the
+        batch, zeros elsewhere)."""
+        B = self.view.batch
+        groups: Dict[object, list] = {}
+        for i, (y, st) in enumerate(parts):
+            if y.shape[0] != B:
+                full = y.new_zeros((B,) + tuple(y.shape[1:]))
+                full[st.rows[0]:st.rows[0] + st.rows[1]] = y
+                y = full
+            groups.setdefault(st.sum.name, (st.sum, []))[1].append((i, y))
+        out = [None] * len(parts)
+        for axis, members in groups.values():
+            summed = collectives.all_reduce_sum(
+                torch.cat([y for _, y in members], -1), axis)
+            for (i, _), y in zip(members, summed.split(
+                    [y.shape[-1] for _, y in members], -1)):
+                out[i] = y
+        return out
+
+    @staticmethod
+    def join(y, rows=None, cols=None):
+        """The whole of a grid of blocks of which `y` is the rank's: its
+        rows' block at its index on the axis `rows`, its columns' at its
+        index on `cols` (either None: not cut), in one all-gather."""
+        names = tuple(n for a in (rows, cols) if a is not None
+                      for n in ((a.name,) if isinstance(a.name, str)
+                                else a.name))
+        if not names:
+            return y
+        mesh = (rows or cols).mesh
+        nr = rows.size if rows is not None else 1
+        nc = cols.size if cols is not None else 1
+        g = collectives.all_gather(y.contiguous()[None], mesh.axis(names),
+                                   dim=0)
+        g = g.reshape(nr, nc, *y.shape).movedim(1, -2)
+        return g.reshape(nr * y.shape[0], *y.shape[1:-1], nc * y.shape[-1])
+
+    def own(self, y, st: Still):
+        """The rank's token rows of every output column of the product
+        whose part `y` is: where the block is cut over the token rows'
+        axes (Mamba2's `in_proj`), an all-gather of the block's rows over
+        `split`, then an all-to-all to the rank's rows over `axis`; else
+        the whole product's rows."""
+        v = self.view
+        if st.form == "rows":
+            return v.rows(self.total([(y, st)])[0])
+        names = st.axis.name if isinstance(st.axis.name, tuple) else (
+            st.axis.name,)
+        if v.row_axis is not None and names == v.row_axes:
+            if st.split is not None:
+                y = collectives.all_gather(y.contiguous(), st.split, dim=0)
+            return collectives.all_to_all(y.contiguous(), st.axis, 0, -1)
+        return v.rows(self.join(y, st.split, st.axis))
 
 
 class Parallel:
@@ -133,13 +249,14 @@ class Parallel:
     caller's batch spec; `specs.context_parallel`), () where it is not.
     `decode` makes a decode step's view (module docstring); `caches` maps
     each KV cache it keeps cut (a state path, "layers/3") to its global
-    shape and stored `NamedSharding`."""
+    shape and stored `NamedSharding`; `batch` is a decode step's number of
+    tokens, whose stationary blocks it computes (`stationary`)."""
 
     def __init__(self, cfg, rank_mesh, shardings, param_specs, *,
                  batch_axes: Sequence[str] = (), whole: Sequence[str] = (),
                  row_axes: Optional[Sequence[str]] = None,
                  seq: Sequence[str] = (), decode: bool = False,
-                 caches=None):
+                 caches=None, batch: Optional[int] = None):
         mesh = rank_mesh.shape
         self.name, experts_only = sh.model_axis(mesh, decode)
         self.axis = rank_mesh.axis(self.name) if self.name else None
@@ -154,8 +271,12 @@ class Parallel:
         # the experts' all-to-all: ranks along the expert axis hold other
         # rows; holding the same rows they cut the experts with a sum
         self.expert_parallel = experts_only and self.name in rows
+        # a decode step of `batch` tokens: its stationary blocks
+        self.batch = batch
+        still = (sh.still_blocks(cfg, mesh, param_specs)
+                 if decode and batch else {})
         self.layouts = sh.compute_layouts(cfg, mesh, param_specs,
-                                          self.index, whole, decode)
+                                          self.index, whole, decode, still)
         self.param_specs = param_specs
         self.shardings = shardings
         self.rank_mesh = rank_mesh
@@ -164,6 +285,17 @@ class Parallel:
         self.caches: Dict[str, KVCut] = {
             key: self._kv_cut(cfg, shape, s)
             for key, (shape, s) in (caches or {}).items()}
+        # the rank's token rows of the batch, and the axis over the ranks
+        # holding the others
+        self.row_axis = (rank_mesh.axis(self.row_axes) if rows and batch
+                         else None)
+        n = (batch or 0) // (self.row_axis.size if self.row_axis else 1)
+        self.token_rows = ((self.row_axis.index if self.row_axis else 0)
+                           * n, n)
+        self.stills: Dict[str, Dict[str, Still]] = {
+            prefix: {leaf: self._still(prefix + "/" + leaf, dim)
+                     for leaf, dim in leaves.items()}
+            for prefix, leaves in still.items()}
         self.ran = set()         # the block kinds that ran cut
         # leaf path -> the shape of the compute slice `take` last made
         self.taken: Dict[str, tuple] = {}
@@ -190,6 +322,60 @@ class Parallel:
             self.ran.add(kind)
             return self
         return None
+
+    def stationary(self, prefix: str, name: str) -> Optional["Stationary"]:
+        """The handle of the block `name` ("attn", "mlp", "mamba") under
+        `prefix` ("layers", "blocks/3", "shared_attn") where its products
+        compute where their weights are stored, else None (module
+        docstring)."""
+        cuts = self.stills.get(f"{prefix}/{name}")
+        if cuts is None:
+            return None
+        self.ran.add(name)
+        return Stationary(self, cuts)
+
+    def _still(self, path: str, dim: int) -> "Still":
+        """The `Still` of the stationary leaf at `path` (per layer), cut
+        along `dim` of its (in, out) weight."""
+        key = [int(k) if k.isdigit() else k for k in path.split("/")]
+        shape = tuple(_at(self.param_specs, key).shape)
+        s = _at(self.shardings, key)
+        if sh._STACKED_RE.search(path):
+            shape = shape[1:]
+            s = sh.NamedSharding(self.rank_mesh.shape, sh.P(*s.spec[1:]))
+        where = s.index(shape, self.rank_mesh.coords)[dim]
+        names = sh.entry_axes(s.spec[dim])
+        mesh = self.rank_mesh.shape
+        spare = tuple(a for a in mesh.axis_names
+                      if a not in names and mesh.shape[a] > 1)
+        if self.batch % sh.axis_size(mesh, spare):
+            spare = ()           # too few rows to split: each computes all
+        split = self.rank_mesh.axis(spare) if spare else None
+        n = self.batch // (split.size if split else 1)
+        return Still("rows" if dim == 0 else "cols", where.start, where.stop,
+                     self.rank_mesh.axis(names), split,
+                     ((split.index if split else 0) * n, n),
+                     self.rank_mesh.axis(names + spare))
+
+    def whole(self, x):
+        """`x` (the rank's token rows, or all of them) over every row of
+        the batch: one all-gather over the ranks holding the others."""
+        if x.shape[0] == self.batch or self.row_axis is None:
+            return x
+        return collectives.all_gather(x.contiguous(), self.row_axis, dim=0)
+
+    def rows(self, x):
+        """The rank's token rows of `x` (all of the batch's rows, or the
+        rank's already)."""
+        r0, n = self.token_rows
+        if x.shape[0] != self.batch or n == self.batch:
+            return x
+        return x[r0:r0 + n]
+
+    def enter(self, x, still: Optional["Stationary"]):
+        """A block's input: every row of the batch for a stationary block,
+        else the rank's token rows."""
+        return self.whole(x) if still is not None else self.rows(x)
 
     def cache(self, key: str) -> Optional[KVCut]:
         """The `KVCut` of the KV cache at state path `key` ("layers/3",
@@ -231,7 +417,8 @@ class Parallel:
         joined = tuple(a for a in mesh.axis_names if a in split
                        or (a == "model" and kind == "seq"))
         return KVCut(kind, shape[1], where[1].start, where[2].start, heads,
-                     span, axis(joined) if joined else None, rows,
+                     span, axis(joined) if joined else None,
+                     (where[0].start, where[0].stop - where[0].start), rows,
                      axis(more) if more else None)
 
     def gather(self, x):
@@ -289,7 +476,9 @@ class Parallel:
 
     def gathered_bytes(self) -> Dict[str, int]:
         """Leaf path -> the bytes one `take` of it gathers (one layer's of a
-        stacked leaf): the shape its stored shard is gathered to."""
+        stacked leaf): the shape its stored shard is gathered to, 0 where
+        the rank computes with its stored shard as it is (a stationary
+        leaf, a vocabulary kept cut over "model")."""
         from repro_torch.launch import mesh as mesh_mod
         out = {}
         for (path, x), s, lay in zip(
@@ -299,9 +488,11 @@ class Parallel:
             if sh._STACKED_RE.search(path):
                 shape = shape[1:]
                 s = sh.NamedSharding(self.rank_mesh.shape, sh.P(*s.spec[1:]))
-            out[path] = math.prod(mesh_mod.gathered_shape(
-                s.shard_shape(shape), s, lay, self.rank_mesh,
-                self.name)) * x.element_size()
+            shard = s.shard_shape(shape)
+            got = mesh_mod.gathered_shape(shard, s, lay, self.rank_mesh,
+                                          self.name)
+            out[path] = (0 if tuple(got) == tuple(shard)
+                         else math.prod(got) * x.element_size())
         return out
 
     def take(self, stored, *key):

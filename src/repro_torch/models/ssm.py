@@ -17,6 +17,14 @@ prefill runs on the rank's H/M heads: its slices of `in_proj` and
 `conv1d` hold its heads' z, x and dt columns and all of B and C
 (`specs.compute_layout`), the gated RMSNorm over d_inner sums its squares
 over "model", and `out_proj` is row-parallel.
+
+A decode step's stationary block (`still`, a `models.parallel.Stationary`)
+keeps its state whole per rank over the rank's token rows and computes
+`in_proj` and `out_proj` where they are stored: `in_proj` from every row
+of the batch, its output regrouped to the rank's rows of every column
+(`Stationary.own`: an all-to-all where its block is cut over the rows'
+axes), and `out_proj` from every row of the scan's output (one all-gather
+over the rows' axes), its partial products summed.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense, init_dense, init_rmsnorm,
-                                       rmsnorm, row)
+                                       rmsnorm, row, still_dense, still_part)
 
 
 def d_inner(cfg):
@@ -184,14 +192,20 @@ def mamba2_forward(params, cfg, x, *, use_kernel=False, tp=None):
     return row(params["out_proj"], y, tp)
 
 
-def mamba2_step(params, cfg, x, conv_state, ssm_state):
+def mamba2_step(params, cfg, x, conv_state, ssm_state, still=None):
     """Decode one token. x: (B,1,D); conv_state: (B,W-1,Cc);
-    ssm_state: (B,H,dh,N). Returns (y, conv_state, ssm_state)."""
-    B = x.shape[0]
+    ssm_state: (B,H,dh,N). Returns (y, conv_state, ssm_state). Under
+    `still` (module docstring) `x` and `y` hold every row of the batch,
+    the states the rank's rows."""
+    B = conv_state.shape[0]
     di, N, H = d_inner(cfg), cfg.ssm_state, ssm_heads(cfg)
     dh = cfg.ssm_head_dim
 
-    proj = dense(params["in_proj"], x)
+    if still is None:
+        proj = dense(params["in_proj"], x)
+    else:
+        st = still["in_proj/kernel"]
+        proj = still.own(still_part(params["in_proj"], x, st), st)
     z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
     xbc_new = torch.cat([xs, Bm, Cm], -1)                          # (B,1,Cc)
     window = torch.cat([conv_state.to(xbc_new.dtype), xbc_new], dim=1)
@@ -216,4 +230,8 @@ def mamba2_step(params, cfg, x, conv_state, ssm_state):
 
     y = y * F.silu(z)
     y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    if still is not None:
+        y = still_dense([(params["out_proj"], "out_proj/kernel")],
+                        still.view.whole(y), still)[0]
+        return y, conv_state, ssm_state
     return dense(params["out_proj"], y), conv_state, ssm_state

@@ -35,7 +35,7 @@ import itertools
 import re
 from typing import Dict, Sequence, Tuple
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class PartitionSpec(tuple):
@@ -512,7 +512,10 @@ def remap_act_spec(spec, mesh) -> PartitionSpec:
 # cuts its tokens over the FSDP axes only, so the ranks along "model" hold
 # the same rows under every profile: there a rank computes its "model"
 # shard whatever the profile (`decode=True`), and its attention computes
-# where its KV cache lies (`cache_cut`). `compute_layout` says, for one
+# where its KV cache lies (`cache_cut`). A decode step's dense products
+# whose weights are stored with one dim cut compute where the weight lies
+# instead (`still_blocks`, the reference's compiled decode): the step moves
+# the tokens' activations, not the weight. `compute_layout` says, for one
 # leaf, which slice of it the rank computes with;
 # `models.parallel.Parallel.take` makes that slice from the rank's stored
 # shard, one layer at a time.
@@ -590,9 +593,10 @@ def cut_kinds(cfg, M: int, experts_only: bool = False,
 
 class Layout(tuple):
     """One leaf's compute layout: (kind, dim, ranges, partial). `kind` is
-    column | row | vocab | expert | head | whole; the rank computes with
-    the concatenation of `ranges` ((lo, hi) pairs) along `dim` (None:
-    the whole leaf). `partial` is true where the rank's gradient is a part
+    column | row | vocab | expert | head | whole | still; the rank computes
+    with the concatenation of `ranges` ((lo, hi) pairs) along `dim` (None:
+    the whole leaf), or ("still") with its stored block, cut along `dim`
+    (`still_blocks`). `partial` is true where the rank's gradient is a part
     of the leaf's (its slice, or a whole leaf it applies to its own heads
     only), to be summed over "model"; false where every rank along "model"
     computes the same gradient."""
@@ -622,12 +626,18 @@ def attn_heads(cfg, M: int, index: int):
 
 
 def compute_layout(cfg, mesh, path: str, shape, index: int,
-                   whole=(), decode: bool = False) -> Layout:
+                   whole=(), decode: bool = False, still=None) -> Layout:
     """The compute layout of the leaf at `path` (its per-layer `shape`, the
     stacked layer dim dropped) on the rank at index `index` of the
     "model" axis. `whole` names blocks computed whole all the same (a
     decode step's "mamba", whose state is cut across heads); `decode`:
-    the layouts of a decode step (`tp_axis`, `_decode_attn_layout`)."""
+    the layouts of a decode step (`tp_axis`, `_decode_attn_layout`);
+    `still`: its stationary blocks (`still_blocks`), whose products take
+    their stored blocks and whose other leaves are taken whole."""
+    for prefix, leaves in (still or {}).items():
+        if path.startswith(prefix + "/"):
+            rest = path[len(prefix) + 1:]
+            return Layout("still", leaves[rest]) if rest in leaves else WHOLE
     name, experts_only = model_axis(mesh, decode)
     M = axis_size(mesh, name) if name else 1
     cut = cut_kinds(cfg, M, experts_only, decode)
@@ -773,7 +783,7 @@ def _mla_layout(cfg, leaf: str, index: int, M: int) -> Layout:
 
 
 def compute_layouts(cfg, mesh, params, index: int, whole=(),
-                    decode: bool = False):
+                    decode: bool = False, still=None):
     """`compute_layout` over a parameter tree (leaves with `.shape`);
     a leaf stacked under `layers/` gets its per-layer layout."""
     def one(pair):
@@ -781,5 +791,73 @@ def compute_layouts(cfg, mesh, params, index: int, whole=(),
         shape = tuple(leaf.shape)
         if _STACKED_RE.search(path) and len(shape) >= 2:
             shape = shape[1:]
-        return compute_layout(cfg, mesh, path, shape, index, whole, decode)
+        return compute_layout(cfg, mesh, path, shape, index, whole, decode,
+                              still)
     return tree_map(one, _paths(params))
+
+
+# a block's dense products, by the block's name: one group of leaves per
+# form the block takes (an MLP's input products first, its output last)
+_PRODUCTS = {"attn": (("wq/kernel", "wk/kernel", "wv/kernel", "wo/kernel"),),
+             "mlp": (("wi_gate", "wi_up", "wo"), ("wi/kernel", "wo/kernel")),
+             "mamba": (("in_proj/kernel", "out_proj/kernel"),)}
+
+
+def _block_of(cfg, path):
+    """(the block's path, the leaf's path within it) of a leaf of a block
+    whose products may compute where their weights lie, else
+    None: GQA attention, a dense MLP (zamba2's shared block's too) and
+    Mamba2; not MLA, MoE, xLSTM, cross-attention, the encoder or the
+    vision projection (ROADMAP A.19b)."""
+    seg = path.split("/")
+    if seg[0] in ("encoder", "vision_proj"):
+        return None
+    i = next((j for j, b in enumerate(seg) if b in _PRODUCTS), None)
+    if i is None:
+        return None
+    name = seg[i]
+    if name == "attn" and cfg.attention_kind != "gqa":
+        return None
+    if name == "mlp" and cfg.moe and seg[0] != "shared_attn":
+        return None
+    return "/".join(seg[:i + 1]), "/".join(seg[i + 1:])
+
+
+def still_blocks(cfg, mesh, params):
+    """A decode step's stationary blocks (the reference's compiled decode:
+    a product computes where its weight is stored, and the step moves its
+    tokens' activations instead of the weight): block path ("layers/attn",
+    "shared_attn/mlp", "blocks/3/mamba") -> {leaf within it: the dim of
+    the product's (in, out) weight that its stored block cuts}. A block
+    qualifies where every product's weight is stored with exactly one dim
+    cut and an MLP's input products are cut on their outputs over the
+    axes its output product is cut on its inputs over (its hidden
+    columns: one sum a block). Other blocks keep their compute layouts."""
+    if mesh.size < 2:
+        return {}
+    found: Dict[str, Dict[str, tuple]] = {}
+    for path, leaf in tree_leaves(_paths(params)):
+        where = _block_of(cfg, path)
+        if where is None:
+            continue
+        shape = tuple(leaf.shape)
+        if _STACKED_RE.search(path):
+            shape = shape[1:]
+        entries = list(spec_for_param(path, shape, mesh)) + [None] * 2
+        cut = [d for d, e in enumerate(entries) if entry_axes(e)]
+        found.setdefault(where[0], {})[where[1]] = (
+            (cut[0], entry_axes(entries[cut[0]]))
+            if len(shape) == 2 and len(cut) == 1 else None)
+    out = {}
+    for prefix, leaves in found.items():
+        name = prefix.rsplit("/", 1)[-1]
+        for group in _PRODUCTS[name]:
+            cuts = [leaves.get(k) for k in group]
+            if not all(cuts):
+                continue
+            if name == "mlp" and not (
+                    all(c == (1, cuts[-1][1]) for c in cuts[:-1])
+                    and cuts[-1][0] == 0):
+                continue
+            out[prefix] = {k: c[0] for k, c in zip(group, cuts)}
+    return out

@@ -21,7 +21,9 @@ from a numpy seed, 6 steps from index 1021, across position 1024.
   it), and a repeat gives the same bits; (d) per-device FLOPs at most
   1.15x the reference's compiled count and at least 0.99x one device's
   / 8; (e) the full-size dry-run of yi-9b long_500k on 16x16 (meta
-  device) against the reference's counts.
+  device) against the reference's counts
+  (`tests/fixtures/reference_decode.json`, which
+  `tests/torch_reference_decode.py` writes).
 * gemma3-4b reduced on (1, 8) with a local layer's ring of 2048 positions
   and a global layer's 4096 both cut by position: 6 steps from index
   2045 wrap the ring from rank 7's block to rank 0's, against one device.
@@ -29,9 +31,11 @@ from a numpy seed, 6 steps from index 1021, across position 1024.
 One `launch.mesh.World` of 8 CPU ranks serves the module (the ranks run
 `torch_sharded_cases.decode_cut`); one subprocess with 8 fake devices
 compiles the reference's sharded decode for (d), started with the
-module."""
+module (`start_reference`, which `test_torch_decode_stationary.py`
+shares)."""
 import functools
 import json
+import os
 import subprocess
 import sys
 import textwrap
@@ -69,11 +73,28 @@ MESHES = {"2x4": ((2, 4), ("data", "model")),
 # than one device's (up to 1.05e-6 of it here), a misplaced write is O(1)
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 RATIO = (0.99, 1.15)
-# yi-9b long_500k on 16x16 under fsdp, a device: the reference's dry-run
-# CLI (`python -m repro.launch.dryrun --arch yi-9b --shape long_500k`, 256
-# forced host devices): FLOPs and peak bytes
-REF_LONG_500K = (1.185e10, 3.57e9)
+# the reference's compiled decode counts at full size, a device
+# (tests/torch_reference_decode.py writes them)
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "reference_decode.json")
 
+
+def reference_line(arch, shape, mesh):
+    """The fixture's record of `arch` at `shape` on `mesh` ("16x16")."""
+    with open(FIXTURE) as f:
+        lines = json.load(f)["lines"]
+    return next(r for r in lines if (r["arch"], r["shape"], r["mesh"])
+                == (arch, shape, mesh))
+
+
+# yi-9b long_500k on 16x16 under fsdp, a device: FLOPs and peak bytes
+_LONG = reference_line("yi-9b", "long_500k", "16x16")
+REF_LONG_500K = (_LONG["flops"], _LONG["peak_bytes"])
+
+# the reference's sharded decode compiled for each job (name, arch, the
+# reduced config's overrides, mesh shape, axis names, B, cap) on 8 forced
+# host devices under fsdp: {name: {"flops", "collective_bytes"}}, a
+# device
 _REFERENCE_DECODE = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -91,17 +112,17 @@ _REFERENCE_DECODE = textwrap.dedent("""
             l.shape, l.dtype, sharding=s), tree, shardings)
 
     out = {{}}
-    for name, (shape, names) in {meshes!r}:
-        mesh = jax.make_mesh(shape, names,
+    for name, arch, kw, shape, names, B, cap in {jobs!r}:
+        mesh = jax.make_mesh(tuple(shape), tuple(names),
                              **mesh_mod.axis_types_kw(len(shape)))
-        cfg = get_config({arch!r}).reduced().with_updates(
+        cfg = get_config(arch).reduced(**kw).with_updates(
             sharding_profile="fsdp", scan_layers=False)
         sh.set_profile("fsdp")
-        sh.set_seq_shardable(True)
+        sh.set_seq_shardable(set(cfg.layer_kinds()) == {{"attn"}})
         model = build_model(cfg)
         ps = jax.eval_shape(model.init, jax.random.PRNGKey(0))
-        st = model.decode_state_specs({B}, {cap})
-        tok = model.decode_token_specs({B})
+        st = model.decode_state_specs(B, cap)
+        tok = model.decode_token_specs(B)
         args = (sds(ps, sh.tree_shardings(ps, mesh)),
                 sds(st, sm.decode_state_shardings(st, mesh, cfg)),
                 jax.ShapeDtypeStruct(tok.shape, tok.dtype,
@@ -109,20 +130,34 @@ _REFERENCE_DECODE = textwrap.dedent("""
         with mesh_mod.activate_mesh(mesh):
             compiled = jax.jit(sm.make_serve_step(model),
                                donate_argnums=(1,)).lower(*args).compile()
-        out[name] = rl.analyze(compiled, 8).flops_per_device
+        roof = rl.analyze(compiled, 8)
+        out[name] = {{"flops": roof.flops_per_device,
+                      "collective_bytes": roof.collective_bytes_per_device}}
     print(json.dumps(out))
 """)
+
+
+def start_reference(jobs):
+    """The reference's compile of `jobs` (`_REFERENCE_DECODE`) in a
+    subprocess."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_DECODE.format(src=SRC, jobs=jobs)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def reference_counts(proc):
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module", autouse=True)
 def reference_run():
     """The reference's compile for (d), started before the module's
     other work."""
-    code = _REFERENCE_DECODE.format(src=SRC, meshes=sorted(MESHES.items()),
-                                    arch=ARCH, B=B, cap=CAP)
-    proc = subprocess.Popen([sys.executable, "-c", code],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    proc = start_reference([(name, ARCH, {}, list(shape), list(names), B,
+                             CAP) for name, (shape, names)
+                            in sorted(MESHES.items())])
     yield proc
     proc.kill()
     proc.communicate()
@@ -130,9 +165,7 @@ def reference_run():
 
 @pytest.fixture(scope="module")
 def reference_flops(reference_run):
-    out, err = reference_run.communicate(timeout=600)
-    assert reference_run.returncode == 0, err[-3000:]
-    return json.loads(out.strip().splitlines()[-1])
+    return {k: v["flops"] for k, v in reference_counts(reference_run).items()}
 
 
 @pytest.fixture(scope="module")

@@ -214,6 +214,28 @@ def test_hfl_tier1_issues_no_collective(world, data):
         np.testing.assert_allclose(out["gw"], w.sum(1), rtol=1e-6)
 
 
+@pytest.mark.parametrize("names", ["model", ("model", "data")])
+def test_packed_gather_matches_all_gather(world, names):
+    """A take's small leaves gathered in one host all_gather of their flat
+    concatenation (`collectives.packed_gather`, the shared card's path)
+    equal each leaf's own all-gather along its dim, in axis order (the
+    second axis lists its ranks out of ascending order); one call stands
+    for an all-gather a leaf."""
+    rng = np.random.default_rng(3)
+    n = 2 if names == "model" else 4
+    fulls = [(rng.normal(size=(4 * n,)).astype(np.float32), 0),
+             (rng.normal(size=(3, 2 * n)).astype(np.float32), 1),
+             (rng.normal(size=(n, 5)).astype(np.float32), 0)]
+    for got, want, counts in world.run(cases.packed_gather, fulls, names):
+        for g, w, (full, _) in zip(got, want, fulls):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, full)
+        assert counts["calls"] == {"all_gather": 1}
+        assert counts["kinds"] == {"all-gather": 3}
+        assert counts["kind_bytes"]["all-gather"] == sum(
+            f.nbytes for f, _ in fulls)
+
+
 # -- one model a rank --------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [

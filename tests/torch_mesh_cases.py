@@ -89,3 +89,23 @@ def fail_on(rank, bad_rank):
         raise ValueError(f"rank {bad_rank} fails on purpose")
     mesh.all_reduce_sum(torch.ones(2, device=rank.device))
     return rank.rank
+
+
+def packed_gather(rank, fulls, names):
+    """`collectives.packed_gather` of the rank's block (its index on the
+    axis over `names` of a (data 2, model 2) mesh) of each (array, dim) of
+    `fulls`, beside `all_gather` of each block. Returns (packed results,
+    all_gather results, the packed call's counts)."""
+    from repro_torch.core import collectives
+    axis = rank.mesh(MeshShape((2, 2), ("data", "model"))).axis(names)
+    items = []
+    for full, d in fulls:
+        n = full.shape[d] // axis.size
+        items.append((_t(rank, np.take(full, range(axis.index * n,
+                                                   (axis.index + 1) * n),
+                                       axis=d)), d))
+    want = [collectives.all_gather(x, axis, d) for x, d in items]
+    mesh.reset_collective_counts()
+    got = collectives.packed_gather(items, axis)
+    return ([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
+            mesh.collective_counts())

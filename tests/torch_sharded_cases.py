@@ -168,6 +168,16 @@ def warm(rank):
     torch.zeros(1, device=rank.device)
 
 
+def host_path_bytes(rank, nbytes):
+    """Set the rank's `collectives.SMALL_GATHER_BYTES` (0: every gloo
+    collective of a CUDA tensor takes gloo's own path) and return the
+    value it had: an A/B of the host path within one world."""
+    from repro_torch.core import collectives
+    old, collectives.SMALL_GATHER_BYTES = (collectives.SMALL_GATHER_BYTES,
+                                           nbytes)
+    return old
+
+
 def _launches():
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ssm_scan as ss
@@ -944,8 +954,11 @@ def decode_cut(rank, arch, cfg_kw, mesh_shape, names, B, cap, index, tokens,
     {state path: array} (`_ship`), the report): each step's seconds, the
     cut of each cache ("caches"), whether every state leaf had its stored
     shard's shape after each step and every cache was the tensor it was
-    written in ("cache_in_place"), and whether the repeat gave the same
-    logits and caches bit for bit ("repeat_bitwise")."""
+    written in ("cache_in_place"), whether the repeat gave the same
+    logits and caches bit for bit ("repeat_bitwise"), the bytes a `take`
+    of each leaf gathers ("gathered_bytes") and the stationary blocks'
+    products, each (form, whether the ranks holding its block split the
+    batch) ("stills")."""
     from repro_torch.launch.serve import gather_logits, make_sharded_serve_step
     from repro_torch.tree import tree_leaves
     deterministic_f32()
@@ -1013,6 +1026,11 @@ def decode_cut(rank, arch, cfg_kw, mesh_shape, names, B, cap, index, tokens,
     report["caches"] = {k: (c.kind, c.offset, c.span, c.heads)
                         for k, c in step.parallel.caches.items()}
     report["cut"] = sorted(step.parallel.ran)
+    report["gathered_bytes"] = step.parallel.gathered_bytes()
+    report["stills"] = {
+        prefix: {leaf: (st.form, st.split is not None)
+                 for leaf, st in cuts.items()}
+        for prefix, cuts in step.parallel.stills.items()}
     paths = sorted(caches)
     shipped = _ship(rank, [caches[k].float().cpu().numpy() for k in paths],
                     out_dir, "caches")
